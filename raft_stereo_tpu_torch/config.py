@@ -1,0 +1,166 @@
+"""Model configuration of the PyTorch port.
+
+A copy of ``RaftStereoConfig`` with every field of the JAX package's
+dataclass, so one ``config.json`` describes a model in either package.
+The port runs one slice of what the fields can ask for: default-config,
+fixed-depth, test-mode inference in fp32.  Every option outside that
+slice raises ``NotImplementedError`` at construction, naming the
+ROADMAP item that will bring it, so no setting is silently ignored.
+
+Convention: ``hidden_dims[0]`` is the FINEST GRU level (1/2^n_downsample
+resolution) and ``hidden_dims[-1]`` the coarsest, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, Dict, Optional, Tuple
+
+CORR_BACKENDS = ("reg", "alt", "reg_fused")
+
+# Reference CLI --corr_implementation values -> backends.
+_REFERENCE_CORR_ALIASES = {
+    "reg": "reg",
+    "alt": "alt",
+    "reg_cuda": "reg_fused",
+    "alt_cuda": "alt",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class RaftStereoConfig:
+    """Architecture of one RAFT-Stereo model.
+
+    Field meanings are those of the JAX package's config; the port
+    implements the subset ``_unsupported`` does not reject."""
+
+    hidden_dims: Tuple[int, ...] = (128, 128, 128)
+    context_dims: Optional[Tuple[int, ...]] = None
+    n_gru_layers: int = 3
+    n_downsample: int = 2
+    corr_levels: int = 4
+    corr_radius: int = 4
+    corr_backend: str = "reg_fused"
+    shared_backbone: bool = False
+    slow_fast_gru: bool = False
+    mixed_precision: bool = False
+    corr_fp32: bool = False
+    context_norm: str = "batch"
+    fnet_norm: str = "instance"
+    fnet_dim: int = 256
+    # "auto"/"on": the ConvGRU gates go through kernels/gru_fused.py at
+    # every level (the CUDA kernel on a CUDA tensor, its plain version on
+    # a CPU tensor); "off": the plain conv path.
+    fused_gru: str = "auto"
+    # Training-only knobs: inference never reads them.
+    remat_gru: bool = True
+    remat_save: Tuple[str, ...] = ("corr_lookup",)
+    banded_encoder: bool = False
+    corr_w2_shards: int = 1
+    rows_shards: int = 1
+    rows_gru: bool = False
+    rows_gru_halo: Optional[int] = None
+    sequential_fnet_pixels: Optional[int] = None
+    band_rows: Optional[int] = None
+    exit_threshold_px: float = 0.0
+    exit_min_iters: int = 1
+    exit_max_iters: Optional[int] = None
+    quant: str = "off"
+    quant_corr: bool = True
+    quant_corr_scales: Optional[Tuple[float, ...]] = None
+    quant_corr_fp8: bool = False
+
+    def __post_init__(self):
+        if self.context_dims is None:
+            object.__setattr__(self, "context_dims", tuple(self.hidden_dims))
+        object.__setattr__(self, "hidden_dims", tuple(self.hidden_dims))
+        object.__setattr__(self, "context_dims", tuple(self.context_dims))
+        object.__setattr__(self, "remat_save", tuple(self.remat_save))
+        if self.quant_corr_scales is not None:
+            object.__setattr__(self, "quant_corr_scales",
+                               tuple(float(s) for s in self.quant_corr_scales))
+        if self.corr_backend not in CORR_BACKENDS:
+            alias = _REFERENCE_CORR_ALIASES.get(self.corr_backend)
+            if alias is None:
+                raise ValueError(
+                    f"corr_backend={self.corr_backend!r} not in {CORR_BACKENDS}")
+            object.__setattr__(self, "corr_backend", alias)
+        if not (1 <= self.n_gru_layers <= min(len(self.hidden_dims), 3)):
+            raise ValueError(
+                "n_gru_layers must be in [1, min(len(hidden_dims), 3)] — the "
+                "update block implements at most 3 GRU levels")
+        if self.fused_gru not in ("auto", "on", "off"):
+            raise ValueError(
+                f"fused_gru={self.fused_gru!r} not in ('auto', 'on', 'off')")
+        known_saves = {"corr_lookup", "gru_gates", "motion_features"}
+        unknown = set(self.remat_save) - known_saves
+        if unknown:
+            raise ValueError(f"remat_save names {sorted(unknown)} unknown; "
+                             f"choose from {sorted(known_saves)}")
+        if self.quant not in ("off", "int8", "int8_mxu"):
+            raise ValueError(
+                f"quant={self.quant!r} not in ('off', 'int8', 'int8_mxu')")
+        for norm in (self.context_norm, self.fnet_norm):
+            if norm not in ("batch", "instance", "group", "none"):
+                raise ValueError(f"unknown norm_fn {norm!r}")
+        for field, roadmap_item in _unsupported(self):
+            raise NotImplementedError(
+                f"{field} is not ported to the PyTorch package yet "
+                f"(ROADMAP.md {roadmap_item})")
+
+    # ------------------------------------------------------------------ sizes
+    @property
+    def downsample_factor(self) -> int:
+        return 2 ** self.n_downsample
+
+    @property
+    def corr_channels(self) -> int:
+        return self.corr_levels * (2 * self.corr_radius + 1)
+
+    @property
+    def mask_channels(self) -> int:
+        return 9 * self.downsample_factor ** 2
+
+    # -------------------------------------------------------------- serialize
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "RaftStereoConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "RaftStereoConfig":
+        return cls.from_dict(json.loads(s))
+
+    @classmethod
+    def default(cls) -> "RaftStereoConfig":
+        """The published Middlebury/ETH3D/SceneFlow architecture."""
+        return cls()
+
+
+def _unsupported(cfg: RaftStereoConfig):
+    """(field, ROADMAP item) for every set option this slice does not run."""
+    checks = (
+        ("corr_backend='alt'", "§D1 realtime preset",
+         cfg.corr_backend == "alt"),
+        ("shared_backbone", "§D1 realtime preset", cfg.shared_backbone),
+        ("slow_fast_gru", "§D1 realtime preset", cfg.slow_fast_gru),
+        ("mixed_precision", "§D1 realtime preset", cfg.mixed_precision),
+        ("exit_threshold_px > 0", "§D3 early exit and state carry",
+         cfg.exit_threshold_px > 0),
+        ("sequential_fnet_pixels", "§D3 early exit and state carry",
+         cfg.sequential_fnet_pixels is not None),
+        ("quant != 'off'", "§D5 quantized tier", cfg.quant != "off"),
+        ("banded_encoder", "§D7 parallel executors", cfg.banded_encoder),
+        ("rows_shards > 1", "§D7 parallel executors", cfg.rows_shards > 1),
+        ("rows_gru", "§D7 parallel executors", cfg.rows_gru),
+        ("corr_w2_shards > 1", "§D7 parallel executors",
+         cfg.corr_w2_shards > 1),
+    )
+    return [(field, item) for field, item, on in checks if on]

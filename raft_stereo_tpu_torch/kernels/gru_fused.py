@@ -1,0 +1,104 @@
+"""Fused ConvGRU gate pre-activations: CUDA kernel and its plain version.
+
+``gru_gates_fused(h, x, cr, wzr, bzr, wq, bq) -> (zr, qpre)`` keeps the
+JAX package's signature (NHWC activations, HWIO weights):
+
+    zr   = conv3x3([h, x], Wzr) + bzr
+    r    = sigmoid(zr[..., Ch:] + cr)
+    qpre = conv3x3([r*h, x], Wq) + bq
+
+On CUDA tensors it launches ``csrc/gru_gates.cu`` (two kernel launches
+per call: zr with r*h, then qpre); on CPU tensors it runs the plain
+version ``_gates_reference``.  The sigmoid/tanh/blend tail stays with the
+caller (models/update.py).  Inference only: there is no backward yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from raft_stereo_tpu_torch.kernels import _build
+
+CHANNEL_MULTIPLE = 8  # kChunk in csrc/gru_gates.cu
+
+
+def _conv3x3_same(inp: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """NHWC input, HWIO kernel, stride 1, padding 1 -> NHWC."""
+    y = F.conv2d(inp.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
+                 padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def _gates_reference(h, x, cr, wzr, bzr, wq, bq):
+    """Plain version of the gate op."""
+    ch = h.shape[-1]
+    zr = _conv3x3_same(torch.cat([h, x], dim=-1), wzr) + bzr
+    r = torch.sigmoid(zr[..., ch:] + cr)
+    qpre = _conv3x3_same(torch.cat([r * h, x], dim=-1), wq) + bq
+    return zr, qpre
+
+
+def _lib():
+    fn = _build.load("gru_gates").raft_gru_gates
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gru_gates_fused(h: torch.Tensor, x: torch.Tensor, cr: torch.Tensor,
+                    wzr: torch.Tensor, bzr: torch.Tensor, wq: torch.Tensor,
+                    bq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gate pre-activations of one ConvGRU level.
+
+    Args:
+      h:  (B,H,W,Ch) hidden state;  x: (B,H,W,Cx) GRU inputs;
+      cr: (B,H,W,Ch) r-gate context bias;
+      wzr, bzr: (3,3,Ch+Cx,2Ch), (2Ch,);  wq, bq: (3,3,Ch+Cx,Ch), (Ch,).
+
+    Returns (zr (B,H,W,2Ch), qpre (B,H,W,Ch)).  Counts its calls that
+    launch the kernel in ``gru_gates_fused.launches``."""
+    if h.device.type == "cpu":
+        return _gates_reference(h, x, cr, wzr, bzr, wq, bq)
+    if h.device.type != "cuda":
+        raise ValueError(f"unsupported device {h.device}")
+    b, hh, ww, ch = h.shape
+    cx = x.shape[-1]
+    cin = ch + cx
+    expect = {"h": (b, hh, ww, ch), "x": (b, hh, ww, cx),
+              "cr": (b, hh, ww, ch), "wzr": (3, 3, cin, 2 * ch),
+              "bzr": (2 * ch,), "wq": (3, 3, cin, ch), "bq": (ch,)}
+    args = {"h": h, "x": x, "cr": cr, "wzr": wzr, "bzr": bzr, "wq": wq,
+            "bq": bq}
+    for name, t in args.items():
+        if tuple(t.shape) != expect[name]:
+            raise ValueError(f"{name} shape {tuple(t.shape)}, expected "
+                             f"{expect[name]}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the gate kernel takes float32; {name} is "
+                            f"{t.dtype}")
+        if t.device != h.device:
+            raise ValueError("all gate operands must share one device")
+    if ch % CHANNEL_MULTIPLE or cx % CHANNEL_MULTIPLE:
+        raise ValueError(f"the gate kernel needs Ch ({ch}) and Cx ({cx}) "
+                         f"to be multiples of {CHANNEL_MULTIPLE}")
+    args = {k: v.contiguous() for k, v in args.items()}
+    zr = torch.empty((b, hh, ww, 2 * ch), device=h.device,
+                     dtype=torch.float32)
+    qpre = torch.empty((b, hh, ww, ch), device=h.device, dtype=torch.float32)
+    rh = torch.empty_like(qpre)
+    with torch.cuda.device(h.device):
+        err = _lib()(*(args[k].data_ptr() for k in
+                       ("h", "x", "cr", "wzr", "bzr", "wq", "bq")),
+                     zr.data_ptr(), qpre.data_ptr(), rh.data_ptr(),
+                     b, hh, ww, ch, cx, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "gru_gates")
+    gru_gates_fused.launches += 1
+    return zr, qpre
+
+
+gru_gates_fused.launches = 0

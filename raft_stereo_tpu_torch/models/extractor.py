@@ -1,0 +1,138 @@
+"""Feature and context encoders (NCHW).
+
+Module names follow the Flax paths of the JAX package (``trunk.conv1``,
+``layer1_0.norm3``, ``outputs08_0_conv``, ...) so the weight bridge is a
+rename.  Convolutions pad symmetrically by ``k//2``, as torch's
+``padding=k//2`` and the JAX package's explicit padding tuples do.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from raft_stereo_tpu_torch.models.norm import make_norm
+
+
+def conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
+    """Conv with kaiming-normal(fan_out) weights and zero bias."""
+    c = nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2)
+    nn.init.kaiming_normal_(c.weight, mode="fan_out", nonlinearity="relu")
+    nn.init.zeros_(c.bias)
+    return c
+
+
+class ResidualBlock(nn.Module):
+    """Two 3x3 convs + norm + skip."""
+
+    def __init__(self, in_planes: int, planes: int, norm_fn: str = "group",
+                 stride: int = 1):
+        super().__init__()
+        self.conv1 = conv(in_planes, planes, 3, stride)
+        self.norm1 = make_norm(norm_fn, planes)
+        self.conv2 = conv(planes, planes, 3, 1)
+        self.norm2 = make_norm(norm_fn, planes)
+        self.has_downsample = not (stride == 1 and in_planes == planes)
+        if self.has_downsample:
+            self.downsample_conv = conv(in_planes, planes, 1, stride)
+            self.norm3 = make_norm(norm_fn, planes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.norm1(self.conv1(x)))
+        y = F.relu(self.norm2(self.conv2(y)))
+        if self.has_downsample:
+            x = self.norm3(self.downsample_conv(x))
+        return F.relu(x + y)
+
+
+class Trunk(nn.Module):
+    """Stem + 3 residual stages (64 -> 96 -> 128) at 1/2^downsample res."""
+
+    def __init__(self, norm_fn: str, downsample: int):
+        super().__init__()
+        self.conv1 = conv(3, 64, 7, 1 + (downsample > 2))
+        self.norm1 = make_norm(norm_fn, 64)
+        in_planes = 64
+        for i, (dim, stride) in enumerate(
+                [(64, 1), (96, 1 + (downsample > 1)),
+                 (128, 1 + (downsample > 0))], start=1):
+            self.add_module(f"layer{i}_0",
+                            ResidualBlock(in_planes, dim, norm_fn, stride))
+            self.add_module(f"layer{i}_1",
+                            ResidualBlock(dim, dim, norm_fn, 1))
+            in_planes = dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.norm1(self.conv1(x)))
+        for i in (1, 2, 3):
+            x = getattr(self, f"layer{i}_0")(x)
+            x = getattr(self, f"layer{i}_1")(x)
+        return x
+
+
+class BasicEncoder(nn.Module):
+    """fnet: trunk + 1x1 projection."""
+
+    def __init__(self, output_dim: int = 128, norm_fn: str = "instance",
+                 downsample: int = 3):
+        super().__init__()
+        self.trunk = Trunk(norm_fn, downsample)
+        self.conv2 = conv(128, output_dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.trunk(x))
+
+
+class MultiBasicEncoder(nn.Module):
+    """cnet: trunk + two extra stride-2 stages + per-level output heads.
+
+    ``output_dims`` holds one FINE -> COARSE channel tuple per head.
+    Returns ``levels`` with ``levels[l]`` the list over heads of features
+    at 1/2^(downsample+l) resolution, for ``num_layers`` levels."""
+
+    def __init__(self, output_dims: Sequence[Tuple[int, ...]],
+                 norm_fn: str = "batch", downsample: int = 3,
+                 num_layers: int = 3):
+        super().__init__()
+        self.output_dims = [tuple(d) for d in output_dims]
+        self.num_layers = num_layers
+        self.trunk = Trunk(norm_fn, downsample)
+        for h, dims in enumerate(self.output_dims):
+            self.add_module(f"outputs08_{h}_res",
+                            ResidualBlock(128, 128, norm_fn, 1))
+            self.add_module(f"outputs08_{h}_conv", conv(128, dims[0], 3))
+        if num_layers >= 2:
+            self.layer4_0 = ResidualBlock(128, 128, norm_fn, 2)
+            self.layer4_1 = ResidualBlock(128, 128, norm_fn, 1)
+            for h, dims in enumerate(self.output_dims):
+                self.add_module(f"outputs16_{h}_res",
+                                ResidualBlock(128, 128, norm_fn, 1))
+                self.add_module(f"outputs16_{h}_conv",
+                                conv(128, dims[1], 3))
+        if num_layers >= 3:
+            self.layer5_0 = ResidualBlock(128, 128, norm_fn, 2)
+            self.layer5_1 = ResidualBlock(128, 128, norm_fn, 1)
+            for h, dims in enumerate(self.output_dims):
+                self.add_module(f"outputs32_{h}_conv",
+                                conv(128, dims[2], 3))
+
+    def _heads(self, tag: str, x: torch.Tensor, res: bool) -> List:
+        outs = []
+        for h in range(len(self.output_dims)):
+            y = getattr(self, f"outputs{tag}_{h}_res")(x) if res else x
+            outs.append(getattr(self, f"outputs{tag}_{h}_conv")(y))
+        return outs
+
+    def forward(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
+        x = self.trunk(x)
+        levels = [self._heads("08", x, True)]
+        if self.num_layers >= 2:
+            x = self.layer4_1(self.layer4_0(x))
+            levels.append(self._heads("16", x, True))
+        if self.num_layers >= 3:
+            x = self.layer5_1(self.layer5_0(x))
+            levels.append(self._heads("32", x, False))
+        return levels

@@ -1,0 +1,106 @@
+"""RAFT-Stereo, test-mode inference at fixed depth (NCHW inside).
+
+One forward: normalize both images; run cnet (frozen BN) on the left image
+and fnet (instance norm) on both as one batch; build the per-level GRU
+context biases; build the all-pairs volume and its pyramid; run ``iters``
+refinement iterations (pyramid lookup -> motion encoder -> three ConvGRUs
+-> flow and mask heads -> x-only disparity update); convex-upsample once.
+
+Disparity is carried as a single x-channel field; the zero y-channel is
+built only for the motion encoder's 2-channel flow input.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from raft_stereo_tpu_torch.config import RaftStereoConfig
+from raft_stereo_tpu_torch.models.corr import make_corr_fn
+from raft_stereo_tpu_torch.models.extractor import (BasicEncoder,
+                                                    MultiBasicEncoder, conv)
+from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock
+from raft_stereo_tpu_torch.ops.grids import coords_grid_x
+from raft_stereo_tpu_torch.ops.upsample import convex_upsample
+
+
+class RAFTStereo(nn.Module):
+    def __init__(self, config: RaftStereoConfig):
+        super().__init__()
+        cfg = self.config = config
+        self.cnet = MultiBasicEncoder(
+            output_dims=(cfg.hidden_dims, cfg.context_dims),
+            norm_fn=cfg.context_norm, downsample=cfg.n_downsample,
+            num_layers=cfg.n_gru_layers)
+        self.update_block = BasicMultiUpdateBlock(cfg)
+        for l in range(cfg.n_gru_layers):
+            self.add_module(f"context_zqr_conv{l}",
+                            conv(cfg.context_dims[l], cfg.hidden_dims[l] * 3,
+                                 3))
+        self.fnet = BasicEncoder(output_dim=cfg.fnet_dim,
+                                 norm_fn=cfg.fnet_norm,
+                                 downsample=cfg.n_downsample)
+
+    def forward(self, image1: torch.Tensor, image2: torch.Tensor,
+                iters: int = 12, flow_init: Optional[torch.Tensor] = None,
+                test_mode: bool = True, return_confidence: bool = False,
+                hidden_init=None, return_hidden: bool = False,
+                ctx_init=None, return_ctx: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Disparity of a rectified pair.
+
+        Args:
+          image1, image2: (B, H, W, 3) images in 0..255.
+          iters: GRU refinement iterations.
+          flow_init: optional (B, H/f, W/f) initial x-flow.
+          test_mode: must be True; train mode is ROADMAP.md §D2.
+          return_confidence, hidden_init, return_hidden, ctx_init,
+          return_ctx: not ported yet (ROADMAP.md §D3); setting any raises.
+
+        Returns ``(flow_low, flow_up)``: the (B, H/f, W/f) x-flow at
+        feature resolution and its convex-upsampled (B, H, W) counterpart
+        (x-flow = -disparity)."""
+        if not test_mode:
+            raise NotImplementedError(
+                "train mode is not ported yet (ROADMAP.md §D2)")
+        if (return_confidence or return_hidden or return_ctx
+                or hidden_init is not None or ctx_init is not None):
+            raise NotImplementedError(
+                "confidence maps and hidden/ctx state carry are not ported "
+                "yet (ROADMAP.md §D3)")
+        cfg = self.config
+        img1 = (2 * (image1.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
+        img2 = (2 * (image2.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
+
+        levels = self.cnet(img1)
+        fmap1, fmap2 = torch.chunk(self.fnet(torch.cat([img1, img2])), 2)
+
+        # levels[l] = [hidden_head, context_head], fine -> coarse
+        net = [torch.tanh(lv[0]) for lv in levels]
+        context = [
+            tuple(torch.chunk(
+                getattr(self, f"context_zqr_conv{l}")(F.relu(lv[1])), 3,
+                dim=1))
+            for l, lv in enumerate(levels)]
+
+        b, _, h8, w8 = net[0].shape
+        disp = torch.zeros((b, h8, w8), device=img1.device)
+        if flow_init is not None:
+            disp = disp + flow_init
+        corr_fn = make_corr_fn(cfg, fmap1, fmap2)
+        grid_x = coords_grid_x(b, h8, w8, device=img1.device)
+        mask = torch.zeros((b, cfg.mask_channels, h8, w8),
+                           device=img1.device)
+        zero = torch.zeros_like(disp)
+        for _ in range(iters):
+            corr = corr_fn(grid_x + disp).permute(0, 3, 1, 2)
+            flow2 = torch.stack([disp, zero], dim=1)
+            net, mask, delta = self.update_block(net, context, corr, flow2)
+            # epipolar projection: only the x component updates
+            disp = disp + delta[:, 0]
+        flow_up = convex_upsample(disp[:, None], mask,
+                                  cfg.downsample_factor)[:, 0]
+        return disp, flow_up
