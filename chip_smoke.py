@@ -22,7 +22,22 @@ fails the run when it fails:
    384x1248) at 32 iterations; checks the output and that the lookup ran
    32 times and the gate kernel 96 times; prints seconds per pair;
 6. the same seeded model on the card and on the CPU (plain versions) at
-   128x256 and 2 iterations, compared against a stated tolerance.
+   128x256 and 2 iterations, compared against a stated tolerance;
+7. the kernels of the realtime preset against their plain versions at its
+   shapes: the alt correlation in bf16 and fp32 (48 rows, W1 156, levels
+   156/78/39/19, D 256; all levels in one call and each level alone at
+   scale 1/2^l), the bf16 gates at gru08 (1,48,156, Cin 384) and gru16
+   (1,24,78, Cin 256), and the bf16 pyramid lookup at the shapes of
+   phase 2;
+8. timings of those kernels as in phase 4;
+9. the realtime path: ``InferenceRunner`` on ``RaftStereoConfig.realtime()``
+   with seeded random weights on the 375x1242 pair at 7 iterations (7 alt
+   launches, 21 bf16 gate calls, no pyramid lookup; seconds per pair and
+   peak memory), then at 16 iterations, where the runner turns
+   ``corr_fp32`` on (16 alt launches in fp32);
+10. the realtime preset on the card and on the CPU at 128x256 and 2
+   iterations, held to 3x the card's own spread between bf16 and fp32
+   correlation on the same input.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.  The fp32 path is full fp32:
@@ -31,7 +46,9 @@ TF32 is switched off for matmuls and cuDNN convs.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -56,10 +73,24 @@ GATES_ATOL = 1e-4       # sums over up to 9*384 = 3456 fp32 products
 CARD_VS_CPU_ATOL = 1e-2  # two iterations of random weights; see phase 6
 MAIN_HW = (375, 1242)
 MAIN_ITERS = 32
+# Realtime preset: 1/8 of the 384x1248 padded pair, fnet_dim 256; GRU
+# levels (name, H, W, Cx, calls per iteration) with Ch = 128.
+RT_ROWS, RT_W1, RT_D = 48, 156, 256
+RT_GRU_LEVELS = (("gru08", 48, 156, 256, 1), ("gru16", 24, 78, 128, 2))
+RT_ITERS = 7
+RT_DEEP_ITERS = 16      # the runner's corr_fp32 threshold
+ALT_ATOL = 1e-5         # fp32: dots of 256 products in another order
+BF16_ULPS = 1           # bf16 alt and lookup: one ulp + BF16_ATOL
+BF16_GATES_ULPS = 2     # bf16 gates: two ulps + BF16_GATES_ATOL (r*h)
+BF16_ATOL = 1e-5
+BF16_GATES_ATOL = 1e-3  # a flip of r*h moves qpre by a weight x its ulp
+RT_SPREAD_FACTOR = 3.0  # phase 10
 # Published peaks of the H100 SXM (NVIDIA data sheet, 700 W): memory
-# bytes/s, and fp32 FLOP/s on the CUDA cores (no tensor cores: no TF32).
+# bytes/s, fp32 FLOP/s on the CUDA cores (no tensor cores: no TF32), and
+# dense bf16 FLOP/s on the tensor cores.
 MEM_RATE = 3.35e12
 FP32_RATE = 67e12
+BF16_RATE = 989e12
 
 
 def log(msg: str) -> None:
@@ -84,9 +115,9 @@ def time_ms(fn, flush, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def lookup_bytes(coords, w2s) -> int:
-    """Bytes the lookup must move for these centers: each distinct volume
-    bin a window touches (read once), the centers, and the output."""
+def window_bins(coords, w2s) -> int:
+    """Distinct bins inside [0, W2_l - 1] that the windows of these
+    centers touch, summed over pixels and levels."""
     total = 0
     for i, w2 in enumerate(w2s):
         c = coords.double() / 2 ** i
@@ -94,9 +125,50 @@ def lookup_bytes(coords, w2s) -> int:
         hi = (torch.floor(c + RADIUS) + 1).clamp(0, w2 - 1)
         inside = (torch.floor(c + RADIUS) + 1 >= 0) & (
             torch.floor(c - RADIUS) <= w2 - 1)
-        total += int(torch.where(inside, hi - lo + 1, 0).sum()) * 4
-    k = LEVELS * (2 * RADIUS + 1)
-    return total + coords.numel() * 4 * (1 + k)
+        total += int(torch.where(inside, hi - lo + 1, 0).sum())
+    return total
+
+
+def lookup_bytes(coords, w2s, itemsize: int = 4) -> int:
+    """Bytes the lookup must move for these centers: each distinct volume
+    bin a window touches (read once), the centers, and the output."""
+    k = len(w2s) * (2 * RADIUS + 1)
+    return (window_bins(coords, w2s) * itemsize + coords.numel() * 4
+            + coords.numel() * k * itemsize)
+
+
+def bf16_ulp_error(got, want, ulps: int, atol: float):
+    """(max |got - want|, whether every value is within ``ulps`` bf16
+    ulps of ``want`` plus ``atol``)."""
+    want = want.float()
+    _, exp = torch.frexp(want.abs().clamp_min(torch.finfo(torch.float32).tiny))
+    bound = ulps * torch.ldexp(torch.ones_like(want), exp - 8) + atol
+    err = (got.float() - want).abs()
+    return float(err.max()), bool((err <= bound).all())
+
+
+def alt_library(f1, pyramid, coords):
+    """The reference's PyTorch formulation of the no-volume correlation
+    (PytorchAlternateCorrBlock1D): ``F.grid_sample`` of each pooled level
+    of the right features at the window positions, then the dot with the
+    left features, in fp32 (the reference runs it in fp32).  Each row is
+    its own 1-row image, so the vertical coordinate is exact."""
+    b, h, w1, d = f1.shape
+    rows = b * h
+    taps = torch.arange(-RADIUS, RADIUS + 1, device=f1.device,
+                        dtype=torch.float32)
+    f1t = f1.float().reshape(rows, w1, d).permute(0, 2, 1)[..., None]
+    outs = []
+    for i, f2 in enumerate(pyramid):
+        w2 = f2.shape[2]
+        x = coords.reshape(rows, w1, 1) / 2 ** i + taps
+        gx = (2 * x / (w2 - 1) - 1).reshape(rows, 1, -1)
+        grid = torch.stack([gx, torch.zeros_like(gx)], dim=-1)
+        src = f2.float().reshape(rows, w2, d).permute(0, 2, 1)[:, :, None]
+        s = F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
+                          align_corners=True).reshape(rows, d, w1, -1)
+        outs.append((s * f1t).sum(1) / math.sqrt(d))
+    return torch.cat(outs, dim=-1).reshape(b, h, w1, -1)
 
 
 def main() -> int:
@@ -117,11 +189,14 @@ def main() -> int:
     from raft_stereo_tpu_torch.config import RaftStereoConfig
     from raft_stereo_tpu_torch.eval.runner import InferenceRunner, full_fp32
     from raft_stereo_tpu_torch.kernels import _build
+    from raft_stereo_tpu_torch.kernels.corr_alt import (alt_lookup_fused,
+                                                        alt_lookup_xla)
     from raft_stereo_tpu_torch.kernels.corr_lookup import (
         lookup_pyramid_fused, lookup_pyramid_xla)
     from raft_stereo_tpu_torch.kernels.gru_fused import (_gates_reference,
                                                          gru_gates_fused)
-    from raft_stereo_tpu_torch.models.corr import build_corr_pyramid
+    from raft_stereo_tpu_torch.models.corr import (build_corr_pyramid,
+                                                   pool_axis)
     from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 
     # ------------------------------------------------------------ phase 1
@@ -274,10 +349,12 @@ def main() -> int:
     runner(left, right)                                    # warm-up
     lookup_pyramid_fused.launches = 0
     gru_gates_fused.launches = 0
+    alt_lookup_fused.launches = 0
     torch.cuda.reset_peak_memory_stats()
     flow, _ = runner(left, right)
     launches = {"lookup": lookup_pyramid_fused.launches,
-                "gates": gru_gates_fused.launches}
+                "gates": gru_gates_fused.launches,
+                "alt": alt_lookup_fused.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"main path {MAIN_HW[0]}x{MAIN_HW[1]} (padded 384x1248), "
         f"iters {MAIN_ITERS}: launches {launches}, peak memory "
@@ -285,7 +362,8 @@ def main() -> int:
     if flow.shape != MAIN_HW or not np.isfinite(flow).all():
         raise AssertionError(f"bad flow: shape {flow.shape}, finite "
                              f"{np.isfinite(flow).all()}")
-    if launches != {"lookup": MAIN_ITERS, "gates": 3 * MAIN_ITERS}:
+    if launches != {"lookup": MAIN_ITERS, "gates": 3 * MAIN_ITERS,
+                    "alt": 0}:
         raise AssertionError(f"main path kernel launches {launches}")
     secs = [runner(left, right)[1] for _ in range(5)]
     log(f"main path seconds per pair: median {statistics.median(secs):.4f} "
@@ -306,6 +384,241 @@ def main() -> int:
     if not diff <= CARD_VS_CPU_ATOL:
         raise AssertionError(f"card and CPU disagree by {diff}")
 
+    # ------------------------------------------------------------ phase 7
+    def alt_case(dtype):
+        def feats(w):
+            return torch.randn((1, RT_ROWS, w, RT_D), generator=gen).to(
+                dev, dtype)
+
+        f1, pyr = feats(RT_W1), [feats(RT_W1)]
+        for _ in range(LEVELS - 1):
+            pyr.append(pool_axis(pyr[-1], axis=2).contiguous())
+        c = (torch.rand((1, RT_ROWS, RT_W1), generator=gen) * (RT_W1 + 20)
+             - 10).to(dev)
+        return f1, pyr, c
+
+    alt_cases, alt_err = {}, {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        f1, pyr, c = alt_cases[tag] = alt_case(dtype)
+        calls = [(pyr, c, "all levels")] + [
+            ([v], c / 2 ** i, f"level {i} alone (scale 1/{2 ** i})")
+            for i, v in enumerate(pyr)]
+        worst, ok = 0.0, True
+        for levels_, cc, what in calls:
+            got = alt_lookup_fused(f1, levels_, cc, RADIUS)
+            torch.cuda.synchronize()
+            want = alt_lookup_xla(f1, levels_, cc, RADIUS)
+            if got.dtype != dtype:
+                raise AssertionError(f"alt kernel returned {got.dtype}")
+            if dtype == torch.float32:
+                err = float((got - want).abs().max())
+                ok_ = err <= ALT_ATOL
+            else:
+                err, ok_ = bf16_ulp_error(got, want, BF16_ULPS, BF16_ATOL)
+            log(f"alt {tag}, {what}, W2 {[v.shape[2] for v in levels_]}: "
+                f"max |kernel - plain| = {err:.3e}")
+            worst, ok = max(worst, err), ok and ok_
+        alt_err[tag] = worst
+        tol = (f"atol {ALT_ATOL}" if tag == "fp32"
+               else f"{BF16_ULPS} bf16 ulp + {BF16_ATOL}")
+        log(f"alt {tag}: worst {worst:.3e} ({tol}): "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"alt kernel ({tag}) disagrees: {worst}")
+
+    rt_gate_cases = {}
+    gates_bf16_err = 0.0
+    for lvl, h, w, cx, _ in RT_GRU_LEVELS:
+        cin = CH + cx
+        ws = (2 / (9 * cin)) ** 0.5
+
+        def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+            return (scale * torch.randn(shape, generator=gen)).to(dev, dtype)
+
+        args = (torch.tanh(rnd(1, h, w, CH)), rnd(1, h, w, cx),
+                rnd(1, h, w, CH), rnd(3, 3, cin, 2 * CH, scale=ws),
+                rnd(2 * CH, scale=0.1, dtype=torch.float32),
+                rnd(3, 3, cin, CH, scale=ws),
+                rnd(CH, scale=0.1, dtype=torch.float32))
+        rt_gate_cases[lvl] = args
+        got = gru_gates_fused(*args)
+        torch.cuda.synchronize()
+        errs = [bf16_ulp_error(g, wv, BF16_GATES_ULPS, BF16_GATES_ATOL)
+                for g, wv in zip(got, _gates_reference(*args))]
+        err = max(e for e, _ in errs)
+        ok = all(o for _, o in errs) and all(
+            g.dtype == torch.bfloat16 for g in got)
+        log(f"gates bf16 {lvl} (1,{h},{w}) Cin {cin}: max |kernel - plain| "
+            f"= {err:.3e} ({BF16_GATES_ULPS} bf16 ulps + {BF16_GATES_ATOL}): "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"bf16 gate kernel disagrees: {err}")
+        gates_bf16_err = max(gates_bf16_err, err)
+
+    pyr16 = build_corr_pyramid(vol.to(torch.bfloat16), LEVELS)
+    got = lookup_pyramid_fused(pyr16, coords, RADIUS)
+    torch.cuda.synchronize()
+    lookup16_err, ok = bf16_ulp_error(
+        got, lookup_pyramid_xla(pyr16, coords, RADIUS), BF16_ULPS, BF16_ATOL)
+    log(f"lookup bf16, 4 levels {w2s}: max |kernel - plain| = "
+        f"{lookup16_err:.3e} ({BF16_ULPS} bf16 ulp + {BF16_ATOL}): "
+        f"{'ok' if ok and got.dtype == torch.bfloat16 else 'FAILED'}")
+    if not ok or got.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 lookup kernel disagrees: {lookup16_err}")
+
+    # ------------------------------------------------------------ phase 8
+    alt_time = {}
+    for tag, (f1, pyr, c) in alt_cases.items():
+        lib_err = float((alt_library(f1, pyr, c)
+                         - alt_lookup_xla(f1, pyr, c, RADIUS).float()
+                         ).abs().max())
+        ms = time_ms(lambda: alt_lookup_fused(f1, pyr, c, RADIUS), flush)
+        plain = time_ms(lambda: alt_lookup_xla(f1, pyr, c, RADIUS), flush)
+        lib = time_ms(lambda: alt_library(f1, pyr, c), flush)
+        item = f1.element_size()
+        k = LEVELS * (2 * RADIUS + 1)
+        nbytes = (f1.numel() + sum(v.numel() for v in pyr)) * item + (
+            c.numel() * 4 + c.numel() * k * item)
+        bins = window_bins(c, [v.shape[2] for v in pyr])
+        flops = 2 * RT_D * bins + 3 * c.numel() * k
+        bytes_ms, ops_ms = nbytes / MEM_RATE * 1e3, flops / FP32_RATE * 1e3
+        alt_time[tag] = (ms, plain, lib, max(bytes_ms, ops_ms),
+                         "bytes" if bytes_ms >= ops_ms else "operations")
+        log(f"alt {tag} timing: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"grid_sample formulation {lib:.4f} ms (max |library - plain| "
+            f"{lib_err:.3e}), bound {max(bytes_ms, ops_ms):.5f} ms "
+            f"({nbytes / 1e6:.2f} MB: {bytes_ms:.5f} ms; {flops / 1e6:.1f} "
+            f"MFLOP at the fp32 rate: {ops_ms:.5f} ms)")
+
+    g16_ms = g16_plain = g16_lib = g16_bound = g16_fp32rate = 0.0
+    for lvl, h, w, cx, per_iter in RT_GRU_LEVELS:
+        args = rt_gate_cases[lvl]
+        cin = CH + cx
+        nchw = [a.permute(0, 3, 1, 2).contiguous() for a in args[:3]]
+        oihw = [args[3].permute(3, 2, 0, 1).contiguous(),
+                args[4].to(torch.bfloat16),
+                args[5].permute(3, 2, 0, 1).contiguous(),
+                args[6].to(torch.bfloat16)]
+
+        def gates16_library(hh=nchw[0], xx=nchw[1], cr=nchw[2], wt=oihw):
+            zr = F.conv2d(torch.cat([hh, xx], 1), wt[0], wt[1], padding=1)
+            r = torch.sigmoid(zr[:, CH:] + cr)
+            return zr, F.conv2d(torch.cat([r * hh, xx], 1), wt[2], wt[3],
+                                padding=1)
+
+        ms = time_ms(lambda: gru_gates_fused(*args), flush)
+        plain = time_ms(lambda: _gates_reference(*args), flush)
+        lib = time_ms(gates16_library, flush)
+        flops = 2 * h * w * 9 * cin * 3 * CH
+        nbytes = (2 * h * w * (CH + cx + CH + 3 * CH) + 2 * 9 * cin * 3 * CH
+                  + 4 * 3 * CH)
+        ops_ms, bytes_ms = flops / BF16_RATE * 1e3, nbytes / MEM_RATE * 1e3
+        log(f"gates bf16 timing {lvl} (x{per_iter} per iteration): kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bf16 conv2d x2 {lib:.4f} ms,"
+            f" bound {max(ops_ms, bytes_ms):.5f} ms ({flops / 1e9:.2f} GFLOP "
+            f"at the bf16 tensor-core rate; {flops / FP32_RATE * 1e3:.4f} ms "
+            f"at the fp32 CUDA-core rate the kernel uses: "
+            f"{flops / ms / 1e9:.2f} TFLOP/s)")
+        g16_ms += per_iter * ms
+        g16_plain += per_iter * plain
+        g16_lib += per_iter * lib
+        g16_bound += per_iter * max(ops_ms, bytes_ms)
+        g16_fp32rate += per_iter * flops / FP32_RATE * 1e3
+    log(f"gates bf16 per iteration: kernel {g16_ms:.4f} ms, plain "
+        f"{g16_plain:.4f} ms, conv2d {g16_lib:.4f} ms, bound {g16_bound:.5f}"
+        f" ms (bf16 tensor cores), {g16_fp32rate:.4f} ms at the fp32 rate")
+
+    src16 = [v.float().reshape(-1, 1, 1, v.shape[-1]) for v in pyr16]
+
+    def lookup16_library():
+        return torch.cat([F.grid_sample(s_, g_, mode="bilinear",
+                                        padding_mode="zeros",
+                                        align_corners=True)
+                          for s_, g_ in zip(src16, grids)], dim=-1)
+
+    l16_ms = time_ms(lambda: lookup_pyramid_fused(pyr16, coords, RADIUS),
+                     flush)
+    l16_plain = time_ms(lambda: lookup_pyramid_xla(pyr16, coords, RADIUS),
+                        flush)
+    l16_lib = time_ms(lookup16_library, flush)
+    l16_bound = lookup_bytes(coords, w2s, itemsize=2) / MEM_RATE * 1e3
+    log(f"lookup bf16 timing: kernel {l16_ms:.4f} ms, plain {l16_plain:.4f} "
+        f"ms, grid_sample x4 (fp32 upcast) {l16_lib:.4f} ms, bound "
+        f"{l16_bound:.5f} ms (bytes)")
+
+    # ------------------------------------------------------------ phase 9
+    rt_cfg = RaftStereoConfig.realtime()
+    torch.manual_seed(SEED)
+    rt_model = RAFTStereo(rt_cfg)
+    rt_state = {n: t.clone() for n, t in rt_model.state_dict().items()}
+    rt_runner = InferenceRunner(rt_cfg, rt_model, iters=RT_ITERS,
+                                device="cuda")
+    if rt_runner.effective_config.corr_fp32:
+        raise AssertionError("realtime at 7 iterations must keep bf16 "
+                             "correlation")
+    rt_runner(left, right)                                 # warm-up
+    lookup_pyramid_fused.launches = 0
+    gru_gates_fused.launches = 0
+    alt_lookup_fused.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rt_flow, _ = rt_runner(left, right)
+    rt_launches = {"lookup": lookup_pyramid_fused.launches,
+                   "gates": gru_gates_fused.launches,
+                   "alt": alt_lookup_fused.launches}
+    rt_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"realtime path {MAIN_HW[0]}x{MAIN_HW[1]} (padded 384x1248), iters "
+        f"{RT_ITERS}, bf16: launches {rt_launches}, peak memory "
+        f"{rt_peak_gib:.3f} GiB")
+    if rt_flow.shape != MAIN_HW or not np.isfinite(rt_flow).all():
+        raise AssertionError(f"bad realtime flow: shape {rt_flow.shape}, "
+                             f"finite {np.isfinite(rt_flow).all()}")
+    if rt_launches != {"lookup": 0, "gates": 3 * RT_ITERS, "alt": RT_ITERS}:
+        raise AssertionError(f"realtime path kernel launches {rt_launches}")
+    rt_secs = [rt_runner(left, right)[1] for _ in range(5)]
+    log(f"realtime path seconds per pair: median "
+        f"{statistics.median(rt_secs):.5f} (runs {rt_secs}); flow range "
+        f"[{rt_flow.min():.2f}, {rt_flow.max():.2f}]")
+
+    deep = InferenceRunner(rt_cfg, rt_state, iters=RT_DEEP_ITERS,
+                           device="cuda")
+    if not deep.effective_config.corr_fp32:
+        raise AssertionError(f"realtime at {RT_DEEP_ITERS} iterations must "
+                             "turn corr_fp32 on")
+    lookup_pyramid_fused.launches = 0
+    gru_gates_fused.launches = 0
+    alt_lookup_fused.launches = 0
+    deep_flow, deep_s = deep(left, right)
+    deep_launches = {"lookup": lookup_pyramid_fused.launches,
+                     "gates": gru_gates_fused.launches,
+                     "alt": alt_lookup_fused.launches}
+    log(f"realtime path, iters {RT_DEEP_ITERS} (corr_fp32 on: fp32 alt): "
+        f"launches {deep_launches}, {deep_s:.5f} s (first call)")
+    if deep_flow.shape != MAIN_HW or not np.isfinite(deep_flow).all():
+        raise AssertionError("bad realtime flow at corr_fp32")
+    if deep_launches != {"lookup": 0, "gates": 3 * RT_DEEP_ITERS,
+                         "alt": RT_DEEP_ITERS}:
+        raise AssertionError(f"deep realtime launches {deep_launches}")
+
+    # ----------------------------------------------------------- phase 10
+    on_card = InferenceRunner(rt_cfg, rt_state, iters=2, device="cuda")(
+        small, small_r)[0]
+    card_fp32_corr = InferenceRunner(
+        dataclasses.replace(rt_cfg, corr_fp32=True), rt_state, iters=2,
+        device="cuda")(small, small_r)[0]
+    on_cpu = InferenceRunner(rt_cfg, rt_state, iters=2, device="cpu")(
+        small, small_r)[0]
+    spread = np.abs(on_card - card_fp32_corr)
+    err = np.abs(on_card - on_cpu)
+    rt_ok = (err.max() <= RT_SPREAD_FACTOR * spread.max()
+             and err.mean() <= RT_SPREAD_FACTOR * spread.mean())
+    log(f"realtime card vs CPU, 128x256, iters 2: max / mean |Δflow| = "
+        f"{err.max():.4e} / {err.mean():.4e} px; the card's bf16 vs fp32 "
+        f"correlation spread {spread.max():.4e} / {spread.mean():.4e} px "
+        f"(limit {RT_SPREAD_FACTOR}x); flow range [{on_cpu.min():.2f}, "
+        f"{on_cpu.max():.2f}]: {'ok' if rt_ok else 'FAILED'}")
+    if not rt_ok:
+        raise AssertionError("realtime card and CPU disagree")
+
     kernels = [
         {"name": "corr_lookup", "route": "cuda",
          "source": "raft_stereo_tpu_torch/csrc/corr_lookup.cu",
@@ -321,6 +634,26 @@ def main() -> int:
          "ms": gates_ms, "plain_ms": gates_plain_ms,
          "bound_ms": gates_bound_ms, "bound_by": gates_bound_by,
          "library_ms": gates_lib_ms},
+        {"name": "gru_gates_bf16", "route": "cuda",
+         "source": "raft_stereo_tpu_torch/csrc/gru_gates.cu",
+         "replaces": "raft_stereo_tpu/kernels/gru_fused.py:153",
+         "launches": rt_launches["gates"], "max_abs_err": gates_bf16_err,
+         "ms": g16_ms, "plain_ms": g16_plain, "bound_ms": g16_bound,
+         "bound_by": "operations", "library_ms": g16_lib},
+        {"name": "corr_alt", "route": "cuda",
+         "source": "raft_stereo_tpu_torch/csrc/corr_alt.cu",
+         "replaces": "raft_stereo_tpu/kernels/corr_alt.py:273",
+         "launches": rt_launches["alt"], "max_abs_err": alt_err["bf16"],
+         "ms": alt_time["bf16"][0], "plain_ms": alt_time["bf16"][1],
+         "bound_ms": alt_time["bf16"][3], "bound_by": alt_time["bf16"][4],
+         "library_ms": alt_time["bf16"][2]},
+        {"name": "corr_alt_fp32", "route": "cuda",
+         "source": "raft_stereo_tpu_torch/csrc/corr_alt.cu",
+         "replaces": "raft_stereo_tpu/kernels/corr_alt.py:75",
+         "launches": deep_launches["alt"], "max_abs_err": alt_err["fp32"],
+         "ms": alt_time["fp32"][0], "plain_ms": alt_time["fp32"][1],
+         "bound_ms": alt_time["fp32"][3], "bound_by": alt_time["fp32"][4],
+         "library_ms": alt_time["fp32"][2]},
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -2,10 +2,12 @@
 
 A copy of ``RaftStereoConfig`` with every field of the JAX package's
 dataclass, so one ``config.json`` describes a model in either package.
-The port runs one slice of what the fields can ask for: default-config,
-fixed-depth, test-mode inference in fp32.  Every option outside that
-slice raises ``NotImplementedError`` at construction, naming the
-ROADMAP item that will bring it, so no setting is silently ignored.
+The port runs fixed-depth, test-mode inference of the default and the
+realtime architectures: every correlation backend, the shared backbone,
+the slow-fast GRU schedule, and fp32 or bf16 (``mixed_precision``) with
+``corr_fp32``.  Every option outside that raises ``NotImplementedError``
+at construction, naming the ROADMAP item that will bring it, so no
+setting is silently ignored.
 
 Convention: ``hidden_dims[0]`` is the FINEST GRU level (1/2^n_downsample
 resolution) and ``hidden_dims[-1]`` the coarsest, as in the JAX package.
@@ -104,6 +106,11 @@ class RaftStereoConfig:
         for norm in (self.context_norm, self.fnet_norm):
             if norm not in ("batch", "instance", "group", "none"):
                 raise ValueError(f"unknown norm_fn {norm!r}")
+        if self.corr_w2_shards > 1 and self.corr_backend == "alt":
+            raise ValueError(
+                f"corr_w2_shards={self.corr_w2_shards} shards the 'reg' "
+                f"volume and is incompatible with corr_backend='alt' (which "
+                f"builds no volume) — use 'reg' or 'reg_fused'")
         for field, roadmap_item in _unsupported(self):
             raise NotImplementedError(
                 f"{field} is not ported to the PyTorch package yet "
@@ -143,15 +150,19 @@ class RaftStereoConfig:
         """The published Middlebury/ETH3D/SceneFlow architecture."""
         return cls()
 
+    @classmethod
+    def realtime(cls) -> "RaftStereoConfig":
+        """The realtime architecture: one backbone for context and
+        features, 2 GRU levels at 1/8 resolution on the slow-fast
+        schedule, no-volume correlation, bf16."""
+        return cls(shared_backbone=True, n_downsample=3, n_gru_layers=2,
+                   slow_fast_gru=True, corr_backend="alt",
+                   mixed_precision=True)
+
 
 def _unsupported(cfg: RaftStereoConfig):
     """(field, ROADMAP item) for every set option this slice does not run."""
     checks = (
-        ("corr_backend='alt'", "§D1 realtime preset",
-         cfg.corr_backend == "alt"),
-        ("shared_backbone", "§D1 realtime preset", cfg.shared_backbone),
-        ("slow_fast_gru", "§D1 realtime preset", cfg.slow_fast_gru),
-        ("mixed_precision", "§D1 realtime preset", cfg.mixed_precision),
         ("exit_threshold_px > 0", "§D3 early exit and state carry",
          cfg.exit_threshold_px > 0),
         ("sequential_fnet_pixels", "§D3 early exit and state carry",

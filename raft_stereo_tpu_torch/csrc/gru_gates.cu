@@ -1,4 +1,5 @@
-// Fused ConvGRU gate pre-activations for NVIDIA Hopper (sm_90a), fp32.
+// Fused ConvGRU gate pre-activations for NVIDIA Hopper (sm_90a), fp32 and
+// bf16.
 //
 // Replaces the TPU kernel raft_stereo_tpu/kernels/gru_fused.py
 // _gates_kernel:
@@ -6,17 +7,24 @@
 //     r    = sigmoid(zr[..., Ch:] + cr)
 //     qpre = conv3x3([r*h, x], Wq) + bq
 // NHWC activations, HWIO weights, zero padding of one pixel (SAME).
+// Activations and weights are fp32 or bf16 (one type T for all of them);
+// biases are fp32.  The rounding points are the TPU kernel's: products
+// accumulate in fp32, the fp32 bias joins the accumulator before any
+// rounding, r is computed in fp32 from the unrounded zr, r*h is rounded to
+// T before the q conv reads it, and zr and qpre are rounded once to T.
 //
 // Bound: arithmetic.  At Cin = 384 each output pixel costs 9*384*384
 // multiply-adds and reads a few KB, so the kernel is limited by the fp32
 // FMA rate of the CUDA cores (the fp32 path of the model is full fp32, so
-// no TF32 tensor cores).  The design is an implicit GEMM on the CUDA cores:
-// a block owns an 8x16 tile of output pixels and 128 output channels; it
-// streams the inputs through shared memory 8 channels at a time (the
-// 10x18 halo patch of the tile plus the 9x8x128 weight slice: 42.6 KB, so
-// the 5.3 MB of weights at Cin 384 never have to fit at once), and each of
-// the 256 threads keeps an 8-pixel x 8-channel accumulator in registers, so
-// every shared-memory load feeds 4-8 FMAs.
+// no TF32 tensor cores; the bf16 instantiation converts to fp32 on load
+// and runs the same FMAs, which keeps its products exact).  The design is
+// an implicit GEMM on the CUDA cores: a block owns an 8x16 tile of output
+// pixels and 128 output channels; it streams the inputs through shared
+// memory 8 channels at a time (the 10x18 halo patch of the tile plus the
+// 9x8x128 weight slice, both as fp32: 42.6 KB, so the weights at Cin 384
+// never have to fit at once), and each of the 256 threads keeps an
+// 8-pixel x 8-channel accumulator in registers, so every shared-memory
+// load feeds 4-8 FMAs.
 //
 // Two launches per call, from one kernel template: the first computes zr
 // and, in its epilogue, r*h for the channels of the r half, written to a
@@ -27,6 +35,7 @@
 // The zero padding of the q conv is exact: outside the image the patch
 // loader reads zeros, just as padded h makes r*h zero on the TPU.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -40,26 +49,61 @@ constexpr int kThreads = 256;
 constexpr int kPatchH = kTileH + 2;
 constexpr int kPatchW = kTileW + 2;
 
+__device__ inline float to_float(float x) { return x; }
+__device__ inline float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Four consecutive values as fp32 (16 bytes of fp32, 8 of bf16).
+__device__ inline float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ inline float4 load4(const __nv_bfloat16* p) {
+  union {
+    uint2 u;
+    __nv_bfloat162 h[2];
+  } q;
+  q.u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(q.h[0]);
+  const float2 hi = __bfloat1622float2(q.h[1]);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Four fp32 values, each rounded once to the destination type.
+__device__ inline void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ inline void store4(__nv_bfloat16* p, const float* v) {
+  union {
+    uint2 u;
+    __nv_bfloat162 h[2];
+  } q;
+  q.h[0] = __floats2bfloat162_rn(v[0], v[1]);
+  q.h[1] = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = q.u;
+}
+
+template <typename T>
 struct ConvArgs {
-  const float* src0;  // first input part, NHWC with c0 channels
-  const float* src1;  // second input part, NHWC with c1 channels
+  const T* src0;      // first input part, NHWC with c0 channels
+  const T* src1;      // second input part, NHWC with c1 channels
   int c0, c1;
-  const float* w;     // HWIO (3, 3, c0 + c1, cout)
+  const T* w;         // HWIO (3, 3, c0 + c1, cout)
   const float* bias;  // (cout)
-  float* out;         // NHWC with cout channels
+  T* out;             // NHWC with cout channels
   int cout;
   // r coupling (first launch only): r = sigmoid(out[..., ch:] + cr),
   // rh = r * h, all three NHWC with ch channels.
-  const float* cr;
-  const float* h;
-  float* rh;
+  const T* cr;
+  const T* h;
+  T* rh;
   int ch;
   int batch, height, width;
 };
 
-template <bool kRCouple>
+template <typename T, bool kRCouple>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_kernel(ConvArgs a) {
+conv3x3_kernel(ConvArgs<T> a) {
   __shared__ float patch[kChunk][kPatchH][kPatchW];
   __shared__ __align__(16) float wts[9][kChunk][kBlockN];
 
@@ -87,7 +131,7 @@ conv3x3_kernel(ConvArgs a) {
 
   for (int ci0 = 0; ci0 < cin; ci0 += kChunk) {
     const bool first = ci0 < a.c0;
-    const float* src = first ? a.src0 : a.src1;
+    const T* src = first ? a.src0 : a.src1;
     const int cs = first ? a.c0 : a.c1;
     const int coff = first ? ci0 : ci0 - a.c0;
     for (int e = tid; e < kPatchH * kPatchW * kChunk; e += kThreads) {
@@ -99,7 +143,7 @@ conv3x3_kernel(ConvArgs a) {
       const int gx = x0 + px - 1;
       float v = 0.f;
       if (gy >= 0 && gy < a.height && gx >= 0 && gx < a.width)
-        v = src[((b * a.height + gy) * a.width + gx) * cs + coff + c];
+        v = to_float(src[((b * a.height + gy) * a.width + gx) * cs + coff + c]);
       patch[c][py][px] = v;
     }
     for (int e = tid; e < 9 * kChunk * (kBlockN / 4); e += kThreads) {
@@ -110,8 +154,7 @@ conv3x3_kernel(ConvArgs a) {
       const int n = n0 + n4 * 4;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (n < a.cout)
-        v = *reinterpret_cast<const float4*>(
-            &a.w[((long long)tap * cin + ci0 + c) * a.cout + n]);
+        v = load4(&a.w[((long long)tap * cin + ci0 + c) * a.cout + n]);
       *reinterpret_cast<float4*>(&wts[tap][c][n4 * 4]) = v;
     }
     __syncthreads();
@@ -152,41 +195,32 @@ conv3x3_kernel(ConvArgs a) {
       float v[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) v[q] = acc[i][half * 4 + q] + a.bias[n + q];
-      *reinterpret_cast<float4*>(&a.out[pix * a.cout + n]) =
-          make_float4(v[0], v[1], v[2], v[3]);
+      store4(&a.out[pix * a.cout + n], v);
       if (kRCouple && n >= a.ch) {
         const long long o = pix * a.ch + (n - a.ch);
         float rh[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const float r = 1.f / (1.f + expf(-(v[q] + a.cr[o + q])));
-          rh[q] = r * a.h[o + q];
+          const float r = 1.f / (1.f + expf(-(v[q] + to_float(a.cr[o + q]))));
+          rh[q] = r * to_float(a.h[o + q]);
         }
-        *reinterpret_cast<float4*>(&a.rh[o]) =
-            make_float4(rh[0], rh[1], rh[2], rh[3]);
+        store4(&a.rh[o], rh);
       }
     }
   }
 }
 
-}  // namespace
-
-// h, cr, rh_scratch, qpre: (B, H, W, ch); x: (B, H, W, cx);
-// zr: (B, H, W, 2*ch); wzr: (3, 3, ch+cx, 2*ch); wq: (3, 3, ch+cx, ch).
-// All fp32, contiguous, device pointers; ch and cx multiples of 8.
-extern "C" int raft_gru_gates(const float* h, const float* x, const float* cr,
-                              const float* wzr, const float* bzr,
-                              const float* wq, const float* bq, float* zr,
-                              float* qpre, float* rh_scratch, int batch,
-                              int height, int width, int ch, int cx,
-                              void* stream) {
+template <typename T>
+int run(const T* h, const T* x, const T* cr, const T* wzr, const float* bzr,
+        const T* wq, const float* bq, T* zr, T* qpre, T* rh_scratch,
+        int batch, int height, int width, int ch, int cx, void* stream) {
   if (ch % kChunk || cx % kChunk) return (int)cudaErrorInvalidValue;
   if (batch == 0 || height == 0 || width == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles = ((height + kTileH - 1) / kTileH) *
                     ((width + kTileW - 1) / kTileW);
 
-  ConvArgs a = {};
+  ConvArgs<T> a = {};
   a.src0 = h;
   a.c0 = ch;
   a.src1 = x;
@@ -203,7 +237,7 @@ extern "C" int raft_gru_gates(const float* h, const float* x, const float* cr,
   a.height = height;
   a.width = width;
   dim3 grid_zr(tiles, (2 * ch + kBlockN - 1) / kBlockN, batch);
-  conv3x3_kernel<true><<<grid_zr, kThreads, 0, s>>>(a);
+  conv3x3_kernel<T, true><<<grid_zr, kThreads, 0, s>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -216,6 +250,36 @@ extern "C" int raft_gru_gates(const float* h, const float* x, const float* cr,
   a.h = nullptr;
   a.rh = nullptr;
   dim3 grid_q(tiles, (ch + kBlockN - 1) / kBlockN, batch);
-  conv3x3_kernel<false><<<grid_q, kThreads, 0, s>>>(a);
+  conv3x3_kernel<T, false><<<grid_q, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// h, cr, rh_scratch, qpre: (B, H, W, ch); x: (B, H, W, cx);
+// zr: (B, H, W, 2*ch); wzr: (3, 3, ch+cx, 2*ch); wq: (3, 3, ch+cx, ch);
+// bzr (2*ch), bq (ch) fp32.  Contiguous device pointers; ch and cx
+// multiples of 8.  raft_gru_gates takes fp32, raft_gru_gates_bf16 bf16
+// activations and weights.
+extern "C" int raft_gru_gates(const float* h, const float* x, const float* cr,
+                              const float* wzr, const float* bzr,
+                              const float* wq, const float* bq, float* zr,
+                              float* qpre, float* rh_scratch, int batch,
+                              int height, int width, int ch, int cx,
+                              void* stream) {
+  return run<float>(h, x, cr, wzr, bzr, wq, bq, zr, qpre, rh_scratch, batch,
+                    height, width, ch, cx, stream);
+}
+
+extern "C" int raft_gru_gates_bf16(const __nv_bfloat16* h,
+                                   const __nv_bfloat16* x,
+                                   const __nv_bfloat16* cr,
+                                   const __nv_bfloat16* wzr, const float* bzr,
+                                   const __nv_bfloat16* wq, const float* bq,
+                                   __nv_bfloat16* zr, __nv_bfloat16* qpre,
+                                   __nv_bfloat16* rh_scratch, int batch,
+                                   int height, int width, int ch, int cx,
+                                   void* stream) {
+  return run<__nv_bfloat16>(h, x, cr, wzr, bzr, wq, bq, zr, qpre, rh_scratch,
+                            batch, height, width, ch, cx, stream);
 }

@@ -5,6 +5,9 @@
 entry sets ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False: the fp32 model is full fp32,
 as in the JAX package (convs and the volume einsum at HIGHEST precision).
+The runner always runs a model of its ``effective_config``: it builds one
+from the given weights (a model passed in only lends its state dict), on
+the device, with the convs cast once to the compute dtype.
 """
 
 from __future__ import annotations
@@ -64,23 +67,29 @@ class InferenceRunner:
 
     Inputs are (H, W, 3) uint8 or float numpy images; padding to
     ``divis_by``, the test-mode forward and exact unpadding happen inside.
+    ``corr_fp32_auto`` (default on) turns ``corr_fp32`` on for bf16
+    correlation at ``iters >= DEEP_ITERS_FP32_CORR``
+    (``effective_inference_config``); pass False to run raw bf16
+    correlation at any depth.
     """
 
     def __init__(self, config: RaftStereoConfig,
                  state_dict_or_model: Union[Mapping[str, torch.Tensor],
                                             RAFTStereo],
                  iters: int = 32, divis_by: int = 32,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 corr_fp32_auto: bool = True):
         self.device = resolve_device(device)
         full_fp32()
         self.config = config
-        self.effective_config = effective_inference_config(config, iters)
-        if isinstance(state_dict_or_model, RAFTStereo):
-            model = state_dict_or_model
-        else:
-            model = RAFTStereo(self.effective_config)
-            model.load_state_dict(state_dict_or_model, strict=True)
-        self.model = model.to(self.device).eval()
+        self.effective_config = effective_inference_config(
+            config, iters, corr_fp32_auto)
+        state = (state_dict_or_model.state_dict()
+                 if isinstance(state_dict_or_model, RAFTStereo)
+                 else state_dict_or_model)
+        model = RAFTStereo(self.effective_config)
+        model.load_state_dict(state, strict=True)
+        self.model = model.to(self.device).eval().cast_weights_()
         self.iters = iters
         self.divis_by = divis_by
 

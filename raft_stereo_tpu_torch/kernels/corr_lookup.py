@@ -4,7 +4,8 @@
 kernel in ``csrc/corr_lookup.cu`` when its tensors lie on a CUDA device,
 and runs the plain PyTorch version ``lookup_pyramid_xla`` when they lie
 on the CPU.  There is no fallback from one to the other: a CUDA tensor
-the kernel does not take raises.
+the kernel does not take raises.  Volumes are fp32, or bf16 under mixed
+precision; both versions sample in fp32 and round once to that dtype.
 """
 
 from __future__ import annotations
@@ -30,15 +31,19 @@ def window_coords(coords: torch.Tensor, level: int,
 
 def lookup_pyramid_xla(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
                        radius: int) -> torch.Tensor:
-    """Plain version: linear window lookup at every level, level-major."""
-    outs = [linear_sampler_1d(vol, window_coords(coords, i, radius))
+    """Plain version: linear window lookup at every level, level-major, in
+    fp32 and rounded once to the levels' dtype (the kernel's rounding)."""
+    outs = [linear_sampler_1d(vol.float(), window_coords(coords, i, radius))
             for i, vol in enumerate(pyramid)]
-    return torch.cat(outs, dim=-1)
+    return torch.cat(outs, dim=-1).to(pyramid[0].dtype)
 
 
-def _lib():
-    lib = _build.load("corr_lookup")
-    fn = lib.raft_corr_lookup
+_ENTRIES = {torch.float32: "raft_corr_lookup",
+            torch.bfloat16: "raft_corr_lookup_bf16"}
+
+
+def _lib(dtype: torch.dtype):
+    fn = getattr(_build.load("corr_lookup"), _ENTRIES[dtype])
     fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -52,11 +57,11 @@ def lookup_pyramid_fused(pyramid: List[torch.Tensor], coords: torch.Tensor,
     """Window lookup at every level of ``pyramid``, concat level-major.
 
     Args:
-      pyramid: (B,H,W1,W2_i) fp32 volumes.
+      pyramid: (B,H,W1,W2_i) volumes, all fp32 or all bf16.
       coords:  (B,H,W1) fp32 centers at level 0.
 
-    Returns (B,H,W1,L*(2r+1)) fp32.  Counts its kernel launches in
-    ``lookup_pyramid_fused.launches``."""
+    Returns (B,H,W1,L*(2r+1)) in the volumes' dtype, computed in fp32.
+    Counts its kernel launches in ``lookup_pyramid_fused.launches``."""
     if coords.device.type == "cpu":
         return lookup_pyramid_xla(pyramid, coords, radius)
     if coords.device.type != "cuda":
@@ -65,9 +70,14 @@ def lookup_pyramid_fused(pyramid: List[torch.Tensor], coords: torch.Tensor,
     b, h, w1 = coords.shape
     if not 1 <= levels <= MAX_LEVELS:
         raise ValueError(f"{levels} levels; the kernel takes 1..{MAX_LEVELS}")
-    for v in (*pyramid, coords):
-        if v.dtype != torch.float32:
-            raise TypeError(f"the lookup kernel takes float32, got {v.dtype}")
+    dtype = pyramid[0].dtype
+    if dtype not in _ENTRIES or coords.dtype != torch.float32:
+        raise TypeError(f"the lookup kernel takes float32 or bfloat16 "
+                        f"volumes and float32 coords, got {dtype} and "
+                        f"{coords.dtype}")
+    for v in pyramid:
+        if v.dtype != dtype:
+            raise TypeError(f"pyramid levels mix {dtype} and {v.dtype}")
         if v.device != coords.device:
             raise ValueError("pyramid and coords must share one device")
     for v in pyramid:
@@ -78,13 +88,13 @@ def lookup_pyramid_fused(pyramid: List[torch.Tensor], coords: torch.Tensor,
     coords = coords.contiguous()
     k = 2 * radius + 1
     out = torch.empty((b, h, w1, levels * k), device=coords.device,
-                      dtype=torch.float32)
+                      dtype=dtype)
     ptrs = (ctypes.c_void_p * levels)(*[v.data_ptr() for v in vols])
     w2s = (ctypes.c_int * levels)(*[v.shape[-1] for v in vols])
     with torch.cuda.device(coords.device):
-        err = _lib()(ptrs, w2s, levels, coords.data_ptr(), out.data_ptr(),
-                     b * h * w1, radius,
-                     torch.cuda.current_stream().cuda_stream)
+        err = _lib(dtype)(ptrs, w2s, levels, coords.data_ptr(),
+                          out.data_ptr(), b * h * w1, radius,
+                          torch.cuda.current_stream().cuda_stream)
     _build.check(err, "corr_lookup")
     lookup_pyramid_fused.launches += 1
     return out

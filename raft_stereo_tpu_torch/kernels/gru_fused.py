@@ -9,8 +9,11 @@ JAX package's signature (NHWC activations, HWIO weights):
 
 On CUDA tensors it launches ``csrc/gru_gates.cu`` (two kernel launches
 per call: zr with r*h, then qpre); on CPU tensors it runs the plain
-version ``_gates_reference``.  The sigmoid/tanh/blend tail stays with the
-caller (models/update.py).  Inference only: there is no backward yet.
+version ``_gates_reference``.  Activations are fp32 or bf16; the weights
+are cast to that dtype (a no-op once the caller holds them cast) and the
+biases ride fp32, as the JAX op casts them.  The sigmoid/tanh/blend tail
+stays with the caller (models/update.py).  Inference only: there is no
+backward yet.
 """
 
 from __future__ import annotations
@@ -34,16 +37,27 @@ def _conv3x3_same(inp: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 
 def _gates_reference(h, x, cr, wzr, bzr, wq, bq):
-    """Plain version of the gate op."""
+    """Plain version of the gate op, with the kernel's rounding points:
+    weights cast to the activation dtype, convs and fp32 biases in fp32,
+    r from the unrounded zr, r*h rounded to the activation dtype before the
+    q conv, zr and qpre rounded once.  In fp32 every cast is a no-op."""
+    dt = h.dtype
     ch = h.shape[-1]
-    zr = _conv3x3_same(torch.cat([h, x], dim=-1), wzr) + bzr
-    r = torch.sigmoid(zr[..., ch:] + cr)
-    qpre = _conv3x3_same(torch.cat([r * h, x], dim=-1), wq) + bq
-    return zr, qpre
+    zr = (_conv3x3_same(torch.cat([h, x], dim=-1).float(), wzr.to(dt).float())
+          + bzr.float())
+    r = torch.sigmoid(zr[..., ch:] + cr.float())
+    rh = (r * h.float()).to(dt).float()
+    qpre = (_conv3x3_same(torch.cat([rh, x.float()], dim=-1),
+                          wq.to(dt).float()) + bq.float())
+    return zr.to(dt), qpre.to(dt)
 
 
-def _lib():
-    fn = _build.load("gru_gates").raft_gru_gates
+_ENTRIES = {torch.float32: "raft_gru_gates",
+            torch.bfloat16: "raft_gru_gates_bf16"}
+
+
+def _lib(dtype: torch.dtype):
+    fn = getattr(_build.load("gru_gates"), _ENTRIES[dtype])
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -57,11 +71,13 @@ def gru_gates_fused(h: torch.Tensor, x: torch.Tensor, cr: torch.Tensor,
 
     Args:
       h:  (B,H,W,Ch) hidden state;  x: (B,H,W,Cx) GRU inputs;
-      cr: (B,H,W,Ch) r-gate context bias;
-      wzr, bzr: (3,3,Ch+Cx,2Ch), (2Ch,);  wq, bq: (3,3,Ch+Cx,Ch), (Ch,).
+      cr: (B,H,W,Ch) r-gate context bias; all three fp32, or all bf16.
+      wzr, bzr: (3,3,Ch+Cx,2Ch), (2Ch,);  wq, bq: (3,3,Ch+Cx,Ch), (Ch,);
+      weights fp32 or in the activation dtype, biases fp32.
 
-    Returns (zr (B,H,W,2Ch), qpre (B,H,W,Ch)).  Counts its calls that
-    launch the kernel in ``gru_gates_fused.launches``."""
+    Returns (zr (B,H,W,2Ch), qpre (B,H,W,Ch)) in the activation dtype.
+    Counts its calls that launch the kernel in
+    ``gru_gates_fused.launches``."""
     if h.device.type == "cpu":
         return _gates_reference(h, x, cr, wzr, bzr, wq, bq)
     if h.device.type != "cuda":
@@ -74,28 +90,36 @@ def gru_gates_fused(h: torch.Tensor, x: torch.Tensor, cr: torch.Tensor,
               "bzr": (2 * ch,), "wq": (3, 3, cin, ch), "bq": (ch,)}
     args = {"h": h, "x": x, "cr": cr, "wzr": wzr, "bzr": bzr, "wq": wq,
             "bq": bq}
+    dt = h.dtype
+    if dt not in _ENTRIES:
+        raise TypeError(f"the gate kernel takes float32 or bfloat16; h is "
+                        f"{dt}")
+    allowed = {"h": (dt,), "x": (dt,), "cr": (dt,),
+               "wzr": (torch.float32, dt), "wq": (torch.float32, dt),
+               "bzr": (torch.float32,), "bq": (torch.float32,)}
     for name, t in args.items():
         if tuple(t.shape) != expect[name]:
             raise ValueError(f"{name} shape {tuple(t.shape)}, expected "
                              f"{expect[name]}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the gate kernel takes float32; {name} is "
-                            f"{t.dtype}")
+        if t.dtype not in allowed[name]:
+            raise TypeError(f"the gate kernel with {dt} activations takes "
+                            f"{name} in {allowed[name]}, got {t.dtype}")
         if t.device != h.device:
             raise ValueError("all gate operands must share one device")
     if ch % CHANNEL_MULTIPLE or cx % CHANNEL_MULTIPLE:
         raise ValueError(f"the gate kernel needs Ch ({ch}) and Cx ({cx}) "
                          f"to be multiples of {CHANNEL_MULTIPLE}")
-    args = {k: v.contiguous() for k, v in args.items()}
-    zr = torch.empty((b, hh, ww, 2 * ch), device=h.device,
-                     dtype=torch.float32)
-    qpre = torch.empty((b, hh, ww, ch), device=h.device, dtype=torch.float32)
+    args = {k: v.to(dt).contiguous() if k in ("wzr", "wq") else
+            v.contiguous() for k, v in args.items()}
+    zr = torch.empty((b, hh, ww, 2 * ch), device=h.device, dtype=dt)
+    qpre = torch.empty((b, hh, ww, ch), device=h.device, dtype=dt)
     rh = torch.empty_like(qpre)
     with torch.cuda.device(h.device):
-        err = _lib()(*(args[k].data_ptr() for k in
-                       ("h", "x", "cr", "wzr", "bzr", "wq", "bq")),
-                     zr.data_ptr(), qpre.data_ptr(), rh.data_ptr(),
-                     b, hh, ww, ch, cx, torch.cuda.current_stream().cuda_stream)
+        err = _lib(dt)(*(args[k].data_ptr() for k in
+                         ("h", "x", "cr", "wzr", "bzr", "wq", "bq")),
+                       zr.data_ptr(), qpre.data_ptr(), rh.data_ptr(),
+                       b, hh, ww, ch, cx,
+                       torch.cuda.current_stream().cuda_stream)
     _build.check(err, "gru_gates")
     gru_gates_fused.launches += 1
     return zr, qpre

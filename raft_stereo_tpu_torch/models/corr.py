@@ -4,12 +4,18 @@
     feats   = corr_fn(coords_x)                    # (B,H,W1) x-positions
     # feats: (B, H, W1, corr_levels * (2*radius+1)), level-major
 
-Backends of this slice:
+Backends:
 * ``reg``       — the all-pairs volume as a batched fp32 matmul, a W2
-                  average-pooled pyramid, and the plain window lookup.
-* ``reg_fused`` — the same volume and pyramid; the lookup goes through
-                  kernels/corr_lookup.py (the CUDA kernel on a CUDA tensor).
-``alt`` is rejected by the config (ROADMAP §D1).
+                  average-pooled pyramid, and the plain window lookup; fp32
+                  throughout.
+* ``reg_fused`` — the same fp32 volume, stored (and pooled) in the feature
+                  dtype; the lookup goes through kernels/corr_lookup.py (the
+                  CUDA kernel on a CUDA tensor).
+* ``alt``       — no volume: the right features are W-pooled in their own
+                  dtype and every lookup goes through kernels/corr_alt.py
+                  (the CUDA kernel on a CUDA tensor).
+``corr_fp32`` upcasts both feature maps to fp32 before any backend, as the
+JAX package does, so even the dtype-keeping backends run fp32.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Callable, List
 import torch
 
 from raft_stereo_tpu_torch.config import RaftStereoConfig
+from raft_stereo_tpu_torch.kernels.corr_alt import alt_lookup_fused
 from raft_stereo_tpu_torch.kernels.corr_lookup import (lookup_pyramid_fused,
                                                        lookup_pyramid_xla)
 
@@ -57,17 +64,31 @@ def build_corr_pyramid(corr: torch.Tensor, num_levels: int) -> List[torch.Tensor
     return pyramid
 
 
+def _make_corr_fn_alt(cfg: RaftStereoConfig, fmap1: torch.Tensor,
+                      fmap2: torch.Tensor) -> CorrFn:
+    f1 = fmap1.permute(0, 2, 3, 1).contiguous()      # (B,H,W1,D)
+    pyramid = [fmap2.permute(0, 2, 3, 1).contiguous()]
+    for _ in range(cfg.corr_levels - 1):
+        pyramid.append(pool_axis(pyramid[-1], axis=2).contiguous())
+
+    def corr_fn(coords: torch.Tensor) -> torch.Tensor:
+        return alt_lookup_fused(f1, pyramid, coords, cfg.corr_radius)
+
+    return corr_fn
+
+
 def make_corr_fn(cfg: RaftStereoConfig, fmap1: torch.Tensor,
                  fmap2: torch.Tensor) -> CorrFn:
-    if cfg.corr_backend not in ("reg", "reg_fused"):
-        raise NotImplementedError(
-            f"corr_backend={cfg.corr_backend!r} (ROADMAP.md §D1)")
-    # The volume is built in fp32 for every backend of this slice;
-    # ``corr_fp32`` matters only under mixed precision (ROADMAP.md §D1).
-    pyramid = build_corr_pyramid(
-        build_corr_volume(fmap1.float(), fmap2.float()), cfg.corr_levels)
-    lookup = (lookup_pyramid_fused if cfg.corr_backend == "reg_fused"
-              else lookup_pyramid_xla)
+    if cfg.corr_fp32:
+        fmap1, fmap2 = fmap1.float(), fmap2.float()
+    if cfg.corr_backend == "alt":
+        return _make_corr_fn_alt(cfg, fmap1, fmap2)
+    volume = build_corr_volume(fmap1.float(), fmap2.float())
+    if cfg.corr_backend == "reg_fused":
+        volume, lookup = volume.to(fmap1.dtype), lookup_pyramid_fused
+    else:
+        lookup = lookup_pyramid_xla
+    pyramid = build_corr_pyramid(volume, cfg.corr_levels)
 
     def corr_fn(coords: torch.Tensor) -> torch.Tensor:
         return lookup(pyramid, coords, cfg.corr_radius)

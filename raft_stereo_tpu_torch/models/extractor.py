@@ -3,7 +3,9 @@
 Module names follow the Flax paths of the JAX package (``trunk.conv1``,
 ``layer1_0.norm3``, ``outputs08_0_conv``, ...) so the weight bridge is a
 rename.  Convolutions pad symmetrically by ``k//2``, as torch's
-``padding=k//2`` and the JAX package's explicit padding tuples do.
+``padding=k//2`` and the JAX package's explicit padding tuples do, and
+compute in their input's dtype (bf16 under mixed precision), as Flax's
+``nn.Conv(dtype=...)`` does.
 """
 
 from __future__ import annotations
@@ -17,9 +19,21 @@ import torch.nn.functional as F
 from raft_stereo_tpu_torch.models.norm import make_norm
 
 
-def conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype: weight and bias are cast to it,
+    and the bias is added to the rounded conv output, as ``nn.Conv`` adds
+    it in the JAX package (in bf16 the two round separately).  The casts
+    are no-ops once ``RAFTStereo.cast_weights_`` has cast the parameters,
+    as an inference runner does once."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self._conv_forward(x, self.weight.to(x.dtype), None)
+        return y + self.bias.to(x.dtype)[:, None, None]
+
+
+def conv(cin: int, cout: int, kernel: int, stride: int = 1) -> Conv2d:
     """Conv with kaiming-normal(fan_out) weights and zero bias."""
-    c = nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2)
+    c = Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2)
     nn.init.kaiming_normal_(c.weight, mode="fan_out", nonlinearity="relu")
     nn.init.zeros_(c.bias)
     return c
@@ -90,15 +104,19 @@ class MultiBasicEncoder(nn.Module):
     """cnet: trunk + two extra stride-2 stages + per-level output heads.
 
     ``output_dims`` holds one FINE -> COARSE channel tuple per head.
-    Returns ``levels`` with ``levels[l]`` the list over heads of features
-    at 1/2^(downsample+l) resolution, for ``num_layers`` levels."""
+    Returns ``(levels, v)``: ``levels[l]`` the list over heads of features
+    at 1/2^(downsample+l) resolution, for ``num_layers`` levels, and ``v``
+    the trunk output of the whole batch.  With ``dual_inp`` the batch holds
+    both images and the heads see only its first half (the left images):
+    the shared backbone, whose ``v`` feeds the feature head."""
 
     def __init__(self, output_dims: Sequence[Tuple[int, ...]],
                  norm_fn: str = "batch", downsample: int = 3,
-                 num_layers: int = 3):
+                 num_layers: int = 3, dual_inp: bool = False):
         super().__init__()
         self.output_dims = [tuple(d) for d in output_dims]
         self.num_layers = num_layers
+        self.dual_inp = dual_inp
         self.trunk = Trunk(norm_fn, downsample)
         for h, dims in enumerate(self.output_dims):
             self.add_module(f"outputs08_{h}_res",
@@ -126,8 +144,11 @@ class MultiBasicEncoder(nn.Module):
             outs.append(getattr(self, f"outputs{tag}_{h}_conv")(y))
         return outs
 
-    def forward(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
-        x = self.trunk(x)
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[List[List[torch.Tensor]], torch.Tensor]:
+        x = v = self.trunk(x)
+        if self.dual_inp:
+            x = x[:x.shape[0] // 2]
         levels = [self._heads("08", x, True)]
         if self.num_layers >= 2:
             x = self.layer4_1(self.layer4_0(x))
@@ -135,4 +156,4 @@ class MultiBasicEncoder(nn.Module):
         if self.num_layers >= 3:
             x = self.layer5_1(self.layer5_0(x))
             levels.append(self._heads("32", x, False))
-        return levels
+        return levels, v

@@ -1,10 +1,20 @@
 """RAFT-Stereo, test-mode inference at fixed depth (NCHW inside).
 
 One forward: normalize both images; run cnet (frozen BN) on the left image
-and fnet (instance norm) on both as one batch; build the per-level GRU
-context biases; build the all-pairs volume and its pyramid; run ``iters``
-refinement iterations (pyramid lookup -> motion encoder -> three ConvGRUs
--> flow and mask heads -> x-only disparity update); convex-upsample once.
+and fnet (instance norm) on both as one batch, or, with
+``shared_backbone``, the cnet trunk on both images and the feature head
+(``conv2_res``, ``conv2_out``) on its output; build the per-level GRU
+context biases; build the correlation (volume and pyramid, or the pooled
+right features of ``alt``); run ``iters`` refinement iterations (lookup ->
+slow-fast coarse-only GRU steps when set -> motion encoder -> ConvGRUs ->
+flow and mask heads -> x-only disparity update); convex-upsample once.
+
+Under ``mixed_precision`` the images are cast to bf16 after normalization
+and the network runs in bf16, at the JAX package's cast points: the
+lookup output and the flow input of each iteration are cast to bf16, the
+disparity stays fp32 (``delta`` is upcast before it is added), and the
+final mask is upcast for the upsampling.  Parameters stay fp32 in the
+state dict; ``cast_weights_`` casts the convs of a copy once.
 
 Disparity is carried as a single x-channel field; the zero y-channel is
 built only for the motion encoder's 2-channel flow input.
@@ -20,9 +30,11 @@ import torch.nn.functional as F
 
 from raft_stereo_tpu_torch.config import RaftStereoConfig
 from raft_stereo_tpu_torch.models.corr import make_corr_fn
-from raft_stereo_tpu_torch.models.extractor import (BasicEncoder,
-                                                    MultiBasicEncoder, conv)
-from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock
+from raft_stereo_tpu_torch.models.extractor import (BasicEncoder, Conv2d,
+                                                    MultiBasicEncoder,
+                                                    ResidualBlock, conv)
+from raft_stereo_tpu_torch.models.update import (BasicMultiUpdateBlock,
+                                                 ConvGRU)
 from raft_stereo_tpu_torch.ops.grids import coords_grid_x
 from raft_stereo_tpu_torch.ops.upsample import convex_upsample
 
@@ -34,15 +46,37 @@ class RAFTStereo(nn.Module):
         self.cnet = MultiBasicEncoder(
             output_dims=(cfg.hidden_dims, cfg.context_dims),
             norm_fn=cfg.context_norm, downsample=cfg.n_downsample,
-            num_layers=cfg.n_gru_layers)
+            num_layers=cfg.n_gru_layers, dual_inp=cfg.shared_backbone)
         self.update_block = BasicMultiUpdateBlock(cfg)
         for l in range(cfg.n_gru_layers):
             self.add_module(f"context_zqr_conv{l}",
                             conv(cfg.context_dims[l], cfg.hidden_dims[l] * 3,
                                  3))
-        self.fnet = BasicEncoder(output_dim=cfg.fnet_dim,
-                                 norm_fn=cfg.fnet_norm,
-                                 downsample=cfg.n_downsample)
+        if cfg.shared_backbone:
+            self.conv2_res = ResidualBlock(128, 128, "instance", 1)
+            self.conv2_out = conv(128, cfg.fnet_dim, 3)
+        else:
+            self.fnet = BasicEncoder(output_dim=cfg.fnet_dim,
+                                     norm_fn=cfg.fnet_norm,
+                                     downsample=cfg.n_downsample)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.config.mixed_precision else torch.float32
+
+    def cast_weights_(self) -> "RAFTStereo":
+        """Cast every conv's weight and bias to the compute dtype, in place.
+        The ConvGRU gate biases stay fp32, as the gate kernel takes them;
+        norm parameters stay fp32.  For the model an inference runner holds,
+        so the convs do not cast their parameters on every call."""
+        keep = {id(p) for m in self.modules() if isinstance(m, ConvGRU)
+                for p in (m.convzr.bias, m.convq.bias)}
+        for m in self.modules():
+            if isinstance(m, Conv2d):
+                for p in (m.weight, m.bias):
+                    if id(p) not in keep:
+                        p.data = p.data.to(self.compute_dtype)
+        return self
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 iters: int = 12, flow_init: Optional[torch.Tensor] = None,
@@ -72,11 +106,19 @@ class RAFTStereo(nn.Module):
                 "confidence maps and hidden/ctx state carry are not ported "
                 "yet (ROADMAP.md §D3)")
         cfg = self.config
-        img1 = (2 * (image1.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
-        img2 = (2 * (image2.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
+        dtype = self.compute_dtype
+        img1 = (2 * (image1.float() / 255.0) - 1.0).to(dtype).permute(
+            0, 3, 1, 2)
+        img2 = (2 * (image2.float() / 255.0) - 1.0).to(dtype).permute(
+            0, 3, 1, 2)
 
-        levels = self.cnet(img1)
-        fmap1, fmap2 = torch.chunk(self.fnet(torch.cat([img1, img2])), 2)
+        if cfg.shared_backbone:
+            levels, v = self.cnet(torch.cat([img1, img2]))
+            fmap1, fmap2 = torch.chunk(self.conv2_out(self.conv2_res(v)), 2)
+        else:
+            levels, _ = self.cnet(img1)
+            fmap1, fmap2 = torch.chunk(self.fnet(torch.cat([img1, img2])),
+                                       2)
 
         # levels[l] = [hidden_head, context_head], fine -> coarse
         net = [torch.tanh(lv[0]) for lv in levels]
@@ -93,14 +135,23 @@ class RAFTStereo(nn.Module):
         corr_fn = make_corr_fn(cfg, fmap1, fmap2)
         grid_x = coords_grid_x(b, h8, w8, device=img1.device)
         mask = torch.zeros((b, cfg.mask_channels, h8, w8),
-                           device=img1.device)
+                           device=img1.device, dtype=dtype)
         zero = torch.zeros_like(disp)
+        n = cfg.n_gru_layers
         for _ in range(iters):
-            corr = corr_fn(grid_x + disp).permute(0, 3, 1, 2)
-            flow2 = torch.stack([disp, zero], dim=1)
-            net, mask, delta = self.update_block(net, context, corr, flow2)
+            corr = corr_fn(grid_x + disp).to(dtype).permute(0, 3, 1, 2)
+            flow2 = torch.stack([disp, zero], dim=1).to(dtype)
+            if n == 3 and cfg.slow_fast_gru:
+                net = self.update_block(net, context, iter_fine=False,
+                                        iter_mid=False, update=False)
+            if n >= 2 and cfg.slow_fast_gru:
+                net = self.update_block(net, context, iter_fine=False,
+                                        iter_coarse=(n == 3), update=False)
+            net, mask, delta = self.update_block(
+                net, context, corr, flow2, iter_mid=(n >= 2),
+                iter_coarse=(n == 3))
             # epipolar projection: only the x component updates
-            disp = disp + delta[:, 0]
-        flow_up = convex_upsample(disp[:, None], mask,
+            disp = disp + delta[:, 0].float()
+        flow_up = convex_upsample(disp[:, None], mask.float(),
                                   cfg.downsample_factor)[:, 0]
         return disp, flow_up

@@ -2,12 +2,13 @@
 
 Level 0 is the FINEST resolution (1/2^n_downsample); the reference's
 gru08/gru16/gru32 are levels 0/1/2.  The context biases (cz, cr, cq) are
-computed once per forward by the model and passed in per level.
+computed once per forward by the model and passed in per level.  Every
+op runs in the activations' dtype (bf16 under mixed precision).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -116,20 +117,27 @@ class BasicMultiUpdateBlock(nn.Module):
 
     def forward(self, net: Sequence[torch.Tensor],
                 context: Sequence[Tuple[torch.Tensor, ...]],
-                corr: torch.Tensor, flow: torch.Tensor
-                ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
-        """One update at every level, coarse to fine (gru32 -> gru16 ->
-        gru08).  Returns (net, mask, delta_flow)."""
+                corr: Optional[torch.Tensor] = None,
+                flow: Optional[torch.Tensor] = None,
+                iter_fine: bool = True, iter_mid: bool = True,
+                iter_coarse: bool = True, update: bool = True):
+        """One update, coarse to fine (gru32 -> gru16 -> gru08), of the
+        levels whose flag is set; ``iter_fine`` needs ``corr`` and
+        ``flow``.  Returns (net, mask, delta_flow), or only net when
+        ``update`` is False (the slow-fast schedule's coarse-only steps)."""
         n = self.n
         net = list(net)
-        if n == 3:
+        if iter_coarse and n == 3:
             net[2] = self.gru32(net[2], context[2], pool2x(net[1]))
-        if n >= 2:
+        if iter_mid and n >= 2:
             extra = [interp_like(net[2], net[1])] if n > 2 else []
             net[1] = self.gru16(net[1], context[1], pool2x(net[0]), *extra)
-        motion = self.encoder(flow, corr)
-        extra = [interp_like(net[1], net[0])] if n > 1 else []
-        net[0] = self.gru08(net[0], context[0], motion, *extra)
+        if iter_fine:
+            motion = self.encoder(flow, corr)
+            extra = [interp_like(net[1], net[0])] if n > 1 else []
+            net[0] = self.gru08(net[0], context[0], motion, *extra)
+        if not update:
+            return net
         delta_flow = self.flow_head(net[0])
         # mask scaled by 0.25 to balance gradients, as in the reference
         mask = 0.25 * self.mask_conv2(F.relu(self.mask_conv1(net[0])))

@@ -63,6 +63,17 @@ def test_pool2x(rng, hw):
                                **TOL)
 
 
+@pytest.mark.parametrize("hw", [(7, 9), (24, 78)])
+def test_pool2x_bf16_matches_jax_exactly(rng, hw):
+    """bf16 sums rounded after every add, in the JAX package's order."""
+    x = jnp.asarray(rng.standard_normal((2, *hw, 16)).astype(
+        np.float32)).astype(jnp.bfloat16)
+    want = np.asarray(jpooling.pool2x(x).astype(jnp.float32))
+    got = pooling.pool2x(_nchw(np.asarray(x.astype(jnp.float32))).bfloat16())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_nhwc(got.float()), want)
+
+
 @pytest.mark.parametrize("w", [39, 40, 1, 312])
 def test_pool_axis_odd_widths(rng, w):
     x = rng.standard_normal((2, 3, 5, w)).astype(np.float32)
@@ -85,6 +96,19 @@ def test_resize_align_corners(rng, src, dst):
     np.testing.assert_allclose(got, want, **TOL)
     dest = torch.zeros((2, 1, *dst))
     assert resize.interp_like(_nchw(x), dest).shape == (2, 3, *dst)
+
+
+def test_resize_align_corners_bf16_matches_jax_exactly(rng):
+    """In bf16 the interp matrices are rounded to bf16 and each axis pass
+    rounds its output, as in the JAX package: equal bit for bit."""
+    x = jnp.asarray(np.tanh(rng.standard_normal((1, 12, 20, 16))).astype(
+        np.float32)).astype(jnp.bfloat16)
+    want = np.asarray(jresize.resize_bilinear_align_corners(
+        x, (24, 40)).astype(jnp.float32))
+    got = resize.resize_bilinear_align_corners(
+        _nchw(np.asarray(x.astype(jnp.float32))).bfloat16(), (24, 40))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_nhwc(got.float()), want)
 
 
 def test_linear_sampler_out_of_range(rng):

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's main path goes, on the card.
 
-    python3 tools/torch_profile.py
+    python3 tools/torch_profile.py [--config default|realtime]
 
-Runs ``InferenceRunner`` on the default config (seeded random weights) on
-the main-path shape of chip_smoke.py (375x1242, 32 iterations) once
-to warm up, then once under ``torch.profiler``, and prints: the card, the
-wall seconds of the profiled call, the device time summed over all
-kernels and its share of the wall time, and the kernels that took the
-most device time (name, calls, total ms, share).  Needs a CUDA card;
-imports nothing of JAX.
+Runs ``InferenceRunner`` on a config (seeded random weights) on the
+main-path shape of chip_smoke.py (375x1242): the default config at 32
+iterations, or ``RaftStereoConfig.realtime()`` at its protocol depth of
+7.  It runs once to warm up, then once under ``torch.profiler``, and
+prints: the card, the wall seconds of the profiled call, the device time
+summed over all kernels and its share of the wall time, and the kernels
+that took the most device time (name, calls, total ms, share).  Needs a
+CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
@@ -21,12 +23,16 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-ITERS = 32
+ITERS = {"default": 32, "realtime": 7}
 HEIGHT, WIDTH = 375, 1242
 TOP = 15
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--config", choices=sorted(ITERS), default="default")
+    args = parser.parse_args(argv)
+    iters = ITERS[args.config]
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -43,8 +49,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     torch.manual_seed(0)
-    cfg = RaftStereoConfig()
-    runner = InferenceRunner(cfg, RAFTStereo(cfg), iters=ITERS,
+    cfg = getattr(RaftStereoConfig, args.config)()
+    runner = InferenceRunner(cfg, RAFTStereo(cfg), iters=iters,
                              device="cuda")
     rs = np.random.default_rng(0)
     left = rs.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)
@@ -65,7 +71,7 @@ def main() -> int:
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
     print(f"card: {card}")
-    print(f"main path {HEIGHT}x{WIDTH}, iters {ITERS}: "
+    print(f"{args.config} config {HEIGHT}x{WIDTH}, iters {iters}: "
           f"wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms "
           f"({100 * device_ms / wall_ms:.1f}% of wall)")
     print(f"{'device ms':>10} {'share':>6} {'calls':>6}  kernel")
