@@ -37,7 +37,30 @@ fails the run when it fails:
    ``corr_fp32`` on (16 alt launches in fp32);
 10. the realtime preset on the card and on the CPU at 128x256 and 2
    iterations, held to 3x the card's own spread between bf16 and fp32
-   correlation on the same input.
+   correlation on the same input;
+11. the backward kernels against their plain versions at the training
+   shapes: the lookup backward in fp32 (640 rows, W1 180, levels
+   180/90/45/22, and each level alone at 1/2^l), the alt backward in bf16
+   and fp32 (320 rows, W1 90, levels 90/45/22/11, D 256, and an odd
+   shape), and the gate Function's gradients against autograd through
+   its plain twin at gru08 (8, 80, 180, Cin 384);
+12. timings of the backward kernels as in phase 4, the yardstick being
+   the autograd backward of the ``F.grid_sample`` formulations;
+13. the default training step: ``train()`` with ``RaftStereoConfig()``
+   fp32 and ``TrainConfig()`` (batch 8, 320x720, 22 iterations) on a
+   seeded synthetic loader, one warm-up step and 3 timed steps; checks
+   22 lookups, 22 lookup backwards and 132 gate calls per step (66
+   forward, 66 in the remat recompute), finite loss and grad_norm, and
+   that the parameters moved; prints seconds per step and peak memory;
+14. the realtime training step the same way: 22 alt lookups, 22 alt
+   backwards and 132 gate calls per step, all bf16, and no pyramid
+   lookup;
+15. one step on the card and on the CPU at 64x128 and 2 iterations, of
+   the default config and of the realtime architecture in fp32 (which
+   drives the fp32 alt backward): loss and grad_norm within stated
+   tolerances, every gradient leaf within 3x the card's own spread on
+   the same step (cuDNN vs native convolutions, the gate kernel vs plain
+   gate convolutions, the weights moved by one fp32 ulp).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.  The fp32 path is full fp32:
@@ -85,6 +108,27 @@ BF16_GATES_ULPS = 2     # bf16 gates: two ulps + BF16_GATES_ATOL (r*h)
 BF16_ATOL = 1e-5
 BF16_GATES_ATOL = 1e-3  # a flip of r*h moves qpre by a weight x its ulp
 RT_SPREAD_FACTOR = 3.0  # phase 10
+# Training (phases 11-15): TrainConfig()'s batch and crop; feature maps at
+# 1/4 (default) and 1/8 (realtime).
+TRAIN_B, TRAIN_HW, TRAIN_ITERS = 8, (320, 720), 22
+TIMED_STEPS = 3
+LOOKUP_BWD_ATOL = 1e-6   # the same taps and products, at most 2 per bin
+ALT_BWD_RTOL = 1e-5      # fp32: of each gradient's scale (sum order)
+ALT_BWD_BF16_RTOL = 1e-5  # bf16: one ulp + this share of the scale
+GATES_BWD_RTOL = 1e-5    # the Function's VJP is the twin's autograd
+# Phase 15, card vs CPU after one step: loss and grad_norm relative, and
+# each gradient leaf over max(its scale, 1e-3 of the largest gradient),
+# held to STEP_SPREAD_FACTOR x the card's own spread on the same step,
+# and never below STEP_LEAF_RTOL (4x the JAX package's own spread in the
+# CPU tests).  The spread is the largest of: cuDNN's convolutions vs
+# native ones; the gate kernel vs the plain gate convolutions
+# (fused_gru="off"); and every weight moved by one fp32 ulp.  The fnet
+# gradients pass through instance norm's backward, whose cancellation
+# amplifies rounding: card vs CPU measured 3.6e-2 on fnet trunk weights of
+# the default step, where the first two spreads, which leave the
+# instance-norm reductions as they are, gave 9.0e-3.
+STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_LEAF_RTOL = 1e-4, 1e-3, 3e-2
+STEP_SPREAD_FACTOR = 3.0
 # Published peaks of the H100 SXM (NVIDIA data sheet, 700 W): memory
 # bytes/s, fp32 FLOP/s on the CUDA cores (no tensor cores: no TF32), and
 # dense bf16 FLOP/s on the tensor cores.
@@ -171,6 +215,23 @@ def alt_library(f1, pyramid, coords):
     return torch.cat(outs, dim=-1).reshape(b, h, w1, -1)
 
 
+def max_rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def leaf_errs(got, want):
+    """Gradient-leaf differences, largest first: (error, name), each over
+    max(the leaf's scale, 1e-3 of the largest gradient).  The floor keeps
+    conv biases in front of instance norm, whose gradient is rounding
+    noise, from dividing by it."""
+    scale = max(float(g.abs().max()) for g in want.values())
+    return sorted(((float((got[n] - g).abs().max())
+                    / max(float(g.abs().max()), 1e-3 * scale), n)
+                   for n, g in want.items()), reverse=True)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "raft_stereo_tpu_torch")):
         print("chip_smoke.py needs the raft_stereo_tpu_torch package beside "
@@ -186,18 +247,25 @@ def main() -> int:
         print("raft_stereo_tpu_torch resolved outside this checkout",
               file=sys.stderr)
         return 2
-    from raft_stereo_tpu_torch.config import RaftStereoConfig
+    from raft_stereo_tpu_torch.config import RaftStereoConfig, TrainConfig
+    from raft_stereo_tpu_torch.data.synthetic import SyntheticStereoLoader
     from raft_stereo_tpu_torch.eval.runner import InferenceRunner, full_fp32
     from raft_stereo_tpu_torch.kernels import _build
-    from raft_stereo_tpu_torch.kernels.corr_alt import (alt_lookup_fused,
-                                                        alt_lookup_xla)
+    from raft_stereo_tpu_torch.kernels.corr_alt import (
+        alt_lookup_bwd_fused, alt_lookup_bwd_xla, alt_lookup_fused,
+        alt_lookup_xla)
     from raft_stereo_tpu_torch.kernels.corr_lookup import (
+        lookup_pyramid_bwd_fused, lookup_pyramid_bwd_xla,
         lookup_pyramid_fused, lookup_pyramid_xla)
     from raft_stereo_tpu_torch.kernels.gru_fused import (_gates_reference,
+                                                         _gates_twin,
                                                          gru_gates_fused)
     from raft_stereo_tpu_torch.models.corr import (build_corr_pyramid,
                                                    pool_axis)
     from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
+    from raft_stereo_tpu_torch.training.state import create_train_state
+    from raft_stereo_tpu_torch.training.step import train_step
+    from raft_stereo_tpu_torch.training.train_loop import train
 
     # ------------------------------------------------------------ phase 1
     card = subprocess.run(
@@ -619,6 +687,315 @@ def main() -> int:
     if not rt_ok:
         raise AssertionError("realtime card and CPU disagree")
 
+    # ----------------------------------------------------------- phase 11
+    k = 2 * RADIUS + 1
+    tb, th, tw = TRAIN_B, TRAIN_HW[0] // 4, TRAIN_HW[1] // 4
+    tw2s = [tw // 2 ** i for i in range(LEVELS)]
+    tcoords = (torch.rand((tb, th, tw), generator=gen) * (tw + 20)
+               - 10).to(dev)
+    tg = torch.randn((tb, th, tw, LEVELS * k), generator=gen).to(dev)
+    got = lookup_pyramid_bwd_fused(tg, tcoords, tw2s, RADIUS, torch.float32)
+    torch.cuda.synchronize()
+    lookup_bwd_err = max(
+        float((a - b).abs().max()) for a, b in zip(
+            got, lookup_pyramid_bwd_xla(tg, tcoords, tw2s, RADIUS,
+                                        torch.float32)))
+    log(f"lookup backward, {tb * th} rows, W1 {tw}, levels {tw2s}: max "
+        f"|kernel - plain| = {lookup_bwd_err:.3e} (atol {LOOKUP_BWD_ATOL})")
+    for i, w2 in enumerate(tw2s):
+        args_ = (tg[..., i * k:(i + 1) * k].contiguous(), tcoords / 2 ** i,
+                 [w2], RADIUS, torch.float32)
+        one, = lookup_pyramid_bwd_fused(*args_)
+        torch.cuda.synchronize()
+        err = float((one - lookup_pyramid_bwd_xla(*args_)[0]).abs().max())
+        log(f"lookup backward, level {i} alone (W2 {w2}, scale 1/{2 ** i}): "
+            f"max |kernel - plain| = {err:.3e}")
+        lookup_bwd_err = max(lookup_bwd_err, err)
+    if not lookup_bwd_err <= LOOKUP_BWD_ATOL:
+        raise AssertionError(f"lookup backward disagrees: {lookup_bwd_err}")
+
+    def alt_bwd_case(dtype, b, h, w1, w2, d):
+        def feats(w):
+            return torch.randn((b, h, w, d), generator=gen).to(dev, dtype)
+
+        f1, pyr = feats(w1), [feats(w2)]
+        for _ in range(LEVELS - 1):
+            pyr.append(pool_axis(pyr[-1], axis=2).contiguous())
+        c = (torch.rand((b, h, w1), generator=gen) * (w2 + 20) - 10).to(dev)
+        g = torch.randn((b, h, w1, LEVELS * k), generator=gen).to(dev, dtype)
+        return f1, pyr, c, g
+
+    alt_bwd_cases, alt_bwd_err = {}, {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        worst, worst_abs, ok = 0.0, 0.0, True
+        for shape in ((tb, th // 2, tw // 2, tw // 2, RT_D),
+                      (1, 3, 37, 43, 64)):
+            case = alt_bwd_case(dtype, *shape)
+            if shape[0] == tb:
+                alt_bwd_cases[tag] = case
+            df1, df2 = alt_lookup_bwd_fused(*case, RADIUS)
+            torch.cuda.synchronize()
+            again = alt_lookup_bwd_fused(*case, RADIUS)
+            same = torch.equal(again[0], df1) and all(
+                torch.equal(a, b_) for a, b_ in zip(again[1], df2))
+            want1, want2 = alt_lookup_bwd_xla(*case, RADIUS)
+            for got_, want_ in [(df1, want1)] + list(zip(df2, want2)):
+                if got_.dtype != dtype:
+                    raise AssertionError(f"alt backward returned {got_.dtype}")
+                scale = float(want_.float().abs().max())
+                if dtype == torch.float32:
+                    err_abs = float((got_ - want_).abs().max())
+                    ok_ = err_abs <= ALT_BWD_RTOL * scale
+                else:
+                    err_abs, ok_ = bf16_ulp_error(got_, want_, BF16_ULPS,
+                                                  ALT_BWD_BF16_RTOL * scale)
+                worst = max(worst, err_abs / scale)
+                worst_abs = max(worst_abs, err_abs)
+                ok = ok and ok_ and same
+            log(f"alt backward {tag}, (B,H,W1,W2,D) {shape}: worst |kernel - "
+                f"plain| / scale = {worst:.3e}; a second launch bitwise "
+                f"equal: {same}")
+        alt_bwd_err[tag] = worst_abs
+        tol = (f"{ALT_BWD_RTOL} of the scale" if tag == "fp32" else
+               f"{BF16_ULPS} bf16 ulp + {ALT_BWD_BF16_RTOL} of the scale")
+        log(f"alt backward {tag}: worst {worst:.3e} of the scale, "
+            f"{worst_abs:.3e} absolute ({tol}): "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"alt backward ({tag}) disagrees: {worst}")
+
+    cin = CH + 256
+    ws = (2 / (9 * cin)) ** 0.5
+
+    def leaf(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(
+            dev).requires_grad_()
+
+    gargs = (leaf(tb, th, tw, CH), leaf(tb, th, tw, 256), leaf(tb, th, tw, CH),
+             leaf(3, 3, cin, 2 * CH, scale=ws), leaf(2 * CH, scale=0.1),
+             leaf(3, 3, cin, CH, scale=ws), leaf(CH, scale=0.1))
+    gouts = gru_gates_fused(*gargs)
+    if any(o.grad_fn is None for o in gouts):
+        raise AssertionError("gate outputs carry no grad_fn on the card")
+    ggrads = [torch.randn(o.shape, generator=gen).to(dev) for o in gouts]
+    got = torch.autograd.grad(gouts, gargs, ggrads)
+    want = torch.autograd.grad(_gates_twin(*gargs), gargs, ggrads)
+    gates_bwd_err = max(max_rel_err(a, b_) for a, b_ in zip(got, want))
+    log(f"gate Function gradients, gru08 ({tb},{th},{tw}) Cin {cin}: max "
+        f"|Function - autograd of the twin| / scale = {gates_bwd_err:.3e} "
+        f"(rtol {GATES_BWD_RTOL})")
+    if not gates_bwd_err <= GATES_BWD_RTOL:
+        raise AssertionError(f"gate gradients disagree: {gates_bwd_err}")
+    del gargs, gouts, ggrads, got, want
+
+    # ----------------------------------------------------------- phase 12
+    n_pix = tb * th * tw
+    srcs = [torch.zeros((n_pix, 1, 1, w2), device=dev, requires_grad=True)
+            for w2 in tw2s]
+    lib_out = []
+    for i, (src, w2) in enumerate(zip(srcs, tw2s)):
+        x = tcoords[..., None] / 2 ** i + taps
+        gx = (2 * x / (w2 - 1) - 1).reshape(-1, 1, k, 1)
+        grid = torch.cat([gx, torch.zeros_like(gx)], dim=-1)
+        lib_out.append(F.grid_sample(src, grid, mode="bilinear",
+                                     padding_mode="zeros", align_corners=True))
+    lib_out = torch.cat(lib_out, dim=-1)
+    lib_g = tg.reshape(n_pix, 1, 1, LEVELS * k)
+
+    def lookup_bwd_library():
+        return torch.autograd.grad(lib_out, srcs, lib_g, retain_graph=True)
+
+    lib_err = max(float((a.reshape(b_.shape) - b_).abs().max()) for a, b_ in
+                  zip(lookup_bwd_library(), lookup_pyramid_bwd_xla(
+                      tg, tcoords, tw2s, RADIUS, torch.float32)))
+    lbwd_ms = time_ms(lambda: lookup_pyramid_bwd_fused(
+        tg, tcoords, tw2s, RADIUS, torch.float32), flush)
+    lbwd_plain = time_ms(lambda: lookup_pyramid_bwd_xla(
+        tg, tcoords, tw2s, RADIUS, torch.float32), flush)
+    lbwd_lib = time_ms(lookup_bwd_library, flush)
+    lbwd_bytes = n_pix * (sum(tw2s) * 4 + LEVELS * k * 4 + 4)
+    lbwd_bound = lbwd_bytes / MEM_RATE * 1e3
+    log(f"lookup backward timing: kernel {lbwd_ms:.4f} ms, plain "
+        f"{lbwd_plain:.4f} ms, grid_sample backward x4 {lbwd_lib:.4f} ms "
+        f"(max |library - plain| {lib_err:.3e}), bound {lbwd_bound:.5f} ms "
+        f"(bytes: {lbwd_bytes / 1e6:.1f} MB)")
+    del srcs, lib_out
+
+    alt_bwd_time = {}
+    for tag, (f1, pyr, c, g) in alt_bwd_cases.items():
+        f1l = f1.float().detach().requires_grad_()
+        pyrl = [v.float().detach().requires_grad_() for v in pyr]
+        lib_out = alt_library(f1l, pyrl, c)
+
+        def alt_bwd_library():
+            return torch.autograd.grad(lib_out, [f1l] + pyrl, g.float(),
+                                       retain_graph=True)
+
+        ms = time_ms(lambda: alt_lookup_bwd_fused(f1, pyr, c, g, RADIUS),
+                     flush)
+        plain = time_ms(lambda: alt_lookup_bwd_xla(f1, pyr, c, g, RADIUS),
+                        flush)
+        lib = time_ms(alt_bwd_library, flush)
+        item = f1.element_size()
+        feats = f1.numel() + sum(v.numel() for v in pyr)
+        nbytes = 2 * feats * item + g.numel() * item + c.numel() * 4
+        bins = window_bins(c, [v.shape[2] for v in pyr])
+        flops = 4 * RT_D * bins
+        bytes_ms, ops_ms = nbytes / MEM_RATE * 1e3, flops / FP32_RATE * 1e3
+        alt_bwd_time[tag] = (ms, plain, lib, max(bytes_ms, ops_ms),
+                             "bytes" if bytes_ms >= ops_ms else "operations")
+        log(f"alt backward {tag} timing: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, grid_sample formulation backward {lib:.4f} ms, "
+            f"bound {max(bytes_ms, ops_ms):.5f} ms ({nbytes / 1e6:.2f} MB: "
+            f"{bytes_ms:.5f} ms; {flops / 1e6:.1f} MFLOP at the fp32 rate: "
+            f"{ops_ms:.5f} ms)")
+        del lib_out
+
+    # ------------------------------------------------------ phases 13, 14
+    def counts():
+        return {"lookup": lookup_pyramid_fused.launches,
+                "lookup_bwd": lookup_pyramid_bwd_fused.launches,
+                "gates": gru_gates_fused.launches,
+                "alt": alt_lookup_fused.launches,
+                "alt_bwd": alt_lookup_bwd_fused.launches}
+
+    def zero_counts():
+        for fn in (lookup_pyramid_fused, lookup_pyramid_bwd_fused,
+                   gru_gates_fused, alt_lookup_fused, alt_lookup_bwd_fused):
+            fn.launches = 0
+
+    def drive_training(model_cfg, what):
+        """``train()`` on the card: a warm-up step, then TIMED_STEPS steps
+        with the launch counts zeroed before them; seconds per step from
+        a synchronised host clock at every batch the loop takes."""
+        train_cfg = dataclasses.replace(
+            TrainConfig(), batch_size=TRAIN_B, image_size=TRAIN_HW,
+            train_iters=TRAIN_ITERS)
+        src = SyntheticStereoLoader(train_cfg.batch_size,
+                                    train_cfg.image_size, seed=SEED)
+        batches = [src.batch(i) for i in range(1 + TIMED_STEPS)]
+        marks = []
+
+        def loader():
+            for i, b in enumerate(batches):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                if i == 1:
+                    zero_counts()
+                    torch.cuda.reset_peak_memory_stats()
+                yield b
+
+        seen = []
+        state = train(model_cfg, train_cfg, loader(), device=dev,
+                      on_step=lambda s, m: seen.append(
+                          {k_: float(v) for k_, v in m.items()}))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        launched = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = [marks[i + 1] - marks[i] for i in range(1, 1 + TIMED_STEPS)]
+        start = create_train_state(model_cfg, train_cfg, "cpu",
+                                   seed=train_cfg.seed).model.state_dict()
+        moved = max(float((p.detach().cpu() - start[n]).abs().max())
+                    for n, p in state.model.named_parameters())
+        log(f"{what} training step, batch {train_cfg.batch_size}, "
+            f"{train_cfg.image_size[0]}x{train_cfg.image_size[1]}, iters "
+            f"{train_cfg.train_iters}: seconds per step median "
+            f"{statistics.median(steps):.4f} (steps {[round(t, 4) for t in steps]}"
+            f"; warm-up {marks[1] - marks[0]:.3f}), peak memory {peak:.2f} "
+            f"GiB, launches over {TIMED_STEPS} steps {launched}; losses "
+            f"{[round(m['loss'], 4) for m in seen]}, grad_norms "
+            f"{[round(m['grad_norm'], 3) for m in seen]}; largest "
+            f"parameter move {moved:.3e}")
+        if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                   for m in seen) or len(seen) != 1 + TIMED_STEPS:
+            raise AssertionError(f"{what}: bad metrics {seen}")
+        if not moved > 0:
+            raise AssertionError(f"{what}: the parameters did not move")
+        return launched, statistics.median(steps), peak
+
+    iters_t = TRAIN_ITERS
+    train_launches, train_s, train_peak = drive_training(
+        RaftStereoConfig(), "default")
+    want = {"lookup": iters_t, "lookup_bwd": iters_t, "gates": 6 * iters_t,
+            "alt": 0, "alt_bwd": 0}
+    if train_launches != {n: TIMED_STEPS * v for n, v in want.items()}:
+        raise AssertionError(f"default training launches {train_launches}")
+    log(f"default training: lookup backward kernel share of the step "
+        f"~{100 * iters_t * lbwd_ms / 1e3 / train_s:.1f}% ({iters_t} x "
+        f"{lbwd_ms:.4f} ms with L2 flushed)")
+
+    rt_train_launches, rt_train_s, rt_train_peak = drive_training(
+        RaftStereoConfig.realtime(), "realtime")
+    want = {"lookup": 0, "lookup_bwd": 0, "gates": 6 * iters_t,
+            "alt": iters_t, "alt_bwd": iters_t}
+    if rt_train_launches != {n: TIMED_STEPS * v for n, v in want.items()}:
+        raise AssertionError(f"realtime training launches "
+                             f"{rt_train_launches}")
+    log(f"realtime training: alt backward kernel share of the step "
+        f"~{100 * iters_t * alt_bwd_time['bf16'][0] / 1e3 / rt_train_s:.1f}%")
+
+    # ----------------------------------------------------------- phase 15
+    small_tc = TrainConfig(batch_size=1, train_iters=2, image_size=(64, 128))
+    small_batch = SyntheticStereoLoader(1, (64, 128), seed=SEED).batch(0)
+    step_launches = {}
+    for what, cfg_ in (("default", RaftStereoConfig()),
+                       ("realtime fp32", dataclasses.replace(
+                           RaftStereoConfig.realtime(),
+                           mixed_precision=False))):
+        weights = create_train_state(cfg_, small_tc, "cpu",
+                                     seed=SEED).model.state_dict()
+        def one_step(dev_, cfg__=cfg_, w=weights):
+            st = create_train_state(cfg__, small_tc, dev_, state_dict=w)
+            st, m = train_step(st, small_batch, iters=2, loss_gamma=0.9,
+                               max_flow=700.0)
+            return ({k_: float(v) for k_, v in m.items()},
+                    {n: p.grad.detach().cpu() for n, p in
+                     st.model.named_parameters()})
+
+        cm, cg = one_step(torch.device("cpu"))
+        zero_counts()
+        gm, gg = one_step(dev)
+        step_launches[what] = counts()
+        with torch.backends.cudnn.flags(enabled=False):
+            _, native_g = one_step(dev)
+        _, plain_g = one_step(dev, dataclasses.replace(cfg_,
+                                                       fused_gru="off"))
+        ulp_gen = torch.Generator().manual_seed(SEED)
+        moved = {n: t * (1 + 2.0 ** -23 * (2 * torch.randint(
+                     0, 2, t.shape, generator=ulp_gen) - 1))
+                 for n, t in weights.items()}
+        _, ulp_g = one_step(dev, w=moved)
+        loss_err = abs(gm["loss"] - cm["loss"]) / cm["loss"]
+        norm_err = abs(gm["grad_norm"] - cm["grad_norm"]) / cm["grad_norm"]
+        gaps = leaf_errs(gg, cg)
+        spreads = {"cuDNN vs native convs": leaf_errs(native_g, gg),
+                   "gate kernel vs plain gate convs": leaf_errs(plain_g, gg),
+                   "weights moved by one ulp": leaf_errs(ulp_g, gg)}
+        spread = max(v[0][0] for v in spreads.values())
+        leaf_limit = max(STEP_LEAF_RTOL, STEP_SPREAD_FACTOR * spread)
+        ok = (loss_err <= STEP_LOSS_RTOL and norm_err <= STEP_NORM_RTOL
+              and gaps[0][0] <= leaf_limit)
+
+        def top(errs):
+            return ", ".join(f"{n} {e:.2e}" for e, n in errs[:3])
+
+        log(f"card vs CPU, one {what} step, 64x128, iters 2: loss "
+            f"{gm['loss']:.6f} vs {cm['loss']:.6f} (rel {loss_err:.2e}, "
+            f"limit {STEP_LOSS_RTOL}), grad_norm {gm['grad_norm']:.5f} vs "
+            f"{cm['grad_norm']:.5f} (rel {norm_err:.2e}, limit "
+            f"{STEP_NORM_RTOL}), largest leaf differences [{top(gaps)}] "
+            f"against the card's own spread {spread:.3e} (limit "
+            f"{leaf_limit:.3e}); card launches {step_launches[what]}: "
+            f"{'ok' if ok else 'FAILED'}")
+        for name_, errs in spreads.items():
+            log(f"  card spread, {name_}: [{top(errs)}]")
+        if not ok:
+            raise AssertionError(f"{what} step: card and CPU disagree")
+    if step_launches["realtime fp32"]["alt_bwd"] != 2:
+        raise AssertionError("the realtime fp32 step must launch the fp32 "
+                             "alt backward twice")
+
     kernels = [
         {"name": "corr_lookup", "route": "cuda",
          "source": "raft_stereo_tpu_torch/csrc/corr_lookup.cu",
@@ -654,6 +1031,31 @@ def main() -> int:
          "ms": alt_time["fp32"][0], "plain_ms": alt_time["fp32"][1],
          "bound_ms": alt_time["fp32"][3], "bound_by": alt_time["fp32"][4],
          "library_ms": alt_time["fp32"][2]},
+        {"name": "corr_lookup_bwd", "route": "cuda",
+         "source": "raft_stereo_tpu_torch/csrc/corr_lookup.cu",
+         "replaces": "raft_stereo_tpu/kernels/corr_lookup.py:304",
+         "launches": train_launches["lookup_bwd"],
+         "max_abs_err": lookup_bwd_err, "ms": lbwd_ms,
+         "plain_ms": lbwd_plain, "bound_ms": lbwd_bound, "bound_by": "bytes",
+         "library_ms": lbwd_lib},
+        {"name": "corr_alt_bwd", "route": "cuda",
+         "source": "raft_stereo_tpu_torch/csrc/corr_alt.cu",
+         "replaces": "raft_stereo_tpu/kernels/corr_alt.py:90",
+         "launches": rt_train_launches["alt_bwd"],
+         "max_abs_err": alt_bwd_err["bf16"], "ms": alt_bwd_time["bf16"][0],
+         "plain_ms": alt_bwd_time["bf16"][1],
+         "bound_ms": alt_bwd_time["bf16"][3],
+         "bound_by": alt_bwd_time["bf16"][4],
+         "library_ms": alt_bwd_time["bf16"][2]},
+        {"name": "corr_alt_bwd_fp32", "route": "cuda",
+         "source": "raft_stereo_tpu_torch/csrc/corr_alt.cu",
+         "replaces": "raft_stereo_tpu/kernels/corr_alt.py:90",
+         "launches": step_launches["realtime fp32"]["alt_bwd"],
+         "max_abs_err": alt_bwd_err["fp32"], "ms": alt_bwd_time["fp32"][0],
+         "plain_ms": alt_bwd_time["fp32"][1],
+         "bound_ms": alt_bwd_time["fp32"][3],
+         "bound_by": alt_bwd_time["fp32"][4],
+         "library_ms": alt_bwd_time["fp32"][2]},
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

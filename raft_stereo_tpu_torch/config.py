@@ -2,12 +2,13 @@
 
 A copy of ``RaftStereoConfig`` with every field of the JAX package's
 dataclass, so one ``config.json`` describes a model in either package.
-The port runs fixed-depth, test-mode inference of the default and the
+The port runs fixed-depth inference and training of the default and the
 realtime architectures: every correlation backend, the shared backbone,
-the slow-fast GRU schedule, and fp32 or bf16 (``mixed_precision``) with
-``corr_fp32``.  Every option outside that raises ``NotImplementedError``
-at construction, naming the ROADMAP item that will bring it, so no
-setting is silently ignored.
+the slow-fast GRU schedule, fp32 or bf16 (``mixed_precision``) with
+``corr_fp32``, and ``remat_gru`` with the lookup saved or recomputed.
+``TrainConfig`` is likewise a copy of the JAX package's.  Every option
+outside that raises ``NotImplementedError`` at construction, naming the
+ROADMAP item that will bring it, so no setting is silently ignored.
 
 Convention: ``hidden_dims[0]`` is the FINEST GRU level (1/2^n_downsample
 resolution) and ``hidden_dims[-1]`` the coarsest, as in the JAX package.
@@ -55,7 +56,9 @@ class RaftStereoConfig:
     # every level (the CUDA kernel on a CUDA tensor, its plain version on
     # a CPU tensor); "off": the plain conv path.
     fused_gru: str = "auto"
-    # Training-only knobs: inference never reads them.
+    # Training-only knobs: inference never reads them.  ``remat_gru``
+    # recomputes each GRU iteration in the backward; ``remat_save`` may
+    # be ("corr_lookup",) (the lookup output is kept) or ().
     remat_gru: bool = True
     remat_save: Tuple[str, ...] = ("corr_lookup",)
     banded_encoder: bool = False
@@ -173,5 +176,89 @@ def _unsupported(cfg: RaftStereoConfig):
         ("rows_gru", "§D7 parallel executors", cfg.rows_gru),
         ("corr_w2_shards > 1", "§D7 parallel executors",
          cfg.corr_w2_shards > 1),
+        ("remat_save other than ('corr_lookup',) or ()",
+         "§D2 training (selective checkpointing)",
+         cfg.remat_save not in (("corr_lookup",), ())),
+    )
+    return [(field, item) for field, item, on in checks if on]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyper-parameters, field for field the JAX package's
+    ``TrainConfig`` (reference: train_stereo.py:221-247).
+
+    The port's training loop (training/train_loop.py) reads the optimizer,
+    loss, step-count and checkpoint fields; the augmentation and dataset
+    fields belong to the data layer (ROADMAP.md §D4) and are carried for
+    ``train_config.json`` round trips.  Options whose machinery is not
+    ported raise ``NotImplementedError`` at construction."""
+
+    batch_size: int = 8
+    train_iters: int = 22
+    valid_iters: int = 32
+    lr: float = 2e-4
+    num_steps: int = 200_000
+    wdecay: float = 1e-5
+    epsilon: float = 1e-8
+    clip_grad_norm: float = 1.0
+    image_size: Tuple[int, int] = (320, 720)
+    train_datasets: Tuple[str, ...] = ("sceneflow",)
+    loss_gamma: float = 0.9
+    max_flow: float = 700.0
+    img_gamma: Optional[Tuple[float, float]] = None
+    saturation_range: Optional[Tuple[float, float]] = None
+    do_flip: Optional[str] = None
+    spatial_scale: Tuple[float, float] = (-0.2, 0.4)
+    noyjitter: bool = False
+    device_photometric: bool = False
+    # flow ships fp16 and valid uint8; the step casts both to fp32
+    compact_upload: bool = True
+    # the step also returns the mean |disparity update| per iteration
+    gru_telemetry: bool = False
+    trace_sample_rate: float = 0.0
+    validation_frequency: int = 10_000
+    seed: int = 1234
+    data_parallel: int = 0
+    anomaly_policy: bool = False
+    anomaly_spike_factor: float = 0.0
+    anomaly_ewma_beta: float = 0.98
+    anomaly_rewind_after: int = 3
+    anomaly_max_rewinds: int = 2
+    checkpoint_keep: int = 0
+
+    def __post_init__(self):
+        for field, roadmap_item in _unsupported_training(self):
+            raise NotImplementedError(
+                f"{field} is not ported to the PyTorch package yet "
+                f"(ROADMAP.md {roadmap_item})")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TrainConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        d = dict(d)
+        for k in ("image_size", "train_datasets", "img_gamma",
+                  "saturation_range", "spatial_scale"):
+            if k in d and isinstance(d[k], list):
+                d[k] = tuple(d[k])
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+def _unsupported_training(cfg: TrainConfig):
+    """(field, ROADMAP item) for every set training option not ported."""
+    checks = (
+        ("device_photometric", "§D2 training (device jitter)",
+         cfg.device_photometric),
+        ("anomaly_policy", "§D2 training (anomaly gate and rewind)",
+         cfg.anomaly_policy),
+        ("data_parallel > 1", "§D7 parallel executors",
+         cfg.data_parallel > 1),
+        ("trace_sample_rate > 0", "§D2 training (telemetry)",
+         cfg.trace_sample_rate > 0),
+        ("checkpoint_keep > 0", "§D2 training (checkpoint manifest, latest "
+         "and pruning)", cfg.checkpoint_keep > 0),
     )
     return [(field, item) for field, item, on in checks if on]

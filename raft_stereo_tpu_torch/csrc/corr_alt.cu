@@ -59,6 +59,7 @@ struct Vec<float> {
     v[3] = q.w;
   }
   __device__ static float round(float x) { return x; }
+  __device__ static float to_float(float x) { return x; }
 };
 
 template <>
@@ -79,6 +80,9 @@ struct Vec<__nv_bfloat16> {
   }
   __device__ static __nv_bfloat16 round(float x) {
     return __float2bfloat16_rn(x);
+  }
+  __device__ static float to_float(__nv_bfloat16 x) {
+    return __bfloat162float(x);
   }
 };
 
@@ -205,6 +209,164 @@ int launch(const void* f1, const void* const* f2s, const int* w2s,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+struct GradLevels {
+  T* df2[kMaxLevels];
+  int w2[kMaxLevels];
+  int offset[kMaxLevels];  // first bin of level l in the block's df2
+};
+
+constexpr int kBwdChannels = 32;  // channels per block, one per lane
+constexpr int kBwdTile = 32;      // pixels per tile, one per lane
+
+// Shared bytes of one backward block: the row's df2 of every level, the
+// levels' df1 partials of a tile, and the tile's window weights and bases.
+inline size_t bwd_smem_bytes(int wsum, int levels, int radius) {
+  const int max_bins = 2 * radius + 4;
+  return sizeof(float) * ((size_t)wsum * kBwdChannels +
+                          (size_t)levels * kBwdTile * kBwdChannels +
+                          (size_t)levels * kBwdTile * max_bins) +
+         sizeof(int) * 2 * (size_t)levels * kBwdTile;
+}
+
+template <typename T>
+__global__ void corr_alt_bwd_kernel(const T* __restrict__ f1, Levels<T> lv,
+                                    GradLevels<T> glv, int levels, int wsum,
+                                    const float* __restrict__ coords,
+                                    const T* __restrict__ g,
+                                    T* __restrict__ df1, int w1, int d,
+                                    int radius, float scale) {
+  extern __shared__ float smem[];
+  const int max_bins = 2 * radius + 4;
+  const int taps = 2 * radius + 1;
+  const int l = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long row = blockIdx.x;
+  const int ch = blockIdx.y * kBwdChannels + lane;
+  const bool has_ch = ch < d;
+  const int w2 = lv.w2[l];
+  float* acc2 = smem + (size_t)glv.offset[l] * kBwdChannels;  // [w2][32]
+  float* part = smem + (size_t)wsum * kBwdChannels;       // [L][tile][32]
+  float* wts = part + (size_t)levels * kBwdTile * kBwdChannels;
+  int* base = reinterpret_cast<int*>(wts + (size_t)levels * kBwdTile *
+                                               max_bins);  // [L][tile]
+  int* nbins = base + levels * kBwdTile;                   // [L][tile]
+  for (int b = 0; b < w2; ++b) acc2[b * kBwdChannels + lane] = 0.f;
+  const T* f2 = lv.f2[l] + row * (long long)w2 * d;
+
+  for (int p0 = 0; p0 < w1; p0 += kBwdTile) {
+    // Window weights of pixel p0 + lane at this warp's level.
+    {
+      const int p = p0 + lane;
+      float* w = wts + (size_t)(l * kBwdTile + lane) * max_bins;
+      int b0 = 0, nb = 0;
+      if (p < w1) {
+        const long long pix = row * w1 + p;
+        const float xc = ldexpf(coords[pix], -l);
+        if (xc > -(float)(radius + 2) && xc < (float)(w2 + radius + 1)) {
+          b0 = (int)floorf(xc + (float)(-radius));
+          nb = min((int)floorf(xc + (float)radius) + 2 - b0, max_bins);
+          for (int j = 0; j < max_bins; ++j) w[j] = 0.f;
+          const T* gp = g + pix * (long long)(levels * taps) + l * taps;
+          for (int k = 0; k < taps; ++k) {
+            const float x = xc + (float)(k - radius);
+            const float x0 = floorf(x);
+            const float t = x - x0;
+            const float gk = Vec<T>::to_float(gp[k]);
+            const int j0 = (int)x0 - b0;
+            if (x0 >= 0.f && x0 <= (float)(w2 - 1) && j0 >= 0 && j0 < nb)
+              w[j0] += (1.f - t) * gk;
+            if (x0 + 1.f >= 0.f && x0 + 1.f <= (float)(w2 - 1) &&
+                j0 + 1 >= 0 && j0 + 1 < nb)
+              w[j0 + 1] += t * gk;
+          }
+        }
+      }
+      base[l * kBwdTile + lane] = b0;
+      nbins[l * kBwdTile + lane] = nb;
+    }
+    __syncwarp();
+    // Lane = channel: walk the tile's pixels and their bins in order.
+    for (int j = 0; j < kBwdTile && p0 + j < w1; ++j) {
+      const int nb = nbins[l * kBwdTile + j];
+      float a = 0.f;
+      if (nb > 0 && has_ch) {
+        const int b0 = base[l * kBwdTile + j];
+        const float* w = wts + (size_t)(l * kBwdTile + j) * max_bins;
+        const float v1 =
+            Vec<T>::to_float(f1[(row * w1 + p0 + j) * (long long)d + ch]);
+        for (int b = 0; b < nb; ++b) {
+          const int bin = b0 + b;
+          if (bin < 0 || bin >= w2) continue;
+          const float wb = w[b];
+          a = fmaf(wb, Vec<T>::to_float(f2[(long long)bin * d + ch]), a);
+          float* acc = acc2 + bin * kBwdChannels + lane;
+          *acc = fmaf(wb, v1, *acc);
+        }
+      }
+      part[(l * kBwdTile + j) * kBwdChannels + lane] = a;
+    }
+    __syncthreads();
+    // df1 of the tile: the levels' partials summed in level order.
+    for (int i = threadIdx.x; i < kBwdTile * kBwdChannels; i += blockDim.x) {
+      const int j = i / kBwdChannels;
+      const int c = blockIdx.y * kBwdChannels + i % kBwdChannels;
+      if (p0 + j < w1 && c < d) {
+        float sum = 0.f;
+        for (int m = 0; m < levels; ++m)
+          sum += part[(m * kBwdTile + j) * kBwdChannels + i % kBwdChannels];
+        df1[(row * w1 + p0 + j) * (long long)d + c] =
+            Vec<T>::round(sum * scale);
+      }
+    }
+    __syncthreads();  // the next tile rewrites the partials
+  }
+  // This warp's level of df2 for row r, written once.
+  if (has_ch) {
+    T* out = glv.df2[l] + row * (long long)w2 * d;
+    for (int b = 0; b < w2; ++b)
+      out[(long long)b * d + ch] = Vec<T>::round(acc2[b * kBwdChannels + lane] *
+                                                 scale);
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* f1, const void* const* f2s, void* const* df2s,
+               const int* w2s, int levels, const float* coords,
+               const void* g, void* df1, long long rows, int w1, int d,
+               int radius, float scale, void* stream) {
+  if (levels < 1 || levels > kMaxLevels || radius < 0 ||
+      radius > kMaxRadius || w1 < 1 || d < 1)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
+  Levels<T> lv = {};
+  GradLevels<T> glv = {};
+  int wsum = 0;
+  for (int l = 0; l < levels; ++l) {
+    lv.f2[l] = static_cast<const T*>(f2s[l]);
+    lv.w2[l] = w2s[l];
+    glv.df2[l] = static_cast<T*>(df2s[l]);
+    glv.w2[l] = w2s[l];
+    glv.offset[l] = wsum;
+    wsum += w2s[l];
+  }
+  const size_t smem = bwd_smem_bytes(wsum, levels, radius);
+  if (smem > 232448 || rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        corr_alt_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((unsigned)rows, (unsigned)((d + kBwdChannels - 1) /
+                                             kBwdChannels));
+  corr_alt_bwd_kernel<T><<<grid, 32 * levels, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(f1), lv, glv, levels, wsum, coords,
+      static_cast<const T*>(g), static_cast<T*>(df1), w1, d, radius, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // f1: (rows, w1, d); f2s: host array of `levels` device pointers, level l
@@ -227,4 +389,30 @@ extern "C" int raft_corr_alt_bf16(const void* f1, const void* const* f2s,
                                   float scale, void* stream) {
   return launch<__nv_bfloat16>(f1, f2s, w2s, levels, coords, out, pixels, w1,
                                d, radius, scale, stream);
+}
+
+// Backward: f1 (rows, w1, d), f2s level l (rows, w2s[l], d), coords
+// (rows, w1) fp32, g (rows, w1, levels*(2*radius+1)) -> df1 (rows, w1, d)
+// and df2s level l (rows, w2s[l], d), every element written.  Features, g,
+// df1 and df2s share one dtype, contiguous; scale = 1/sqrt(d).  A
+// launch whose bwd_smem_bytes exceed a block's shared memory returns
+// cudaErrorInvalidValue (kernels/corr_alt.py checks it first).
+extern "C" int raft_corr_alt_bwd_f32(const void* f1, const void* const* f2s,
+                                     void* const* df2s, const int* w2s,
+                                     int levels, const float* coords,
+                                     const void* g, void* df1,
+                                     long long rows, int w1, int d,
+                                     int radius, float scale, void* stream) {
+  return launch_bwd<float>(f1, f2s, df2s, w2s, levels, coords, g, df1, rows,
+                           w1, d, radius, scale, stream);
+}
+
+extern "C" int raft_corr_alt_bwd_bf16(const void* f1, const void* const* f2s,
+                                      void* const* df2s, const int* w2s,
+                                      int levels, const float* coords,
+                                      const void* g, void* df1,
+                                      long long rows, int w1, int d,
+                                      int radius, float scale, void* stream) {
+  return launch_bwd<__nv_bfloat16>(f1, f2s, df2s, w2s, levels, coords, g,
+                                   df1, rows, w1, d, radius, scale, stream);
 }

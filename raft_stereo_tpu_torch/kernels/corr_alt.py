@@ -11,18 +11,25 @@ for all of them); dots accumulate in fp32 and the output is rounded once
 to the feature dtype, as the TPU kernel does.  One level at scale 1/2^l
 (the TPU's per-level route) is a call with that level alone and
 ``coords / 2^l``.
+
+The lookup is differentiable in the features (``_AltLookup``, an
+``autograd.Function``): its backward is ``alt_lookup_bwd_fused``, one
+launch of the backward kernel for all levels on CUDA tensors and the
+plain ``alt_lookup_bwd_xla`` on CPU tensors.  The centers get no
+gradient, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
 from raft_stereo_tpu_torch.kernels import _build
-from raft_stereo_tpu_torch.kernels.corr_lookup import window_coords
+from raft_stereo_tpu_torch.kernels.corr_lookup import (
+    lookup_pyramid_bwd_xla, window_coords)
 from raft_stereo_tpu_torch.ops.sampler import linear_sampler_1d
 
 MAX_LEVELS = 8   # kMaxLevels in csrc/corr_alt.cu
@@ -32,6 +39,11 @@ MAX_RADIUS = 8   # kMaxRadius
 _VEC = {torch.float32: 4, torch.bfloat16: 8}
 _ENTRIES = {torch.float32: "raft_corr_alt_f32",
             torch.bfloat16: "raft_corr_alt_bf16"}
+_BWD_ENTRIES = {torch.float32: "raft_corr_alt_bwd_f32",
+                torch.bfloat16: "raft_corr_alt_bwd_bf16"}
+# A backward block keeps one image row's df2 of every level in shared
+# memory (csrc/corr_alt.cu bwd_smem_bytes): at most this many bytes.
+MAX_BWD_SMEM = 232448
 
 
 def alt_lookup_xla(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
@@ -47,8 +59,32 @@ def alt_lookup_xla(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
     return torch.cat(outs, dim=-1).to(fmap1.dtype)
 
 
-def _lib(dtype: torch.dtype):
-    fn = getattr(_build.load("corr_alt"), _ENTRIES[dtype])
+def alt_lookup_bwd_xla(fmap1: torch.Tensor,
+                       fmap2_pyramid: Sequence[torch.Tensor],
+                       coords: torch.Tensor, g: torch.Tensor, radius: int
+                       ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Plain version of the backward: per level the dense fp32 window
+    weights dv (B,H,W1,W2_l) from the lookup backward's plain scatter,
+    then ``df1 = sum_l (dv_l @ f2_l) * s`` and ``df2_l = (dv_l^T @ f1) * s``
+    with ``torch.matmul`` in fp32, rounded once to the feature dtype.
+    Returns ``(df1, [df2_l])``."""
+    dtype = fmap1.dtype
+    inv_sqrt_d = 1.0 / math.sqrt(fmap1.shape[-1])
+    f1 = fmap1.float()
+    dvs = lookup_pyramid_bwd_xla(g, coords,
+                                 [f2.shape[2] for f2 in fmap2_pyramid],
+                                 radius, torch.float32)
+    df1 = torch.zeros_like(f1)
+    df2 = []
+    for dv, f2 in zip(dvs, fmap2_pyramid):
+        df1 = df1 + torch.matmul(dv, f2.float()) * inv_sqrt_d
+        df2.append((torch.matmul(dv.transpose(-1, -2), f1)
+                    * inv_sqrt_d).to(dtype))
+    return df1.to(dtype), df2
+
+
+def _lib(entry: str):
+    fn = getattr(_build.load("corr_alt"), entry)
     fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -58,19 +94,32 @@ def _lib(dtype: torch.dtype):
     return fn
 
 
-def alt_lookup_fused(fmap1: torch.Tensor, fmap2_pyramid: List[torch.Tensor],
-                     coords: torch.Tensor, radius: int) -> torch.Tensor:
-    """Window correlation at every level of the right-feature pyramid.
+def _bwd_lib(entry: str):
+    fn = getattr(_build.load("corr_alt"), entry)
+    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
-    Args:
-      fmap1: (B,H,W1,D) left features, fp32 or bf16.
-      fmap2_pyramid: (B,H,W2_l,D) right features per level, fmap1's dtype.
-      coords: (B,H,W1) fp32 centers at level 0.
 
-    Returns (B,H,W1,L*(2r+1)) in fmap1's dtype.  Counts its kernel
-    launches in ``alt_lookup_fused.launches``."""
-    if coords.device.type == "cpu":
-        return alt_lookup_xla(fmap1, fmap2_pyramid, coords, radius)
+def _bwd_smem_bytes(w2s: Sequence[int], radius: int) -> int:
+    """Shared bytes of one backward block (csrc/corr_alt.cu
+    ``bwd_smem_bytes``): the row's fp32 df2 of every level for 32
+    channels, the levels' df1 partials and window weights of a 32-pixel
+    tile."""
+    levels = len(w2s)
+    return (4 * (sum(w2s) * 32 + levels * 32 * 32
+                 + levels * 32 * (2 * radius + 4))
+            + 4 * 2 * levels * 32)
+
+
+def _check(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
+           coords: torch.Tensor, radius: int) -> None:
+    """Raise on what the kernels do not take (CUDA tensors)."""
     if coords.device.type != "cuda":
         raise ValueError(f"unsupported device {coords.device}")
     levels = len(fmap2_pyramid)
@@ -99,6 +148,13 @@ def alt_lookup_fused(fmap1: torch.Tensor, fmap2_pyramid: List[torch.Tensor],
                 b, h, d):
             raise ValueError(f"level shape {tuple(f2.shape)} does not match "
                              f"fmap1 {tuple(fmap1.shape)}")
+
+
+def _launch_fwd(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
+                coords: torch.Tensor, radius: int) -> torch.Tensor:
+    levels = len(fmap2_pyramid)
+    b, h, w1, d = fmap1.shape
+    dtype = fmap1.dtype
     f1 = fmap1.contiguous()
     f2s = [f2.contiguous() for f2 in fmap2_pyramid]
     coords = coords.contiguous()
@@ -112,13 +168,95 @@ def alt_lookup_fused(fmap1: torch.Tensor, fmap2_pyramid: List[torch.Tensor],
     ptrs = (ctypes.c_void_p * levels)(*[t.data_ptr() for t in f2s])
     w2s = (ctypes.c_int * levels)(*[t.shape[2] for t in f2s])
     with torch.cuda.device(coords.device):
-        err = _lib(dtype)(f1.data_ptr(), ptrs, w2s, levels, coords.data_ptr(),
-                          out.data_ptr(), b * h * w1, w1, d, radius,
-                          1.0 / math.sqrt(d),
-                          torch.cuda.current_stream().cuda_stream)
+        err = _lib(_ENTRIES[dtype])(
+            f1.data_ptr(), ptrs, w2s, levels, coords.data_ptr(),
+            out.data_ptr(), b * h * w1, w1, d, radius, 1.0 / math.sqrt(d),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "corr_alt")
     alt_lookup_fused.launches += 1
     return out
 
 
+class _AltLookup(torch.autograd.Function):
+    """The no-volume lookup, differentiable in the features."""
+
+    @staticmethod
+    def forward(ctx, coords, radius, fmap1, *fmap2_pyramid):
+        ctx.radius = radius
+        ctx.save_for_backward(coords, fmap1, *fmap2_pyramid)
+        if coords.device.type == "cpu":
+            return alt_lookup_xla(fmap1, fmap2_pyramid, coords, radius)
+        return _launch_fwd(fmap1, fmap2_pyramid, coords, radius)
+
+    @staticmethod
+    def backward(ctx, g):
+        coords, fmap1, *fmap2_pyramid = ctx.saved_tensors
+        df1, df2 = alt_lookup_bwd_fused(fmap1, fmap2_pyramid, coords, g,
+                                        ctx.radius)
+        return (None, None, df1, *df2)
+
+
+def alt_lookup_fused(fmap1: torch.Tensor, fmap2_pyramid: List[torch.Tensor],
+                     coords: torch.Tensor, radius: int) -> torch.Tensor:
+    """Window correlation at every level of the right-feature pyramid.
+
+    Args:
+      fmap1: (B,H,W1,D) left features, fp32 or bf16.
+      fmap2_pyramid: (B,H,W2_l,D) right features per level, fmap1's dtype.
+      coords: (B,H,W1) fp32 centers at level 0.
+
+    Returns (B,H,W1,L*(2r+1)) in fmap1's dtype, differentiable in the
+    features.  Counts its kernel launches in ``alt_lookup_fused.launches``."""
+    if coords.device.type != "cpu":
+        _check(fmap1, fmap2_pyramid, coords, radius)
+    return _AltLookup.apply(coords, radius, fmap1, *fmap2_pyramid)
+
+
 alt_lookup_fused.launches = 0
+
+
+def alt_lookup_bwd_fused(fmap1: torch.Tensor,
+                         fmap2_pyramid: Sequence[torch.Tensor],
+                         coords: torch.Tensor, g: torch.Tensor, radius: int
+                         ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Feature gradients ``(df1, [df2_l])`` of the lookup from its output
+    gradient ``g`` (B,H,W1,L*(2r+1)), in the feature dtype.  One launch of
+    the backward kernel for all levels on CUDA tensors, the plain
+    ``alt_lookup_bwd_xla`` on CPU tensors.  Counts its kernel launches in
+    ``alt_lookup_bwd_fused.launches``."""
+    if g.device.type == "cpu":
+        return alt_lookup_bwd_xla(fmap1, fmap2_pyramid, coords, g, radius)
+    _check(fmap1, fmap2_pyramid, coords, radius)
+    levels = len(fmap2_pyramid)
+    b, h, w1, d = fmap1.shape
+    dtype = fmap1.dtype
+    k = 2 * radius + 1
+    if g.dtype != dtype or tuple(g.shape) != (b, h, w1, levels * k):
+        raise TypeError(f"gradient {g.dtype} {tuple(g.shape)}, expected "
+                        f"{dtype} {(b, h, w1, levels * k)}")
+    w2s = [f2.shape[2] for f2 in fmap2_pyramid]
+    if _bwd_smem_bytes(w2s, radius) > MAX_BWD_SMEM:
+        raise ValueError(f"W2 levels {w2s}: the backward keeps a row's df2 "
+                         f"of every level in shared memory, "
+                         f"{_bwd_smem_bytes(w2s, radius)} bytes > "
+                         f"{MAX_BWD_SMEM}")
+    f1 = fmap1.contiguous()
+    f2s = [f2.contiguous() for f2 in fmap2_pyramid]
+    g = g.contiguous()
+    coords = coords.contiguous()
+    df1 = torch.empty_like(f1)
+    df2 = [torch.empty_like(f2) for f2 in f2s]
+    ptrs = (ctypes.c_void_p * levels)(*[t.data_ptr() for t in f2s])
+    dptrs = (ctypes.c_void_p * levels)(*[t.data_ptr() for t in df2])
+    widths = (ctypes.c_int * levels)(*w2s)
+    with torch.cuda.device(g.device):
+        err = _bwd_lib(_BWD_ENTRIES[dtype])(
+            f1.data_ptr(), ptrs, dptrs, widths, levels, coords.data_ptr(),
+            g.data_ptr(), df1.data_ptr(), b * h, w1, d, radius,
+            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "corr_alt_bwd")
+    alt_lookup_bwd_fused.launches += 1
+    return df1, df2
+
+
+alt_lookup_bwd_fused.launches = 0

@@ -12,8 +12,17 @@ per call: zr with r*h, then qpre); on CPU tensors it runs the plain
 version ``_gates_reference``.  Activations are fp32 or bf16; the weights
 are cast to that dtype (a no-op once the caller holds them cast) and the
 biases ride fp32, as the JAX op casts them.  The sigmoid/tanh/blend tail
-stays with the caller (models/update.py).  Inference only: there is no
-backward yet.
+stays with the caller (models/update.py).
+
+The op is differentiable (``_Gates``, an ``autograd.Function``), as the
+JAX op's custom VJP is: the forward saves only its inputs, and the
+backward recomputes ``_gates_twin`` under ``torch.enable_grad()`` and
+returns its VJP.  The twin is the JAX ``_gates_reference`` (weights and
+biases cast to the activation dtype, conv and bias add in that dtype), not
+the kernel's rounding mirror ``_gates_reference`` of this module: in fp32
+the two are one function, in bf16 the JAX gradients are the twin's.  The
+backward's convs are PyTorch's (cuDNN on the card), as the JAX backward's
+are XLA's; there is no backward kernel on the TPU either.
 """
 
 from __future__ import annotations
@@ -52,6 +61,33 @@ def _gates_reference(h, x, cr, wzr, bzr, wq, bq):
     return zr.to(dt), qpre.to(dt)
 
 
+def _gates_twin(h, x, cr, wzr, bzr, wq, bq):
+    """The JAX package's plain twin of the gate op, the point its backward
+    linearises: weights and biases cast to the activation dtype, each conv
+    and each bias add in that dtype."""
+    dt = h.dtype
+    ch = h.shape[-1]
+    zr = (_conv3x3_same(torch.cat([h, x], dim=-1), wzr.to(dt))
+          + bzr.to(dt))
+    r = torch.sigmoid(zr[..., ch:] + cr)
+    qpre = (_conv3x3_same(torch.cat([r * h, x], dim=-1), wq.to(dt))
+            + bq.to(dt))
+    return zr, qpre
+
+
+def _gates_vjp(inputs, grads, needs):
+    """VJP of ``_gates_twin`` at ``inputs`` (h, x, cr, wzr, bzr, wq, bq)
+    for the output gradients ``grads`` (gzr, gqpre); ``None`` for the
+    inputs ``needs`` marks False."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        outs = _gates_twin(*leaves)
+        wanted = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad(outs, wanted, grads,
+                                       allow_unused=True))
+    return tuple(next(got) if n else None for n in needs)
+
+
 _ENTRIES = {torch.float32: "raft_gru_gates",
             torch.bfloat16: "raft_gru_gates_bf16"}
 
@@ -62,6 +98,43 @@ def _lib(dtype: torch.dtype):
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(h, x, cr, wzr, bzr, wq, bq):
+    dt = h.dtype
+    b, hh, ww, ch = h.shape
+    args = {"h": h, "x": x, "cr": cr, "wzr": wzr.to(dt), "bzr": bzr,
+            "wq": wq.to(dt), "bq": bq}
+    args = {k: v.contiguous() for k, v in args.items()}
+    zr = torch.empty((b, hh, ww, 2 * ch), device=h.device, dtype=dt)
+    qpre = torch.empty((b, hh, ww, ch), device=h.device, dtype=dt)
+    rh = torch.empty_like(qpre)
+    with torch.cuda.device(h.device):
+        err = _lib(dt)(*(args[k].data_ptr() for k in
+                         ("h", "x", "cr", "wzr", "bzr", "wq", "bq")),
+                       zr.data_ptr(), qpre.data_ptr(), rh.data_ptr(),
+                       b, hh, ww, ch, x.shape[-1],
+                       torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "gru_gates")
+    gru_gates_fused.launches += 1
+    return zr, qpre
+
+
+class _Gates(torch.autograd.Function):
+    """The gate op with the JAX op's VJP: saves its inputs only; the
+    backward is ``_gates_vjp``, on the CPU and on the card alike."""
+
+    @staticmethod
+    def forward(ctx, h, x, cr, wzr, bzr, wq, bq):
+        ctx.save_for_backward(h, x, cr, wzr, bzr, wq, bq)
+        if h.device.type == "cpu":
+            return _gates_reference(h, x, cr, wzr, bzr, wq, bq)
+        return _launch(h, x, cr, wzr, bzr, wq, bq)
+
+    @staticmethod
+    def backward(ctx, gzr, gqpre):
+        return _gates_vjp(ctx.saved_tensors, (gzr, gqpre),
+                          ctx.needs_input_grad)
 
 
 def gru_gates_fused(h: torch.Tensor, x: torch.Tensor, cr: torch.Tensor,
@@ -75,11 +148,20 @@ def gru_gates_fused(h: torch.Tensor, x: torch.Tensor, cr: torch.Tensor,
       wzr, bzr: (3,3,Ch+Cx,2Ch), (2Ch,);  wq, bq: (3,3,Ch+Cx,Ch), (Ch,);
       weights fp32 or in the activation dtype, biases fp32.
 
-    Returns (zr (B,H,W,2Ch), qpre (B,H,W,Ch)) in the activation dtype.
-    Counts its calls that launch the kernel in
-    ``gru_gates_fused.launches``."""
-    if h.device.type == "cpu":
-        return _gates_reference(h, x, cr, wzr, bzr, wq, bq)
+    Returns (zr (B,H,W,2Ch), qpre (B,H,W,Ch)) in the activation dtype,
+    differentiable in every input.  Counts its calls that launch the
+    kernel in ``gru_gates_fused.launches``; a recompute under
+    ``torch.utils.checkpoint`` launches, and counts, again."""
+    if h.device.type != "cpu":
+        _check(h, x, cr, wzr, bzr, wq, bq)
+    return _Gates.apply(h, x, cr, wzr, bzr, wq, bq)
+
+
+gru_gates_fused.launches = 0
+
+
+def _check(h, x, cr, wzr, bzr, wq, bq) -> None:
+    """Raise on what the kernel does not take (CUDA tensors)."""
     if h.device.type != "cuda":
         raise ValueError(f"unsupported device {h.device}")
     b, hh, ww, ch = h.shape
@@ -109,20 +191,3 @@ def gru_gates_fused(h: torch.Tensor, x: torch.Tensor, cr: torch.Tensor,
     if ch % CHANNEL_MULTIPLE or cx % CHANNEL_MULTIPLE:
         raise ValueError(f"the gate kernel needs Ch ({ch}) and Cx ({cx}) "
                          f"to be multiples of {CHANNEL_MULTIPLE}")
-    args = {k: v.to(dt).contiguous() if k in ("wzr", "wq") else
-            v.contiguous() for k, v in args.items()}
-    zr = torch.empty((b, hh, ww, 2 * ch), device=h.device, dtype=dt)
-    qpre = torch.empty((b, hh, ww, ch), device=h.device, dtype=dt)
-    rh = torch.empty_like(qpre)
-    with torch.cuda.device(h.device):
-        err = _lib(dt)(*(args[k].data_ptr() for k in
-                         ("h", "x", "cr", "wzr", "bzr", "wq", "bq")),
-                       zr.data_ptr(), qpre.data_ptr(), rh.data_ptr(),
-                       b, hh, ww, ch, cx,
-                       torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "gru_gates")
-    gru_gates_fused.launches += 1
-    return zr, qpre
-
-
-gru_gates_fused.launches = 0

@@ -1,4 +1,4 @@
-"""RAFT-Stereo, test-mode inference at fixed depth (NCHW inside).
+"""RAFT-Stereo at fixed depth, test and train mode (NCHW inside).
 
 One forward: normalize both images; run cnet (frozen BN) on the left image
 and fnet (instance norm) on both as one batch, or, with
@@ -8,6 +8,15 @@ context biases; build the correlation (volume and pyramid, or the pooled
 right features of ``alt``); run ``iters`` refinement iterations (lookup ->
 slow-fast coarse-only GRU steps when set -> motion encoder -> ConvGRUs ->
 flow and mask heads -> x-only disparity update); convex-upsample once.
+
+Train mode (``test_mode=False``) returns the full-resolution x-flow of
+every iteration, (iters, B, H, W), as the JAX model does: each iteration
+starts from a detached disparity and convex-upsamples inside the
+iteration.  With ``remat_gru`` the iteration after the lookup runs under
+``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes it;
+the lookup runs outside the checkpointed region and its output is saved,
+as the JAX ``remat_save=("corr_lookup",)`` policy saves it
+(``remat_save=()`` puts the lookup inside and recomputes it too).
 
 Under ``mixed_precision`` the images are cast to bf16 after normalization
 and the network runs in bf16, at the JAX package's cast points: the
@@ -22,11 +31,13 @@ built only for the motion encoder's 2-channel flow input.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from raft_stereo_tpu_torch.config import RaftStereoConfig
 from raft_stereo_tpu_torch.models.corr import make_corr_fn
@@ -82,24 +93,21 @@ class RAFTStereo(nn.Module):
                 iters: int = 12, flow_init: Optional[torch.Tensor] = None,
                 test_mode: bool = True, return_confidence: bool = False,
                 hidden_init=None, return_hidden: bool = False,
-                ctx_init=None, return_ctx: bool = False
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                ctx_init=None, return_ctx: bool = False):
         """Disparity of a rectified pair.
 
         Args:
           image1, image2: (B, H, W, 3) images in 0..255.
           iters: GRU refinement iterations.
           flow_init: optional (B, H/f, W/f) initial x-flow.
-          test_mode: must be True; train mode is ROADMAP.md §D2.
+          test_mode: True for inference, False for training.
           return_confidence, hidden_init, return_hidden, ctx_init,
           return_ctx: not ported yet (ROADMAP.md §D3); setting any raises.
 
-        Returns ``(flow_low, flow_up)``: the (B, H/f, W/f) x-flow at
-        feature resolution and its convex-upsampled (B, H, W) counterpart
-        (x-flow = -disparity)."""
-        if not test_mode:
-            raise NotImplementedError(
-                "train mode is not ported yet (ROADMAP.md §D2)")
+        Returns, in test mode, ``(flow_low, flow_up)``: the (B, H/f, W/f)
+        x-flow at feature resolution and its convex-upsampled (B, H, W)
+        counterpart (x-flow = -disparity); in train mode the (iters, B, H,
+        W) upsampled x-flow of every iteration."""
         if (return_confidence or return_hidden or return_ctx
                 or hidden_init is not None or ctx_init is not None):
             raise NotImplementedError(
@@ -134,13 +142,15 @@ class RAFTStereo(nn.Module):
             disp = disp + flow_init
         corr_fn = make_corr_fn(cfg, fmap1, fmap2)
         grid_x = coords_grid_x(b, h8, w8, device=img1.device)
-        mask = torch.zeros((b, cfg.mask_channels, h8, w8),
-                           device=img1.device, dtype=dtype)
-        zero = torch.zeros_like(disp)
-        n = cfg.n_gru_layers
-        for _ in range(iters):
-            corr = corr_fn(grid_x + disp).to(dtype).permute(0, 3, 1, 2)
-            flow2 = torch.stack([disp, zero], dim=1).to(dtype)
+
+        def lookup(disp):
+            return corr_fn(grid_x + disp).to(dtype).permute(0, 3, 1, 2)
+
+        def update(net, disp, corr):
+            """One iteration after the lookup: (net, disp, mask)."""
+            n = cfg.n_gru_layers
+            flow2 = torch.stack([disp, torch.zeros_like(disp)],
+                                dim=1).to(dtype)
             if n == 3 and cfg.slow_fast_gru:
                 net = self.update_block(net, context, iter_fine=False,
                                         iter_mid=False, update=False)
@@ -151,7 +161,43 @@ class RAFTStereo(nn.Module):
                 net, context, corr, flow2, iter_mid=(n >= 2),
                 iter_coarse=(n == 3))
             # epipolar projection: only the x component updates
-            disp = disp + delta[:, 0].float()
-        flow_up = convex_upsample(disp[:, None], mask.float(),
-                                  cfg.downsample_factor)[:, 0]
-        return disp, flow_up
+            return net, disp + delta[:, 0].float(), mask
+
+        if test_mode:
+            mask = None
+            for _ in range(iters):
+                net, disp, mask = update(net, disp, lookup(disp))
+            if mask is None:
+                mask = torch.zeros((b, cfg.mask_channels, h8, w8),
+                                   device=img1.device, dtype=dtype)
+            return disp, self._upsample(disp, mask)
+
+        save_lookup = "corr_lookup" in cfg.remat_save
+
+        def train_iteration(disp, corr, *net):
+            # named in profiler traces, where the remat recompute shows as
+            # this range inside the backward
+            with record_function("raft::gru_iteration"):
+                if corr is None:
+                    corr = lookup(disp)
+                net, disp, mask = update(list(net), disp, corr)
+                return (*net, disp, self._upsample(disp, mask))
+
+        flow_ups = []
+        for _ in range(iters):
+            disp = disp.detach()
+            corr = lookup(disp) if save_lookup else None
+            if cfg.remat_gru and torch.is_grad_enabled():
+                *net, disp, flow_up = checkpoint(
+                    train_iteration, disp, corr, *net, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                *net, disp, flow_up = train_iteration(disp, corr, *net)
+            flow_ups.append(flow_up)
+        return torch.stack(flow_ups)
+
+    def _upsample(self, disp: torch.Tensor, mask: torch.Tensor
+                  ) -> torch.Tensor:
+        """Convex-upsample a (B,h,w) disparity to full resolution."""
+        return convex_upsample(disp[:, None], mask.float(),
+                               self.config.downsample_factor)[:, 0]

@@ -19,7 +19,9 @@ def _interp_matrix(src: int, dst: int, device: torch.device,
                    dtype: torch.dtype) -> torch.Tensor:
     """(dst, src) align-corners bilinear interpolation matrix, its weights
     rounded to ``dtype``, as fp32 on ``device``: built once per shape, so
-    the GRU loop never copies it from the host."""
+    the GRU loop never copies it from the host.  Built outside inference
+    mode, so a matrix first made by an inference call can also serve a
+    training forward."""
     m = np.zeros((dst, src), dtype=np.float32)
     if dst == 1:
         m[0, 0] = 1.0
@@ -30,7 +32,8 @@ def _interp_matrix(src: int, dst: int, device: torch.device,
         frac = (pos - lo).astype(np.float32)
         m[np.arange(dst), lo] += 1.0 - frac
         m[np.arange(dst), hi] += frac
-    return torch.from_numpy(m).to(dtype).float().to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(m).to(dtype).float().to(device)
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+forward and backward kernels, gradients through every wrapper, and one
+training step against the same step on the CPU.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports nothing of JAX, so it also runs where JAX is not installed:
@@ -14,14 +16,21 @@ import torch
 
 from raft_stereo_tpu_torch.config import RaftStereoConfig
 from raft_stereo_tpu_torch.eval.runner import InferenceRunner, full_fp32
-from raft_stereo_tpu_torch.kernels.corr_alt import (alt_lookup_fused,
+from raft_stereo_tpu_torch.config import TrainConfig
+from raft_stereo_tpu_torch.data.synthetic import SyntheticStereoLoader
+from raft_stereo_tpu_torch.kernels.corr_alt import (alt_lookup_bwd_fused,
+                                                    alt_lookup_bwd_xla,
+                                                    alt_lookup_fused,
                                                     alt_lookup_xla)
-from raft_stereo_tpu_torch.kernels.corr_lookup import (lookup_pyramid_fused,
-                                                       lookup_pyramid_xla)
+from raft_stereo_tpu_torch.kernels.corr_lookup import (
+    lookup_pyramid_bwd_fused, lookup_pyramid_bwd_xla, lookup_pyramid_fused,
+    lookup_pyramid_xla)
 from raft_stereo_tpu_torch.kernels.gru_fused import (_gates_reference,
                                                      gru_gates_fused)
 from raft_stereo_tpu_torch.models.corr import build_corr_pyramid, pool_axis
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
+from raft_stereo_tpu_torch.training.state import create_train_state
+from raft_stereo_tpu_torch.training.step import train_step
 from torch_port_support import assert_bf16_close
 
 pytestmark = pytest.mark.cuda
@@ -216,3 +225,189 @@ def test_demo_cli_on_card(rng, cuda_device, tmp_path):
     np.testing.assert_allclose(np.load(out / "im0.npy"), cpu, atol=1e-3,
                                rtol=0)
     assert (out / "im0-disparity.png").exists()
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,w1,w2s", [(16, 180, (180, 90, 45, 22)),
+                                         (3, 37, (43,)),
+                                         (2, 13, (7, 3, 1))])
+def test_lookup_backward_kernel_matches_plain(rng, cuda_device, dtype, rows,
+                                              w1, w2s):
+    """Kernel #3/#4 against ``lookup_pyramid_bwd_xla``: the same taps, the
+    same fp32 products, at most two per bin, rounded once."""
+    k = 2 * RADIUS + 1
+    g = torch.from_numpy(rng.normal(size=(2, rows, w1, len(w2s) * k)).astype(
+        np.float32)).to(cuda_device, dtype)
+    c = torch.from_numpy(rng.uniform(-10, w2s[0] + 10, size=(2, rows, w1))
+                         .astype(np.float32)).to(cuda_device)
+    before = lookup_pyramid_bwd_fused.launches
+    got = lookup_pyramid_bwd_fused(g, c, w2s, RADIUS, dtype)
+    torch.cuda.synchronize()
+    assert lookup_pyramid_bwd_fused.launches == before + 1
+    for gv, wv in zip(got, lookup_pyramid_bwd_xla(g, c, w2s, RADIUS, dtype)):
+        assert gv.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(gv, wv, atol=1e-6, rtol=0)
+        else:
+            assert_bf16_close(gv, wv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,w1,w2,d,levels", [(8, 90, 90, 256, 4),
+                                                 (3, 37, 43, 64, 4),
+                                                 (2, 13, 7, 8, 1)])
+def test_alt_backward_kernel_matches_plain(rng, cuda_device, dtype, rows, w1,
+                                           w2, d, levels):
+    """Kernel #8 against ``alt_lookup_bwd_xla``: fp32 within 1e-5 of each
+    gradient's scale (sums in another order); bf16 within one ulp of each
+    value plus 1e-5 of the scale (both sum in fp32 and round once)."""
+    def arr(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda_device, dtype)
+
+    f1 = arr(1, rows, w1, d)
+    pyr = [arr(1, rows, w2, d)]
+    for _ in range(levels - 1):
+        pyr.append(pool_axis(pyr[-1], axis=2).contiguous())
+    c = torch.from_numpy(rng.uniform(-10, w2 + 10, size=(1, rows, w1)).astype(
+        np.float32)).to(cuda_device)
+    g = arr(1, rows, w1, levels * (2 * RADIUS + 1))
+    before = alt_lookup_bwd_fused.launches
+    df1, df2 = alt_lookup_bwd_fused(f1, pyr, c, g, RADIUS)
+    torch.cuda.synchronize()
+    assert alt_lookup_bwd_fused.launches == before + 1
+    want1, want2 = alt_lookup_bwd_xla(f1, pyr, c, g, RADIUS)
+    for got, want in [(df1, want1)] + list(zip(df2, want2)):
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            assert _rel_err(got, want) <= 1e-5
+        else:
+            assert_bf16_close(got, want,
+                              atol=1e-5 * float(want.float().abs().max()))
+    again = alt_lookup_bwd_fused(f1, pyr, c, g, RADIUS)
+    assert torch.equal(again[0], df1)      # the order of every sum is fixed
+    assert all(torch.equal(a, b) for a, b in zip(again[1], df2))
+
+
+def test_wrappers_carry_gradients_on_card(rng, cuda_device):
+    """The autograd fault's regression: each kernel wrapper's output on the
+    card has a ``grad_fn``, and the gradient of a loss through it equals
+    the gradient through its plain version on the same card tensors."""
+    def leaf(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(
+            np.float32)).to(cuda_device).requires_grad_()
+
+    # pyramid lookup: the volume's gradient
+    vol = leaf(1, 4, 40, 40)
+    c = torch.from_numpy(rng.uniform(-6, 46, size=(1, 4, 40)).astype(
+        np.float32)).to(cuda_device)
+    pyr = build_corr_pyramid(vol, 4)
+    out = lookup_pyramid_fused(pyr, c, RADIUS)
+    assert out.grad_fn is not None
+    w = torch.randn_like(out)
+    got, = torch.autograd.grad((out * w).sum(), vol)
+    want, = torch.autograd.grad(
+        (lookup_pyramid_xla(build_corr_pyramid(vol, 4), c, RADIUS) * w).sum(),
+        vol)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+    # alt lookup: both feature maps' gradients
+    f1, f2 = leaf(1, 4, 40, 64), leaf(1, 4, 44, 64)
+
+    def alt_pyr(f):
+        levels = [f]
+        for _ in range(3):
+            levels.append(pool_axis(levels[-1], axis=2))
+        return levels
+
+    out = alt_lookup_fused(f1, alt_pyr(f2), c, RADIUS)
+    assert out.grad_fn is not None
+    w = torch.randn_like(out)
+    got = torch.autograd.grad((out * w).sum(), (f1, f2))
+    want = torch.autograd.grad(
+        (alt_lookup_xla(f1, alt_pyr(f2), c, RADIUS) * w).sum(), (f1, f2))
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= 1e-5
+
+    # gates: every input's gradient
+    ch, cx = 32, 64
+    ws = (2 / (9 * (ch + cx))) ** 0.5
+    args = (leaf(2, 9, 20, ch), leaf(2, 9, 20, cx), leaf(2, 9, 20, ch),
+            leaf(3, 3, ch + cx, 2 * ch, scale=ws), leaf(2 * ch, scale=0.1),
+            leaf(3, 3, ch + cx, ch, scale=ws), leaf(ch, scale=0.1))
+    outs = gru_gates_fused(*args)
+    assert all(o.grad_fn is not None for o in outs)
+    ws_out = [torch.randn_like(o) for o in outs]
+    got = torch.autograd.grad(sum((o * v).sum() for o, v in
+                                  zip(outs, ws_out)), args)
+    want = torch.autograd.grad(sum((o * v).sum() for o, v in
+                                   zip(_gates_reference(*args), ws_out)),
+                               args)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= 1e-5
+
+
+def _leaf_err(got, want):
+    """Largest gradient-leaf difference, each over max(its scale, 1e-3 of
+    the largest gradient)."""
+    scale = max(float(g.abs().max()) for g in want.values())
+    return max(float((got[n] - g).abs().max())
+               / max(float(g.abs().max()), 1e-3 * scale)
+               for n, g in want.items())
+
+
+def test_tiny_train_step_card_matches_cpu(cuda_device):
+    """One default TINY step on the card (the lookup, its backward and
+    the gate kernel) and on the CPU, from the same weights and batch.
+    Loss and grad_norm within 1e-4 and 1e-3 relative; the gradient leaves
+    within 3x the card's own spread on the same step (cuDNN vs native
+    convolutions, the gate kernel vs plain gate convolutions, the weights
+    moved by one fp32 ulp), and never below 3e-2, as in chip_smoke.py's
+    step check (the fnet gradients pass through instance norm's backward,
+    whose cancellation amplifies rounding: 5e-2 on these inputs at first
+    measure)."""
+    torch.manual_seed(0)
+    cfg = RaftStereoConfig(**TINY)
+    tc = TrainConfig(batch_size=1, train_iters=2, image_size=(64, 96),
+                     num_steps=1000)
+    weights = RAFTStereo(cfg).state_dict()
+    batch = SyntheticStereoLoader(1, (64, 96), seed=2).batch(0)
+    def grads_on_card(cfg_, w=weights):
+        state = create_train_state(cfg_, tc, "cuda", state_dict=w)
+        state, _ = train_step(state, batch, iters=2, loss_gamma=0.9,
+                              max_flow=700.0)
+        return {n: p.grad.cpu() for n, p in state.model.named_parameters()}
+
+    with torch.backends.cudnn.flags(enabled=False):
+        native = grads_on_card(cfg)
+    plain = grads_on_card(RaftStereoConfig(**TINY, fused_gru="off"))
+    gen = torch.Generator().manual_seed(1)
+    moved = grads_on_card(cfg, {n: t * (1 + 2.0 ** -23 * (2 * torch.randint(
+        0, 2, t.shape, generator=gen) - 1)) for n, t in weights.items()})
+    results = {}
+    for dev in ("cpu", "cuda"):
+        state = create_train_state(cfg, tc, dev, state_dict=weights)
+        counts = (lookup_pyramid_fused.launches,
+                  lookup_pyramid_bwd_fused.launches,
+                  gru_gates_fused.launches)
+        state, metrics = train_step(state, batch, iters=2, loss_gamma=0.9,
+                                    max_flow=700.0)
+        launched = (lookup_pyramid_fused.launches - counts[0],
+                    lookup_pyramid_bwd_fused.launches - counts[1],
+                    gru_gates_fused.launches - counts[2])
+        assert launched == ((0, 0, 0) if dev == "cpu" else (2, 2, 12))
+        results[dev] = ({k: float(v) for k, v in metrics.items()},
+                        {n: p.grad.cpu() for n, p in
+                         state.model.named_parameters()})
+    (cpu_m, cpu_g), (gpu_m, gpu_g) = results["cpu"], results["cuda"]
+    assert abs(gpu_m["loss"] - cpu_m["loss"]) <= 1e-4 * cpu_m["loss"]
+    assert abs(gpu_m["grad_norm"] - cpu_m["grad_norm"]) <= (
+        1e-3 * cpu_m["grad_norm"])
+    spread = max(_leaf_err(g, gpu_g) for g in (native, plain, moved))
+    assert _leaf_err(gpu_g, cpu_g) <= max(3e-2, 3 * spread), spread

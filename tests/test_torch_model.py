@@ -158,8 +158,8 @@ def test_unported_forward_modes_raise():
     cfg = RaftStereoConfig(**TINY)
     model = RAFTStereo(cfg)
     img = torch.zeros((1, 32, 32, 3))
-    for kwargs in ({"test_mode": False}, {"return_confidence": True},
-                   {"return_hidden": True}, {"ctx_init": ()}):
+    for kwargs in ({"return_confidence": True}, {"return_hidden": True},
+                   {"ctx_init": ()}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             model(img, img, iters=1, **kwargs)
 
