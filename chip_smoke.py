@@ -60,7 +60,29 @@ fails the run when it fails:
    drives the fp32 alt backward): loss and grad_norm within stated
    tolerances, every gradient leaf within 3x the card's own spread on
    the same step (cuDNN vs native convolutions, the gate kernel vs plain
-   gate convolutions, the weights moved by one fp32 ulp).
+   gate convolutions, the weights moved by one fp32 ulp);
+16. the quantized tier's kernels against their plain versions: the
+   lookup over int8 and fp8 levels at phase 2's shapes (all levels and
+   each alone), kernel #9 over int8 and fp8 features at phase 7's shapes
+   (all levels, each alone, and an odd shape), each scaled output against
+   the dequantize-then-sample reference, with the scale vector left out as
+   a check that must fail; the int8 GEMM conv (the realtime cnet's 7x7/2
+   conv1, conv2_out's 3x3 128->256) bit-equal to the exact CPU conv;
+17. timings of the two 1-byte kernels as in phase 4;
+18. the realtime ``int8_mxu`` path: ``InferenceRunner(..., quant=
+   "int8_mxu")`` on the 375x1242 pair at 7 iterations (7 int8 #9
+   launches, 21 bf16 gate calls, no pyramid lookup, one int8 GEMM per
+   encoder conv; seconds per pair and the call's own peak memory, beside
+   the unquantized bf16 path measured the same way), again with
+   ``quant_act_scales`` from ``calibrate()`` on the pair, and with
+   ``quant_corr_fp8`` (7 fp8 #9 launches);
+19. the default ``int8`` path at 32 iterations (32 int8 #1 launches, 96
+   gate calls; beside the unquantized fp32 path), again with ``quant_corr_scales`` from ``calibrate()``,
+   and with ``quant_corr_fp8`` (32 fp8 #1 launches);
+20. card vs CPU at 128x256 and 2 iterations for the four variants
+   (realtime int8_mxu and default int8, int8 and fp8 correlation), held
+   to 3x the card's own spread with every weight moved by one fp32 ulp,
+   with the share of correlation codes that flipped.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.  The fp32 path is full fp32:
@@ -95,6 +117,7 @@ LOOKUP_ATOL = 1e-5
 GATES_ATOL = 1e-4       # sums over up to 9*384 = 3456 fp32 products
 CARD_VS_CPU_ATOL = 1e-2  # two iterations of random weights; see phase 6
 MAIN_HW = (375, 1242)
+PADDED_HW = (384, 1248)
 MAIN_ITERS = 32
 # Realtime preset: 1/8 of the 384x1248 padded pair, fnet_dim 256; GRU
 # levels (name, H, W, Cx, calls per iteration) with Ch = 128.
@@ -129,12 +152,26 @@ GATES_BWD_RTOL = 1e-5    # the Function's VJP is the twin's autograd
 # instance-norm reductions as they are, gave 9.0e-3.
 STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_LEAF_RTOL = 1e-4, 1e-3, 3e-2
 STEP_SPREAD_FACTOR = 3.0
+# Phases 16-20, the quantized tier.  Kernel vs plain, of the output's
+# scale: #1 over 1-byte levels does the plain version's fp32 arithmetic
+# (up to FMA contraction); #9 over int8 sums exact integer dots, over fp8
+# inexact products in another order.  Card vs CPU: 3x the card's own
+# spread when every weight moves by one fp32 ulp (codes flip where the
+# card and the CPU round the encoders differently).
+LOOKUP_Q_RTOL = 1e-6
+ALT_Q_RTOL = {"int8": 1e-6, "fp8": 1e-5}
+# The scaled output against the dequantized reference (fp32 products of
+# scaled values in another order); leaving the scale vector out moves the
+# output by the inverse of the scale, ~1e2-1e3.
+SCALED_RTOL = 1e-5
+Q_SPREAD_FACTOR = 3.0
 # Published peaks of the H100 SXM (NVIDIA data sheet, 700 W): memory
-# bytes/s, fp32 FLOP/s on the CUDA cores (no tensor cores: no TF32), and
-# dense bf16 FLOP/s on the tensor cores.
+# bytes/s, fp32 FLOP/s on the CUDA cores (no tensor cores: no TF32),
+# dense bf16 FLOP/s and dense int8/fp8 operations/s on the tensor cores.
 MEM_RATE = 3.35e12
 FP32_RATE = 67e12
 BF16_RATE = 989e12
+INT8_RATE = 1979e12
 
 
 def log(msg: str) -> None:
@@ -260,9 +297,19 @@ def main() -> int:
     from raft_stereo_tpu_torch.kernels.gru_fused import (_gates_reference,
                                                          _gates_twin,
                                                          gru_gates_fused)
+    from raft_stereo_tpu_torch.kernels.corr_alt import alt_lookup_fused_q
+    from raft_stereo_tpu_torch.kernels.corr_lookup import (
+        lookup_pyramid_fused_q)
+    from raft_stereo_tpu_torch.models import raft_stereo as raft_module
     from raft_stereo_tpu_torch.models.corr import (build_corr_pyramid,
                                                    pool_axis)
+    from raft_stereo_tpu_torch.models.extractor import Conv2d
     from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
+    from raft_stereo_tpu_torch.quant import core as qcore
+    from raft_stereo_tpu_torch.quant.calibrate import (calibrate,
+                                                       conv_input_scales,
+                                                       corr_scales)
+    from raft_stereo_tpu_torch.quant.matmul import int8_conv_int32
     from raft_stereo_tpu_torch.training.state import create_train_state
     from raft_stereo_tpu_torch.training.step import train_step
     from raft_stereo_tpu_torch.training.train_loop import train
@@ -996,6 +1043,317 @@ def main() -> int:
         raise AssertionError("the realtime fp32 step must launch the fp32 "
                              "alt backward twice")
 
+    # ----------------------------------------------------------- phase 16
+    def q_codes(x, q_dtype):
+        """Per-tensor dynamic quantization in x's dtype, as the model does:
+        (codes, scale)."""
+        qmax = 127.0 if q_dtype == torch.int8 else qcore.FP8_QMAX
+        sc = qcore.dynamic_scale(x, qmax=qmax)
+        if q_dtype == torch.int8:
+            return qcore.quantize_symmetric(x, sc), sc
+        return qcore.quantize_fp8(x, sc, q_dtype), sc
+
+    def rel_check(got, want, rtol):
+        """(max |got - want| / max |want|, whether it is within rtol)."""
+        err = max_rel_err(got, want)
+        return err, err <= rtol
+
+    q_types = ((torch.int8, "int8"), (torch.float8_e4m3fn, "fp8"))
+    lq_cases, lq_err = {}, {}
+    for q_dtype, tag in q_types:
+        pairs = [q_codes(v, q_dtype) for v in pyramid]
+        levels_q = [p_[0] for p_ in pairs]
+        scales = torch.stack([p_[1].float() for p_ in pairs])
+        lq_cases[tag] = levels_q
+        calls = [(levels_q, coords, "all levels")] + [
+            ([v], coords / 2 ** i, f"level {i} alone (scale 1/{2 ** i})")
+            for i, v in enumerate(levels_q)]
+        worst = 0.0
+        for lv, cc, what in calls:
+            got = lookup_pyramid_fused_q(lv, cc, RADIUS, torch.float32)
+            torch.cuda.synchronize()
+            want = lookup_pyramid_xla(lv, cc, RADIUS, torch.float32)
+            err, ok = rel_check(got, want, LOOKUP_Q_RTOL)
+            log(f"lookup {tag} levels, {what}: max |kernel - plain| / scale "
+                f"= {err:.3e} (rtol {LOOKUP_Q_RTOL})")
+            if got.dtype != torch.float32 or not ok:
+                raise AssertionError(f"{tag} lookup kernel disagrees: {err}")
+            worst = max(worst, float((got - want).abs().max()))
+        # The scaled kernel output against the plain reference of the reg
+        # backend (levels dequantized, then sampled); the same check must
+        # catch the scale vector left out.
+        raw = lookup_pyramid_fused_q(levels_q, coords, RADIUS, torch.float32)
+        deq = [q_.float() * sc for q_, sc in zip(levels_q, scales)]
+        ref = lookup_pyramid_xla(deq, coords, RADIUS)
+        scale_vec = scales.repeat_interleave(2 * RADIUS + 1)
+        err_scaled, ok_scaled = rel_check(raw * scale_vec, ref, SCALED_RTOL)
+        err_unscaled, ok_unscaled = rel_check(raw, ref, SCALED_RTOL)
+        log(f"lookup {tag}: kernel x scale vector vs dequantize-then-sample "
+            f"{err_scaled:.3e}; without the scale vector {err_unscaled:.3e} "
+            f"(must fail: {'caught' if not ok_unscaled else 'NOT caught'})")
+        if not ok_scaled or ok_unscaled:
+            raise AssertionError(f"{tag} lookup scale check")
+        lq_err[tag] = worst
+
+    def alt_q_case(q_dtype, b, h, w1, w2, d):
+        """bf16 features pooled in bf16, each quantized per tensor (the
+        model's alt path): (f1 codes, level codes, centers, the levels'
+        combined scales s1*s2_l as the model computes them)."""
+        f1 = torch.randn((b, h, w1, d), generator=gen).to(dev, torch.bfloat16)
+        pyr = [torch.randn((b, h, w2, d), generator=gen).to(
+            dev, torch.bfloat16)]
+        for _ in range(LEVELS - 1):
+            pyr.append(pool_axis(pyr[-1], axis=2).contiguous())
+        f1_q, s1 = q_codes(f1, q_dtype)
+        pq = [q_codes(v, q_dtype) for v in pyr]
+        c = (torch.rand((b, h, w1), generator=gen) * (w2 + 20) - 10).to(dev)
+        combined = [(s1 * s2).float() for _, s2 in pq]
+        return f1_q, [q_ for q_, _ in pq], c, combined
+
+    aq_cases, aq_err = {}, {}
+    for q_dtype, tag in q_types:
+        rtol = ALT_Q_RTOL[tag]
+        worst_abs = 0.0
+        for shape in ((1, RT_ROWS, RT_W1, RT_W1, RT_D), (1, 3, 37, 43, 64)):
+            f1_q, pq, c, combined = alt_q_case(q_dtype, *shape)
+            if shape[1] == RT_ROWS:
+                aq_cases[tag] = (f1_q, pq, c)
+            calls = [(pq, c, "all levels")] + [
+                ([v], c / 2 ** i, f"level {i} alone")
+                for i, v in enumerate(pq)]
+            for lv, cc, what in calls:
+                got = alt_lookup_fused_q(f1_q, lv, cc, RADIUS, torch.float32)
+                torch.cuda.synchronize()
+                want = alt_lookup_xla(f1_q, lv, cc, RADIUS, torch.float32)
+                err, ok = rel_check(got, want, rtol)
+                log(f"alt {tag}, (B,H,W1,W2,D) {shape}, {what}: max |kernel "
+                    f"- plain| / scale = {err:.3e} (rtol {rtol})")
+                if got.dtype != torch.float32 or not ok:
+                    raise AssertionError(f"{tag} alt kernel disagrees: {err}")
+                worst_abs = max(worst_abs, float((got - want).abs().max()))
+            # Dequantized features, level by level (left codes times the
+            # level's combined scale), against the scaled kernel output.
+            raw = alt_lookup_fused_q(f1_q, pq, c, RADIUS, torch.float32)
+            ref = torch.cat([alt_lookup_xla(f1_q.float() * sc, [v], c / 2 ** i,
+                                            RADIUS)
+                             for i, (v, sc) in enumerate(zip(pq, combined))],
+                            dim=-1)
+            vec = torch.stack(combined).repeat_interleave(2 * RADIUS + 1)
+            err_scaled, ok_scaled = rel_check(raw * vec, ref, SCALED_RTOL)
+            err_unscaled, ok_unscaled = rel_check(raw, ref, SCALED_RTOL)
+            log(f"alt {tag} {shape}: kernel x scale vector vs the dequantized "
+                f"features {err_scaled:.3e}; without the scale vector "
+                f"{err_unscaled:.3e} (must fail: "
+                f"{'caught' if not ok_unscaled else 'NOT caught'})")
+            if not ok_scaled or ok_unscaled:
+                raise AssertionError(f"{tag} alt scale check")
+        aq_err[tag] = worst_abs
+
+    gemm_cases = [("realtime cnet conv1 7x7/2", (2, 3) + PADDED_HW, 64, 7,
+                   2), ("conv2_out 3x3 128->256", (2, 128, RT_ROWS, RT_W1),
+                        256, 3, 1)]
+    for what, xshape, cout, kk, stride in gemm_cases:
+        xq = torch.randint(-127, 128, xshape, generator=gen,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (cout, xshape[1], kk, kk),
+                           generator=gen, dtype=torch.int8)
+        got = int8_conv_int32(xq.to(dev), wq.to(dev), stride, kk // 2)
+        torch.cuda.synchronize()
+        want = int8_conv_int32(xq, wq, stride, kk // 2)
+        same = torch.equal(got.cpu(), want)
+        log(f"int8 GEMM conv, {what}, x {tuple(xshape)}: int32 accumulator "
+            f"bit-equal to the exact CPU conv: {same}")
+        if not same:
+            raise AssertionError(f"int8 GEMM conv disagrees ({what})")
+
+    # ----------------------------------------------------------- phase 17
+    lq_time = {}
+    for tag, levels_q in lq_cases.items():
+        lsrc = [v.reshape(-1, 1, 1, v.shape[-1]) for v in levels_q]
+
+        def lookup_q_library(src=lsrc):
+            return torch.cat([F.grid_sample(s_.float(), g_, mode="bilinear",
+                                            padding_mode="zeros",
+                                            align_corners=True)
+                              for s_, g_ in zip(src, grids)], dim=-1)
+
+        ms = time_ms(lambda: lookup_pyramid_fused_q(
+            levels_q, coords, RADIUS, torch.float32), flush)
+        plain = time_ms(lambda: lookup_pyramid_xla(
+            levels_q, coords, RADIUS, torch.float32), flush)
+        lib = time_ms(lookup_q_library, flush)
+        k_out = LEVELS * (2 * RADIUS + 1)
+        nbytes = (window_bins(coords, w2s) + coords.numel() * 4
+                  + coords.numel() * k_out * 4)
+        bound = nbytes / MEM_RATE * 1e3
+        lq_time[tag] = (ms, plain, lib, bound)
+        log(f"lookup {tag} timing: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"grid_sample x4 (fp32 upcast) {lib:.4f} ms, bound {bound:.5f} ms "
+            f"(bytes: {nbytes / 1e6:.2f} MB)")
+    aq_time = {}
+    for tag, (f1_q, pq, c) in aq_cases.items():
+        ms = time_ms(lambda: alt_lookup_fused_q(f1_q, pq, c, RADIUS,
+                                                torch.float32), flush)
+        plain = time_ms(lambda: alt_lookup_xla(f1_q, pq, c, RADIUS,
+                                               torch.float32), flush)
+        lib = time_ms(lambda: alt_library(f1_q, pq, c), flush)
+        k_out = LEVELS * (2 * RADIUS + 1)
+        nbytes = (f1_q.numel() + sum(v.numel() for v in pq)
+                  + c.numel() * 4 + c.numel() * k_out * 4)
+        ops = 2 * RT_D * window_bins(c, [v.shape[2] for v in pq])
+        bytes_ms, ops_ms = nbytes / MEM_RATE * 1e3, ops / INT8_RATE * 1e3
+        aq_time[tag] = (ms, plain, lib, max(bytes_ms, ops_ms),
+                        "bytes" if bytes_ms >= ops_ms else "operations")
+        log(f"alt {tag} timing: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"grid_sample formulation (fp32 upcast) {lib:.4f} ms, bound "
+            f"{max(bytes_ms, ops_ms):.5f} ms ({nbytes / 1e6:.2f} MB: "
+            f"{bytes_ms:.5f} ms; {ops / 1e6:.1f} M operations at the "
+            f"int8/fp8 tensor rate: {ops_ms:.6f} ms)")
+
+    # ------------------------------------------------------ phases 18, 19
+    def q_counts():
+        return {"lookup": lookup_pyramid_fused.launches,
+                "lookup_q": lookup_pyramid_fused_q.launches,
+                "alt": alt_lookup_fused.launches,
+                "alt_q": alt_lookup_fused_q.launches,
+                "gates": gru_gates_fused.launches,
+                "gemm": int8_conv_int32.launches}
+
+    def zero_q_counts():
+        for fn in (lookup_pyramid_fused, lookup_pyramid_fused_q,
+                   alt_lookup_fused, alt_lookup_fused_q, gru_gates_fused,
+                   int8_conv_int32):
+            fn.launches = 0
+
+    def drive_quant(what, cfg_, state_, iters, quant, want, **kw):
+        """The runner on the 375x1242 pair: a warm-up, then one pair with
+        the counts zeroed before it and read after it, then 5 timed
+        pairs.  Returns (counts, median seconds, peak GiB), the peak being
+        the call's own: device memory allocated above what was allocated
+        before it (earlier phases leave tensors alive)."""
+        runner_ = InferenceRunner(cfg_, state_, iters=iters, device="cuda",
+                                  quant=quant, **kw)
+        runner_(left, right)
+        zero_q_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        flow_, _ = runner_(left, right)
+        got = q_counts()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        secs_ = [runner_(left, right)[1] for _ in range(5)]
+        log(f"{what}, {MAIN_HW[0]}x{MAIN_HW[1]} (padded 384x1248), iters "
+            f"{iters}: launches {got}; seconds per pair median "
+            f"{statistics.median(secs_):.5f} (runs "
+            f"{[round(t, 5) for t in secs_]}), peak memory {peak:.3f} GiB; "
+            f"flow range [{flow_.min():.2f}, {flow_.max():.2f}]")
+        if flow_.shape != MAIN_HW or not np.isfinite(flow_).all():
+            raise AssertionError(f"{what}: bad flow")
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, want {want}")
+        return got, statistics.median(secs_), peak
+
+    n_enc = sum(1 for m_ in RAFTStereo(dataclasses.replace(
+        rt_cfg, quant="int8_mxu")).modules()
+        if isinstance(m_, Conv2d) and m_.quant == "int8_mxu")
+    log(f"realtime int8_mxu: {n_enc} encoder convs run the int8 GEMM, once "
+        f"per pair each")
+    want_rt = {"lookup": 0, "lookup_q": 0, "alt": 0, "alt_q": RT_ITERS,
+               "gates": 3 * RT_ITERS, "gemm": n_enc}
+    quant_runs = {}
+    quant_runs["rt bf16"] = drive_quant(
+        "realtime bf16, unquantized (for comparison)", rt_cfg, rt_state,
+        RT_ITERS, "off", dict(want_rt, alt=RT_ITERS, alt_q=0, gemm=0))
+    quant_runs["rt int8"] = drive_quant(
+        "realtime int8_mxu (int8 features)", rt_cfg, rt_state, RT_ITERS,
+        "int8_mxu", want_rt)
+    t0 = time.perf_counter()
+    rt_record = calibrate(rt_cfg, rt_state, [(left, right)], device="cuda")
+    act_scales = conv_input_scales(rt_record)
+    log(f"calibrate() of the realtime preset on the seeded pair: "
+        f"{time.perf_counter() - t0:.1f} s, {len(rt_record['activations'])} "
+        f"sites, {len(act_scales)} conv input scales")
+    quant_runs["rt calibrated"] = drive_quant(
+        "realtime int8_mxu, calibrated input scales", rt_cfg, rt_state,
+        RT_ITERS, "int8_mxu", want_rt, quant_act_scales=act_scales)
+    quant_runs["rt fp8"] = drive_quant(
+        "realtime int8_mxu (fp8 features)",
+        dataclasses.replace(rt_cfg, quant_corr_fp8=True), rt_state, RT_ITERS,
+        "int8_mxu", want_rt)
+
+    want_def = {"lookup": 0, "lookup_q": MAIN_ITERS, "alt": 0, "alt_q": 0,
+                "gates": 3 * MAIN_ITERS, "gemm": 0}
+    quant_runs["def fp32"] = drive_quant(
+        "default fp32, unquantized (for comparison)", cfg, state,
+        MAIN_ITERS, "off", dict(want_def, lookup=MAIN_ITERS, lookup_q=0))
+    quant_runs["def int8"] = drive_quant(
+        "default int8 (int8 pyramid)", cfg, state, MAIN_ITERS, "int8",
+        want_def)
+    t0 = time.perf_counter()
+    def_scales = corr_scales(calibrate(cfg, state, [(left, right)],
+                                       device="cuda"))
+    log(f"calibrate() of the default config on the seeded pair: "
+        f"{time.perf_counter() - t0:.1f} s; quant_corr_scales "
+        f"{[round(x_, 6) for x_ in def_scales]}")
+    quant_runs["def calibrated"] = drive_quant(
+        "default int8, calibrated pyramid scales",
+        dataclasses.replace(cfg, quant_corr_scales=def_scales), state,
+        MAIN_ITERS, "int8", want_def)
+    quant_runs["def fp8"] = drive_quant(
+        "default int8 (fp8 pyramid)",
+        dataclasses.replace(cfg, quant_corr_fp8=True), state, MAIN_ITERS,
+        "int8", want_def)
+
+    # ----------------------------------------------------------- phase 20
+    captured = []
+    real_make_corr_fn = raft_module.make_corr_fn
+
+    def capturing_make_corr_fn(*args):
+        fn = real_make_corr_fn(*args)
+        captured.append([c_.float().cpu() for c_ in fn.codes])
+        return fn
+
+    raft_module.make_corr_fn = capturing_make_corr_fn
+    ulp_gen = torch.Generator().manual_seed(SEED)
+    variants = (("realtime int8_mxu int8", rt_cfg, rt_state, "int8_mxu"),
+                ("realtime int8_mxu fp8", dataclasses.replace(
+                    rt_cfg, quant_corr_fp8=True), rt_state, "int8_mxu"),
+                ("default int8 int8", cfg, state, "int8"),
+                ("default int8 fp8", dataclasses.replace(
+                    cfg, quant_corr_fp8=True), state, "int8"))
+    try:
+        for what, cfg_, state_, quant in variants:
+            moved = {n_: t_ * (1 + 2.0 ** -23 * (2 * torch.randint(
+                0, 2, t_.shape, generator=ulp_gen) - 1))
+                for n_, t_ in state_.items()}
+            captured.clear()
+            on_card = InferenceRunner(cfg_, state_, iters=2, device="cuda",
+                                      quant=quant)(small, small_r)[0]
+            on_cpu = InferenceRunner(cfg_, state_, iters=2, device="cpu",
+                                     quant=quant)(small, small_r)[0]
+            card_codes, cpu_codes = captured
+            ulp = InferenceRunner(cfg_, moved, iters=2, device="cuda",
+                                  quant=quant)(small, small_r)[0]
+            flipped = sum(int((a_ != b_).sum())
+                          for a_, b_ in zip(card_codes, cpu_codes))
+            total = sum(a_.numel() for a_ in card_codes)
+            spread, err = np.abs(ulp - on_card), np.abs(on_card - on_cpu)
+            ok = (err.max() <= Q_SPREAD_FACTOR * spread.max()
+                  and err.mean() <= Q_SPREAD_FACTOR * spread.mean()
+                  and np.isfinite(on_card).all())
+            log(f"card vs CPU, {what}, 128x256, iters 2: max / mean |Δflow| "
+                f"= {err.max():.4e} / {err.mean():.4e} px; the card's spread "
+                f"(weights moved by one fp32 ulp) {spread.max():.4e} / "
+                f"{spread.mean():.4e} px (limit {Q_SPREAD_FACTOR}x); "
+                f"correlation codes flipped card vs CPU {flipped} of {total} "
+                f"({100 * flipped / total:.4f}%); flow range "
+                f"[{on_cpu.min():.2f}, {on_cpu.max():.2f}]: "
+                f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise AssertionError(f"{what}: card and CPU disagree")
+    finally:
+        raft_module.make_corr_fn = real_make_corr_fn
+
     kernels = [
         {"name": "corr_lookup", "route": "cuda",
          "source": "raft_stereo_tpu_torch/csrc/corr_lookup.cu",
@@ -1057,6 +1415,24 @@ def main() -> int:
          "bound_by": alt_bwd_time["fp32"][4],
          "library_ms": alt_bwd_time["fp32"][2]},
     ]
+    for tag in ("int8", "fp8"):
+        ms, plain, lib, bound = lq_time[tag]
+        kernels.append(
+            {"name": f"corr_lookup_q_{tag}", "route": "cuda",
+             "source": "raft_stereo_tpu_torch/csrc/corr_lookup.cu",
+             "replaces": "raft_stereo_tpu/kernels/corr_lookup.py:321",
+             "launches": quant_runs[f"def {tag}"][0]["lookup_q"],
+             "max_abs_err": lq_err[tag], "ms": ms, "plain_ms": plain,
+             "bound_ms": bound, "bound_by": "bytes", "library_ms": lib})
+    for tag in ("int8", "fp8"):
+        ms, plain, lib, bound, by = aq_time[tag]
+        kernels.append(
+            {"name": f"corr_alt_q_{tag}", "route": "cuda",
+             "source": "raft_stereo_tpu_torch/csrc/corr_alt.cu",
+             "replaces": "raft_stereo_tpu/kernels/corr_alt.py:411",
+             "launches": quant_runs[f"rt {tag}"][0]["alt_q"],
+             "max_abs_err": aq_err[tag], "ms": ms, "plain_ms": plain,
+             "bound_ms": bound, "bound_by": by, "library_ms": lib})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -5,7 +5,13 @@ dataclass, so one ``config.json`` describes a model in either package.
 The port runs fixed-depth inference and training of the default and the
 realtime architectures: every correlation backend, the shared backbone,
 the slow-fast GRU schedule, fp32 or bf16 (``mixed_precision``) with
-``corr_fp32``, and ``remat_gru`` with the lookup saved or recomputed.
+``corr_fp32``, ``remat_gru`` with the lookup saved or recomputed, and the
+quantized inference tier (``quant`` "int8" or "int8_mxu", the 1-byte
+correlation of ``quant_corr``, calibrated ``quant_corr_scales``).
+``quant_corr_fp8`` stores the correlation as float8_e4m3fn on every
+device: torch has the type on the CPU and Hopper reads it natively, so
+the port has no capability fallback to int8 (the JAX package falls back
+where its backend lacks fp8).
 ``TrainConfig`` is likewise a copy of the JAX package's.  Every option
 outside that raises ``NotImplementedError`` at construction, naming the
 ROADMAP item that will bring it, so no setting is silently ignored.
@@ -106,6 +112,25 @@ class RaftStereoConfig:
         if self.quant not in ("off", "int8", "int8_mxu"):
             raise ValueError(
                 f"quant={self.quant!r} not in ('off', 'int8', 'int8_mxu')")
+        if self.quant != "off":
+            for field, why in (
+                    ("rows_shards", self.rows_shards > 1),
+                    ("rows_gru", self.rows_gru),
+                    ("corr_w2_shards", self.corr_w2_shards > 1),
+                    ("banded_encoder", self.banded_encoder)):
+                if why:
+                    raise ValueError(
+                        f"quant={self.quant!r} is unsupported with {field}: "
+                        f"the sharded/banded executors run their own "
+                        f"full-precision paths")
+        if self.quant_corr_scales is not None:
+            if len(self.quant_corr_scales) != self.corr_levels:
+                raise ValueError(
+                    f"quant_corr_scales has {len(self.quant_corr_scales)} "
+                    f"entries for corr_levels={self.corr_levels}")
+            if any(s <= 0 for s in self.quant_corr_scales):
+                raise ValueError(f"quant_corr_scales="
+                                 f"{self.quant_corr_scales} must be positive")
         for norm in (self.context_norm, self.fnet_norm):
             if norm not in ("batch", "instance", "group", "none"):
                 raise ValueError(f"unknown norm_fn {norm!r}")
@@ -170,7 +195,6 @@ def _unsupported(cfg: RaftStereoConfig):
          cfg.exit_threshold_px > 0),
         ("sequential_fnet_pixels", "§D3 early exit and state carry",
          cfg.sequential_fnet_pixels is not None),
-        ("quant != 'off'", "§D5 quantized tier", cfg.quant != "off"),
         ("banded_encoder", "§D7 parallel executors", cfg.banded_encoder),
         ("rows_shards > 1", "§D7 parallel executors", cfg.rows_shards > 1),
         ("rows_gru", "§D7 parallel executors", cfg.rows_gru),

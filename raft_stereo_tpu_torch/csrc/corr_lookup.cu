@@ -7,7 +7,11 @@
 // outside [0, W2_l - 1].  Output is level-major, (rows, W1, L*(2R+1)).
 // Levels are fp32 or bf16 (the mixed-precision volume is stored in bf16);
 // the arithmetic is fp32 and the output is rounded once to the level
-// dtype, as the TPU kernel does.
+// dtype, as the TPU kernel does.  The quantized tier's levels are int8 or
+// float8_e4m3fn codes (the 1-byte pyramid of lookup_pyramid_fused_q):
+// each bin is upcast to fp32 exactly on load, the output is fp32, and
+// the caller multiplies each level's taps by its scale (sampling is
+// linear, so scaling after it is the dequantization).
 //
 // Bound: memory.  Each pixel reads about 2R+2 neighbouring bins per level
 // and writes L*(2R+1) values; there is no arithmetic to speak of.  The TPU
@@ -39,8 +43,10 @@
 // (640 rows x 180 pixels, W2 180/90/45/22) that is 155 MB written.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -54,6 +60,10 @@ __device__ inline float to_float(float x) { return x; }
 __device__ inline float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ inline float to_float(int8_t x) { return (float)x; }
+__device__ inline float to_float(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
 __device__ inline void store(float* p, float v) { *p = v; }
 __device__ inline void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
@@ -65,10 +75,10 @@ struct Levels {
   int w2[kMaxLevels];
 };
 
-template <typename T>
+template <typename T, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 corr_lookup_kernel(Levels<T> lv, int levels, const float* __restrict__ coords,
-                   T* __restrict__ out, long long pixels, int radius) {
+                   OutT* __restrict__ out, long long pixels, int radius) {
   const int taps = 2 * radius + 1;
   const int per_pixel = levels * taps;
   const long long total = pixels * per_pixel;
@@ -94,7 +104,7 @@ corr_lookup_kernel(Levels<T> lv, int levels, const float* __restrict__ coords,
   }
 }
 
-template <typename T>
+template <typename T, typename OutT = T>
 int launch(const void* const* vols, const int* w2s, int levels,
            const float* coords, void* out, long long pixels, int radius,
            void* stream) {
@@ -108,9 +118,9 @@ int launch(const void* const* vols, const int* w2s, int levels,
   if (total == 0) return (int)cudaSuccess;
   long long blocks = (total + kThreads - 1) / kThreads;
   if (blocks > (1LL << 30)) blocks = 1LL << 30;
-  corr_lookup_kernel<T><<<(unsigned)blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      lv, levels, coords, static_cast<T*>(out), pixels, radius);
+  corr_lookup_kernel<T, OutT><<<(unsigned)blocks, kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      lv, levels, coords, static_cast<OutT*>(out), pixels, radius);
   return (int)cudaGetLastError();
 }
 
@@ -213,6 +223,26 @@ extern "C" int raft_corr_lookup_bf16(const void* const* vols, const int* w2s,
                                      void* stream) {
   return launch<__nv_bfloat16>(vols, w2s, levels, coords, out, pixels,
                                radius, stream);
+}
+
+// Quantized levels: int8 or float8_e4m3fn codes, out fp32 (raw samples of
+// the codes; the caller applies the per-level scales).
+extern "C" int raft_corr_lookup_q_int8(const void* const* vols,
+                                       const int* w2s, int levels,
+                                       const float* coords, void* out,
+                                       long long pixels, int radius,
+                                       void* stream) {
+  return launch<int8_t, float>(vols, w2s, levels, coords, out, pixels,
+                               radius, stream);
+}
+
+extern "C" int raft_corr_lookup_q_fp8(const void* const* vols,
+                                      const int* w2s, int levels,
+                                      const float* coords, void* out,
+                                      long long pixels, int radius,
+                                      void* stream) {
+  return launch<__nv_fp8_e4m3, float>(vols, w2s, levels, coords, out,
+                                      pixels, radius, stream);
 }
 
 // Backward: g (rows, w1, levels*(2*radius+1)) and coords (rows, w1) fp32

@@ -8,6 +8,13 @@ as in the JAX package (convs and the volume einsum at HIGHEST precision).
 The runner always runs a model of its ``effective_config``: it builds one
 from the given weights (a model passed in only lends its state dict), on
 the device, with the convs cast once to the compute dtype.
+
+``quant`` ("int8" or "int8_mxu"; None keeps the config's own) runs the
+quantized inference tier, in the JAX runner's order: ``config.quant`` is
+overridden, then ``effective_inference_config`` applies, then the fp32
+state dict is quantized here, once (``quant.core.quantize_state_dict``,
+with the calibrated conv input scales ``quant_act_scales`` baked into the
+packs).  A state dict that is already quantized is used as it is.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 from raft_stereo_tpu_torch.config import RaftStereoConfig
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 from raft_stereo_tpu_torch.ops.padding import InputPadder
+from raft_stereo_tpu_torch.quant.core import is_quantized, quantize_state_dict
 
 log = logging.getLogger(__name__)
 
@@ -70,7 +78,8 @@ class InferenceRunner:
     ``corr_fp32_auto`` (default on) turns ``corr_fp32`` on for bf16
     correlation at ``iters >= DEEP_ITERS_FP32_CORR``
     (``effective_inference_config``); pass False to run raw bf16
-    correlation at any depth.
+    correlation at any depth.  ``quant`` and ``quant_act_scales`` run the
+    quantized tier (module docstring).
     """
 
     def __init__(self, config: RaftStereoConfig,
@@ -78,15 +87,20 @@ class InferenceRunner:
                                             RAFTStereo],
                  iters: int = 32, divis_by: int = 32,
                  device: Optional[Union[str, torch.device]] = None,
-                 corr_fp32_auto: bool = True):
+                 corr_fp32_auto: bool = True, quant: Optional[str] = None,
+                 quant_act_scales: Optional[Mapping[str, float]] = None):
         self.device = resolve_device(device)
         full_fp32()
         self.config = config
+        if quant is not None:
+            config = dataclasses.replace(config, quant=quant)
         self.effective_config = effective_inference_config(
             config, iters, corr_fp32_auto)
         state = (state_dict_or_model.state_dict()
                  if isinstance(state_dict_or_model, RAFTStereo)
                  else state_dict_or_model)
+        if self.effective_config.quant != "off" and not is_quantized(state):
+            state = quantize_state_dict(state, act_scales=quant_act_scales)
         model = RAFTStereo(self.effective_config)
         model.load_state_dict(state, strict=True)
         self.model = model.to(self.device).eval().cast_weights_()

@@ -9,6 +9,9 @@ map is mechanical: the path joins with dots; a conv ``kernel`` (HWIO)
 becomes ``weight`` (OIHW); every other leaf keeps its name (norm
 ``scale``/``bias`` parameters, ``mean``/``var`` buffers).  Every leaf is
 used exactly once, so ``load_state_dict(strict=True)`` checks the rest.
+A quantized tree (the JAX package's ``quantize_variables``) maps too: a
+``{q8, qscale[, ascale]}`` kernel pack becomes ``<path>.q8`` (int8, HWIO
+-> OIHW), ``<path>.qscale`` ([1,1,1,O] -> [O]) and ``<path>.ascale``.
 
 A port checkpoint is a directory with ``config.json`` and a
 ``torch.save``d state dict in ``weights.pt``.
@@ -29,6 +32,9 @@ CONFIG_FILE = "config.json"
 WEIGHTS_FILE = "weights.pt"
 
 
+_PACK = {"q8", "qscale", "ascale"}
+
+
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
     for key, value in tree.items():
         path = prefix + (str(key),)
@@ -36,6 +42,25 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
             yield from _leaves(value, path)
         else:
             yield path, value
+
+
+def _convert(path: Tuple[str, ...], leaf) -> Tuple[Tuple[str, ...],
+                                                   np.ndarray]:
+    """One JAX leaf -> (port path, array)."""
+    name = path[-1]
+    if len(path) >= 2 and path[-2] == "kernel" and name in _PACK:
+        path = path[:-2] + (name,)        # kernel/q8 -> <module>.q8
+        if name == "q8":
+            return path, np.asarray(leaf, np.int8).transpose(3, 2, 0, 1)
+        arr = np.asarray(leaf, np.float32)
+        return path, arr.reshape(-1) if name == "qscale" else arr
+    arr = np.asarray(leaf, dtype=np.float32)
+    if name == "kernel":
+        if arr.ndim != 4:
+            raise ValueError(f"{'/'.join(path)}: conv kernel of rank "
+                             f"{arr.ndim}")
+        return path[:-1] + ("weight",), arr.transpose(3, 2, 0, 1)  # OIHW
+    return path, arr
 
 
 def state_dict_from_jax(variables: Mapping[str, Any]
@@ -47,15 +72,8 @@ def state_dict_from_jax(variables: Mapping[str, Any]
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _leaves(variables.get(collection, {})):
-            arr = np.asarray(leaf, dtype=np.float32)
-            name = path[-1]
-            if name == "kernel":
-                if arr.ndim != 4:
-                    raise ValueError(f"{'/'.join(path)}: conv kernel of "
-                                     f"rank {arr.ndim}")
-                arr = arr.transpose(3, 2, 0, 1)   # HWIO -> OIHW
-                name = "weight"
-            key = ".".join(path[:-1] + (name,))
+            path, arr = _convert(path, leaf)
+            key = ".".join(path)
             if key in out:
                 raise ValueError(f"two JAX leaves map to {key}")
             out[key] = torch.from_numpy(np.array(arr, copy=True))

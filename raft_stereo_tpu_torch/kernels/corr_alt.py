@@ -12,6 +12,12 @@ to the feature dtype, as the TPU kernel does.  One level at scale 1/2^l
 (the TPU's per-level route) is a call with that level alone and
 ``coords / 2^l``.
 
+``alt_lookup_fused_q`` is kernel #9 of the quantized tier: the same
+lookup over int8 or float8_e4m3fn feature codes (``check_q_dtype``), fp32
+output, the raw correlation of the codes times 1/sqrt(D); the caller
+multiplies each level's taps by the combined scale ``s1 * s2_l``.  It is
+forward only.
+
 The lookup is differentiable in the features (``_AltLookup``, an
 ``autograd.Function``): its backward is ``alt_lookup_bwd_fused``, one
 launch of the backward kernel for all levels on CUDA tensors and the
@@ -23,22 +29,25 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from raft_stereo_tpu_torch.kernels import _build
 from raft_stereo_tpu_torch.kernels.corr_lookup import (
-    lookup_pyramid_bwd_xla, window_coords)
+    check_q_dtype, lookup_pyramid_bwd_xla, window_coords)
 from raft_stereo_tpu_torch.ops.sampler import linear_sampler_1d
 
 MAX_LEVELS = 8   # kMaxLevels in csrc/corr_alt.cu
 MAX_RADIUS = 8   # kMaxRadius
 # D is a whole number of 16-byte vectors, at most 64 of them per pixel
 # (kMaxVecPerLane lanes-worth): elements per vector by dtype.
-_VEC = {torch.float32: 4, torch.bfloat16: 8}
+_VEC = {torch.float32: 4, torch.bfloat16: 8, torch.int8: 16,
+        torch.float8_e4m3fn: 16}
 _ENTRIES = {torch.float32: "raft_corr_alt_f32",
             torch.bfloat16: "raft_corr_alt_bf16"}
+_Q_ENTRIES = {torch.int8: "raft_corr_alt_q_int8",
+              torch.float8_e4m3fn: "raft_corr_alt_q_fp8"}
 _BWD_ENTRIES = {torch.float32: "raft_corr_alt_bwd_f32",
                 torch.bfloat16: "raft_corr_alt_bwd_bf16"}
 # A backward block keeps one image row's df2 of every level in shared
@@ -47,16 +56,18 @@ MAX_BWD_SMEM = 232448
 
 
 def alt_lookup_xla(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
-                   coords: torch.Tensor, radius: int) -> torch.Tensor:
+                   coords: torch.Tensor, radius: int,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version: per level the fp32 volume of the features as given,
-    times 1/sqrt(D), sampled linearly; rounded once to the feature dtype."""
+    times 1/sqrt(D), sampled linearly; rounded once to ``out_dtype``, by
+    default the feature dtype."""
     inv_sqrt_d = 1.0 / math.sqrt(fmap1.shape[-1])
     f1 = fmap1.float()
     outs = []
     for i, f2 in enumerate(fmap2_pyramid):
         vol = torch.matmul(f1, f2.float().transpose(-1, -2)) * inv_sqrt_d
         outs.append(linear_sampler_1d(vol, window_coords(coords, i, radius)))
-    return torch.cat(outs, dim=-1).to(fmap1.dtype)
+    return torch.cat(outs, dim=-1).to(out_dtype or fmap1.dtype)
 
 
 def alt_lookup_bwd_xla(fmap1: torch.Tensor,
@@ -118,8 +129,9 @@ def _bwd_smem_bytes(w2s: Sequence[int], radius: int) -> int:
 
 
 def _check(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
-           coords: torch.Tensor, radius: int) -> None:
-    """Raise on what the kernels do not take (CUDA tensors)."""
+           coords: torch.Tensor, radius: int, entries=_ENTRIES) -> None:
+    """Raise on what the kernels of ``entries`` do not take (CUDA
+    tensors)."""
     if coords.device.type != "cuda":
         raise ValueError(f"unsupported device {coords.device}")
     levels = len(fmap2_pyramid)
@@ -129,8 +141,8 @@ def _check(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
         raise ValueError(f"{levels} levels; the kernel takes 1..{MAX_LEVELS}")
     if not 0 <= radius <= MAX_RADIUS:
         raise ValueError(f"radius {radius}; the kernel takes 0..{MAX_RADIUS}")
-    if dtype not in _ENTRIES or coords.dtype != torch.float32:
-        raise TypeError(f"the alt kernel takes float32 or bfloat16 features "
+    if dtype not in entries or coords.dtype != torch.float32:
+        raise TypeError(f"the alt kernel takes {tuple(entries)} features "
                         f"and float32 coords, got {dtype} and {coords.dtype}")
     vec = _VEC[dtype]
     if d % vec or not vec <= d <= 64 * vec:
@@ -151,10 +163,10 @@ def _check(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
 
 
 def _launch_fwd(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
-                coords: torch.Tensor, radius: int) -> torch.Tensor:
+                coords: torch.Tensor, radius: int, entry: str,
+                out_dtype: torch.dtype) -> torch.Tensor:
     levels = len(fmap2_pyramid)
     b, h, w1, d = fmap1.shape
-    dtype = fmap1.dtype
     f1 = fmap1.contiguous()
     f2s = [f2.contiguous() for f2 in fmap2_pyramid]
     coords = coords.contiguous()
@@ -164,16 +176,15 @@ def _launch_fwd(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
                              "vectors: their storage must be 16-byte aligned")
     k = 2 * radius + 1
     out = torch.empty((b, h, w1, levels * k), device=coords.device,
-                      dtype=dtype)
+                      dtype=out_dtype)
     ptrs = (ctypes.c_void_p * levels)(*[t.data_ptr() for t in f2s])
     w2s = (ctypes.c_int * levels)(*[t.shape[2] for t in f2s])
     with torch.cuda.device(coords.device):
-        err = _lib(_ENTRIES[dtype])(
+        err = _lib(entry)(
             f1.data_ptr(), ptrs, w2s, levels, coords.data_ptr(),
             out.data_ptr(), b * h * w1, w1, d, radius, 1.0 / math.sqrt(d),
             torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "corr_alt")
-    alt_lookup_fused.launches += 1
+    _build.check(err, entry)
     return out
 
 
@@ -186,7 +197,10 @@ class _AltLookup(torch.autograd.Function):
         ctx.save_for_backward(coords, fmap1, *fmap2_pyramid)
         if coords.device.type == "cpu":
             return alt_lookup_xla(fmap1, fmap2_pyramid, coords, radius)
-        return _launch_fwd(fmap1, fmap2_pyramid, coords, radius)
+        out = _launch_fwd(fmap1, fmap2_pyramid, coords, radius,
+                          _ENTRIES[fmap1.dtype], fmap1.dtype)
+        alt_lookup_fused.launches += 1
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -213,6 +227,41 @@ def alt_lookup_fused(fmap1: torch.Tensor, fmap2_pyramid: List[torch.Tensor],
 
 
 alt_lookup_fused.launches = 0
+
+
+def alt_lookup_fused_q(fmap1_q: torch.Tensor,
+                       fmap2_pyramid_q: List[torch.Tensor],
+                       coords: torch.Tensor, radius: int,
+                       out_dtype: torch.dtype,
+                       q_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Window correlation over quantized features (int8 or float8_e4m3fn
+    codes, one grid for all of them): one launch of kernel #9 for all
+    levels on CUDA tensors, the plain ``alt_lookup_xla`` on CPU tensors.
+
+    Returns the (B,H,W1,L*(2r+1)) raw correlations of the codes times
+    1/sqrt(D), in ``out_dtype`` (fp32 on the card, the kernel's output);
+    the caller multiplies level l's taps by ``s1 * s2_l``.  Forward only:
+    a feature map that requires grad raises.  One level at scale 1/2^l is
+    a call with that level alone and ``coords / 2^l``.  Counts its kernel
+    launches in ``alt_lookup_fused_q.launches``."""
+    check_q_dtype([fmap1_q, *fmap2_pyramid_q], q_dtype)
+    if any(t.requires_grad for t in (fmap1_q, *fmap2_pyramid_q)):
+        raise ValueError("the quantized alt lookup is forward only: detach "
+                         "the features")
+    if coords.device.type == "cpu":
+        return alt_lookup_xla(fmap1_q, fmap2_pyramid_q, coords, radius,
+                              out_dtype)
+    _check(fmap1_q, fmap2_pyramid_q, coords, radius, _Q_ENTRIES)
+    if out_dtype != torch.float32:
+        raise TypeError(f"the quantized alt kernel writes float32, not "
+                        f"{out_dtype}")
+    out = _launch_fwd(fmap1_q, fmap2_pyramid_q, coords, radius,
+                      _Q_ENTRIES[fmap1_q.dtype], torch.float32)
+    alt_lookup_fused_q.launches += 1
+    return out
+
+
+alt_lookup_fused_q.launches = 0
 
 
 def alt_lookup_bwd_fused(fmap1: torch.Tensor,

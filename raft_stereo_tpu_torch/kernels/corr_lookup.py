@@ -7,6 +7,12 @@ on the CPU.  There is no fallback from one to the other: a CUDA tensor
 the kernels do not take raises.  Volumes are fp32, or bf16 under mixed
 precision; both versions sample in fp32 and round once to that dtype.
 
+``lookup_pyramid_fused_q`` is the quantized tier's lookup over a 1-byte
+pyramid (int8 or float8_e4m3fn codes, ``check_q_dtype``): the same kernel
+upcasts each bin on load and writes fp32, the raw samples of the codes;
+the caller multiplies each level's taps by its scale.  It is forward
+only, like the JAX package's: the quantized tier is inference only.
+
 The lookup is differentiable in the volumes (``_LookupPyramid``, an
 ``autograd.Function``): its backward is ``lookup_pyramid_bwd_fused``, the
 transpose of the forward in one launch of the backward kernel for all
@@ -18,7 +24,7 @@ detaches them before every lookup).
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,12 +44,14 @@ def window_coords(coords: torch.Tensor, level: int,
 
 
 def lookup_pyramid_xla(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
-                       radius: int) -> torch.Tensor:
+                       radius: int, out_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
     """Plain version: linear window lookup at every level, level-major, in
-    fp32 and rounded once to the levels' dtype (the kernel's rounding)."""
+    fp32 and rounded once to ``out_dtype``, by default the levels' dtype
+    (the kernel's rounding)."""
     outs = [linear_sampler_1d(vol.float(), window_coords(coords, i, radius))
             for i, vol in enumerate(pyramid)]
-    return torch.cat(outs, dim=-1).to(pyramid[0].dtype)
+    return torch.cat(outs, dim=-1).to(out_dtype or pyramid[0].dtype)
 
 
 def lookup_pyramid_bwd_xla(g: torch.Tensor, coords: torch.Tensor,
@@ -75,6 +83,10 @@ def lookup_pyramid_bwd_xla(g: torch.Tensor, coords: torch.Tensor,
 
 _ENTRIES = {torch.float32: "raft_corr_lookup",
             torch.bfloat16: "raft_corr_lookup_bf16"}
+# The quantized grids and their entries (out fp32).
+Q_DTYPES = (torch.int8, torch.float8_e4m3fn)
+_Q_ENTRIES = {torch.int8: "raft_corr_lookup_q_int8",
+              torch.float8_e4m3fn: "raft_corr_lookup_q_fp8"}
 _BWD_ENTRIES = {torch.float32: "raft_corr_lookup_bwd",
                 torch.bfloat16: "raft_corr_lookup_bwd_bf16"}
 
@@ -99,23 +111,42 @@ def _check_coords(coords: torch.Tensor, dtype: torch.dtype) -> None:
 
 
 def _launch_fwd(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
-                radius: int) -> torch.Tensor:
+                radius: int, entry: str, out_dtype: torch.dtype
+                ) -> torch.Tensor:
     levels = len(pyramid)
     b, h, w1 = coords.shape
     vols = [v.contiguous() for v in pyramid]
     coords = coords.contiguous()
     k = 2 * radius + 1
     out = torch.empty((b, h, w1, levels * k), device=coords.device,
-                      dtype=vols[0].dtype)
+                      dtype=out_dtype)
     ptrs = (ctypes.c_void_p * levels)(*[v.data_ptr() for v in vols])
     w2s = (ctypes.c_int * levels)(*[v.shape[-1] for v in vols])
     with torch.cuda.device(coords.device):
-        err = _lib(_ENTRIES[vols[0].dtype])(
+        err = _lib(entry)(
             ptrs, w2s, levels, coords.data_ptr(), out.data_ptr(),
             b * h * w1, radius, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "corr_lookup")
-    lookup_pyramid_fused.launches += 1
+    _build.check(err, entry)
     return out
+
+
+def _check_levels(pyramid: Sequence[torch.Tensor],
+                  coords: torch.Tensor) -> None:
+    """Raise on levels the kernels do not take (CUDA tensors)."""
+    levels = len(pyramid)
+    b, h, w1 = coords.shape
+    if not 1 <= levels <= MAX_LEVELS:
+        raise ValueError(f"{levels} levels; the kernel takes "
+                         f"1..{MAX_LEVELS}")
+    for v in pyramid:
+        if v.dtype != pyramid[0].dtype:
+            raise TypeError(f"pyramid levels mix {pyramid[0].dtype} and "
+                            f"{v.dtype}")
+        if v.device != coords.device:
+            raise ValueError("pyramid and coords must share one device")
+        if tuple(v.shape[:3]) != (b, h, w1):
+            raise ValueError(f"level shape {tuple(v.shape)} does not "
+                             f"match coords {tuple(coords.shape)}")
 
 
 class _LookupPyramid(torch.autograd.Function):
@@ -130,7 +161,10 @@ class _LookupPyramid(torch.autograd.Function):
         ctx.save_for_backward(coords)
         if coords.device.type == "cpu":
             return lookup_pyramid_xla(pyramid, coords, radius)
-        return _launch_fwd(pyramid, coords, radius)
+        out = _launch_fwd(pyramid, coords, radius,
+                          _ENTRIES[pyramid[0].dtype], pyramid[0].dtype)
+        lookup_pyramid_fused.launches += 1
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -152,25 +186,64 @@ def lookup_pyramid_fused(pyramid: List[torch.Tensor], coords: torch.Tensor,
     differentiable in the volumes.  Counts its kernel launches in
     ``lookup_pyramid_fused.launches``."""
     if coords.device.type != "cpu":
-        levels = len(pyramid)
-        b, h, w1 = coords.shape
-        if not 1 <= levels <= MAX_LEVELS:
-            raise ValueError(f"{levels} levels; the kernel takes "
-                             f"1..{MAX_LEVELS}")
-        dtype = pyramid[0].dtype
-        _check_coords(coords, dtype)
-        for v in pyramid:
-            if v.dtype != dtype:
-                raise TypeError(f"pyramid levels mix {dtype} and {v.dtype}")
-            if v.device != coords.device:
-                raise ValueError("pyramid and coords must share one device")
-            if tuple(v.shape[:3]) != (b, h, w1):
-                raise ValueError(f"level shape {tuple(v.shape)} does not "
-                                 f"match coords {tuple(coords.shape)}")
+        _check_levels(pyramid, coords)
+        _check_coords(coords, pyramid[0].dtype)
     return _LookupPyramid.apply(coords, radius, *pyramid)
 
 
 lookup_pyramid_fused.launches = 0
+
+
+def check_q_dtype(pyramid: Sequence[torch.Tensor],
+                  q_dtype: Optional[torch.dtype] = None) -> torch.dtype:
+    """The grid of one quantized call: ``q_dtype`` (None: level 0's
+    dtype) must be int8 or float8_e4m3fn and every level must carry it.
+    Returns it.  The port reads fp8 on every device (torch has
+    float8_e4m3fn on the CPU, Hopper reads it natively), so there is no
+    capability gate."""
+    q_dtype = q_dtype if q_dtype is not None else pyramid[0].dtype
+    if q_dtype not in Q_DTYPES:
+        raise ValueError(f"q_dtype={q_dtype} not a supported quantized "
+                         f"grid {Q_DTYPES}")
+    bad = [str(v.dtype) for v in pyramid if v.dtype != q_dtype]
+    if bad:
+        raise ValueError(f"q-entry levels must all be {q_dtype}; got {bad}")
+    return q_dtype
+
+
+def lookup_pyramid_fused_q(pyramid: List[torch.Tensor], coords: torch.Tensor,
+                           radius: int, out_dtype: torch.dtype,
+                           q_dtype: Optional[torch.dtype] = None
+                           ) -> torch.Tensor:
+    """Window lookup over a quantized pyramid (int8 or float8_e4m3fn codes),
+    all levels in one launch of the lookup kernel on CUDA tensors, the
+    plain ``lookup_pyramid_xla`` on CPU tensors.
+
+    Returns the (B,H,W1,L*(2r+1)) raw samples of the codes in
+    ``out_dtype`` (fp32 on the card, the kernel's output): the caller
+    applies the per-level scales.  Forward only: a level that requires
+    grad raises.  Counts its kernel launches in
+    ``lookup_pyramid_fused_q.launches``."""
+    q_dtype = check_q_dtype(pyramid, q_dtype)
+    if any(v.requires_grad for v in pyramid):
+        raise ValueError("the quantized lookup is forward only: detach the "
+                         "pyramid")
+    if coords.device.type == "cpu":
+        return lookup_pyramid_xla(pyramid, coords, radius, out_dtype)
+    _check_levels(pyramid, coords)
+    if coords.device.type != "cuda" or coords.dtype != torch.float32:
+        raise TypeError(f"the lookup kernel takes float32 CUDA coords, got "
+                        f"{coords.dtype} on {coords.device}")
+    if out_dtype != torch.float32:
+        raise TypeError(f"the quantized lookup kernel writes float32, not "
+                        f"{out_dtype}")
+    out = _launch_fwd(pyramid, coords, radius, _Q_ENTRIES[q_dtype],
+                      torch.float32)
+    lookup_pyramid_fused_q.launches += 1
+    return out
+
+
+lookup_pyramid_fused_q.launches = 0
 
 
 def lookup_pyramid_bwd_fused(g: torch.Tensor, coords: torch.Tensor,

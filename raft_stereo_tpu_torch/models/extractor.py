@@ -15,8 +15,11 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from raft_stereo_tpu_torch.models.norm import make_norm
+from raft_stereo_tpu_torch.quant.core import dequantize_array
+from raft_stereo_tpu_torch.quant.matmul import quantized_conv_apply
 
 
 class Conv2d(nn.Conv2d):
@@ -24,10 +27,49 @@ class Conv2d(nn.Conv2d):
     and the bias is added to the rounded conv output, as ``nn.Conv`` adds
     it in the JAX package (in bf16 the two round separately).  The casts
     are no-ops once ``RAFTStereo.cast_weights_`` has cast the parameters,
-    as an inference runner does once."""
+    as an inference runner does once.
+
+    ``quantize_(mode)`` replaces the weight by an int8 pack (buffers
+    ``q8`` OIHW, ``qscale`` [O], and ``ascale`` when the loaded state dict
+    carries one), and the conv routes on what it holds, as the JAX
+    package's ``QuantConv`` does: under "int8" it dequantizes the pack in
+    fp32 on every call and runs the path above, so int8 is what resides
+    on the device; under "int8_mxu" it runs ``quantized_conv_apply``
+    (int8 x int8 -> int32, rescaled in fp32, rounded once)."""
+
+    quant = "off"
+
+    def quantize_(self, mode: str) -> "Conv2d":
+        """Hold an int8 pack in place of the weight (values come from a
+        quantized state dict)."""
+        if mode not in ("int8", "int8_mxu"):
+            raise ValueError(f"quant mode {mode!r}")
+        shape = self.weight.shape
+        del self.weight
+        self.register_buffer("q8", torch.zeros(shape, dtype=torch.int8))
+        self.register_buffer("qscale", torch.ones(shape[0]))
+        self.register_buffer("ascale", None)
+        self.quant = mode
+        return self
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # ``ascale`` is optional in a pack: take it when the state has one.
+        if (self.quant != "off" and self.ascale is None
+                and prefix + "ascale" in state_dict):
+            self.ascale = torch.zeros((), device=self.qscale.device)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self._conv_forward(x, self.weight.to(x.dtype), None)
+        if self.quant == "int8_mxu":
+            return quantized_conv_apply(
+                x, self.q8, self.qscale, self.ascale, self.bias,
+                self.stride[0], self.padding[0], out_dtype=x.dtype)
+        if self.quant == "int8":
+            with record_function("raft::dequantize_weights"):
+                weight = dequantize_array(self.q8, self.qscale)
+        else:
+            weight = self.weight
+        y = self._conv_forward(x, weight.to(x.dtype), None)
         return y + self.bias.to(x.dtype)[:, None, None]
 
 

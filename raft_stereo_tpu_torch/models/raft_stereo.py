@@ -25,6 +25,12 @@ disparity stays fp32 (``delta`` is upcast before it is added), and the
 final mask is upcast for the upsampling.  Parameters stay fp32 in the
 state dict; ``cast_weights_`` casts the convs of a copy once.
 
+With ``quant`` "int8" or "int8_mxu" every conv of the encoder scope
+(``fnet``, ``cnet``, ``conv2_res``, ``conv2_out``, ``context_zqr_conv*``)
+holds an int8 pack in place of its weight (``Conv2d.quantize_``): the
+model loads a quantized state dict (``quant.core.quantize_state_dict``)
+and runs in test mode only.
+
 Disparity is carried as a single x-channel field; the zero y-channel is
 built only for the motion encoder's 2-channel flow input.
 """
@@ -47,6 +53,7 @@ from raft_stereo_tpu_torch.models.extractor import (BasicEncoder, Conv2d,
 from raft_stereo_tpu_torch.models.update import (BasicMultiUpdateBlock,
                                                  ConvGRU)
 from raft_stereo_tpu_torch.ops.grids import coords_grid_x
+from raft_stereo_tpu_torch.quant.core import in_encoder_scope
 from raft_stereo_tpu_torch.ops.upsample import convex_upsample
 
 
@@ -70,6 +77,10 @@ class RAFTStereo(nn.Module):
             self.fnet = BasicEncoder(output_dim=cfg.fnet_dim,
                                      norm_fn=cfg.fnet_norm,
                                      downsample=cfg.n_downsample)
+        if cfg.quant != "off":
+            for name, m in self.named_modules():
+                if isinstance(m, Conv2d) and in_encoder_scope(name):
+                    m.quantize_(cfg.quant)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -78,12 +89,13 @@ class RAFTStereo(nn.Module):
     def cast_weights_(self) -> "RAFTStereo":
         """Cast every conv's weight and bias to the compute dtype, in place.
         The ConvGRU gate biases stay fp32, as the gate kernel takes them;
-        norm parameters stay fp32.  For the model an inference runner holds,
-        so the convs do not cast their parameters on every call."""
+        norm parameters stay fp32, and so do quantized convs (pack and
+        bias).  For the model an inference runner holds, so the convs do
+        not cast their parameters on every call."""
         keep = {id(p) for m in self.modules() if isinstance(m, ConvGRU)
                 for p in (m.convzr.bias, m.convq.bias)}
         for m in self.modules():
-            if isinstance(m, Conv2d):
+            if isinstance(m, Conv2d) and m.quant == "off":
                 for p in (m.weight, m.bias):
                     if id(p) not in keep:
                         p.data = p.data.to(self.compute_dtype)
@@ -114,6 +126,9 @@ class RAFTStereo(nn.Module):
                 "confidence maps and hidden/ctx state carry are not ported "
                 "yet (ROADMAP.md §D3)")
         cfg = self.config
+        if cfg.quant != "off" and not test_mode:
+            raise ValueError(f"quant={cfg.quant!r} is an inference tier: "
+                             f"the model runs in test mode only")
         dtype = self.compute_dtype
         img1 = (2 * (image1.float() / 255.0) - 1.0).to(dtype).permute(
             0, 3, 1, 2)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card:
-forward and backward kernels, gradients through every wrapper, and one
-training step against the same step on the CPU.
+forward and backward kernels, gradients through every wrapper, one
+training step against the same step on the CPU, and the quantized tier
+(the 1-byte lookup and alt kernels, the int8 GEMM conv, one TINY
+quantized forward against the CPU).
 
 Every test here needs a CUDA device and skips without one.  The file
 imports nothing of JAX, so it also runs where JAX is not installed:
@@ -21,16 +23,18 @@ from raft_stereo_tpu_torch.data.synthetic import SyntheticStereoLoader
 from raft_stereo_tpu_torch.kernels.corr_alt import (alt_lookup_bwd_fused,
                                                     alt_lookup_bwd_xla,
                                                     alt_lookup_fused,
+                                                    alt_lookup_fused_q,
                                                     alt_lookup_xla)
 from raft_stereo_tpu_torch.kernels.corr_lookup import (
     lookup_pyramid_bwd_fused, lookup_pyramid_bwd_xla, lookup_pyramid_fused,
-    lookup_pyramid_xla)
+    lookup_pyramid_fused_q, lookup_pyramid_xla)
 from raft_stereo_tpu_torch.kernels.gru_fused import (_gates_reference,
                                                      gru_gates_fused)
 from raft_stereo_tpu_torch.models.corr import build_corr_pyramid, pool_axis
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 from raft_stereo_tpu_torch.training.state import create_train_state
 from raft_stereo_tpu_torch.training.step import train_step
+from raft_stereo_tpu_torch.quant.matmul import int8_conv_int32
 from torch_port_support import assert_bf16_close
 
 pytestmark = pytest.mark.cuda
@@ -411,3 +415,123 @@ def test_tiny_train_step_card_matches_cpu(cuda_device):
         1e-3 * cpu_m["grad_norm"])
     spread = max(_leaf_err(g, gpu_g) for g in (native, plain, moved))
     assert _leaf_err(gpu_g, cpu_g) <= max(3e-2, 3 * spread), spread
+
+
+# ------------------------------------------------------ the quantized tier
+Q_DTYPES = [torch.int8, torch.float8_e4m3fn]
+
+
+def _q_codes(rng, shape, dtype, device):
+    if dtype == torch.int8:
+        return torch.from_numpy(rng.integers(-127, 128, shape).astype(
+            np.int8)).to(device)
+    x = rng.normal(scale=60, size=shape).clip(-448, 448).astype(np.float32)
+    return torch.from_numpy(x).to(device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", Q_DTYPES)
+def test_lookup_q_kernel_matches_plain(rng, cuda_device, dtype):
+    """#1 over 1-byte levels, fp32 out: all levels in one launch and each
+    level alone at 1/2^l; the same fp32 arithmetic as the plain version
+    up to contraction into FMAs, 1e-6 of the scale."""
+    w2s = [312, 156, 78, 39]
+    levels = [_q_codes(rng, (1, 8, 96, w), dtype, cuda_device) for w in w2s]
+    c = torch.from_numpy(rng.uniform(-10, 322, (1, 8, 96)).astype(
+        np.float32)).to(cuda_device)
+    calls = [(levels, c)] + [([v], c / 2 ** i) for i, v in enumerate(levels)]
+    for lv, cc in calls:
+        before = lookup_pyramid_fused_q.launches
+        got = lookup_pyramid_fused_q(lv, cc, RADIUS, torch.float32)
+        torch.cuda.synchronize()
+        assert lookup_pyramid_fused_q.launches == before + 1
+        want = lookup_pyramid_xla(lv, cc, RADIUS, torch.float32)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-6 * float(want.abs().max()))
+    with pytest.raises(TypeError, match="float32"):
+        lookup_pyramid_fused_q(levels, c, RADIUS, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", Q_DTYPES)
+@pytest.mark.parametrize("rows,w1,w2,d", [(8, 156, 156, 256),
+                                          (3, 37, 43, 64)])
+def test_alt_q_kernel_matches_plain(rng, cuda_device, dtype, rows, w1, w2,
+                                    d):
+    """Kernel #9 over int8 or fp8 features, fp32 out, four levels and one
+    level alone.  int8 dots are exact integers: 1e-6 of the scale; fp8
+    products sum in another order: 1e-5."""
+    f1 = _q_codes(rng, (1, rows, w1, d), dtype, cuda_device)
+    f2 = _q_codes(rng, (1, rows, w2, d), dtype, cuda_device)
+    pyr = [f2]
+    for _ in range(3):   # codes of pooled levels: any codes will do
+        pyr.append(pyr[-1][:, :, ::2].contiguous())
+    c = torch.from_numpy(rng.uniform(-6, w2 + 6, (1, rows, w1)).astype(
+        np.float32)).to(cuda_device)
+    tol = 1e-6 if dtype == torch.int8 else 1e-5
+    for lv, cc in [(pyr, c), ([pyr[2]], c / 4)]:
+        before = alt_lookup_fused_q.launches
+        got = alt_lookup_fused_q(f1, lv, cc, RADIUS, torch.float32)
+        torch.cuda.synchronize()
+        assert alt_lookup_fused_q.launches == before + 1
+        want = alt_lookup_xla(f1, lv, cc, RADIUS, torch.float32)
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("n,cin,hw,cout,k,stride", [
+    (2, 3, (64, 96), 64, 7, 2),      # K = 147, padded to 152
+    (1, 256, (12, 20), 256, 3, 1),
+    (2, 64, (17, 23), 96, 3, 2),
+    (2, 128, (8, 12), 128, 1, 1),
+    (1, 32, (3, 4), 16, 3, 1),       # 12 rows, padded to the GEMM's 32
+])
+def test_int8_gemm_conv_bit_equal(rng, cuda_device, n, cin, hw, cout, k,
+                                  stride):
+    """The int8 conv on the card (im2col + cuBLASLt's int8 GEMM) equals
+    the exact CPU version bit for bit."""
+    x = torch.from_numpy(rng.integers(-127, 128, (n, cin) + hw).astype(
+        np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (cout, cin, k, k)).astype(
+        np.int8))
+    want = int8_conv_int32(x, w, stride, k // 2)
+    before = int8_conv_int32.launches
+    got = int8_conv_int32(x.to(cuda_device), w.to(cuda_device), stride,
+                          k // 2)
+    torch.cuda.synchronize()
+    assert int8_conv_int32.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("realtime", [False, True])
+def test_tiny_quantized_card_matches_cpu(rng, cuda_device, realtime):
+    """One TINY quantized forward (realtime ``int8_mxu``: kernel #9 and
+    the int8 GEMMs; default ``int8``: #1 over int8 levels) on the card
+    and on the CPU.  Codes may flip where the card and the CPU round the
+    encoders differently, so the flow is held to 3x the card's own
+    spread when every weight moves by one fp32 ulp, max and mean."""
+    torch.manual_seed(0)
+    base = RaftStereoConfig.realtime().to_dict() if realtime else {}
+    cfg = RaftStereoConfig(**{**base, **TINY})
+    quant = "int8_mxu" if realtime else "int8"
+    state = RAFTStereo(cfg).state_dict()
+    gen = torch.Generator().manual_seed(0)
+    moved = {n: t * (1 + 2.0 ** -23 * (2 * torch.randint(
+        0, 2, t.shape, generator=gen) - 1)) for n, t in state.items()}
+    left = rng.integers(0, 256, (45, 70, 3), dtype=np.uint8)
+    right = np.roll(left, -3, axis=1)
+    cpu = InferenceRunner(cfg, state, iters=1, device="cpu",
+                          quant=quant)(left, right)[0]
+    counts = (lookup_pyramid_fused_q.launches, alt_lookup_fused_q.launches,
+              int8_conv_int32.launches)
+    gpu = InferenceRunner(cfg, state, iters=1, quant=quant)(left, right)[0]
+    launched = [a - b for a, b in zip(
+        (lookup_pyramid_fused_q.launches, alt_lookup_fused_q.launches,
+         int8_conv_int32.launches), counts)]
+    assert launched[:2] == ([0, 1] if realtime else [1, 0])
+    assert (launched[2] > 0) == realtime
+    ulp = InferenceRunner(cfg, moved, iters=1, quant=quant)(left, right)[0]
+    spread, err = np.abs(ulp - gpu), np.abs(gpu - cpu)
+    assert np.isfinite(gpu).all()
+    assert err.max() <= 3 * spread.max() and err.mean() <= 3 * spread.mean(
+    ), (err.max(), err.mean(), spread.max(), spread.mean())

@@ -146,7 +146,7 @@ def test_config_fields_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("quant", "int8"), ("banded_encoder", True), ("rows_shards", 2),
+    ("rows_gru", True), ("banded_encoder", True), ("rows_shards", 2),
     ("corr_w2_shards", 2), ("exit_threshold_px", 0.05),
     ("sequential_fnet_pixels", 0)])
 def test_unported_options_raise(field, value):

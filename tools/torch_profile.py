@@ -2,6 +2,7 @@
 """Where the time of the PyTorch port's main paths goes, on the card.
 
     python3 tools/torch_profile.py [--config default|realtime] [--train]
+                                   [--quant int8|int8_mxu [--fp8]]
 
 Without ``--train``: runs ``InferenceRunner`` on a config (seeded random
 weights) on the main-path shape of chip_smoke.py (375x1242): the default
@@ -22,13 +23,20 @@ the lookup/alt backward kernels, the adds that accumulate their volume or
 feature gradients across iterations (inside the lookup's backward node),
 the rest of the backward, and the update (``raft::clip_and_update``),
 read from the step's Chrome trace (written to a temporary directory and
-removed).  Needs a CUDA card; imports nothing of JAX.
+removed).  With ``--quant`` the inference runner runs the quantized tier
+(``--fp8``: float8_e4m3fn correlation codes), and the device time is also
+split by the port's ranges: the int8 convs (im2col and cuBLASLt's int8
+GEMM), the quantization of their inputs, their fp32 rescale, the
+dequantization of int8 weights, the quantization of the correlation, and
+the 1-byte lookup kernels with their scaling.  Needs a CUDA card; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import os
 import subprocess
@@ -65,11 +73,29 @@ SHARES = (
      lambda k, up: any("_GatesBackward" in u for u in up)),
     ("rest of the backward", lambda k, up: True),
 )
+# Inference shares of the quantized tier, by the port's ranges.
+Q_KERNELS = ("corr_lookup_kernel", "corr_alt_kernel")
+QUANT_SHARES = (
+    ("1-byte lookup kernels (#1, #9)",
+     lambda k, up: any(q in k for q in Q_KERNELS)),
+    ("scaling of the lookup (x scale vector, cast)",
+     lambda k, up: "raft::corr_lookup_q" in up),
+    ("int8 convs (im2col, int8 GEMM)", lambda k, up: "raft::int8_conv" in up),
+    ("quantization of conv inputs",
+     lambda k, up: "raft::quantize_activation" in up),
+    ("rescale + bias of int8 convs",
+     lambda k, up: "raft::int8_rescale" in up),
+    ("dequantization of int8 weights",
+     lambda k, up: "raft::dequantize_weights" in up),
+    ("quantization of the correlation",
+     lambda k, up: "raft::quantize_corr" in up),
+    ("rest", lambda k, up: True),
+)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def _train_shares(trace_path: str):
-    """Device ms per SHARES label, read from the exported Chrome trace:
+def _shares(trace_path: str, shares=SHARES):
+    """Device ms per ``shares`` label, read from the exported Chrome trace:
     each device event is joined by its correlation id to the runtime call
     that launched it, and labelled by the CPU ops and ranges open on that
     call's thread at that moment (a sweep over each thread's timeline)."""
@@ -99,7 +125,7 @@ def _train_shares(trace_path: str):
                     del stack[len(stack) - 1 - stack[::-1].index(what)]
             else:
                 open_at[what] = list(stack)
-    totals = {label: 0.0 for label, _ in SHARES}
+    totals = {label: 0.0 for label, _ in shares}
     totals["not linked to a launch"] = 0.0
     for e in events:
         if e.get("cat") not in DEVICE_CATS or e.get("ph") != "X":
@@ -108,7 +134,7 @@ def _train_shares(trace_path: str):
         if up is None:
             totals["not linked to a launch"] += e["dur"] / 1e3
             continue
-        for label, test in SHARES:
+        for label, test in shares:
             if test(e["name"], up):
                 totals[label] += e["dur"] / 1e3
                 break
@@ -127,7 +153,13 @@ def main(argv=None) -> int:
     parser.add_argument("--config", choices=sorted(ITERS), default="default")
     parser.add_argument("--train", action="store_true",
                         help="profile one training step")
+    parser.add_argument("--quant", choices=("int8", "int8_mxu"),
+                        help="run the quantized inference tier")
+    parser.add_argument("--fp8", action="store_true",
+                        help="float8_e4m3fn correlation codes (--quant)")
     args = parser.parse_args(argv)
+    if args.train and args.quant:
+        parser.error("--quant profiles inference; the tier does not train")
     iters = ITERS[args.config]
     import numpy as np
     import torch
@@ -149,6 +181,8 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     torch.manual_seed(0)
     cfg = getattr(RaftStereoConfig, args.config)()
+    if args.fp8:
+        cfg = dataclasses.replace(cfg, quant_corr_fp8=True)
     if args.train:
         full_fp32()
         tc = TrainConfig()
@@ -164,11 +198,14 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
     else:
         runner = InferenceRunner(cfg, RAFTStereo(cfg), iters=iters,
-                                 device="cuda")
+                                 device="cuda", quant=args.quant)
         rs = np.random.default_rng(0)
         left = rs.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)
         right = np.roll(left, -4, axis=1)
         what = f"{HEIGHT}x{WIDTH}, iters {iters}"
+        if args.quant:
+            what += (f", quant {args.quant}, "
+                     f"{'fp8' if args.fp8 else 'int8'} correlation")
 
         def run():
             runner(left, right)
@@ -197,11 +234,11 @@ def main(argv=None) -> int:
     for ms, count, key in rows[:TOP]:
         print(f"{ms:10.3f} {100 * ms / device_ms:5.1f}% {count:6d}  "
               f"{key[:110]}")
-    if args.train:
+    if args.train or args.quant:
         with tempfile.TemporaryDirectory() as tmp:
             trace = os.path.join(tmp, "trace.json")
             prof.export_chrome_trace(trace)
-            shares = _train_shares(trace)
+            shares = _shares(trace, SHARES if args.train else QUANT_SHARES)
         print(f"device time by what launched it (from the Chrome trace; "
               f"{sum(shares.values()):.2f} ms of device events):")
         for label, ms in shares.items():
