@@ -8,15 +8,26 @@ and imports nothing of JAX or of the JAX package.  Phases, each of which
 fails the run when it fails:
 
 1. print the card (name, power limit) and versions; build every CUDA
-   kernel from csrc/, one nvcc per source, all started together;
+   kernel from csrc/, one nvcc per source, all started together; print
+   each gate-kernel instantiation's registers, spills and shared memory,
+   and read the gate library's SASS (``cuobjdump -sass``): every gate
+   kernel must contain tensor-core instructions (HGMMA);
 2. the pyramid-lookup kernel against its plain version at the main-path
    shapes (96 rows, W1 312, W2 312/156/78/39, radius 4), all four levels
    in one call and each level alone at scale 1/2^i;
-3. the ConvGRU gate kernel against its plain version at the gru08, gru16
-   and gru32 shapes of a 384x1248 input;
+3. the ConvGRU gate kernel in fp32 (3xTF32) against its plain version at
+   every fp32 gate GEMM of the driven paths (gru08, gru16 and gru32 of a
+   384x1248 input, and one training gru08 call at batch 8) and at the odd
+   and narrow shapes of the card tests; at the GEMM rows also against an
+   fp64 convolution: the kernel's error may be at most 4x the plain fp32
+   version's, plus 1e-6 (a single TF32 pass lands ~100x above);
 4. timings of both kernels at those shapes: the kernel, its plain
    version, one PyTorch library yardstick the port never calls, and the
-   bound from bytes or operations;
+   bound from bytes or operations (the gates: 3xTF32 on the tensor cores,
+   the CUDA-core figure beside it); the gates from CUDA-graph replays (the
+   kernels' device time) and from single calls, with TFLOP/s, the share
+   of the bound, the factor against the library call and each launch's
+   tile and blocks per SM;
 5. the main path: ``InferenceRunner`` on the default config at full
    width with seeded random weights, on a 375x1242 pair (padded to
    384x1248) at 32 iterations; checks the output and that the lookup ran
@@ -27,8 +38,9 @@ fails the run when it fails:
    shapes: the alt correlation in bf16 and fp32 (48 rows, W1 156, levels
    156/78/39/19, D 256; all levels in one call and each level alone at
    scale 1/2^l), the bf16 gates at gru08 (1,48,156, Cin 384) and gru16
-   (1,24,78, Cin 256), and the bf16 pyramid lookup at the shapes of
-   phase 2;
+   (1,24,78, Cin 256), at the training gru08 calls (8,80,180 and the
+   realtime step's 8,40,90) and at the card tests' odd shapes, and the
+   bf16 pyramid lookup at the shapes of phase 2;
 8. timings of those kernels as in phase 4;
 9. the realtime path: ``InferenceRunner`` on ``RaftStereoConfig.realtime()``
    with seeded random weights on the 375x1242 pair at 7 iterations (7 alt
@@ -95,6 +107,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -109,20 +122,38 @@ SEED = 0
 RADIUS = 4
 LEVELS = 4
 ROWS, W1 = 96, 312                      # 1/4 of the 384x1248 padded pair
-# (name, H, W, Cx) of the three GRU levels at 1/4, 1/8, 1/16; Ch = 128
-GRU_LEVELS = (("gru08", 96, 312, 256), ("gru16", 48, 156, 256),
-              ("gru32", 24, 78, 128))
 CH = 128
+# The gate GEMMs of the driven paths, (name, B, H, W, Ch, Cx, calls per
+# iteration of the timed path): the default path's three levels at 1/4,
+# 1/8, 1/16 of 384x1248 and one training gru08 call (TrainConfig: batch
+# 8, 320x720 at 1/4); the realtime preset's levels (gru16 twice per
+# iteration) and training gru08 calls in bf16.
+GATE_ROWS_FP32 = (("default gru08", 1, 96, 312, CH, 256, 1),
+                  ("default gru16", 1, 48, 156, CH, 256, 1),
+                  ("default gru32", 1, 24, 78, CH, 128, 1),
+                  ("training gru08", 8, 80, 180, CH, 256, 0))
+GATE_ROWS_BF16 = (("realtime gru08", 1, 48, 156, CH, 256, 1),
+                  ("realtime gru16", 1, 24, 78, CH, 128, 2),
+                  ("training gru08", 8, 80, 180, CH, 256, 0),
+                  ("realtime training gru08", 8, 40, 90, CH, 256, 0))
+# The odd and narrow gate shapes of tests/test_torch_cuda.py, (name, B, H,
+# W, Ch, Cx), the TINY configs' hidden_dims=(32, 32, 32) among them.
+GATE_ODD = (("odd", 2, 17, 35, 32, 160), ("odd", 2, 9, 20, 128, 256),
+            ("odd", 2, 24, 78, 128, 128), ("odd", 2, 17, 35, 128, 256),
+            ("TINY gru08", 2, 16, 32, 32, 160),
+            ("TINY gru16", 2, 8, 16, 32, 64), ("TINY gru32", 2, 4, 8, 32, 32))
 LOOKUP_ATOL = 1e-5
 GATES_ATOL = 1e-4       # sums over up to 9*384 = 3456 fp32 products
+# fp32 gates against an fp64 convolution: the kernel's error at most
+# GATES_FP64_FACTOR x the plain fp32 version's + GATES_FP64_ATOL (room for
+# the tensor cores' own accumulation order).
+GATES_FP64_FACTOR, GATES_FP64_ATOL = 4.0, 1e-6
 CARD_VS_CPU_ATOL = 1e-2  # two iterations of random weights; see phase 6
 MAIN_HW = (375, 1242)
 PADDED_HW = (384, 1248)
 MAIN_ITERS = 32
-# Realtime preset: 1/8 of the 384x1248 padded pair, fnet_dim 256; GRU
-# levels (name, H, W, Cx, calls per iteration) with Ch = 128.
+# Realtime preset: 1/8 of the 384x1248 padded pair, fnet_dim 256.
 RT_ROWS, RT_W1, RT_D = 48, 156, 256
-RT_GRU_LEVELS = (("gru08", 48, 156, 256, 1), ("gru16", 24, 78, 128, 2))
 RT_ITERS = 7
 RT_DEEP_ITERS = 16      # the runner's corr_fp32 threshold
 ALT_ATOL = 1e-5         # fp32: dots of 256 products in another order
@@ -166,10 +197,11 @@ ALT_Q_RTOL = {"int8": 1e-6, "fp8": 1e-5}
 SCALED_RTOL = 1e-5
 Q_SPREAD_FACTOR = 3.0
 # Published peaks of the H100 SXM (NVIDIA data sheet, 700 W): memory
-# bytes/s, fp32 FLOP/s on the CUDA cores (no tensor cores: no TF32),
-# dense bf16 FLOP/s and dense int8/fp8 operations/s on the tensor cores.
+# bytes/s, fp32 FLOP/s on the CUDA cores, and on the tensor cores dense
+# TF32 and bf16 FLOP/s and dense int8/fp8 operations/s.
 MEM_RATE = 3.35e12
 FP32_RATE = 67e12
+TF32_RATE = 495e12
 BF16_RATE = 989e12
 INT8_RATE = 1979e12
 
@@ -269,6 +301,140 @@ def leaf_errs(got, want):
                    for n, g in want.items()), reverse=True)
 
 
+def graph_ms(fn, flush, reps: int = 20) -> float:
+    """Median device time of ``fn`` replayed from a CUDA graph, each replay
+    after a write of a buffer larger than L2: the time of its kernels
+    without the host's launch overhead (``time_ms`` includes it, and at
+    the small gate levels the host takes longer than the kernels)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def gate_args(gen, dev, shape, dtype):
+    """Seeded gate inputs for (B, H, W, Ch, Cx): h = tanh(normal), x and cr
+    normal, weights at He scale in ``dtype``, fp32 biases."""
+    b, h, w, ch, cx = shape
+    cin = ch + cx
+    ws = (2 / (9 * cin)) ** 0.5
+
+    def rnd(*shp, scale=1.0, dt=dtype):
+        return (scale * torch.randn(shp, generator=gen)).to(dev, dt)
+
+    return (torch.tanh(rnd(b, h, w, ch)), rnd(b, h, w, cx), rnd(b, h, w, ch),
+            rnd(3, 3, cin, 2 * ch, scale=ws),
+            rnd(2 * ch, scale=0.1, dt=torch.float32),
+            rnd(3, 3, cin, ch, scale=ws), rnd(ch, scale=0.1, dt=torch.float32))
+
+
+def gates_fp64(h, x, cr, wzr, bzr, wq, bq):
+    """The gate function in fp64 (cuDNN's fp64 convolutions): the yardstick
+    both the fp32 kernel and its plain fp32 version are held against."""
+    def conv(inp, k):
+        return F.conv2d(inp.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
+                        padding=1).permute(0, 2, 3, 1)
+
+    ch = h.shape[-1]
+    h, x, cr = h.double(), x.double(), cr.double()
+    zr = conv(torch.cat([h, x], -1), wzr.double()) + bzr.double()
+    r = torch.sigmoid(zr[..., ch:] + cr)
+    return zr, conv(torch.cat([r * h, x], -1), wq.double()) + bq.double()
+
+
+def gates_library(args):
+    """One PyTorch call computing the gate function, the port never calls
+    it: two ``F.conv2d`` (cuDNN) and the sigmoid coupling, NCHW, in the
+    activations' dtype."""
+    h, x, cr, wzr, bzr, wq, bq = args
+    dt, ch = h.dtype, h.shape[-1]
+    hh, xx, cc = (a.permute(0, 3, 1, 2).contiguous() for a in (h, x, cr))
+    wz, wqq = (w.permute(3, 2, 0, 1).contiguous() for w in (wzr, wq))
+    bz, bqq = bzr.to(dt), bq.to(dt)
+
+    def call():
+        zr = F.conv2d(torch.cat([hh, xx], 1), wz, bz, padding=1)
+        r = torch.sigmoid(zr[:, ch:] + cc)
+        return zr, F.conv2d(torch.cat([r * hh, xx], 1), wqq, bqq, padding=1)
+
+    return call
+
+
+_GATE_KERNEL = re.compile(r"gates_conv_kernelI(f|13__nv_bfloat16)Li(\d+)ELi"
+                          r"(\d+)ELi(\d+)ELb([01])E")
+
+
+def gate_instance(mangled: str):
+    """'fp32 BN 128 WG 2 KS 1 zr' for a mangled gate-kernel name, else
+    None."""
+    m = _GATE_KERNEL.search(mangled)
+    if m is None:
+        return None
+    return (f"{'fp32' if m.group(1) == 'f' else 'bf16'} BN {m.group(2)} WG "
+            f"{m.group(3)} KS {m.group(4)} "
+            f"{'zr' if m.group(5) == '1' else 'q'}")
+
+
+def gate_ptxas(report: str):
+    """{instance: 'N registers, ...'} from the gate library's ptxas -v."""
+    out, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            name = gate_instance(line)
+        elif name and "spill" in line:
+            out[name] = line.strip()
+        elif name and "registers" in line:
+            out[name] = f"{line.split(':', 1)[1].strip()}; {out.get(name, '')}"
+    return out
+
+
+def gate_sass(sass: str):
+    """{instance: {tensor-core opcode: count}} from ``cuobjdump -sass``."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = gate_instance(line)
+            if name:
+                out[name] = {}
+        elif name:
+            m = re.search(r"\b(HGMMA|HMMA)(\.[\w.]+)?", line)
+            if m:
+                op = m.group(0)
+                out[name][op] = out[name].get(op, 0) + 1
+    return out
+
+
+def cuobjdump(nvcc: str) -> str:
+    """The toolkit's cuobjdump, else the copy in Triton's package."""
+    found = [os.path.join(os.path.dirname(nvcc), "cuobjdump")]
+    try:
+        import triton
+        found.append(os.path.join(os.path.dirname(triton.__file__),
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    for path in found:
+        if os.path.exists(path):
+            return path
+    raise RuntimeError(f"no cuobjdump (looked at {found})")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "raft_stereo_tpu_torch")):
         print("chip_smoke.py needs the raft_stereo_tpu_torch package beside "
@@ -294,9 +460,11 @@ def main() -> int:
     from raft_stereo_tpu_torch.kernels.corr_lookup import (
         lookup_pyramid_bwd_fused, lookup_pyramid_bwd_xla,
         lookup_pyramid_fused, lookup_pyramid_xla)
-    from raft_stereo_tpu_torch.kernels.gru_fused import (_gates_reference,
-                                                         _gates_twin,
-                                                         gru_gates_fused)
+    from raft_stereo_tpu_torch.kernels.gru_fused import (TILES,
+                                                         _gates_reference,
+                                                         _gates_twin, blocks,
+                                                         gru_gates_fused,
+                                                         smem_bytes, tile)
     from raft_stereo_tpu_torch.kernels.corr_alt import alt_lookup_fused_q
     from raft_stereo_tpu_torch.kernels.corr_lookup import (
         lookup_pyramid_fused_q)
@@ -329,14 +497,82 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"(per source: {json.dumps({k: round(v, 1) for k, v in built.items()})})")
     for src in _build.sources():
+        if src == "gru_gates":    # reported per instantiation below
+            continue
         report = _build.library_path(src).with_suffix(".log")
         if report.exists():
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  {src}: {line.strip()}")
+    gate_lib = _build.library_path("gru_gates")
+    for inst, line in sorted(gate_ptxas(
+            gate_lib.with_suffix(".log").read_text()).items()):
+        dt_, _, bn_, _, wg_, *_ = inst.split()
+        smem = smem_bytes(torch.float32 if dt_ == "fp32" else torch.bfloat16,
+                          int(bn_), int(wg_))
+        log(f"  gates {inst}: {line}; dynamic shared memory {smem} B")
+    sass = subprocess.run([cuobjdump(_build._nvcc()), "-sass", str(gate_lib)],
+                          capture_output=True, text=True, check=True).stdout
+    tensor_ops = gate_sass(sass)
+    for inst, ops in sorted(tensor_ops.items()):
+        log(f"  gates {inst} SASS tensor-core instructions: {ops}")
+    bare = [i for i, ops in tensor_ops.items()
+            if not any(op.startswith("HGMMA") for op in ops)]
+    if len(tensor_ops) != 2 * 2 * len(TILES) or bare:
+        raise AssertionError(f"gate kernels without HGMMA: {bare} (of "
+                             f"{sorted(tensor_ops)})")
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
+
+    def gate_timing(label, args, calls):
+        """Time one gate call (graph replays and single calls), its plain
+        version and the library call; print TFLOP/s, the share of the
+        bound, the factor against the library and each launch's tile."""
+        h_, x_ = args[0], args[1]
+        b_, hh_, ww_, ch_ = h_.shape
+        cin_ = ch_ + x_.shape[-1]
+        fp32 = h_.dtype == torch.float32
+        flops = 2 * b_ * hh_ * ww_ * 9 * cin_ * 3 * ch_
+        item = h_.element_size()
+        nbytes = (item * b_ * hh_ * ww_ * (cin_ + ch_ + 3 * ch_)
+                  + item * 9 * cin_ * 3 * ch_ + 4 * 3 * ch_)
+        ops_ms = (3 * flops / TF32_RATE if fp32 else flops / BF16_RATE) * 1e3
+        bytes_ms = nbytes / MEM_RATE * 1e3
+        bound = max(ops_ms, bytes_ms)
+        lib_fn = gates_library(args)
+        ms = graph_ms(lambda: gru_gates_fused(*args), flush)
+        single = time_ms(lambda: gru_gates_fused(*args), flush)
+        plain = graph_ms(lambda: _gates_reference(*args), flush)
+        lib = graph_ms(lib_fn, flush)
+        lib_single = time_ms(lib_fn, flush)
+        grids = []
+        for what, cout in (("zr", 2 * ch_), ("q", ch_)):
+            bn, wg, ks = tile((b_, hh_, ww_), cout, sms)
+            n = blocks((b_, hh_, ww_), cout, bn, wg, ks)
+            grids.append(f"{what} {bn}x{wg}{f' K/{ks}' if ks > 1 else ''}: "
+                         f"{n} blocks, {n / sms:.2f}/SM")
+        log(f"gates {'fp32' if fp32 else 'bf16'} timing {label}"
+            f"{f' (x{calls} per iteration)' if calls > 1 else ''}: kernel "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} "
+            f"of the bound; single call {single:.4f}), plain {plain:.4f}, "
+            f"conv2d x2 {lib:.4f} (single call {lib_single:.4f}): "
+            f"{lib / ms:.2f}x; bound {bound:.5f} ms ({flops / 1e9:.2f} GFLOP"
+            f"{', 3xTF32 on the tensor cores' if fp32 else ''}; "
+            f"{flops / FP32_RATE * 1e3:.4f} ms on the fp32 CUDA cores; "
+            f"{nbytes / 1e6:.1f} MB: {bytes_ms:.5f} ms); {'; '.join(grids)}")
+        return {"ms": ms, "plain": plain, "lib": lib, "bound": bound,
+                "by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+    def per_iteration(rows, times):
+        """Sum over a path's levels, each times its calls per iteration."""
+        tot = {k_: sum(c_ * times[n_][k_] for n_, c_ in rows if c_)
+               for k_ in ("ms", "plain", "lib", "bound")}
+        tot["by"] = ("bytes" if any(times[n_]["by"] == "bytes"
+                                    for n_, c_ in rows if c_)
+                     else "operations")
+        return tot
 
     # ------------------------------------------------------------ phase 2
     vol = torch.randn((1, ROWS, W1, W1), generator=gen).to(dev)
@@ -363,28 +599,34 @@ def main() -> int:
     # ------------------------------------------------------------ phase 3
     gate_cases = {}
     gates_err = 0.0
-    for lvl, h, w, cx in GRU_LEVELS:
-        cin = CH + cx
-        ws = (2 / (9 * cin)) ** 0.5
-
-        def rnd(*shape, scale=1.0):
-            return (scale * torch.randn(shape, generator=gen)).to(dev)
-
-        args = (torch.tanh(rnd(1, h, w, CH)), rnd(1, h, w, cx),
-                rnd(1, h, w, CH), rnd(3, 3, cin, 2 * CH, scale=ws),
-                rnd(2 * CH, scale=0.1), rnd(3, 3, cin, CH, scale=ws),
-                rnd(CH, scale=0.1))
-        gate_cases[lvl] = args
+    for name_, *shape, calls in GATE_ROWS_FP32 + tuple(
+            o + (0,) for o in GATE_ODD):
+        label = f"{name_} {tuple(shape[:3])} Ch {shape[3]} Cx {shape[4]}"
+        args = gate_args(gen, dev, shape, torch.float32)
         got = gru_gates_fused(*args)
         torch.cuda.synchronize()
         want = _gates_reference(*args)
-        want64 = _gates_reference(*(a.double() for a in args))
         err = max(float((g - wv).abs().max()) for g, wv in zip(got, want))
-        err64 = max(float((g.double() - wv).abs().max())
-                    for g, wv in zip(got, want64))
-        log(f"gates {lvl} (1,{h},{w}) Cin {cin}: max |kernel - plain| = "
-            f"{err:.3e} (atol {GATES_ATOL}); kernel vs fp64 {err64:.3e}")
+        line = (f"gates fp32 {label}: max |kernel - plain| = {err:.3e} "
+                f"(atol {GATES_ATOL})")
+        if not name_.startswith(("odd", "TINY")):
+            ref = gates_fp64(*args)
+            d_k = max(float((g.double() - r_).abs().max())
+                      for g, r_ in zip(got, ref))
+            d_p = max(float((wv.double() - r_).abs().max())
+                      for wv, r_ in zip(want, ref))
+            ok64 = d_k <= GATES_FP64_FACTOR * d_p + GATES_FP64_ATOL
+            line += (f"; against fp64: kernel {d_k:.3e}, plain {d_p:.3e} "
+                     f"(kernel <= {GATES_FP64_FACTOR:g} x plain + "
+                     f"{GATES_FP64_ATOL:g}: {'ok' if ok64 else 'FAILED'})")
+            del ref
+            if not ok64:
+                log(line)
+                raise AssertionError(f"fp32 gates {label} not of fp32 "
+                                     f"accuracy: {d_k} against {d_p}")
+        log(line)
         gates_err = max(gates_err, err)
+        gate_cases[label] = (args, calls)
     if not gates_err <= GATES_ATOL:
         raise AssertionError(f"gate kernel disagrees: {gates_err}")
 
@@ -419,38 +661,15 @@ def main() -> int:
         f"{lookup_plain_ms:.4f} ms, grid_sample x4 {lookup_lib_ms:.4f} ms, "
         f"bound {lookup_bound_ms:.4f} ms (bytes)")
 
-    gates_ms = gates_plain_ms = gates_lib_ms = gates_bound_ms = 0.0
-    gates_bound_by = "operations"
-    for lvl, h, w, cx in GRU_LEVELS:
-        args = gate_cases[lvl]
-        cin = CH + cx
-        nchw = [a.permute(0, 3, 1, 2).contiguous() for a in args[:3]]
-        oihw = [args[3].permute(3, 2, 0, 1).contiguous(), args[4],
-                args[5].permute(3, 2, 0, 1).contiguous(), args[6]]
-
-        def gates_library(hh=nchw[0], xx=nchw[1], cr=nchw[2]):
-            zr = F.conv2d(torch.cat([hh, xx], 1), oihw[0], oihw[1],
-                          padding=1)
-            r = torch.sigmoid(zr[:, CH:] + cr)
-            return zr, F.conv2d(torch.cat([r * hh, xx], 1), oihw[2],
-                                oihw[3], padding=1)
-
-        ms = time_ms(lambda: gru_gates_fused(*args), flush)
-        plain = time_ms(lambda: _gates_reference(*args), flush)
-        lib = time_ms(gates_library, flush)
-        flops = 2 * h * w * 9 * cin * 3 * CH
-        nbytes = 4 * (h * w * (CH + cx + CH + 3 * CH)
-                      + 9 * cin * 3 * CH + 3 * CH)
-        ops_ms, bytes_ms = flops / FP32_RATE * 1e3, nbytes / MEM_RATE * 1e3
-        log(f"gates timing {lvl}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"conv2d x2 {lib:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms "
-            f"({flops / 1e9:.2f} GFLOP: {flops / ms / 1e9:.2f} TFLOP/s)")
-        gates_ms += ms
-        gates_plain_ms += plain
-        gates_lib_ms += lib
-        gates_bound_ms += max(ops_ms, bytes_ms)
-        if bytes_ms > ops_ms:
-            gates_bound_by = "bytes"
+    gate_times = {label: gate_timing(label, args, calls)
+                  for label, (args, calls) in gate_cases.items()}
+    gates_fp32 = per_iteration([(lb, c_) for lb, (_, c_) in gate_cases.items()],
+                               gate_times)
+    log(f"gates fp32 per default iteration: kernel {gates_fp32['ms']:.4f} ms, "
+        f"plain {gates_fp32['plain']:.4f}, conv2d {gates_fp32['lib']:.4f} "
+        f"({gates_fp32['lib'] / gates_fp32['ms']:.2f}x), bound "
+        f"{gates_fp32['bound']:.4f} ms (3xTF32)")
+    del gate_cases
 
     # ------------------------------------------------------------ phase 5
     cfg = RaftStereoConfig()
@@ -543,19 +762,10 @@ def main() -> int:
 
     rt_gate_cases = {}
     gates_bf16_err = 0.0
-    for lvl, h, w, cx, _ in RT_GRU_LEVELS:
-        cin = CH + cx
-        ws = (2 / (9 * cin)) ** 0.5
-
-        def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
-            return (scale * torch.randn(shape, generator=gen)).to(dev, dtype)
-
-        args = (torch.tanh(rnd(1, h, w, CH)), rnd(1, h, w, cx),
-                rnd(1, h, w, CH), rnd(3, 3, cin, 2 * CH, scale=ws),
-                rnd(2 * CH, scale=0.1, dtype=torch.float32),
-                rnd(3, 3, cin, CH, scale=ws),
-                rnd(CH, scale=0.1, dtype=torch.float32))
-        rt_gate_cases[lvl] = args
+    for name_, *shape, calls in GATE_ROWS_BF16 + tuple(
+            o + (0,) for o in GATE_ODD):
+        label = f"{name_} {tuple(shape[:3])} Ch {shape[3]} Cx {shape[4]}"
+        args = gate_args(gen, dev, shape, torch.bfloat16)
         got = gru_gates_fused(*args)
         torch.cuda.synchronize()
         errs = [bf16_ulp_error(g, wv, BF16_GATES_ULPS, BF16_GATES_ATOL)
@@ -563,12 +773,13 @@ def main() -> int:
         err = max(e for e, _ in errs)
         ok = all(o for _, o in errs) and all(
             g.dtype == torch.bfloat16 for g in got)
-        log(f"gates bf16 {lvl} (1,{h},{w}) Cin {cin}: max |kernel - plain| "
-            f"= {err:.3e} ({BF16_GATES_ULPS} bf16 ulps + {BF16_GATES_ATOL}): "
+        log(f"gates bf16 {label}: max |kernel - plain| = {err:.3e} "
+            f"({BF16_GATES_ULPS} bf16 ulps + {BF16_GATES_ATOL}): "
             f"{'ok' if ok else 'FAILED'}")
         if not ok:
             raise AssertionError(f"bf16 gate kernel disagrees: {err}")
         gates_bf16_err = max(gates_bf16_err, err)
+        rt_gate_cases[label] = (args, calls)
 
     pyr16 = build_corr_pyramid(vol.to(torch.bfloat16), LEVELS)
     got = lookup_pyramid_fused(pyr16, coords, RADIUS)
@@ -605,43 +816,15 @@ def main() -> int:
             f"({nbytes / 1e6:.2f} MB: {bytes_ms:.5f} ms; {flops / 1e6:.1f} "
             f"MFLOP at the fp32 rate: {ops_ms:.5f} ms)")
 
-    g16_ms = g16_plain = g16_lib = g16_bound = g16_fp32rate = 0.0
-    for lvl, h, w, cx, per_iter in RT_GRU_LEVELS:
-        args = rt_gate_cases[lvl]
-        cin = CH + cx
-        nchw = [a.permute(0, 3, 1, 2).contiguous() for a in args[:3]]
-        oihw = [args[3].permute(3, 2, 0, 1).contiguous(),
-                args[4].to(torch.bfloat16),
-                args[5].permute(3, 2, 0, 1).contiguous(),
-                args[6].to(torch.bfloat16)]
-
-        def gates16_library(hh=nchw[0], xx=nchw[1], cr=nchw[2], wt=oihw):
-            zr = F.conv2d(torch.cat([hh, xx], 1), wt[0], wt[1], padding=1)
-            r = torch.sigmoid(zr[:, CH:] + cr)
-            return zr, F.conv2d(torch.cat([r * hh, xx], 1), wt[2], wt[3],
-                                padding=1)
-
-        ms = time_ms(lambda: gru_gates_fused(*args), flush)
-        plain = time_ms(lambda: _gates_reference(*args), flush)
-        lib = time_ms(gates16_library, flush)
-        flops = 2 * h * w * 9 * cin * 3 * CH
-        nbytes = (2 * h * w * (CH + cx + CH + 3 * CH) + 2 * 9 * cin * 3 * CH
-                  + 4 * 3 * CH)
-        ops_ms, bytes_ms = flops / BF16_RATE * 1e3, nbytes / MEM_RATE * 1e3
-        log(f"gates bf16 timing {lvl} (x{per_iter} per iteration): kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bf16 conv2d x2 {lib:.4f} ms,"
-            f" bound {max(ops_ms, bytes_ms):.5f} ms ({flops / 1e9:.2f} GFLOP "
-            f"at the bf16 tensor-core rate; {flops / FP32_RATE * 1e3:.4f} ms "
-            f"at the fp32 CUDA-core rate the kernel uses: "
-            f"{flops / ms / 1e9:.2f} TFLOP/s)")
-        g16_ms += per_iter * ms
-        g16_plain += per_iter * plain
-        g16_lib += per_iter * lib
-        g16_bound += per_iter * max(ops_ms, bytes_ms)
-        g16_fp32rate += per_iter * flops / FP32_RATE * 1e3
-    log(f"gates bf16 per iteration: kernel {g16_ms:.4f} ms, plain "
-        f"{g16_plain:.4f} ms, conv2d {g16_lib:.4f} ms, bound {g16_bound:.5f}"
-        f" ms (bf16 tensor cores), {g16_fp32rate:.4f} ms at the fp32 rate")
+    g16_times = {label: gate_timing(label, args, calls)
+                 for label, (args, calls) in rt_gate_cases.items()}
+    gates_bf16 = per_iteration(
+        [(lb, c_) for lb, (_, c_) in rt_gate_cases.items()], g16_times)
+    log(f"gates bf16 per realtime iteration: kernel {gates_bf16['ms']:.4f} "
+        f"ms, plain {gates_bf16['plain']:.4f}, conv2d {gates_bf16['lib']:.4f}"
+        f" ({gates_bf16['lib'] / gates_bf16['ms']:.2f}x), bound "
+        f"{gates_bf16['bound']:.5f} ms (bf16 tensor cores)")
+    del rt_gate_cases
 
     src16 = [v.float().reshape(-1, 1, 1, v.shape[-1]) for v in pyr16]
 
@@ -1366,15 +1549,16 @@ def main() -> int:
          "source": "raft_stereo_tpu_torch/csrc/gru_gates.cu",
          "replaces": "raft_stereo_tpu/kernels/gru_fused.py:153",
          "launches": launches["gates"], "max_abs_err": gates_err,
-         "ms": gates_ms, "plain_ms": gates_plain_ms,
-         "bound_ms": gates_bound_ms, "bound_by": gates_bound_by,
-         "library_ms": gates_lib_ms},
+         "ms": gates_fp32["ms"], "plain_ms": gates_fp32["plain"],
+         "bound_ms": gates_fp32["bound"], "bound_by": gates_fp32["by"],
+         "library_ms": gates_fp32["lib"]},
         {"name": "gru_gates_bf16", "route": "cuda",
          "source": "raft_stereo_tpu_torch/csrc/gru_gates.cu",
          "replaces": "raft_stereo_tpu/kernels/gru_fused.py:153",
          "launches": rt_launches["gates"], "max_abs_err": gates_bf16_err,
-         "ms": g16_ms, "plain_ms": g16_plain, "bound_ms": g16_bound,
-         "bound_by": "operations", "library_ms": g16_lib},
+         "ms": gates_bf16["ms"], "plain_ms": gates_bf16["plain"],
+         "bound_ms": gates_bf16["bound"], "bound_by": gates_bf16["by"],
+         "library_ms": gates_bf16["lib"]},
         {"name": "corr_alt", "route": "cuda",
          "source": "raft_stereo_tpu_torch/csrc/corr_alt.cu",
          "replaces": "raft_stereo_tpu/kernels/corr_alt.py:273",

@@ -8,9 +8,11 @@ JAX package's signature (NHWC activations, HWIO weights):
     qpre = conv3x3([r*h, x], Wq) + bq
 
 On CUDA tensors it launches ``csrc/gru_gates.cu`` (two kernel launches
-per call: zr with r*h, then qpre); on CPU tensors it runs the plain
-version ``_gates_reference``.  Activations are fp32 or bf16; the weights
-are cast to that dtype (a no-op once the caller holds them cast) and the
+per call: zr with r*h, then qpre; tensor cores, bf16 on wgmma and fp32 as
+3xTF32); on CPU tensors it runs the plain version ``_gates_reference``.
+Activations are fp32 or bf16; the weights are cast to that dtype and
+packed K-major for the kernel (``pack_weights``; fp32 as TF32 high and
+low planes), once per weight tensor and version (``_packed``), and the
 biases ride fp32, as the JAX op casts them.  The sigmoid/tanh/blend tail
 stays with the caller (models/update.py).
 
@@ -28,14 +30,16 @@ are XLA's; there is no backward kernel on the TPU either.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from raft_stereo_tpu_torch.kernels import _build
 
-CHANNEL_MULTIPLE = 8  # kChunk in csrc/gru_gates.cu
+CHANNEL_MULTIPLE = 8  # 16 bytes of bf16: the kernel's gather unit
 
 
 def _conv3x3_same(inp: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -88,32 +92,136 @@ def _gates_vjp(inputs, grads, needs):
     return tuple(next(got) if n else None for n in needs)
 
 
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 fraction bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``: the low 13 bits of the result are
+    zero."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32(t), lo = tf32(t - hi): hi + lo is within
+    2^-22 of t, relative."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t.float() - hi)
+
+
+def pack_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """HWIO (3, 3, Cin, Cout) -> the kernel's K-major operand: cast to
+    ``dtype``, Cin zero-padded to a multiple of 16 (Cin'), and regrouped
+    as (9, Cin'/E, Cout, E), E the values of ``dtype`` in 16 bytes; for
+    fp32 two such planes stacked, the TF32 high and low parts
+    (``split_tf32``)."""
+    kh, kw, cin, cout = w.shape
+    cin16 = -(-cin // 16) * 16
+    e = 16 // torch.empty((), dtype=dtype).element_size()
+
+    def regroup(t):
+        t = F.pad(t, (0, 0, 0, cin16 - cin))
+        return t.reshape(kh * kw, cin16 // e, e, cout).permute(
+            0, 1, 3, 2).contiguous()
+
+    if dtype == torch.float32:
+        return torch.stack([regroup(p) for p in split_tf32(w)])
+    return regroup(w.to(dtype))
+
+
+_PACKS = WeakIdKeyDictionary()  # weight owner -> {key: (version, pack)}
+
+
+def _packed(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``pack_weights(w, dtype)``, cached per tensor that owns ``w``'s
+    storage (its view base, else ``w``; held weakly, so the entry dies
+    with the weights and a new tensor that reuses the address is never
+    mistaken for the old one) and keyed on the storage pointer, shape,
+    strides and dtypes.  An entry holds while the version counter, which
+    views share with their base, is unchanged: inference packs once per
+    model, training once per optimizer update."""
+    owner = w if w._base is None else w._base
+    key = (w.data_ptr(), tuple(w.shape), tuple(w.stride()), w.dtype, dtype)
+    cache = _PACKS.setdefault(owner, {})
+    hit = cache.get(key)
+    if hit is not None and hit[0] == w._version:
+        return hit[1]
+    with torch.no_grad():
+        packed = pack_weights(w.detach(), dtype)
+    cache[key] = (w._version, packed)
+    gru_gates_fused.packs += 1
+    return packed
+
+
+TILE_W = 16  # output columns of a block's tile (kTW in csrc/gru_gates.cu)
+
+
+def blocks(shape: Tuple[int, int, int], cout: int, bn: int, wg: int,
+           ks: int = 1) -> int:
+    """Blocks of one launch over ``shape`` = (B, H, W) output pixels and
+    ``cout`` channels with tile (BN, WG, KS): 4*WG rows by TILE_W columns
+    of pixels by BN channels, K split over KS blocks of a cluster."""
+    b, h, w = shape
+    return ks * b * -(-h // (4 * wg)) * -(-w // TILE_W) * -(-cout // bn)
+
+
+# The tiles (BN, WG, KS) of csrc/gru_gates.cu, largest first.
+TILES = ((128, 2, 1), (128, 2, 2), (64, 2, 2), (64, 1, 2))
+
+
+def tile(shape: Tuple[int, int, int], cout: int,
+         sms: int) -> Tuple[int, int, int]:
+    """(BN, WG, KS) of one launch: the first of ``TILES`` that gives at
+    least 90% of the SMs a block, else the smallest.  Fewer pixels per
+    block and K split over a cluster shorten each block's chain of
+    stages, which sets the time of the small GRU levels."""
+    for t in TILES:
+        if 10 * blocks(shape, cout, *t) >= 9 * sms:
+            return t
+    return TILES[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 _ENTRIES = {torch.float32: "raft_gru_gates",
             torch.bfloat16: "raft_gru_gates_bf16"}
 
 
+@functools.lru_cache(maxsize=None)
 def _lib(dtype: torch.dtype):
     fn = getattr(_build.load("gru_gates"), _ENTRIES[dtype])
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def smem_bytes(dtype: torch.dtype, bn: int, wg: int) -> int:
+    """Dynamic shared memory of one gate block (the kernel's own count)."""
+    fn = _build.load("gru_gates").raft_gru_gates_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(int(dtype == torch.bfloat16), bn, wg)
 
 
 def _launch(h, x, cr, wzr, bzr, wq, bq):
     dt = h.dtype
     b, hh, ww, ch = h.shape
-    args = {"h": h, "x": x, "cr": cr, "wzr": wzr.to(dt), "bzr": bzr,
-            "wq": wq.to(dt), "bq": bq}
+    args = {"h": h, "x": x, "cr": cr, "bzr": bzr, "bq": bq}
     args = {k: v.contiguous() for k, v in args.items()}
+    args["wzr"], args["wq"] = _packed(wzr, dt), _packed(wq, dt)
     zr = torch.empty((b, hh, ww, 2 * ch), device=h.device, dtype=dt)
     qpre = torch.empty((b, hh, ww, ch), device=h.device, dtype=dt)
     rh = torch.empty_like(qpre)
     with torch.cuda.device(h.device):
+        sms = _sm_count(torch.cuda.current_device())
         err = _lib(dt)(*(args[k].data_ptr() for k in
                          ("h", "x", "cr", "wzr", "bzr", "wq", "bq")),
                        zr.data_ptr(), qpre.data_ptr(), rh.data_ptr(),
                        b, hh, ww, ch, x.shape[-1],
+                       (ctypes.c_int * 6)(*tile((b, hh, ww), 2 * ch, sms),
+                                          *tile((b, hh, ww), ch, sms)),
                        torch.cuda.current_stream().cuda_stream)
     _build.check(err, "gru_gates")
     gru_gates_fused.launches += 1
@@ -158,6 +266,7 @@ def gru_gates_fused(h: torch.Tensor, x: torch.Tensor, cr: torch.Tensor,
 
 
 gru_gates_fused.launches = 0
+gru_gates_fused.packs = 0    # weight packings (``_packed``), not launches
 
 
 def _check(h, x, cr, wzr, bzr, wq, bq) -> None:

@@ -166,6 +166,95 @@ def test_gates_kernel_bf16_matches_plain(rng, cuda_device, h, w, cx):
         assert_bf16_close(g, want, ulps=2, atol=1e-3)
 
 
+# The gate GEMMs of the driven paths (B, H, W, Ch, Cx): the default
+# path's three levels of 384x1248 and one training gru08 call at batch 8
+# (fp32), the realtime levels and training gru08 calls (bf16); and the
+# odd and narrow shapes, the TINY configs' hidden_dims=(32, 32, 32) among
+# them, in both types.
+GATE_MAIN_FP32 = [(1, 96, 312, 128, 256), (1, 48, 156, 128, 256),
+                  (1, 24, 78, 128, 128), (8, 80, 180, 128, 256)]
+GATE_MAIN_BF16 = [(1, 48, 156, 128, 256), (1, 24, 78, 128, 128),
+                  (8, 80, 180, 128, 256), (8, 40, 90, 128, 256)]
+GATE_ODD = [(2, 17, 35, 32, 160), (2, 9, 20, 128, 256), (2, 24, 78, 128, 128),
+            (2, 17, 35, 128, 256), (2, 16, 32, 32, 160), (2, 8, 16, 32, 64),
+            (2, 4, 8, 32, 32)]
+
+
+def _gate_args(rng, device, shape, dtype):
+    b, h, w, ch, cx = shape
+    cin = ch + cx
+
+    def arr(*s, scale=1.0, dt=dtype):
+        return torch.from_numpy((scale * rng.normal(size=s)).astype(
+            np.float32)).to(device, dt)
+
+    ws = (2 / (9 * cin)) ** 0.5
+    return (torch.tanh(arr(b, h, w, ch)), arr(b, h, w, cx), arr(b, h, w, ch),
+            arr(3, 3, cin, 2 * ch, scale=ws),
+            arr(2 * ch, scale=0.1, dt=torch.float32),
+            arr(3, 3, cin, ch, scale=ws), arr(ch, scale=0.1, dt=torch.float32))
+
+
+@pytest.mark.parametrize(
+    "dtype,shape", [(torch.float32, s) for s in GATE_MAIN_FP32 + GATE_ODD]
+    + [(torch.bfloat16, s) for s in GATE_MAIN_BF16 + GATE_ODD])
+def test_gates_kernel_matches_plain_at_path_shapes(rng, cuda_device, dtype,
+                                                   shape):
+    """The tensor-core gate kernel at every gate GEMM the driven paths
+    launch and at the odd shapes: fp32 (3xTF32) within 1e-4 of the plain
+    version (sums of up to 3,456 products in another order), bf16 within
+    two ulps + 1e-3 (a flip of the bf16 r*h moves qpre by a weight times
+    its ulp)."""
+    args = _gate_args(rng, cuda_device, shape, dtype)
+    before = gru_gates_fused.launches
+    got = gru_gates_fused(*args)
+    torch.cuda.synchronize()
+    assert gru_gates_fused.launches == before + 1
+    for g, want in zip(got, _gates_reference(*args)):
+        assert g.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, want, atol=1e-4, rtol=0)
+        else:
+            assert_bf16_close(g, want, ulps=2, atol=1e-3)
+
+
+def _gates_fp64(h, x, cr, wzr, bzr, wq, bq):
+    def conv(inp, k):
+        return torch.nn.functional.conv2d(
+            inp.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
+            padding=1).permute(0, 2, 3, 1)
+
+    ch = h.shape[-1]
+    h, x, cr = h.double(), x.double(), cr.double()
+    zr = conv(torch.cat([h, x], -1), wzr.double()) + bzr.double()
+    r = torch.sigmoid(zr[..., ch:] + cr)
+    return zr, conv(torch.cat([r * h, x], -1), wq.double()) + bq.double()
+
+
+@pytest.mark.parametrize("shape", GATE_MAIN_FP32[:3])
+def test_fp32_gates_keep_fp32_accuracy(rng, cuda_device, shape):
+    """3xTF32 against fp64: the kernel's largest error is at most 4x that
+    of the plain fp32 version (cuDNN, TF32 off) plus 1e-6.  A single TF32
+    pass lands ~100x above it at these sums of up to 3,456 products."""
+    args = _gate_args(rng, cuda_device, shape, torch.float32)
+    got = gru_gates_fused(*args)
+    plain = _gates_reference(*args)
+    ref = _gates_fp64(*args)
+    d_k = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
+    d_p = max(float((p.double() - r).abs().max()) for p, r in zip(plain, ref))
+    assert d_k <= 4 * d_p + 1e-6, (d_k, d_p)
+
+
+def test_gate_weights_pack_once_on_card(rng, cuda_device):
+    """Inference packs each weight once: later calls reuse the pack."""
+    args = _gate_args(rng, cuda_device, (1, 9, 20, 32, 64), torch.bfloat16)
+    gru_gates_fused(*args)
+    packs = gru_gates_fused.packs
+    for _ in range(3):
+        gru_gates_fused(*args)
+    assert gru_gates_fused.packs == packs
+
+
 def test_tiny_realtime_card_matches_cpu(rng, cuda_device):
     """The realtime architecture in fp32 on the card and on the CPU, and
     the bf16 preset on the card through the alt and bf16 gate kernels."""
