@@ -24,10 +24,15 @@ fails the run when it fails:
 4. timings of both kernels at those shapes: the kernel, its plain
    version, one PyTorch library yardstick the port never calls, and the
    bound from bytes or operations (the gates: 3xTF32 on the tensor cores,
-   the CUDA-core figure beside it); the gates from CUDA-graph replays (the
-   kernels' device time) and from single calls, with TFLOP/s, the share
-   of the bound, the factor against the library call and each launch's
-   tile and blocks per SM;
+   the CUDA-core figure beside it); every row from CUDA-graph replays (the
+   kernels' device time; the replay floor of a one-element kernel is
+   printed; the short lookups also as 20 calls per replay with the
+   flushes subtracted) and, kernel and library, from single calls, with
+   the share of the bound and the factor against the library call (the
+   gates also TFLOP/s and each launch's tile and blocks per SM); whether
+   the fp32 lookup is slower than ``F.grid_sample`` by graph replay; the
+   lookup wrapper's host microseconds per call, with its C entry bound
+   once and rebound on every call;
 5. the main path: ``InferenceRunner`` on the default config at full
    width with seeded random weights, on a 375x1242 pair (padded to
    384x1248) at 32 iterations; checks the output and that the lookup ran
@@ -57,7 +62,9 @@ fails the run when it fails:
    shape), and the gate Function's gradients against autograd through
    its plain twin at gru08 (8, 80, 180, Cin 384);
 12. timings of the backward kernels as in phase 4, the yardstick being
-   the autograd backward of the ``F.grid_sample`` formulations;
+   the autograd backward of the ``F.grid_sample`` formulations (captured
+   on the stream of their forwards), and the alt backward's plan (channel
+   chunk, pixel tile, tensor or CUDA cores);
 13. the default training step: ``train()`` with ``RaftStereoConfig()``
    fp32 and ``TrainConfig()`` (batch 8, 320x720, 22 iterations) on a
    seeded synthetic loader, one warm-up step and 3 timed steps; checks
@@ -96,7 +103,8 @@ fails the run when it fails:
    to 3x the card's own spread with every weight moved by one fp32 ulp,
    with the share of correlation codes that flipped.
 
-The line before the last is a JSON object ``{"kernels": [...]}``; the
+The line before the last is a JSON object ``{"kernels": [...]}`` (times
+by graph replay; a redesigned row names its design under ``design``); the
 last is ``{"ok": true, "device": {...}}``.  The fp32 path is full fp32:
 TF32 is switched off for matmuls and cuDNN convs.
 """
@@ -301,19 +309,22 @@ def leaf_errs(got, want):
                    for n, g in want.items()), reverse=True)
 
 
-def graph_ms(fn, flush, reps: int = 20) -> float:
+def graph_ms(fn, flush, reps: int = 20, stream=None) -> float:
     """Median device time of ``fn`` replayed from a CUDA graph, each replay
     after a write of a buffer larger than L2: the time of its kernels
-    without the host's launch overhead (``time_ms`` includes it, and at
-    the small gate levels the host takes longer than the kernels)."""
-    side = torch.cuda.Stream()
+    without the host's launch overhead (``time_ms`` includes it, and where
+    the host takes longer than the kernels it times the host).  ``stream``
+    is the capture stream: an autograd backward runs its kernels on the
+    stream of its forward, so a backward is captured on the stream its
+    forward ran on."""
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         fn()
     times = []
     for _ in range(reps):
@@ -326,6 +337,72 @@ def graph_ms(fn, flush, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_each_ms(fn, flush, calls: int = 20, reps: int = 10) -> float:
+    """Device time of one call of ``fn`` without the replay's own floor:
+    a graph of ``calls`` x (flush, ``fn``) against a graph of ``calls``
+    flushes alone, replayed in turns; the median difference over ``reps``
+    pairs of replays, per call.  Each call still finds L2 cold."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    both, flushes = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(both):
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+    with torch.cuda.graph(flushes):
+        for _ in range(calls):
+            flush.zero_()
+
+    def replay_ms(graph):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    return statistics.median(replay_ms(both) - replay_ms(flushes)
+                             for _ in range(reps)) / calls
+
+
+def timed(kernel, plain, library, flush, lib_stream=None) -> dict:
+    """A kernel, its plain version and its library call, each by CUDA-graph
+    replay (``ms``, ``plain``, ``lib``: device time), the kernel and the
+    library also as single calls (``single``, ``lib_single``: the host's
+    launch work counts where it is slower than the device)."""
+    return {"ms": graph_ms(kernel, flush), "single": time_ms(kernel, flush),
+            "plain": graph_ms(plain, flush),
+            "lib": graph_ms(library, flush, stream=lib_stream),
+            "lib_single": time_ms(library, flush)}
+
+
+def describe(t: dict, library: str, bound: float, by: str) -> str:
+    """One log line's timing: graph replay, single call, bound and share."""
+    return (f"kernel {t['ms']:.4f} ms by graph replay (single call "
+            f"{t['single']:.4f}), plain {t['plain']:.4f}, {library} "
+            f"{t['lib']:.4f} (single call {t['lib_single']:.4f}; "
+            f"{t['lib'] / t['ms']:.2f}x the kernel), bound {bound:.5f} ms "
+            f"({by}): {bound / t['ms']:.1%} of the bound")
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn`` (its launches queue on the
+    device; the device is synchronised outside the timed loop)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def gate_args(gen, dev, shape, dtype):
@@ -456,7 +533,7 @@ def main() -> int:
     from raft_stereo_tpu_torch.kernels import _build
     from raft_stereo_tpu_torch.kernels.corr_alt import (
         alt_lookup_bwd_fused, alt_lookup_bwd_xla, alt_lookup_fused,
-        alt_lookup_xla)
+        alt_lookup_xla, plan_bwd)
     from raft_stereo_tpu_torch.kernels.corr_lookup import (
         lookup_pyramid_bwd_fused, lookup_pyramid_bwd_xla,
         lookup_pyramid_fused, lookup_pyramid_xla)
@@ -651,15 +728,36 @@ def main() -> int:
                      ).abs().max())
     log(f"lookup yardstick grid_sample: max |library - plain| = "
         f"{lib_err:.3e}")
-    lookup_ms = time_ms(lambda: lookup_pyramid_fused(pyramid, coords, RADIUS),
-                        flush)
-    lookup_plain_ms = time_ms(
-        lambda: lookup_pyramid_xla(pyramid, coords, RADIUS), flush)
-    lookup_lib_ms = time_ms(lookup_library, flush)
+    lookup_t = timed(lambda: lookup_pyramid_fused(pyramid, coords, RADIUS),
+                     lambda: lookup_pyramid_xla(pyramid, coords, RADIUS),
+                     lookup_library, flush)
     lookup_bound_ms = lookup_bytes(coords, w2s) / MEM_RATE * 1e3
-    log(f"lookup timing: kernel {lookup_ms:.4f} ms, plain "
-        f"{lookup_plain_ms:.4f} ms, grid_sample x4 {lookup_lib_ms:.4f} ms, "
-        f"bound {lookup_bound_ms:.4f} ms (bytes)")
+    log("lookup timing: "
+        + describe(lookup_t, "grid_sample x4", lookup_bound_ms, "bytes"))
+    log(f"rule 2 on the graph-replay times: lookup fp32 kernel "
+        f"{lookup_t['ms']:.4f} ms vs grid_sample x4 {lookup_t['lib']:.4f} ms:"
+        f" {'slower' if lookup_t['ms'] > lookup_t['lib'] else 'not slower'}")
+    bound_once = host_us(lambda: lookup_pyramid_fused(pyramid, coords,
+                                                      RADIUS))
+    bound_per_call = host_us(lambda: (_build._entries.clear(),
+                                      lookup_pyramid_fused(pyramid, coords,
+                                                           RADIUS)))
+    log(f"lookup fp32 wrapper, host time per call: {bound_once:.1f} us with "
+        f"its C entry bound once, {bound_per_call:.1f} us binding the entry "
+        f"on every call (the earlier wrappers)")
+    tiny = torch.zeros(1, device=dev)
+    floor_ms = graph_ms(tiny.zero_, tiny)
+    log(f"graph replay of one one-element kernel: {floor_ms:.4f} ms (the "
+        f"replay's own floor, inside every graph-replay time here)")
+
+    def alone(label, fn, bound):
+        """Print a short kernel's time without the replay floor."""
+        ms_ = graph_each_ms(fn, flush)
+        log(f"{label}, 20 calls per replay with the flushes subtracted: "
+            f"{ms_:.4f} ms per call, {ms_ / bound:.1f}x the bound")
+
+    alone("lookup fp32", lambda: lookup_pyramid_fused(pyramid, coords, RADIUS),
+          lookup_bound_ms)
 
     gate_times = {label: gate_timing(label, args, calls)
                   for label, (args, calls) in gate_cases.items()}
@@ -798,9 +896,9 @@ def main() -> int:
         lib_err = float((alt_library(f1, pyr, c)
                          - alt_lookup_xla(f1, pyr, c, RADIUS).float()
                          ).abs().max())
-        ms = time_ms(lambda: alt_lookup_fused(f1, pyr, c, RADIUS), flush)
-        plain = time_ms(lambda: alt_lookup_xla(f1, pyr, c, RADIUS), flush)
-        lib = time_ms(lambda: alt_library(f1, pyr, c), flush)
+        t = timed(lambda: alt_lookup_fused(f1, pyr, c, RADIUS),
+                  lambda: alt_lookup_xla(f1, pyr, c, RADIUS),
+                  lambda: alt_library(f1, pyr, c), flush)
         item = f1.element_size()
         k = LEVELS * (2 * RADIUS + 1)
         nbytes = (f1.numel() + sum(v.numel() for v in pyr)) * item + (
@@ -808,13 +906,14 @@ def main() -> int:
         bins = window_bins(c, [v.shape[2] for v in pyr])
         flops = 2 * RT_D * bins + 3 * c.numel() * k
         bytes_ms, ops_ms = nbytes / MEM_RATE * 1e3, flops / FP32_RATE * 1e3
-        alt_time[tag] = (ms, plain, lib, max(bytes_ms, ops_ms),
-                         "bytes" if bytes_ms >= ops_ms else "operations")
-        log(f"alt {tag} timing: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"grid_sample formulation {lib:.4f} ms (max |library - plain| "
-            f"{lib_err:.3e}), bound {max(bytes_ms, ops_ms):.5f} ms "
-            f"({nbytes / 1e6:.2f} MB: {bytes_ms:.5f} ms; {flops / 1e6:.1f} "
-            f"MFLOP at the fp32 rate: {ops_ms:.5f} ms)")
+        t["bound"] = max(bytes_ms, ops_ms)
+        t["by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        alt_time[tag] = t
+        log(f"alt {tag} timing: "
+            f"{describe(t, 'grid_sample formulation', t['bound'], t['by'])}; "
+            f"max |library - plain| {lib_err:.3e}; {nbytes / 1e6:.2f} MB: "
+            f"{bytes_ms:.5f} ms; {flops / 1e6:.1f} MFLOP at the fp32 rate: "
+            f"{ops_ms:.5f} ms")
 
     g16_times = {label: gate_timing(label, args, calls)
                  for label, (args, calls) in rt_gate_cases.items()}
@@ -834,15 +933,14 @@ def main() -> int:
                                         align_corners=True)
                           for s_, g_ in zip(src16, grids)], dim=-1)
 
-    l16_ms = time_ms(lambda: lookup_pyramid_fused(pyr16, coords, RADIUS),
-                     flush)
-    l16_plain = time_ms(lambda: lookup_pyramid_xla(pyr16, coords, RADIUS),
-                        flush)
-    l16_lib = time_ms(lookup16_library, flush)
+    l16_t = timed(lambda: lookup_pyramid_fused(pyr16, coords, RADIUS),
+                  lambda: lookup_pyramid_xla(pyr16, coords, RADIUS),
+                  lookup16_library, flush)
     l16_bound = lookup_bytes(coords, w2s, itemsize=2) / MEM_RATE * 1e3
-    log(f"lookup bf16 timing: kernel {l16_ms:.4f} ms, plain {l16_plain:.4f} "
-        f"ms, grid_sample x4 (fp32 upcast) {l16_lib:.4f} ms, bound "
-        f"{l16_bound:.5f} ms (bytes)")
+    log("lookup bf16 timing: " + describe(
+        l16_t, "grid_sample x4 (fp32 upcast)", l16_bound, "bytes"))
+    alone("lookup bf16", lambda: lookup_pyramid_fused(pyr16, coords, RADIUS),
+          l16_bound)
 
     # ------------------------------------------------------------ phase 9
     rt_cfg = RaftStereoConfig.realtime()
@@ -957,6 +1055,13 @@ def main() -> int:
 
     alt_bwd_cases, alt_bwd_err = {}, {}
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        chunk, tile, tc = plan_bwd(tw // 2, [tw // 2 // 2 ** i
+                                             for i in range(LEVELS)],
+                                   RADIUS, RT_D, torch.tensor(
+                                       [], dtype=dtype).element_size())
+        log(f"alt backward {tag} plan at the training row: {chunk} channels "
+            f"per block, tile {tile} pixels, "
+            f"{'tensor cores' if tc else 'CUDA cores'}")
         worst, worst_abs, ok = 0.0, 0.0, True
         for shape in ((tb, th // 2, tw // 2, tw // 2, RT_D),
                       (1, 3, 37, 43, 64)):
@@ -1019,17 +1124,24 @@ def main() -> int:
     del gargs, gouts, ggrads, got, want
 
     # ----------------------------------------------------------- phase 12
+    # The library backwards are captured on the stream their forwards ran
+    # on (graph_ms).
+    lib_stream = torch.cuda.Stream()
+    lib_stream.wait_stream(torch.cuda.current_stream())
     n_pix = tb * th * tw
     srcs = [torch.zeros((n_pix, 1, 1, w2), device=dev, requires_grad=True)
             for w2 in tw2s]
     lib_out = []
-    for i, (src, w2) in enumerate(zip(srcs, tw2s)):
-        x = tcoords[..., None] / 2 ** i + taps
-        gx = (2 * x / (w2 - 1) - 1).reshape(-1, 1, k, 1)
-        grid = torch.cat([gx, torch.zeros_like(gx)], dim=-1)
-        lib_out.append(F.grid_sample(src, grid, mode="bilinear",
-                                     padding_mode="zeros", align_corners=True))
-    lib_out = torch.cat(lib_out, dim=-1)
+    with torch.cuda.stream(lib_stream):
+        for i, (src, w2) in enumerate(zip(srcs, tw2s)):
+            x = tcoords[..., None] / 2 ** i + taps
+            gx = (2 * x / (w2 - 1) - 1).reshape(-1, 1, k, 1)
+            grid = torch.cat([gx, torch.zeros_like(gx)], dim=-1)
+            lib_out.append(F.grid_sample(src, grid, mode="bilinear",
+                                         padding_mode="zeros",
+                                         align_corners=True))
+        lib_out = torch.cat(lib_out, dim=-1)
+    torch.cuda.current_stream().wait_stream(lib_stream)
     lib_g = tg.reshape(n_pix, 1, 1, LEVELS * k)
 
     def lookup_bwd_library():
@@ -1038,47 +1150,48 @@ def main() -> int:
     lib_err = max(float((a.reshape(b_.shape) - b_).abs().max()) for a, b_ in
                   zip(lookup_bwd_library(), lookup_pyramid_bwd_xla(
                       tg, tcoords, tw2s, RADIUS, torch.float32)))
-    lbwd_ms = time_ms(lambda: lookup_pyramid_bwd_fused(
-        tg, tcoords, tw2s, RADIUS, torch.float32), flush)
-    lbwd_plain = time_ms(lambda: lookup_pyramid_bwd_xla(
-        tg, tcoords, tw2s, RADIUS, torch.float32), flush)
-    lbwd_lib = time_ms(lookup_bwd_library, flush)
+    lbwd_t = timed(lambda: lookup_pyramid_bwd_fused(
+        tg, tcoords, tw2s, RADIUS, torch.float32),
+        lambda: lookup_pyramid_bwd_xla(tg, tcoords, tw2s, RADIUS,
+                                       torch.float32),
+        lookup_bwd_library, flush, lib_stream)
     lbwd_bytes = n_pix * (sum(tw2s) * 4 + LEVELS * k * 4 + 4)
     lbwd_bound = lbwd_bytes / MEM_RATE * 1e3
-    log(f"lookup backward timing: kernel {lbwd_ms:.4f} ms, plain "
-        f"{lbwd_plain:.4f} ms, grid_sample backward x4 {lbwd_lib:.4f} ms "
-        f"(max |library - plain| {lib_err:.3e}), bound {lbwd_bound:.5f} ms "
-        f"(bytes: {lbwd_bytes / 1e6:.1f} MB)")
+    log(f"lookup backward timing: "
+        f"{describe(lbwd_t, 'grid_sample backward x4', lbwd_bound, 'bytes')}"
+        f"; max |library - plain| {lib_err:.3e}; {lbwd_bytes / 1e6:.1f} MB")
     del srcs, lib_out
 
     alt_bwd_time = {}
     for tag, (f1, pyr, c, g) in alt_bwd_cases.items():
         f1l = f1.float().detach().requires_grad_()
         pyrl = [v.float().detach().requires_grad_() for v in pyr]
-        lib_out = alt_library(f1l, pyrl, c)
+        lib_stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(lib_stream):
+            lib_out = alt_library(f1l, pyrl, c)
+        torch.cuda.current_stream().wait_stream(lib_stream)
 
         def alt_bwd_library():
             return torch.autograd.grad(lib_out, [f1l] + pyrl, g.float(),
                                        retain_graph=True)
 
-        ms = time_ms(lambda: alt_lookup_bwd_fused(f1, pyr, c, g, RADIUS),
-                     flush)
-        plain = time_ms(lambda: alt_lookup_bwd_xla(f1, pyr, c, g, RADIUS),
-                        flush)
-        lib = time_ms(alt_bwd_library, flush)
+        t = timed(lambda: alt_lookup_bwd_fused(f1, pyr, c, g, RADIUS),
+                  lambda: alt_lookup_bwd_xla(f1, pyr, c, g, RADIUS),
+                  alt_bwd_library, flush, lib_stream)
         item = f1.element_size()
         feats = f1.numel() + sum(v.numel() for v in pyr)
         nbytes = 2 * feats * item + g.numel() * item + c.numel() * 4
         bins = window_bins(c, [v.shape[2] for v in pyr])
         flops = 4 * RT_D * bins
         bytes_ms, ops_ms = nbytes / MEM_RATE * 1e3, flops / FP32_RATE * 1e3
-        alt_bwd_time[tag] = (ms, plain, lib, max(bytes_ms, ops_ms),
-                             "bytes" if bytes_ms >= ops_ms else "operations")
-        log(f"alt backward {tag} timing: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, grid_sample formulation backward {lib:.4f} ms, "
-            f"bound {max(bytes_ms, ops_ms):.5f} ms ({nbytes / 1e6:.2f} MB: "
-            f"{bytes_ms:.5f} ms; {flops / 1e6:.1f} MFLOP at the fp32 rate: "
-            f"{ops_ms:.5f} ms)")
+        t["bound"] = max(bytes_ms, ops_ms)
+        t["by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        alt_bwd_time[tag] = t
+        log(f"alt backward {tag} timing: "
+            + describe(t, "grid_sample formulation backward", t["bound"],
+                       t["by"]) +
+            f"; {nbytes / 1e6:.2f} MB: {bytes_ms:.5f} ms; {flops / 1e6:.1f} "
+            f"MFLOP at the fp32 rate: {ops_ms:.5f} ms")
         del lib_out
 
     # ------------------------------------------------------ phases 13, 14
@@ -1152,8 +1265,8 @@ def main() -> int:
     if train_launches != {n: TIMED_STEPS * v for n, v in want.items()}:
         raise AssertionError(f"default training launches {train_launches}")
     log(f"default training: lookup backward kernel share of the step "
-        f"~{100 * iters_t * lbwd_ms / 1e3 / train_s:.1f}% ({iters_t} x "
-        f"{lbwd_ms:.4f} ms with L2 flushed)")
+        f"~{100 * iters_t * lbwd_t['ms'] / 1e3 / train_s:.1f}% ({iters_t} x "
+        f"{lbwd_t['ms']:.4f} ms with L2 flushed)")
 
     rt_train_launches, rt_train_s, rt_train_peak = drive_training(
         RaftStereoConfig.realtime(), "realtime")
@@ -1163,7 +1276,8 @@ def main() -> int:
         raise AssertionError(f"realtime training launches "
                              f"{rt_train_launches}")
     log(f"realtime training: alt backward kernel share of the step "
-        f"~{100 * iters_t * alt_bwd_time['bf16'][0] / 1e3 / rt_train_s:.1f}%")
+        f"~{100 * iters_t * alt_bwd_time['bf16']['ms'] / 1e3 / rt_train_s:.1f}"
+        f"%")
 
     # ----------------------------------------------------------- phase 15
     small_tc = TrainConfig(batch_size=1, train_iters=2, image_size=(64, 128))
@@ -1360,38 +1474,41 @@ def main() -> int:
                                             align_corners=True)
                               for s_, g_ in zip(src, grids)], dim=-1)
 
-        ms = time_ms(lambda: lookup_pyramid_fused_q(
-            levels_q, coords, RADIUS, torch.float32), flush)
-        plain = time_ms(lambda: lookup_pyramid_xla(
-            levels_q, coords, RADIUS, torch.float32), flush)
-        lib = time_ms(lookup_q_library, flush)
+        t = timed(lambda: lookup_pyramid_fused_q(
+            levels_q, coords, RADIUS, torch.float32),
+            lambda: lookup_pyramid_xla(levels_q, coords, RADIUS,
+                                       torch.float32),
+            lookup_q_library, flush)
         k_out = LEVELS * (2 * RADIUS + 1)
         nbytes = (window_bins(coords, w2s) + coords.numel() * 4
                   + coords.numel() * k_out * 4)
-        bound = nbytes / MEM_RATE * 1e3
-        lq_time[tag] = (ms, plain, lib, bound)
-        log(f"lookup {tag} timing: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"grid_sample x4 (fp32 upcast) {lib:.4f} ms, bound {bound:.5f} ms "
-            f"(bytes: {nbytes / 1e6:.2f} MB)")
+        t["bound"], t["by"] = nbytes / MEM_RATE * 1e3, "bytes"
+        lq_time[tag] = t
+        log(f"lookup {tag} timing: "
+            + describe(t, "grid_sample x4 (fp32 upcast)", t["bound"],
+                       "bytes") +
+            f"; {nbytes / 1e6:.2f} MB")
+        alone(f"lookup {tag}", lambda: lookup_pyramid_fused_q(
+            levels_q, coords, RADIUS, torch.float32), t["bound"])
     aq_time = {}
     for tag, (f1_q, pq, c) in aq_cases.items():
-        ms = time_ms(lambda: alt_lookup_fused_q(f1_q, pq, c, RADIUS,
-                                                torch.float32), flush)
-        plain = time_ms(lambda: alt_lookup_xla(f1_q, pq, c, RADIUS,
-                                               torch.float32), flush)
-        lib = time_ms(lambda: alt_library(f1_q, pq, c), flush)
+        t = timed(lambda: alt_lookup_fused_q(f1_q, pq, c, RADIUS,
+                                             torch.float32),
+                  lambda: alt_lookup_xla(f1_q, pq, c, RADIUS, torch.float32),
+                  lambda: alt_library(f1_q, pq, c), flush)
         k_out = LEVELS * (2 * RADIUS + 1)
         nbytes = (f1_q.numel() + sum(v.numel() for v in pq)
                   + c.numel() * 4 + c.numel() * k_out * 4)
         ops = 2 * RT_D * window_bins(c, [v.shape[2] for v in pq])
         bytes_ms, ops_ms = nbytes / MEM_RATE * 1e3, ops / INT8_RATE * 1e3
-        aq_time[tag] = (ms, plain, lib, max(bytes_ms, ops_ms),
-                        "bytes" if bytes_ms >= ops_ms else "operations")
-        log(f"alt {tag} timing: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"grid_sample formulation (fp32 upcast) {lib:.4f} ms, bound "
-            f"{max(bytes_ms, ops_ms):.5f} ms ({nbytes / 1e6:.2f} MB: "
-            f"{bytes_ms:.5f} ms; {ops / 1e6:.1f} M operations at the "
-            f"int8/fp8 tensor rate: {ops_ms:.6f} ms)")
+        t["bound"] = max(bytes_ms, ops_ms)
+        t["by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        aq_time[tag] = t
+        log(f"alt {tag} timing: "
+            + describe(t, "grid_sample formulation (fp32 upcast)",
+                       t["bound"], t["by"]) +
+            f"; {nbytes / 1e6:.2f} MB: {bytes_ms:.5f} ms; {ops / 1e6:.1f} M "
+            f"operations at the int8/fp8 tensor rate: {ops_ms:.6f} ms")
 
     # ------------------------------------------------------ phases 18, 19
     def q_counts():
@@ -1537,86 +1654,56 @@ def main() -> int:
     finally:
         raft_module.make_corr_fn = real_make_corr_fn
 
+    def row(name_, source, replaces, launched, err, t, design=None):
+        """One entry of the kernels line; ``t`` holds graph-replay times."""
+        out = {"name": name_, "route": "cuda",
+               "source": f"raft_stereo_tpu_torch/csrc/{source}",
+               "replaces": f"raft_stereo_tpu/kernels/{replaces}",
+               "launches": launched, "max_abs_err": err, "ms": t["ms"],
+               "plain_ms": t["plain"], "bound_ms": t["bound"],
+               "bound_by": t["by"], "library_ms": t["lib"]}
+        if design:
+            out["design"] = design
+        return out
+
+    lookup_t.update(bound=lookup_bound_ms, by="bytes")
+    lbwd_t.update(bound=lbwd_bound, by="bytes")
     kernels = [
-        {"name": "corr_lookup", "route": "cuda",
-         "source": "raft_stereo_tpu_torch/csrc/corr_lookup.cu",
-         "replaces": "raft_stereo_tpu/kernels/corr_lookup.py:293",
-         "launches": launches["lookup"], "max_abs_err": lookup_err,
-         "ms": lookup_ms, "plain_ms": lookup_plain_ms,
-         "bound_ms": lookup_bound_ms, "bound_by": "bytes",
-         "library_ms": lookup_lib_ms},
-        {"name": "gru_gates", "route": "cuda",
-         "source": "raft_stereo_tpu_torch/csrc/gru_gates.cu",
-         "replaces": "raft_stereo_tpu/kernels/gru_fused.py:153",
-         "launches": launches["gates"], "max_abs_err": gates_err,
-         "ms": gates_fp32["ms"], "plain_ms": gates_fp32["plain"],
-         "bound_ms": gates_fp32["bound"], "bound_by": gates_fp32["by"],
-         "library_ms": gates_fp32["lib"]},
-        {"name": "gru_gates_bf16", "route": "cuda",
-         "source": "raft_stereo_tpu_torch/csrc/gru_gates.cu",
-         "replaces": "raft_stereo_tpu/kernels/gru_fused.py:153",
-         "launches": rt_launches["gates"], "max_abs_err": gates_bf16_err,
-         "ms": gates_bf16["ms"], "plain_ms": gates_bf16["plain"],
-         "bound_ms": gates_bf16["bound"], "bound_by": gates_bf16["by"],
-         "library_ms": gates_bf16["lib"]},
-        {"name": "corr_alt", "route": "cuda",
-         "source": "raft_stereo_tpu_torch/csrc/corr_alt.cu",
-         "replaces": "raft_stereo_tpu/kernels/corr_alt.py:273",
-         "launches": rt_launches["alt"], "max_abs_err": alt_err["bf16"],
-         "ms": alt_time["bf16"][0], "plain_ms": alt_time["bf16"][1],
-         "bound_ms": alt_time["bf16"][3], "bound_by": alt_time["bf16"][4],
-         "library_ms": alt_time["bf16"][2]},
-        {"name": "corr_alt_fp32", "route": "cuda",
-         "source": "raft_stereo_tpu_torch/csrc/corr_alt.cu",
-         "replaces": "raft_stereo_tpu/kernels/corr_alt.py:75",
-         "launches": deep_launches["alt"], "max_abs_err": alt_err["fp32"],
-         "ms": alt_time["fp32"][0], "plain_ms": alt_time["fp32"][1],
-         "bound_ms": alt_time["fp32"][3], "bound_by": alt_time["fp32"][4],
-         "library_ms": alt_time["fp32"][2]},
-        {"name": "corr_lookup_bwd", "route": "cuda",
-         "source": "raft_stereo_tpu_torch/csrc/corr_lookup.cu",
-         "replaces": "raft_stereo_tpu/kernels/corr_lookup.py:304",
-         "launches": train_launches["lookup_bwd"],
-         "max_abs_err": lookup_bwd_err, "ms": lbwd_ms,
-         "plain_ms": lbwd_plain, "bound_ms": lbwd_bound, "bound_by": "bytes",
-         "library_ms": lbwd_lib},
-        {"name": "corr_alt_bwd", "route": "cuda",
-         "source": "raft_stereo_tpu_torch/csrc/corr_alt.cu",
-         "replaces": "raft_stereo_tpu/kernels/corr_alt.py:90",
-         "launches": rt_train_launches["alt_bwd"],
-         "max_abs_err": alt_bwd_err["bf16"], "ms": alt_bwd_time["bf16"][0],
-         "plain_ms": alt_bwd_time["bf16"][1],
-         "bound_ms": alt_bwd_time["bf16"][3],
-         "bound_by": alt_bwd_time["bf16"][4],
-         "library_ms": alt_bwd_time["bf16"][2]},
-        {"name": "corr_alt_bwd_fp32", "route": "cuda",
-         "source": "raft_stereo_tpu_torch/csrc/corr_alt.cu",
-         "replaces": "raft_stereo_tpu/kernels/corr_alt.py:90",
-         "launches": step_launches["realtime fp32"]["alt_bwd"],
-         "max_abs_err": alt_bwd_err["fp32"], "ms": alt_bwd_time["fp32"][0],
-         "plain_ms": alt_bwd_time["fp32"][1],
-         "bound_ms": alt_bwd_time["fp32"][3],
-         "bound_by": alt_bwd_time["fp32"][4],
-         "library_ms": alt_bwd_time["fp32"][2]},
+        row("corr_lookup", "corr_lookup.cu", "corr_lookup.py:293",
+            launches["lookup"], lookup_err, lookup_t,
+            "a thread per pixel and level"),
+        row("gru_gates", "gru_gates.cu", "gru_fused.py:153",
+            launches["gates"], gates_err, gates_fp32,
+            "wgmma implicit GEMM, 3xTF32"),
+        row("gru_gates_bf16", "gru_gates.cu", "gru_fused.py:153",
+            rt_launches["gates"], gates_bf16_err, gates_bf16,
+            "wgmma implicit GEMM"),
+        row("corr_alt", "corr_alt.cu", "corr_alt.py:273", rt_launches["alt"],
+            alt_err["bf16"], alt_time["bf16"]),
+        row("corr_alt_fp32", "corr_alt.cu", "corr_alt.py:75",
+            deep_launches["alt"], alt_err["fp32"], alt_time["fp32"]),
+        row("corr_lookup_bwd", "corr_lookup.cu", "corr_lookup.py:304",
+            train_launches["lookup_bwd"], lookup_bwd_err, lbwd_t),
+        row("corr_alt_bwd", "corr_alt.cu", "corr_alt.py:90",
+            rt_train_launches["alt_bwd"], alt_bwd_err["bf16"],
+            alt_bwd_time["bf16"],
+            "tensor cores, weights split in two bf16 parts"),
+        row("corr_alt_bwd_fp32", "corr_alt.cu", "corr_alt.py:90",
+            step_launches["realtime fp32"]["alt_bwd"], alt_bwd_err["fp32"],
+            alt_bwd_time["fp32"],
+            "CUDA cores, pixels bucketed by window start"),
     ]
     for tag in ("int8", "fp8"):
-        ms, plain, lib, bound = lq_time[tag]
-        kernels.append(
-            {"name": f"corr_lookup_q_{tag}", "route": "cuda",
-             "source": "raft_stereo_tpu_torch/csrc/corr_lookup.cu",
-             "replaces": "raft_stereo_tpu/kernels/corr_lookup.py:321",
-             "launches": quant_runs[f"def {tag}"][0]["lookup_q"],
-             "max_abs_err": lq_err[tag], "ms": ms, "plain_ms": plain,
-             "bound_ms": bound, "bound_by": "bytes", "library_ms": lib})
+        kernels.append(row(f"corr_lookup_q_{tag}", "corr_lookup.cu",
+                           "corr_lookup.py:321",
+                           quant_runs[f"def {tag}"][0]["lookup_q"],
+                           lq_err[tag], lq_time[tag],
+                           "a thread per pixel and level"))
     for tag in ("int8", "fp8"):
-        ms, plain, lib, bound, by = aq_time[tag]
-        kernels.append(
-            {"name": f"corr_alt_q_{tag}", "route": "cuda",
-             "source": "raft_stereo_tpu_torch/csrc/corr_alt.cu",
-             "replaces": "raft_stereo_tpu/kernels/corr_alt.py:411",
-             "launches": quant_runs[f"rt {tag}"][0]["alt_q"],
-             "max_abs_err": aq_err[tag], "ms": ms, "plain_ms": plain,
-             "bound_ms": bound, "bound_by": by, "library_ms": lib})
+        kernels.append(row(f"corr_alt_q_{tag}", "corr_alt.cu",
+                           "corr_alt.py:411",
+                           quant_runs[f"rt {tag}"][0]["alt_q"], aq_err[tag],
+                           aq_time[tag]))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

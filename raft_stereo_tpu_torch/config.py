@@ -193,8 +193,6 @@ def _unsupported(cfg: RaftStereoConfig):
     checks = (
         ("exit_threshold_px > 0", "§D3 early exit and state carry",
          cfg.exit_threshold_px > 0),
-        ("sequential_fnet_pixels", "§D3 early exit and state carry",
-         cfg.sequential_fnet_pixels is not None),
         ("banded_encoder", "§D7 parallel executors", cfg.banded_encoder),
         ("rows_shards > 1", "§D7 parallel executors", cfg.rows_shards > 1),
         ("rows_gru", "§D7 parallel executors", cfg.rows_gru),

@@ -13,15 +13,33 @@
 // the caller multiplies each level's taps by its scale (sampling is
 // linear, so scaling after it is the dequantization).
 //
-// Bound: memory.  Each pixel reads about 2R+2 neighbouring bins per level
-// and writes L*(2R+1) values; there is no arithmetic to speak of.  The TPU
+// Bound: memory.  Each (pixel, level) reads the 2R+2 neighbouring bins
+// its window touches and writes 2R+1 values; there is no arithmetic to
+// speak of: 2.65 us at the KITTI shape (96 rows x 312, W2 312/156/78/39,
+// R 4, fp32: the touched bins, the centers and 4.3 MB of output).  The TPU
 // kernel sweeps a hat function over the whole W2 axis because the TPU
 // vector unit has no gather; here each output is a direct 2-bin gather,
-// as in the original CUDA sampler.  One thread computes one output value,
-// and neighbouring threads take neighbouring taps of the same pixel, so a
-// warp reads a few contiguous runs of bins and writes contiguous output.
-// Every level goes in one launch: the level pointers travel by value in
-// the kernel's parameter block.
+// as in the original CUDA sampler.
+//
+// Design.  An earlier kernel ran one thread per output value: a 64-bit
+// divide and modulo per output, the center and then the bins as dependent
+// loads per output, and scalar stores; by CUDA-graph replay it took 0.0446
+// ms at the KITTI shape, slower than F.grid_sample over the four levels.
+// Now one thread takes one (pixel, level) with 32-bit index arithmetic
+// (64-bit only in pointer offsets): the L threads of a pixel are adjacent
+// lanes, so its center is one load for all of them; c/2^l is an exact
+// multiplication by 2^-l (as ldexpf, and as the plain version's division);
+// the window's 2R+4 bins (tap 0's x0 - 1 to tap 2R's x0 + 2: the fp32 sum
+// c/2^l + k - R may move a tap's x0 by one) are loaded together before any
+// tap is formed, each tap taking its two bins by a compile-time select; the
+// block stages its pixels' L*(2R+1) outputs in shared memory and writes
+// them as 16-byte vectors (a block covers a multiple of 16 pixels, so its
+// output starts 16-byte aligned).  All levels go in one launch: their
+// pointers and widths travel by value in the kernel's parameter block.
+// By graph replay it takes 0.017 ms at the KITTI shape (H100 80GB HBM3,
+// 700 W, chip_smoke.py phase 4), 2.5x faster than F.grid_sample over the
+// four levels; a replay of one one-element kernel alone reads 0.014 ms
+// there.
 //
 // The backward (corr_lookup_bwd_kernel) replaces the TPU kernels
 // _bwd_kernel_multi (all levels in one launch) and _bwd_kernel (one level
@@ -52,8 +70,9 @@ namespace {
 
 constexpr int kMaxLevels = 8;
 constexpr int kThreads = 256;
-constexpr int kMaxRadius = 8;  // the backward keeps one warp's taps in lanes
+constexpr int kMaxRadius = 8;
 constexpr int kMaxTaps = 2 * kMaxRadius + 1;
+constexpr int kMaxBins = 2 * kMaxRadius + 4;  // the forward's window
 constexpr int kBwdWarps = kThreads / 32;
 
 __device__ inline float to_float(float x) { return x; }
@@ -75,52 +94,91 @@ struct Levels {
   int w2[kMaxLevels];
 };
 
+// Pixels per forward block: a multiple of 16 with levels x pixels <= 256.
+inline int fwd_block_pixels(int levels) {
+  return (kThreads / levels) / 16 * 16;
+}
+
 template <typename T, typename OutT>
 __global__ void __launch_bounds__(kThreads)
-corr_lookup_kernel(Levels<T> lv, int levels, const float* __restrict__ coords,
-                   OutT* __restrict__ out, long long pixels, int radius) {
+corr_lookup_kernel(const __grid_constant__ Levels<T> lv, int levels,
+                   const float* __restrict__ coords, OutT* __restrict__ out,
+                   int pixels, int radius, int block_pixels) {
+  // The block's outputs, pixel-major as in `out` (at most 256 (pixel,
+  // level) pairs of at most 2R+1 taps).
+  __shared__ __align__(16) OutT staged[kThreads * kMaxTaps];
   const int taps = 2 * radius + 1;
   const int per_pixel = levels * taps;
-  const long long total = pixels * per_pixel;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const long long p = i / per_pixel;
-    const int j = (int)(i - p * per_pixel);
-    const int l = j / taps;
-    const int k = j - l * taps;
+  const int p0 = blockIdx.x * block_pixels;
+  const int np = min(block_pixels, pixels - p0);
+  const int lp = threadIdx.x / levels;
+  const int l = threadIdx.x - lp * levels;
+  if (lp < np) {
+    const int p = p0 + lp;
     const int w2 = lv.w2[l];
-    const T* row = lv.vol[l] + p * (long long)w2;
-    // c / 2^l is exact in fp32, as in the plain version.
-    const float x = ldexpf(coords[p], -l) + (float)(k - radius);
-    const float x0 = floorf(x);
-    const float t = x - x0;
-    const float hi = (float)(w2 - 1);
-    const float v0 =
-        (x0 >= 0.f && x0 <= hi) ? to_float(row[(int)x0]) : 0.f;
-    const float v1 = (x0 + 1.f >= 0.f && x0 + 1.f <= hi)
-                         ? to_float(row[(int)x0 + 1])
-                         : 0.f;
-    store(out + i, v0 * (1.f - t) + v1 * t);
+    // c / 2^l, exact in fp32 (2^-l built from its exponent bits).
+    const float xc = __ldg(coords + p) * __int_as_float((127 - l) << 23);
+    OutT* o = staged + lp * per_pixel + l * taps;
+    if (!(xc > -(float)(radius + 2) && xc < (float)(w2 + radius + 1))) {
+      // The window lies wholly outside [0, W2 - 1].
+      for (int k = 0; k < taps; ++k) store(o + k, 0.f);
+    } else {
+      const T* row = lv.vol[l] + (long long)p * w2;
+      const int base = (int)floorf(xc + (float)(-radius)) - 1;
+      float b[kMaxBins];
+#pragma unroll
+      for (int j = 0; j < kMaxBins; ++j) {
+        const int bin = base + j;
+        b[j] = (j < taps + 3 && bin >= 0 && bin < w2) ? to_float(row[bin])
+                                                      : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kMaxTaps; ++k) {
+        if (k < taps) {
+          const float x = xc + (float)(k - radius);
+          const float x0 = floorf(x);
+          const float t = x - x0;
+          // x0 - base - k is 0, 1 or 2: fp32 rounding moves a tap's x0
+          // by at most one from floor(c/2^l - R) + k.
+          const int d = (int)x0 - base - k;
+          const float v0 = d == 0 ? b[k] : d == 1 ? b[k + 1] : b[k + 2];
+          const float v1 =
+              d == 0 ? b[k + 1] : d == 1 ? b[k + 2] : b[k + 3];
+          store(o + k, v0 * (1.f - t) + v1 * t);
+        }
+      }
+    }
   }
+  __syncthreads();
+  // The block's outputs are one contiguous, 16-byte aligned run of `out`.
+  constexpr int kV = 16 / sizeof(OutT);
+  const int n = max(np, 0) * per_pixel;
+  OutT* dst = out + (long long)p0 * per_pixel;
+  for (int i = threadIdx.x; i < n / kV; i += kThreads)
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(staged)[i];
+  for (int i = n / kV * kV + threadIdx.x; i < n; i += kThreads)
+    dst[i] = staged[i];
 }
 
 template <typename T, typename OutT = T>
 int launch(const void* const* vols, const int* w2s, int levels,
            const float* coords, void* out, long long pixels, int radius,
            void* stream) {
-  if (levels < 1 || levels > kMaxLevels) return (int)cudaErrorInvalidValue;
+  if (levels < 1 || levels > kMaxLevels || radius < 0 ||
+      radius > kMaxRadius || pixels > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   Levels<T> lv = {};
   for (int l = 0; l < levels; ++l) {
     lv.vol[l] = static_cast<const T*>(vols[l]);
     lv.w2[l] = w2s[l];
   }
-  const long long total = pixels * levels * (2 * radius + 1);
-  if (total == 0) return (int)cudaSuccess;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > (1LL << 30)) blocks = 1LL << 30;
+  if (pixels == 0) return (int)cudaSuccess;
+  const int block_pixels = fwd_block_pixels(levels);
+  const long long blocks = (pixels + block_pixels - 1) / block_pixels;
   corr_lookup_kernel<T, OutT><<<(unsigned)blocks, kThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
-      lv, levels, coords, static_cast<OutT*>(out), pixels, radius);
+      lv, levels, coords, static_cast<OutT*>(out), (int)pixels, radius,
+      block_pixels);
   return (int)cudaGetLastError();
 }
 

@@ -3,8 +3,12 @@
 ``InferenceRunner`` runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no explicit device it raises.  Its
 entry sets ``torch.backends.cuda.matmul.allow_tf32`` and
-``torch.backends.cudnn.allow_tf32`` to False: the fp32 model is full fp32,
-as in the JAX package (convs and the volume einsum at HIGHEST precision).
+``torch.backends.cudnn.allow_tf32`` to False: the fp32 model is full fp32.
+The JAX package asks for HIGHEST precision only in the correlation
+volume's einsum, the align-corners resize and its fp32 kernels; its convs
+ask for none (single bf16 passes on a TPU, full fp32 on the CPU).  The
+port keeps every fp32 conv in full fp32 until a measurement on the card
+decides whether TF32 holds the card-vs-CPU tolerances.
 The runner always runs a model of its ``effective_config``: it builds one
 from the given weights (a model passed in only lends its state dict), on
 the device, with the convs cast once to the compute dtype.

@@ -22,7 +22,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], object] = {}
 
 
 def sources() -> Dict[str, Path]:
@@ -91,6 +92,19 @@ def load(name: str) -> ctypes.CDLL:
             build(name)
             _libs[name] = ctypes.CDLL(str(library_path(name)))
         return _libs[name]
+
+
+def entry(name: str, symbol: str, argtypes: Sequence[type]):
+    """The C function ``symbol`` of ``csrc/<name>.cu`` with its argument
+    types and its int return type, bound once: a launch then costs one
+    dict lookup, not a ctypes attribute set per call."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[(name, symbol)] = fn
+    return fn
 
 
 def check(err: int, what: str) -> None:

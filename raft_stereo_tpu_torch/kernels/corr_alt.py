@@ -50,9 +50,12 @@ _Q_ENTRIES = {torch.int8: "raft_corr_alt_q_int8",
               torch.float8_e4m3fn: "raft_corr_alt_q_fp8"}
 _BWD_ENTRIES = {torch.float32: "raft_corr_alt_bwd_f32",
                 torch.bfloat16: "raft_corr_alt_bwd_bf16"}
-# A backward block keeps one image row's df2 of every level in shared
-# memory (csrc/corr_alt.cu bwd_smem_bytes): at most this many bytes.
+# Shared memory a block may use (csrc/corr_alt.cu kMaxSmem), and the
+# backward's widest pixel tile (kBwdMaxTile: a bucket entry packs the pixel
+# in 11 bits) and channel chunk (kBwdMaxChunk).
 MAX_BWD_SMEM = 232448
+MAX_BWD_TILE = 2048
+MAX_BWD_CHUNK = 64
 
 
 def alt_lookup_xla(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
@@ -94,38 +97,96 @@ def alt_lookup_bwd_xla(fmap1: torch.Tensor,
     return df1.to(dtype), df2
 
 
+_ARGTYPES = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+             ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+
+
+_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                 ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
 def _lib(entry: str):
-    fn = getattr(_build.load("corr_alt"), entry)
-    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("corr_alt", entry, _ARGTYPES)
 
 
 def _bwd_lib(entry: str):
-    fn = getattr(_build.load("corr_alt"), entry)
-    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("corr_alt", entry, _BWD_ARGTYPES)
 
 
-def _bwd_smem_bytes(w2s: Sequence[int], radius: int) -> int:
-    """Shared bytes of one backward block (csrc/corr_alt.cu
-    ``bwd_smem_bytes``): the row's fp32 df2 of every level for 32
-    channels, the levels' df1 partials and window weights of a 32-pixel
-    tile."""
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def bwd_smem_bytes(bins: int, levels: int, radius: int, tile: int,
+                   chunk: int, itemsize: int, w1: int) -> int:
+    """Shared bytes of one block of the CUDA-core backward (csrc/corr_alt.cu
+    ``BwdSmem``): the row's f2 chunk of every level in the feature dtype,
+    an f1 tile widened to fp32, df2's fp32 partials when the row takes more
+    than one tile, the tile's window weights (stride 2R+5), starts and bin
+    counts, the bucket ends per window start, the bucket entries and the
+    task counter."""
+    keys = bins + levels * (2 * radius + 3)
+    return (_align16(bins * chunk * itemsize) + _align16(tile * chunk * 4)
+            + (_align16(bins * chunk * 4) if tile < w1 else 0)
+            + _align16(levels * tile * (2 * radius + 5) * 4)
+            + 2 * _align16(levels * tile * 4) + _align16(keys * 4)
+            + _align16(levels * tile * 4) + 16)
+
+
+def tc_smem_bytes(w2s: Sequence[int], radius: int, w1: int,
+                  chunk: int) -> int:
+    """Shared bytes of one block of the bf16 tensor-core backward
+    (csrc/corr_alt.cu ``TcSmem``): every level's f2 chunk padded to 16 bins
+    and the row's f1 padded to 16 pixels, rows of chunk + 8 bf16, then the
+    window weights, starts and bin counts, and the task counter."""
+    stride = (chunk + 8) * 2
+    krows = sum(-(-w2 // 16) * 16 for w2 in w2s)
     levels = len(w2s)
-    return (4 * (sum(w2s) * 32 + levels * 32 * 32
-                 + levels * 32 * (2 * radius + 4))
-            + 4 * 2 * levels * 32)
+    return (_align16(krows * stride) + _align16(-(-w1 // 16) * 16 * stride)
+            + _align16(levels * w1 * (2 * radius + 5) * 4)
+            + 2 * _align16(levels * w1 * 4) + 16)
+
+
+def plan_bwd(w1: int, w2s: Sequence[int], radius: int, d: int,
+             itemsize: int) -> Tuple[int, int, bool]:
+    """(channel chunk, pixel tile, tensor cores) of one backward launch.
+
+    A block takes one image row and up to 64 channels (eight lanes cover a
+    row of them).  bf16 features take the tensor-core kernel where the
+    whole row fits one block: at the realtime training shape (W1 90, W2
+    90/45/22/11, D 256) 1,280 blocks of ~63 KB.  Otherwise (fp32, or a row
+    too wide) the CUDA-core kernel: the whole row one tile where it fits,
+    else the chunk halves down to one 16-byte vector of the features, then
+    the row is cut into tiles of 1024 down to 32 pixels.  Raises where
+    nothing fits (the row's f2 chunk of every level must)."""
+    vec = 16 // itemsize
+    bins, levels = sum(w2s), len(w2s)
+    if itemsize == 2 and w1 <= MAX_BWD_TILE:
+        chunk = min(d, MAX_BWD_CHUNK)
+        if tc_smem_bytes(w2s, radius, w1, chunk) <= MAX_BWD_SMEM:
+            return chunk, w1, True
+    chunks, c = [], min(d, MAX_BWD_CHUNK)
+    while c >= vec:
+        chunks.append(c)
+        c //= 2
+    tiles = [t for t in (w1, 1024, 512, 256, 128, 64, 32)
+             if t <= min(w1, MAX_BWD_TILE)]
+    for tile in dict.fromkeys(tiles):
+        for chunk in chunks:
+            if bwd_smem_bytes(bins, levels, radius, tile, chunk, itemsize,
+                              w1) <= MAX_BWD_SMEM:
+                return chunk, tile, False
+    least = bwd_smem_bytes(bins, levels, radius, 32, vec, itemsize, w1)
+    raise ValueError(f"W2 levels {list(w2s)}, radius {radius}: the alt "
+                     f"backward keeps a row's f2 of every level in shared "
+                     f"memory, {least} bytes at the smallest plan > "
+                     f"{MAX_BWD_SMEM}")
 
 
 def _check(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
@@ -284,13 +345,15 @@ def alt_lookup_bwd_fused(fmap1: torch.Tensor,
         raise TypeError(f"gradient {g.dtype} {tuple(g.shape)}, expected "
                         f"{dtype} {(b, h, w1, levels * k)}")
     w2s = [f2.shape[2] for f2 in fmap2_pyramid]
-    if _bwd_smem_bytes(w2s, radius) > MAX_BWD_SMEM:
-        raise ValueError(f"W2 levels {w2s}: the backward keeps a row's df2 "
-                         f"of every level in shared memory, "
-                         f"{_bwd_smem_bytes(w2s, radius)} bytes > "
-                         f"{MAX_BWD_SMEM}")
+    chunk, tile, tensor_cores = plan_bwd(w1, w2s, radius, d,
+                                         fmap1.element_size())
     f1 = fmap1.contiguous()
     f2s = [f2.contiguous() for f2 in fmap2_pyramid]
+    for t in (f1, *f2s):
+        if t.data_ptr() % 16:
+            raise ValueError("the alt backward reads the features as "
+                             "16-byte vectors: their storage must be "
+                             "16-byte aligned")
     g = g.contiguous()
     coords = coords.contiguous()
     df1 = torch.empty_like(f1)
@@ -302,7 +365,8 @@ def alt_lookup_bwd_fused(fmap1: torch.Tensor,
         err = _bwd_lib(_BWD_ENTRIES[dtype])(
             f1.data_ptr(), ptrs, dptrs, widths, levels, coords.data_ptr(),
             g.data_ptr(), df1.data_ptr(), b * h, w1, d, radius,
-            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
+            1.0 / math.sqrt(d), chunk, tile, int(tensor_cores),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "corr_alt_bwd")
     alt_lookup_bwd_fused.launches += 1
     return df1, df2

@@ -32,7 +32,7 @@ from raft_stereo_tpu_torch.kernels import _build
 from raft_stereo_tpu_torch.ops.sampler import linear_sampler_1d
 
 MAX_LEVELS = 8  # kMaxLevels in csrc/corr_lookup.cu
-MAX_RADIUS = 8  # kMaxRadius, of the backward
+MAX_RADIUS = 8  # kMaxRadius
 
 
 def window_coords(coords: torch.Tensor, level: int,
@@ -91,14 +91,13 @@ _BWD_ENTRIES = {torch.float32: "raft_corr_lookup_bwd",
                 torch.bfloat16: "raft_corr_lookup_bwd_bf16"}
 
 
+_ARGTYPES = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+
+
 def _lib(entry: str):
-    fn = getattr(_build.load("corr_lookup"), entry)
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("corr_lookup", entry, _ARGTYPES)
 
 
 def _check_coords(coords: torch.Tensor, dtype: torch.dtype) -> None:
@@ -130,14 +129,15 @@ def _launch_fwd(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
     return out
 
 
-def _check_levels(pyramid: Sequence[torch.Tensor],
-                  coords: torch.Tensor) -> None:
-    """Raise on levels the kernels do not take (CUDA tensors)."""
+def _check_levels(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+                  radius: int) -> None:
+    """Raise on levels and radii the kernels do not take (CUDA tensors)."""
     levels = len(pyramid)
     b, h, w1 = coords.shape
-    if not 1 <= levels <= MAX_LEVELS:
-        raise ValueError(f"{levels} levels; the kernel takes "
-                         f"1..{MAX_LEVELS}")
+    if not 1 <= levels <= MAX_LEVELS or not 0 <= radius <= MAX_RADIUS:
+        raise ValueError(f"{levels} levels, radius {radius}: the kernel "
+                         f"takes 1..{MAX_LEVELS} levels and radius "
+                         f"0..{MAX_RADIUS}")
     for v in pyramid:
         if v.dtype != pyramid[0].dtype:
             raise TypeError(f"pyramid levels mix {pyramid[0].dtype} and "
@@ -186,7 +186,7 @@ def lookup_pyramid_fused(pyramid: List[torch.Tensor], coords: torch.Tensor,
     differentiable in the volumes.  Counts its kernel launches in
     ``lookup_pyramid_fused.launches``."""
     if coords.device.type != "cpu":
-        _check_levels(pyramid, coords)
+        _check_levels(pyramid, coords, radius)
         _check_coords(coords, pyramid[0].dtype)
     return _LookupPyramid.apply(coords, radius, *pyramid)
 
@@ -230,7 +230,7 @@ def lookup_pyramid_fused_q(pyramid: List[torch.Tensor], coords: torch.Tensor,
                          "pyramid")
     if coords.device.type == "cpu":
         return lookup_pyramid_xla(pyramid, coords, radius, out_dtype)
-    _check_levels(pyramid, coords)
+    _check_levels(pyramid, coords, radius)
     if coords.device.type != "cuda" or coords.dtype != torch.float32:
         raise TypeError(f"the lookup kernel takes float32 CUDA coords, got "
                         f"{coords.dtype} on {coords.device}")

@@ -188,20 +188,14 @@ _ENTRIES = {torch.float32: "raft_gru_gates",
             torch.bfloat16: "raft_gru_gates_bf16"}
 
 
-@functools.lru_cache(maxsize=None)
-def _lib(dtype: torch.dtype):
-    fn = getattr(_build.load("gru_gates"), _ENTRIES[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+    ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
 
 
 def smem_bytes(dtype: torch.dtype, bn: int, wg: int) -> int:
     """Dynamic shared memory of one gate block (the kernel's own count)."""
-    fn = _build.load("gru_gates").raft_gru_gates_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 3
-    fn.restype = ctypes.c_int
+    fn = _build.entry("gru_gates", "raft_gru_gates_smem_bytes",
+                      [ctypes.c_int] * 3)
     return fn(int(dtype == torch.bfloat16), bn, wg)
 
 
@@ -216,13 +210,14 @@ def _launch(h, x, cr, wzr, bzr, wq, bq):
     rh = torch.empty_like(qpre)
     with torch.cuda.device(h.device):
         sms = _sm_count(torch.cuda.current_device())
-        err = _lib(dt)(*(args[k].data_ptr() for k in
-                         ("h", "x", "cr", "wzr", "bzr", "wq", "bq")),
-                       zr.data_ptr(), qpre.data_ptr(), rh.data_ptr(),
-                       b, hh, ww, ch, x.shape[-1],
-                       (ctypes.c_int * 6)(*tile((b, hh, ww), 2 * ch, sms),
-                                          *tile((b, hh, ww), ch, sms)),
-                       torch.cuda.current_stream().cuda_stream)
+        err = _build.entry("gru_gates", _ENTRIES[dt], _ARGTYPES)(
+            *(args[k].data_ptr() for k in
+              ("h", "x", "cr", "wzr", "bzr", "wq", "bq")),
+            zr.data_ptr(), qpre.data_ptr(), rh.data_ptr(),
+            b, hh, ww, ch, x.shape[-1],
+            (ctypes.c_int * 6)(*tile((b, hh, ww), 2 * ch, sms),
+                               *tile((b, hh, ww), ch, sms)),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "gru_gates")
     gru_gates_fused.launches += 1
     return zr, qpre

@@ -1,7 +1,8 @@
 """RAFT-Stereo at fixed depth, test and train mode (NCHW inside).
 
 One forward: normalize both images; run cnet (frozen BN) on the left image
-and fnet (instance norm) on both as one batch, or, with
+and fnet (instance norm) on both as one batch (one image at a time once
+H*W reaches ``sequential_fnet_threshold``, as the JAX model does), or, with
 ``shared_backbone``, the cnet trunk on both images and the feature head
 (``conv2_res``, ``conv2_out``) on its output; build the per-level GRU
 context biases; build the correlation (volume and pyramid, or the pooled
@@ -55,6 +56,35 @@ from raft_stereo_tpu_torch.models.update import (BasicMultiUpdateBlock,
 from raft_stereo_tpu_torch.ops.grids import coords_grid_x
 from raft_stereo_tpu_torch.quant.core import in_encoder_scope
 from raft_stereo_tpu_torch.ops.upsample import convex_upsample
+
+
+# The JAX model's sequential-fnet gate (raft_stereo_tpu/models/
+# raft_stereo.py): fnet runs the two images one at a time once H*W reaches
+# this share of the device's memory over the batched path's measured extra
+# bytes per pixel.  Without a device memory size (the CPU) the JAX package
+# assumes 16 GiB.
+_STEM_EXTRA_BYTES_PER_PIXEL = 1180
+_SEQ_FNET_MEMORY_FRACTION = 0.10
+_CPU_MEMORY_BYTES = 16 * 2 ** 30
+
+
+def sequential_fnet_threshold(cfg: RaftStereoConfig,
+                              device: torch.device) -> int:
+    """Pixel count from which fnet runs the two images one at a time:
+    ``cfg.sequential_fnet_pixels`` where set, else 0.10 x memory / 1180 B
+    per pixel, memory being the card's own total memory on a CUDA device
+    (about 7.2 M pixels on an 80 GB card) and the JAX package's 16 GiB
+    fallback elsewhere (1,455,921 pixels).  In fp32 and bf16 the two
+    routes are one function (instance norm is per image); under
+    ``quant="int8_mxu"`` with dynamic scales each route takes its own
+    scales (one per image against one per pair), so the port takes the
+    JAX model's route."""
+    if cfg.sequential_fnet_pixels is not None:
+        return cfg.sequential_fnet_pixels
+    memory = (torch.cuda.get_device_properties(device).total_memory
+              if device.type == "cuda" else _CPU_MEMORY_BYTES)
+    return int(_SEQ_FNET_MEMORY_FRACTION * memory
+               / _STEM_EXTRA_BYTES_PER_PIXEL)
 
 
 class RAFTStereo(nn.Module):
@@ -140,8 +170,12 @@ class RAFTStereo(nn.Module):
             fmap1, fmap2 = torch.chunk(self.conv2_out(self.conv2_res(v)), 2)
         else:
             levels, _ = self.cnet(img1)
-            fmap1, fmap2 = torch.chunk(self.fnet(torch.cat([img1, img2])),
-                                       2)
+            if (image1.shape[1] * image1.shape[2]
+                    >= sequential_fnet_threshold(cfg, img1.device)):
+                fmap1, fmap2 = self.fnet(img1), self.fnet(img2)
+            else:
+                fmap1, fmap2 = torch.chunk(
+                    self.fnet(torch.cat([img1, img2])), 2)
 
         # levels[l] = [hidden_head, context_head], fine -> coarse
         net = [torch.tanh(lv[0]) for lv in levels]

@@ -388,6 +388,136 @@ def test_alt_backward_kernel_matches_plain(rng, cuda_device, dtype, rows, w1,
     assert all(torch.equal(a, b) for a, b in zip(again[1], df2))
 
 
+def _centers(rng, rows, w1, w2, spread=10.0):
+    """Centers across the row and past both of its ends (non-monotone, so
+    windows cross), a few of them far outside on either side."""
+    c = rng.uniform(-spread, w2 + spread, size=(1, rows, w1))
+    c.flat[::7] = -1e4
+    c.flat[3::11] = 1e4
+    return c.astype(np.float32)
+
+
+# (rows, W1, W2 at level 0, D, levels, radius): the realtime training row,
+# W1 that is a multiple of no tile, D that is not a multiple of the channel
+# chunk (64 bf16 or 32 fp32 channels), radius 0 and 8, 1 and 8 levels, and
+# the widest rows the earlier kernel accepted (its df2 of every level in
+# shared memory: W2 sums of 1,630 at 4 levels, radius 4, and 1,379 at 8
+# levels, radius 8), each with a W1 wider than one pixel tile.
+ALT_BWD_EDGE = [(4, 90, 90, 256, 4, 4), (3, 77, 61, 96, 4, 4),
+                (2, 45, 50, 40, 4, 4), (2, 30, 30, 64, 4, 0),
+                (2, 30, 40, 32, 4, 8), (2, 33, 35, 16, 1, 4),
+                (1, 40, 256, 16, 8, 4), (1, 2500, 870, 16, 4, 4),
+                (1, 2100, 694, 8, 8, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,w1,w2,d,levels,radius", ALT_BWD_EDGE)
+def test_alt_backward_redesign_edges(rng, cuda_device, dtype, rows, w1, w2,
+                                     d, levels, radius):
+    """Kernel #8 (bf16 rows that fit a block on the tensor cores, fp32 and
+    the widest rows on the CUDA cores) against ``alt_lookup_bwd_xla`` at
+    its edges, with the tolerances of
+    ``test_alt_backward_kernel_matches_plain``, and two launches bit for
+    bit equal."""
+    def arr(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda_device, dtype)
+
+    f1 = arr(1, rows, w1, d)
+    pyr = [arr(1, rows, w2, d)]
+    for _ in range(levels - 1):
+        pyr.append(pool_axis(pyr[-1], axis=2).contiguous())
+    c = torch.from_numpy(_centers(rng, rows, w1, w2)).to(cuda_device)
+    g = arr(1, rows, w1, levels * (2 * radius + 1))
+    df1, df2 = alt_lookup_bwd_fused(f1, pyr, c, g, radius)
+    again = alt_lookup_bwd_fused(f1, pyr, c, g, radius)
+    torch.cuda.synchronize()
+    want1, want2 = alt_lookup_bwd_xla(f1, pyr, c, g, radius)
+    for got, want in [(df1, want1)] + list(zip(df2, want2)):
+        assert got.dtype == dtype and got.shape == want.shape
+        scale = float(want.float().abs().max())
+        if dtype == torch.float32:
+            assert float((got - want).abs().max()) <= 1e-5 * scale
+        else:
+            assert_bf16_close(got, want, atol=1e-5 * scale)
+    assert torch.equal(again[0], df1)
+    assert all(torch.equal(a, b) for a, b in zip(again[1], df2))
+
+
+def test_alt_backward_plan_mirrors_the_kernel(cuda_device):
+    """``plan_bwd``'s shared-memory counts are the kernels' own
+    (``raft_corr_alt_bwd_smem_bytes``), and a plan above a block's shared
+    memory is refused by both."""
+    from raft_stereo_tpu_torch.kernels import _build
+    from raft_stereo_tpu_torch.kernels.corr_alt import (MAX_BWD_SMEM,
+                                                        bwd_smem_bytes,
+                                                        plan_bwd,
+                                                        tc_smem_bytes)
+    import ctypes
+    fn = _build.entry("corr_alt", "raft_corr_alt_bwd_smem_bytes",
+                      [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 7)
+    for rows, w1, w2, d, levels, radius in ALT_BWD_EDGE:
+        w2s = [w2 // 2 ** i for i in range(levels)]
+        arr = (ctypes.c_int * levels)(*w2s)
+        for item in (2, 4):
+            chunk, tile, tc = plan_bwd(w1, w2s, radius,
+                                       d - d % (16 // item), item)
+            want = (tc_smem_bytes(w2s, radius, w1, chunk) if tc else
+                    bwd_smem_bytes(sum(w2s), levels, radius, tile, chunk,
+                                   item, w1))
+            assert want <= MAX_BWD_SMEM
+            assert fn(arr, levels, radius, tile, chunk, item, w1,
+                      int(tc)) == want
+    big = (ctypes.c_int * 4)(2000, 1000, 500, 250)
+    assert fn(big, 4, 4, 64, 64, 2, 64, 0) == 0
+    assert fn(big, 4, 4, 64, 64, 2, 64, 1) == 0
+
+
+# (rows, W1, W2 at level 0, levels, radius): the KITTI row, W1 not a
+# multiple of a block's pixels, radius 0 and 8, 1 and 8 levels.
+LOOKUP_EDGE = [(4, 312, 312, 4, 4), (3, 77, 61, 4, 4), (2, 50, 40, 4, 0),
+               (2, 50, 40, 4, 8), (2, 33, 35, 1, 4), (1, 40, 256, 8, 4),
+               (2, 23, 19, 3, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("rows,w1,w2,levels,radius", LOOKUP_EDGE)
+def test_lookup_redesign_edges(rng, cuda_device, dtype, rows, w1, w2, levels,
+                               radius):
+    """Kernel #1 (a thread per pixel and level, outputs staged for
+    16-byte stores) against ``lookup_pyramid_xla`` on every
+    level type, with centers past both ends of the row: fp32 1e-5 (the
+    tolerance of ``test_lookup_kernel_matches_plain``), bf16 one ulp, the
+    1-byte levels 1e-6 of the scale; and two launches bit for bit equal."""
+    if dtype in Q_DTYPES:
+        levels_ = [_q_codes(rng, (1, rows, w1, w2 // 2 ** i), dtype,
+                            cuda_device) for i in range(levels)]
+    else:
+        vol = torch.from_numpy(rng.normal(size=(1, rows, w1, w2)).astype(
+            np.float32)).to(cuda_device, dtype)
+        levels_ = build_corr_pyramid(vol, levels)
+    c = torch.from_numpy(_centers(rng, rows, w1, w2)).to(cuda_device)
+    if dtype in Q_DTYPES:
+        got = lookup_pyramid_fused_q(levels_, c, radius, torch.float32)
+        again = lookup_pyramid_fused_q(levels_, c, radius, torch.float32)
+        want = lookup_pyramid_xla(levels_, c, radius, torch.float32)
+    else:
+        got = lookup_pyramid_fused(levels_, c, radius)
+        again = lookup_pyramid_fused(levels_, c, radius)
+        want = lookup_pyramid_xla(levels_, c, radius)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    elif dtype == torch.bfloat16:
+        assert_bf16_close(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(got, again)
+
+
 def test_wrappers_carry_gradients_on_card(rng, cuda_device):
     """The autograd fault's regression: each kernel wrapper's output on the
     card has a ``grad_fn``, and the gradient of a loss through it equals

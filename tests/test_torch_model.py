@@ -31,6 +31,8 @@ from PIL import Image
 
 from raft_stereo_tpu.config import RaftStereoConfig as JaxConfig
 from raft_stereo_tpu.models.raft_stereo import RAFTStereo as JaxRAFTStereo
+from raft_stereo_tpu.models.raft_stereo import (
+    sequential_fnet_threshold as jax_sequential_fnet_threshold)
 from raft_stereo_tpu.ops.padding import InputPadder as JaxPadder
 from raft_stereo_tpu_torch.cli import demo
 from raft_stereo_tpu_torch.config import RaftStereoConfig
@@ -38,7 +40,8 @@ from raft_stereo_tpu_torch.eval.runner import InferenceRunner
 from raft_stereo_tpu_torch.io.jax_weights import (load_checkpoint,
                                                   save_checkpoint,
                                                   state_dict_from_jax)
-from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
+from raft_stereo_tpu_torch.models.raft_stereo import (
+    RAFTStereo, sequential_fnet_threshold)
 from torch_port_support import perturb
 
 FLOW_ATOL = 2e-3
@@ -148,10 +151,40 @@ def test_config_fields_match_jax():
 @pytest.mark.parametrize("field,value", [
     ("rows_gru", True), ("banded_encoder", True), ("rows_shards", 2),
     ("corr_w2_shards", 2), ("exit_threshold_px", 0.05),
-    ("sequential_fnet_pixels", 0)])
+    ("remat_save", ("gru_gates",))])
 def test_unported_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         RaftStereoConfig(**{field: value})
+
+
+@pytest.mark.parametrize("pixels", [None, 1])
+def test_sequential_fnet_route(pixels):
+    """fnet runs one image at a time from ``sequential_fnet_threshold``
+    (the JAX model's gate: ``sequential_fnet_pixels``, else 0.10 x memory /
+    1180 B per pixel, 16 GiB off the card), and in fp32 both routes give
+    the same features (instance norm is per image)."""
+    cfg = RaftStereoConfig(**TINY, sequential_fnet_pixels=pixels)
+    assert sequential_fnet_threshold(cfg, torch.device("cpu")) == (
+        1455921 if pixels is None else pixels)
+    jcfg = JaxConfig(**TINY, sequential_fnet_pixels=pixels)
+    assert sequential_fnet_threshold(cfg, torch.device("cpu")) == (
+        jax_sequential_fnet_threshold(jcfg))
+    torch.manual_seed(0)
+    model = RAFTStereo(cfg).eval()
+    calls = []
+    model.fnet.register_forward_hook(lambda m, i, o: calls.append(o))
+    rs = np.random.default_rng(0)
+    img = torch.from_numpy(rs.integers(0, 256, (2, 32, 32, 3)).astype(
+        np.float32))
+    with torch.no_grad():
+        model(img[:1], img[1:], iters=1)
+    assert len(calls) == (1 if pixels is None else 2)
+    if pixels is not None:
+        per_image = torch.cat(calls)
+        x = (2 * (img / 255.0) - 1.0).permute(0, 3, 1, 2)
+        with torch.no_grad():
+            both = model.fnet(x)
+        torch.testing.assert_close(per_image, both, rtol=0, atol=1e-5)
 
 
 def test_unported_forward_modes_raise():

@@ -512,6 +512,47 @@ def test_default_int8_matches_jax(default_vars, jax_pyramid, monkeypatch,
     np.testing.assert_allclose(got, want, atol=FLOW_ATOL, rtol=0)
 
 
+def test_default_int8_mxu_runs_fnet_per_image_as_jax(default_vars):
+    """The default TINY architecture under ``quant="int8_mxu"`` with
+    dynamic scales and ``sequential_fnet_pixels`` below the input's H*W:
+    JAX's gate sends fnet one image at a time, so each of its int8 convs
+    takes one input scale per image.  The port's forward must take the
+    same route: for each image, fnet's second int8 conv (the first whose
+    input max-abs differs between the two images) gives JAX's per-image
+    output to 1e-6 of its scale (bit-equal int32 accumulators, the same
+    fp32 rescale: 0 measured).  On the batched route the pair shares one
+    scale, and 0.8% of these outputs move, by up to 8e-3.
+    Deeper layers are not compared: from there on a code flips where the
+    two frameworks' fp32 instance norms straddle a rounding boundary, and
+    instance norm spreads each flip (fnet's output differs from JAX's by
+    4e-2 of its scale on either route)."""
+    from raft_stereo_tpu.models import raft_stereo as jraft
+    left, right = _images()
+    jcfg = _jcfg(False, quant="int8_mxu",
+                 sequential_fnet_pixels=HW[0] * HW[1] // 2)
+    assert jraft.sequential_fnet_threshold(jcfg) <= HW[0] * HW[1]
+    jq = jcore.quantize_variables(default_vars)
+    x = 2 * (jnp.asarray(np.stack([left, right]), jnp.float32) / 255.0) - 1
+    want = []
+    for img in (x[:1], x[1:]):
+        _, inter = JaxRAFTStereo(jcfg).apply(
+            jq, img, method=lambda m, b: m.fnet(b),
+            capture_intermediates=True, mutable=["intermediates"])
+        conv = inter["intermediates"]["fnet"]["trunk"]["layer1_0"]["conv1"]
+        want.append(np.asarray(conv["__call__"][0]))
+    runner = InferenceRunner(_port_cfg(jcfg), state_dict_from_jax(
+        default_vars), iters=1, device="cpu", quant="int8_mxu")
+    got = []
+    runner.model.fnet.trunk.layer1_0.conv1.register_forward_hook(
+        lambda m, i, o: got.append(o.permute(0, 2, 3, 1).float().numpy()))
+    flow, _ = runner(left, right)
+    assert np.isfinite(flow).all()
+    for g, w in zip(np.concatenate(got), np.concatenate(want)):
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-6 * np.abs(w).max())
+    assert len(got) == 2, "fnet must run once per image"
+
+
 @pytest.mark.parametrize("q,iters", [("int8", 1), ("int8", 2),
                                      ("fp8", 1), ("fp8", 2)])
 def test_realtime_int8_mxu_matches_jax(realtime_vars, q, iters):
