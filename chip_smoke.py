@@ -46,7 +46,14 @@ fails the run when it fails:
    (1,24,78, Cin 256), at the training gru08 calls (8,80,180 and the
    realtime step's 8,40,90) and at the card tests' odd shapes, and the
    bf16 pyramid lookup at the shapes of phase 2;
-8. timings of those kernels as in phase 4;
+8. timings of those kernels as in phase 4; the alt rows also on a
+   coherent center field (``coherent_centers``: a smooth disparity field
+   in [0, 24] px at 1/8 resolution, what the model's lookups see) beside
+   the random centers, each field by one-call graph replay and as 20
+   calls per replay with the flushes subtracted (every alt bound lies
+   below the replay floor), with ``plan_fwd``'s tile, channel chunk and
+   band rows; and the bf16 alt kernel at the realtime training step's
+   shape (8x40 rows, W1 90, W2 90/45/22/11, D 256) on both fields;
 9. the realtime path: ``InferenceRunner`` on ``RaftStereoConfig.realtime()``
    with seeded random weights on the 375x1242 pair at 7 iterations (7 alt
    launches, 21 bf16 gate calls, no pyramid lookup; seconds per pair and
@@ -60,11 +67,13 @@ fails the run when it fails:
    180/90/45/22, and each level alone at 1/2^l), the alt backward in bf16
    and fp32 (320 rows, W1 90, levels 90/45/22/11, D 256, and an odd
    shape), and the gate Function's gradients against autograd through
-   its plain twin at gru08 (8, 80, 180, Cin 384);
+   its plain twin at gru08 (8, 80, 180, Cin 384); two launches of the
+   lookup backward bitwise equal;
 12. timings of the backward kernels as in phase 4, the yardstick being
    the autograd backward of the ``F.grid_sample`` formulations (captured
-   on the stream of their forwards), and the alt backward's plan (channel
-   chunk, pixel tile, tensor or CUDA cores);
+   on the stream of their forwards), the alt backward's plan (channel
+   chunk, pixel tile, tensor or CUDA cores), and beside the lookup
+   backward a ``torch.zeros`` of its dV bytes, the write floor;
 13. the default training step: ``train()`` with ``RaftStereoConfig()``
    fp32 and ``TrainConfig()`` (batch 8, 320x720, 22 iterations) on a
    seeded synthetic loader, one warm-up step and 3 timed steps; checks
@@ -87,7 +96,8 @@ fails the run when it fails:
    the dequantize-then-sample reference, with the scale vector left out as
    a check that must fail; the int8 GEMM conv (the realtime cnet's 7x7/2
    conv1, conv2_out's 3x3 128->256) bit-equal to the exact CPU conv;
-17. timings of the two 1-byte kernels as in phase 4;
+17. timings of the two 1-byte kernels as in phase 4, #9 also on the
+   coherent field and as 20 calls per replay, as in phase 8;
 18. the realtime ``int8_mxu`` path: ``InferenceRunner(..., quant=
    "int8_mxu")`` on the 375x1242 pair at 7 iterations (7 int8 #9
    launches, 21 bf16 gate calls, no pyramid lookup, one int8 GEMM per
@@ -164,6 +174,7 @@ MAIN_ITERS = 32
 RT_ROWS, RT_W1, RT_D = 48, 156, 256
 RT_ITERS = 7
 RT_DEEP_ITERS = 16      # the runner's corr_fp32 threshold
+COHERENT_MAX_DISP = 24.0  # px at 1/8 resolution (phases 8 and 17)
 ALT_ATOL = 1e-5         # fp32: dots of 256 products in another order
 BF16_ULPS = 1           # bf16 alt and lookup: one ulp + BF16_ATOL
 BF16_GATES_ULPS = 2     # bf16 gates: two ulps + BF16_GATES_ATOL (r*h)
@@ -248,6 +259,19 @@ def window_bins(coords, w2s) -> int:
             torch.floor(c - RADIUS) <= w2 - 1)
         total += int(torch.where(inside, hi - lo + 1, 0).sum())
     return total
+
+
+def coherent_centers(gen, b: int, rows: int, w1: int) -> torch.Tensor:
+    """(b, rows, w1) centers c = x - d of a seeded smooth disparity field d
+    in [0, COHERENT_MAX_DISP] px: a uniform grid with a node every 8
+    pixels, upsampled bilinearly (so d stays in range).  At 1/8 resolution
+    that is 0-192 px at full resolution, KITTI's range: what the model's
+    lookups see, where the random centers of phase 7 are its worst case."""
+    coarse = torch.rand((b, 1, rows // 8 + 2, w1 // 8 + 2),
+                        generator=gen) * COHERENT_MAX_DISP
+    d = F.interpolate(coarse, size=(rows, w1), mode="bilinear",
+                      align_corners=True)[:, 0]
+    return torch.arange(w1, dtype=torch.float32) - d
 
 
 def lookup_bytes(coords, w2s, itemsize: int = 4) -> int:
@@ -533,7 +557,7 @@ def main() -> int:
     from raft_stereo_tpu_torch.kernels import _build
     from raft_stereo_tpu_torch.kernels.corr_alt import (
         alt_lookup_bwd_fused, alt_lookup_bwd_xla, alt_lookup_fused,
-        alt_lookup_xla, plan_bwd)
+        alt_lookup_xla, plan_bwd, plan_fwd)
     from raft_stereo_tpu_torch.kernels.corr_lookup import (
         lookup_pyramid_bwd_fused, lookup_pyramid_bwd_xla,
         lookup_pyramid_fused, lookup_pyramid_xla)
@@ -891,6 +915,40 @@ def main() -> int:
         raise AssertionError(f"bf16 lookup kernel disagrees: {lookup16_err}")
 
     # ------------------------------------------------------------ phase 8
+    def alt_bound(f1, pyr, c, out_item, quantized):
+        """(bound ms, what bounds it, bytes, operations) of one alt call:
+        the features, centers and output moved once; the window dots
+        (2D per bin these centers touch) and, in fp32, the interpolation
+        at the fp32 rate, or the dots alone at the int8/fp8 tensor rate."""
+        k_ = LEVELS * (2 * RADIUS + 1)
+        nbytes = ((f1.numel() + sum(v.numel() for v in pyr))
+                  * f1.element_size() + c.numel() * 4
+                  + c.numel() * k_ * out_item)
+        ops = 2 * f1.shape[-1] * window_bins(c, [v.shape[2] for v in pyr])
+        if not quantized:
+            ops += 3 * c.numel() * k_
+        bytes_ms = nbytes / MEM_RATE * 1e3
+        ops_ms = ops / (INT8_RATE if quantized else FP32_RATE) * 1e3
+        return (max(bytes_ms, ops_ms),
+                "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops)
+
+    def alt_fields(label, call, f1, pyr, fields, out_item, quantized=False):
+        """Time ``call(c)`` on each center field by one-call graph replay
+        and as 20 calls per replay with the flushes subtracted, beside its
+        bound (every alt bound lies below the replay floor)."""
+        res = {}
+        for fname, c_ in fields.items():
+            bound, by, _, _ = alt_bound(f1, pyr, c_, out_item, quantized)
+            one = graph_ms(lambda: call(c_), flush)
+            each = graph_each_ms(lambda: call(c_), flush)
+            log(f"{label}, {fname} centers: {one:.4f} ms by one-call graph "
+                f"replay, {each:.4f} ms per call at 20 calls per replay; "
+                f"bound {bound:.5f} ms ({by}): {each / bound:.1f}x the bound "
+                f"by 20-call replay")
+            res[fname] = {"ms": one, "ms_20": each, "bound_ms": bound,
+                          "bound_by": by}
+        return res
+
     alt_time = {}
     for tag, (f1, pyr, c) in alt_cases.items():
         lib_err = float((alt_library(f1, pyr, c)
@@ -899,21 +957,40 @@ def main() -> int:
         t = timed(lambda: alt_lookup_fused(f1, pyr, c, RADIUS),
                   lambda: alt_lookup_xla(f1, pyr, c, RADIUS),
                   lambda: alt_library(f1, pyr, c), flush)
-        item = f1.element_size()
-        k = LEVELS * (2 * RADIUS + 1)
-        nbytes = (f1.numel() + sum(v.numel() for v in pyr)) * item + (
-            c.numel() * 4 + c.numel() * k * item)
-        bins = window_bins(c, [v.shape[2] for v in pyr])
-        flops = 2 * RT_D * bins + 3 * c.numel() * k
-        bytes_ms, ops_ms = nbytes / MEM_RATE * 1e3, flops / FP32_RATE * 1e3
-        t["bound"] = max(bytes_ms, ops_ms)
-        t["by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        t["bound"], t["by"], nbytes, flops = alt_bound(
+            f1, pyr, c, f1.element_size(), False)
         alt_time[tag] = t
         log(f"alt {tag} timing: "
             f"{describe(t, 'grid_sample formulation', t['bound'], t['by'])}; "
             f"max |library - plain| {lib_err:.3e}; {nbytes / 1e6:.2f} MB: "
-            f"{bytes_ms:.5f} ms; {flops / 1e6:.1f} MFLOP at the fp32 rate: "
-            f"{ops_ms:.5f} ms")
+            f"{nbytes / MEM_RATE * 1e3:.5f} ms; {flops / 1e6:.1f} MFLOP at "
+            f"the fp32 rate: {flops / FP32_RATE * 1e3:.5f} ms")
+        plan = plan_fwd([v.shape[2] for v in pyr], RADIUS, RT_D, f1.dtype)
+        log(f"alt {tag} plan_fwd at (1,{RT_ROWS},{RT_W1}): (pixel tile, "
+            f"channel chunk, band rows per pass) {plan}")
+        fields = {"random": c, "coherent": coherent_centers(
+            gen, 1, RT_ROWS, RT_W1).to(dev)}
+        t["fields"] = alt_fields(
+            f"alt {tag} (1,{RT_ROWS},{RT_W1}) D {RT_D}",
+            lambda c_: alt_lookup_fused(f1, pyr, c_, RADIUS), f1, pyr,
+            fields, f1.element_size())
+    # #6 at the realtime training step's shape (22 launches per step).
+    tb_, th_, tw_ = TRAIN_B, TRAIN_HW[0] // 8, TRAIN_HW[1] // 8
+    f1 = torch.randn((tb_, th_, tw_, RT_D), generator=gen).to(
+        dev, torch.bfloat16)
+    pyr = [torch.randn((tb_, th_, tw_, RT_D), generator=gen).to(
+        dev, torch.bfloat16)]
+    for _ in range(LEVELS - 1):
+        pyr.append(pool_axis(pyr[-1], axis=2).contiguous())
+    fields = {"random": (torch.rand((tb_, th_, tw_), generator=gen)
+                         * (tw_ + 20) - 10).to(dev),
+              "coherent": coherent_centers(gen, tb_, th_, tw_).to(dev)}
+    alt_time["bf16"]["fields"].update({
+        f"training {n_}": v_ for n_, v_ in alt_fields(
+            f"alt bf16 at the realtime training shape ({tb_},{th_},{tw_}) "
+            f"D {RT_D}", lambda c_: alt_lookup_fused(f1, pyr, c_, RADIUS),
+            f1, pyr, fields, 2).items()})
+    del f1, pyr, fields
 
     g16_times = {label: gate_timing(label, args, calls)
                  for label, (args, calls) in rt_gate_cases.items()}
@@ -1023,13 +1100,20 @@ def main() -> int:
                - 10).to(dev)
     tg = torch.randn((tb, th, tw, LEVELS * k), generator=gen).to(dev)
     got = lookup_pyramid_bwd_fused(tg, tcoords, tw2s, RADIUS, torch.float32)
+    again = lookup_pyramid_bwd_fused(tg, tcoords, tw2s, RADIUS,
+                                     torch.float32)
     torch.cuda.synchronize()
+    lookup_bwd_same = all(torch.equal(a, b) for a, b in zip(got, again))
     lookup_bwd_err = max(
         float((a - b).abs().max()) for a, b in zip(
             got, lookup_pyramid_bwd_xla(tg, tcoords, tw2s, RADIUS,
                                         torch.float32)))
     log(f"lookup backward, {tb * th} rows, W1 {tw}, levels {tw2s}: max "
-        f"|kernel - plain| = {lookup_bwd_err:.3e} (atol {LOOKUP_BWD_ATOL})")
+        f"|kernel - plain| = {lookup_bwd_err:.3e} (atol {LOOKUP_BWD_ATOL}); "
+        f"a second launch bitwise equal: {lookup_bwd_same}")
+    if not lookup_bwd_same:
+        raise AssertionError("two launches of the lookup backward differ")
+    del got, again
     for i, w2 in enumerate(tw2s):
         args_ = (tg[..., i * k:(i + 1) * k].contiguous(), tcoords / 2 ** i,
                  [w2], RADIUS, torch.float32)
@@ -1160,6 +1244,15 @@ def main() -> int:
     log(f"lookup backward timing: "
         f"{describe(lbwd_t, 'grid_sample backward x4', lbwd_bound, 'bytes')}"
         f"; max |library - plain| {lib_err:.3e}; {lbwd_bytes / 1e6:.1f} MB")
+    # The practical write floor: one memset of the same dV bytes.
+    dv_elems = n_pix * sum(tw2s)
+    lbwd_t["write_floor_ms"] = graph_ms(
+        lambda: torch.zeros(dv_elems, device=dev), flush)
+    log(f"lookup backward: torch.zeros of its {dv_elems * 4 / 1e6:.1f} MB of "
+        f"dV {lbwd_t['write_floor_ms']:.4f} ms by graph replay, the write "
+        f"floor; the kernel {lbwd_t['ms'] / lbwd_t['write_floor_ms']:.2f}x "
+        f"it, {lbwd_bound / lbwd_t['ms']:.1%} of the bound; faster than the "
+        f"library's backward: {lbwd_t['ms'] < lbwd_t['lib']}")
     del srcs, lib_out
 
     alt_bwd_time = {}
@@ -1496,19 +1589,21 @@ def main() -> int:
                                              torch.float32),
                   lambda: alt_lookup_xla(f1_q, pq, c, RADIUS, torch.float32),
                   lambda: alt_library(f1_q, pq, c), flush)
-        k_out = LEVELS * (2 * RADIUS + 1)
-        nbytes = (f1_q.numel() + sum(v.numel() for v in pq)
-                  + c.numel() * 4 + c.numel() * k_out * 4)
-        ops = 2 * RT_D * window_bins(c, [v.shape[2] for v in pq])
-        bytes_ms, ops_ms = nbytes / MEM_RATE * 1e3, ops / INT8_RATE * 1e3
-        t["bound"] = max(bytes_ms, ops_ms)
-        t["by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        t["bound"], t["by"], nbytes, ops = alt_bound(f1_q, pq, c, 4, True)
         aq_time[tag] = t
         log(f"alt {tag} timing: "
             + describe(t, "grid_sample formulation (fp32 upcast)",
                        t["bound"], t["by"]) +
-            f"; {nbytes / 1e6:.2f} MB: {bytes_ms:.5f} ms; {ops / 1e6:.1f} M "
-            f"operations at the int8/fp8 tensor rate: {ops_ms:.6f} ms")
+            f"; {nbytes / 1e6:.2f} MB: {nbytes / MEM_RATE * 1e3:.5f} ms; "
+            f"{ops / 1e6:.1f} M operations at the int8/fp8 tensor rate: "
+            f"{ops / INT8_RATE * 1e3:.6f} ms")
+        fields = {"random": c, "coherent": coherent_centers(
+            gen, 1, RT_ROWS, RT_W1).to(dev)}
+        t["fields"] = alt_fields(
+            f"alt {tag} (1,{RT_ROWS},{RT_W1}) D {RT_D}",
+            lambda c_: alt_lookup_fused_q(f1_q, pq, c_, RADIUS,
+                                          torch.float32),
+            f1_q, pq, fields, 4, quantized=True)
 
     # ------------------------------------------------------ phases 18, 19
     def q_counts():
@@ -1662,6 +1757,11 @@ def main() -> int:
                "launches": launched, "max_abs_err": err, "ms": t["ms"],
                "plain_ms": t["plain"], "bound_ms": t["bound"],
                "bound_by": t["by"], "library_ms": t["lib"]}
+        # the alt rows' center fields and 20-call replays (phases 8, 17),
+        # the lookup backward's write floor (phase 12)
+        for key in ("fields", "write_floor_ms"):
+            if key in t:
+                out[key] = t[key]
         if design:
             out["design"] = design
         return out
@@ -1679,11 +1779,14 @@ def main() -> int:
             rt_launches["gates"], gates_bf16_err, gates_bf16,
             "wgmma implicit GEMM"),
         row("corr_alt", "corr_alt.cu", "corr_alt.py:273", rt_launches["alt"],
-            alt_err["bf16"], alt_time["bf16"]),
+            alt_err["bf16"], alt_time["bf16"],
+            "row tiles, bands in shared memory, mma.sync bf16 dots"),
         row("corr_alt_fp32", "corr_alt.cu", "corr_alt.py:75",
-            deep_launches["alt"], alt_err["fp32"], alt_time["fp32"]),
+            deep_launches["alt"], alt_err["fp32"], alt_time["fp32"],
+            "row tiles, bands in shared memory, CUDA-core dots"),
         row("corr_lookup_bwd", "corr_lookup.cu", "corr_lookup.py:304",
-            train_launches["lookup_bwd"], lookup_bwd_err, lbwd_t),
+            train_launches["lookup_bwd"], lookup_bwd_err, lbwd_t,
+            "16-byte runs of the flat dV, window sums staged per block"),
         row("corr_alt_bwd", "corr_alt.cu", "corr_alt.py:90",
             rt_train_launches["alt_bwd"], alt_bwd_err["bf16"],
             alt_bwd_time["bf16"],
@@ -1703,7 +1806,10 @@ def main() -> int:
         kernels.append(row(f"corr_alt_q_{tag}", "corr_alt.cu",
                            "corr_alt.py:411",
                            quant_runs[f"rt {tag}"][0]["alt_q"], aq_err[tag],
-                           aq_time[tag]))
+                           aq_time[tag],
+                           "row tiles, bands in shared memory, mma.sync "
+                           + ("s8 dots" if tag == "int8" else
+                              "bf16 dots of the upcast codes")))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -14,34 +14,65 @@
 // scaled by s before it is weighted, and the output is rounded once to the
 // feature dtype.
 //
-// Bound: memory, and in practice load latency.  The TPU kernel computes a
-// whole (W1-block x W2) volume tile on the MXU because it has no gather.
-// Here a pixel needs only the 2R+2 bins its window touches per level: ten
-// dot products of length D at R = 4, 153 MFLOP per realtime call against
-// 11.6 MB of inputs and output.  Design: one warp per output pixel.  Lanes
-// split D into 16-byte vectors, so one bin of f2 is one coalesced load (512
-// bytes in bf16 at D = 256), and the pixel's f1 row stays in registers for
-// every level.  A level's bins are all loaded before any is reduced, so
-// their loads are in flight together; each dot is then summed across the
-// warp with shuffles and staged in shared memory, where lanes 0..2R read
-// the two bins of their tap.  The eight warps of a block take neighbouring
-// pixels of one row, whose windows overlap, so most f2 loads hit L1.  All
-// levels go in one launch: their pointers and widths travel by value in
-// the kernel's parameter block.
+// Bound: memory.  The TPU kernel computes a whole (W1-block x W2) volume
+// tile on the MXU because it has no gather.  Here a pixel needs only the
+// 2R+2 bins its window touches per level: ten dot products of length D at
+// R = 4, 153 MFLOP per realtime call against 11.6 MB of inputs and output.
+//
+// Design (corr_alt_fwd_kernel).  A block takes a tile of up to 32
+// consecutive pixels of one image row.  It computes each pixel's window
+// at every level (the window start floor(c/2^l - R) and its bins, the
+// arithmetic of the taps), and per level the band of f2 bins from the
+// tile's smallest window start to its largest window end, clipped to the
+// row.  The tile's f1 and the bands of every level (one list of band rows,
+// level after level, each row's level and bin noted beside it) are copied
+// to shared memory with 16-byte cp.async loads, all issued before any
+// arithmetic; rows are padded by 16 bytes, so eight rows at one column
+// fall in eight different bank groups.  Every (pixel, window bin) dot is
+// then computed once, from shared memory, into an fp32 array of window
+// dots per pixel and level, and a thread per pixel and level interpolates
+// its taps from it with the same fp32 arithmetic as before; the block's
+// outputs are staged and written with 16-byte stores.  Any center field
+// works: where the bands (up to every bin of every level, when the
+// centers are random) do not fit the shared memory that leaves two blocks
+// on each SM, they are taken in passes, and where fewer than 160 rows a
+// pass fit, D is taken in chunks; partial dots add up in the dots array in
+// a fixed order (chunk by chunk; each dot belongs to one pass), so two
+// launches agree bit for bit.  kernels/corr_alt.py plan_fwd chooses the
+// tile, the chunk and the rows a pass; FwdSmem here mirrors its count.
+//
+// The dots: bf16, fp8 (each code upcast exactly to bf16 as it lands in
+// shared memory) and int8 on the tensor cores, fp32 on the CUDA cores.
+// mma.sync multiplies 16-pixel x 16-row blocks of the tile's f1 and the
+// band (m16n8k16 bf16 with fp32 sums; m16n8k32 s8 with int32 sums, exact),
+// and skips a block that no window of its 16 pixels reaches; where the
+// centers rise along the row, as a disparity field's do, the band is the
+// tile plus one window and few blocks are wasted.  The same kernel with
+// its bf16 dots on the CUDA cores took about twice as long
+// (tools/torch_kernel_variants.py; PERF.md section 6).  fp32 stays on the
+// CUDA cores for fp32 accuracy: eight threads take one pixel's window at one
+// level and split D's 16-byte columns, so they read 128 contiguous bytes
+// of a row together; each bin's products are summed in order and the
+// eight partial sums by a fixed shuffle tree.  The earlier kernel (one
+// warp per pixel, levels in series, each bin reloaded by every window
+// that reaches it and reduced with five shuffles; 1-byte features filling
+// half the lanes) took 0.051 ms in bf16 and 0.096 ms in int8 a call at
+// the realtime shape (H100 80GB HBM3, 700 W, 20 calls per graph replay),
+// whatever the centers.
 //
 // The quantized tier (corr_alt_q_*, replacing _launch_fwd_multi_q, the
 // entry alt_lookup_fused_q) runs the same kernel over int8 or
-// float8_e4m3fn feature codes: one 16-byte vector is 16 codes, upcast to
-// fp32 on load (exactly), the dots accumulate in fp32 and the output is
-// fp32, the raw correlation of the codes times 1/sqrt(D); the caller
-// multiplies each level's taps by s1*s2_l.  For int8 every dot is an
-// exact integer in fp32 (256 * 127^2 < 2^24), so only the interpolation
-// rounds.  The 1-byte features halve the bytes of bf16 (6.6 MB per
+// float8_e4m3fn feature codes: the dots are the raw correlation of the
+// codes (exact integers for int8: 1024 * 127^2 < 2^24), the output is
+// fp32, the dots times 1/sqrt(D); the caller multiplies each level's taps
+// by s1*s2_l.  The 1-byte features halve the bytes of bf16 (6.6 MB per
 // realtime call instead of 11.6).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -54,84 +85,16 @@ constexpr int kMaxRadius = 8;
 // The 2R+2 bins of a window, plus one on each side: x = c/2^l + k - R is
 // rounded in fp32, which can move floor(x) of the end taps by one.
 constexpr int kMaxBins = 2 * kMaxRadius + 4;
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxVecPerLane = 2;  // D <= 64 vectors of 16 bytes
+constexpr size_t kMaxSmem = 232448;
 
-// 16 bytes of T as fp32 values.
-template <typename T>
-struct Vec;
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
 
-template <>
-struct Vec<float> {
-  static constexpr int kN = 4;
-  __device__ static void load(const float* p, float* v) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  }
-  __device__ static float round(float x) { return x; }
-  __device__ static float to_float(float x) { return x; }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* v) {
-    union {
-      uint4 u;
-      __nv_bfloat162 h[4];
-    } q;
-    q.u = __ldg(reinterpret_cast<const uint4*>(p));
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(q.h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static __nv_bfloat16 round(float x) {
-    return __float2bfloat16_rn(x);
-  }
-  __device__ static float to_float(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-};
-
-// 16 one-byte codes: int8 or float8_e4m3fn, each exact in fp32.
-template <>
-struct Vec<int8_t> {
-  static constexpr int kN = 16;
-  __device__ static void load(const int8_t* p, float* v) {
-    union {
-      uint4 u;
-      int8_t b[16];
-    } q;
-    q.u = __ldg(reinterpret_cast<const uint4*>(p));
-#pragma unroll
-    for (int i = 0; i < 16; ++i) v[i] = (float)q.b[i];
-  }
-};
-
-template <>
-struct Vec<__nv_fp8_e4m3> {
-  static constexpr int kN = 16;
-  __device__ static void load(const __nv_fp8_e4m3* p, float* v) {
-    union {
-      uint4 u;
-      __nv_fp8_storage_t b[16];
-    } q;
-    q.u = __ldg(reinterpret_cast<const uint4*>(p));
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      __nv_fp8_e4m3 e;
-      e.__x = q.b[i];
-      v[i] = static_cast<float>(e);
-    }
-  }
-};
+__device__ inline float to_float(float x) { return x; }
+__device__ inline float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
 // The output: the feature dtype, or fp32 for the quantized tier.
 __device__ inline void store_out(float* p, float v) { *p = v; }
@@ -139,126 +102,617 @@ __device__ inline void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// int8 x int8 into int32: exact.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Sets a kernel's dynamic shared-memory limit once per device.
+template <typename K>
+cudaError_t allow_smem(K kernel, bool* configured) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !configured[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kMaxSmem);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) configured[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+// ------------------------------------------------------------- forward
+
+constexpr int kFwdThreads = 256;
+constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kFwdMaxTile = 32;  // two 16-pixel blocks
+constexpr int kFwdBandInts = 64;
+
+// Per feature type: the type staged in shared memory and whether the dots
+// run on the tensor cores.
 template <typename T>
-struct Levels {
-  const T* f2[kMaxLevels];
-  int w2[kMaxLevels];
+struct FwdTraits;
+template <>
+struct FwdTraits<float> {
+  using S = float;
+  static constexpr bool kTensor = false;
+};
+template <>
+struct FwdTraits<__nv_bfloat16> {
+  using S = __nv_bfloat16;
+  static constexpr bool kTensor = true;
+};
+template <>
+struct FwdTraits<int8_t> {
+  using S = int8_t;
+  static constexpr bool kTensor = true;
+};
+template <>
+struct FwdTraits<__nv_fp8_e4m3> {
+  using S = __nv_bfloat16;  // upcast exactly as it lands
+  static constexpr bool kTensor = true;
+};
+template <typename S>
+struct TcAcc {
+  using type = float;
+};
+template <>
+struct TcAcc<int8_t> {
+  using type = int;
+};
+__device__ __forceinline__ void mma_tc(float (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  mma_bf16(c, a, b0, b1);
+}
+__device__ __forceinline__ void mma_tc(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  mma_s8(c, a, b0, b1);
+}
+
+// Byte offsets of one forward block's shared memory: the tile's f1 chunk
+// (16-pixel blocks), the band's rows (seg of them), each staged row being
+// the chunk padded to 32 bytes (one k step) plus 16 bytes; the window
+// dots (levels x tile x (2R+5) fp32, an odd stride); each window's
+// center, start and bin count; the band table (per level the first and
+// last bin, its first row, and the windows' union per 16-pixel block);
+// each staged band row's level and bin; the staged outputs (plus up to 16
+// bytes of lead).
+struct FwdSmem {
+  size_t f1, f2, dots, xc, lo, nb, band, rows, outs, total;
+  int row_bytes;
+  __host__ __device__ FwdSmem(int levels, int radius, int tile, int chunk,
+                              int item, int seg, int out_item) {
+    row_bytes = (chunk * item + 31) / 32 * 32 + 16;
+    const size_t pl = (size_t)levels * tile;
+    f1 = 0;
+    f2 = f1 + (size_t)(tile + 15) / 16 * 16 * row_bytes;
+    dots = f2 + (size_t)seg * row_bytes;
+    xc = dots + align16(pl * (2 * radius + 5) * 4);
+    lo = xc + align16(pl * 4);
+    nb = lo + align16(pl * 4);
+    band = nb + align16(pl * 4);
+    rows = band + kFwdBandInts * 4;
+    outs = rows + (size_t)seg * 4;
+    total = outs + align16((size_t)tile * levels * (2 * radius + 1) *
+                               out_item + 16);
+  }
 };
 
-template <typename T, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-corr_alt_kernel(const T* __restrict__ f1, Levels<T> lv, int levels,
-                const float* __restrict__ coords, OutT* __restrict__ out,
-                long long pixels, int w1, int d, int radius, float scale) {
-  constexpr int kN = Vec<T>::kN;
-  __shared__ float dots[kWarps][kMaxBins];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long long p = (long long)blockIdx.x * kWarps + warp;
-  if (p >= pixels) return;  // no block-wide barrier follows
-  const long long row = p / w1;
-  const int nvec = d / kN;
+// Shared bytes of one forward launch, 0 for a plan the kernel refuses.
+inline size_t fwd_smem_bytes(int levels, int radius, int tile, int chunk,
+                             int item, int seg, int out_item) {
+  if (tile < 1 || tile > kFwdMaxTile || chunk < 1 || seg < 16 || seg % 16)
+    return 0;
+  const FwdSmem lay(levels, radius, tile, chunk, item, seg, out_item);
+  return lay.total <= kMaxSmem ? lay.total : 0;
+}
 
-  float a[kMaxVecPerLane][kN];
+template <typename T>
+struct FwdArgs {
+  const T* f1;
+  const T* f2[kMaxLevels];
+  int w2[kMaxLevels];
+  const float* coords;
+  void* out;
+  int levels, w1, d, radius, tile, chunk, seg, tiles;
+  float scale;
+};
+
+// The band's level of staged row v (boff: first row of each level).
+__device__ __forceinline__ int level_of_row(const int* boff, int v) {
+  int l = 0;
+  while (v >= boff[l + 1]) ++l;
+  return l;
+}
+
+// 16 fp8 codes as 16 bf16 values (exact: e4m3 -> f16 -> f32 -> bf16).
+__device__ inline void fp8_to_bf16(uint4 q, uint4* dst) {
+  const __nv_fp8x2_storage_t* c2 =
+      reinterpret_cast<const __nv_fp8x2_storage_t*>(&q);
+  uint32_t w[8];
 #pragma unroll
-  for (int i = 0; i < kMaxVecPerLane; ++i) {
-    const int c = lane + 32 * i;
-    if (c < nvec) {
-      Vec<T>::load(f1 + p * d + c * kN, a[i]);
+  for (int i = 0; i < 8; ++i) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(c2[i], __NV_E4M3);
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+    const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+    w[i] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// Start copying the tile's f1 chunk (with_f1) and band rows v0 .. v0+nv-1
+// of the chunk [c0, c0+cw) into shared memory with cp.async (fp8 lands
+// converted, by plain loads and stores), noting each band row's level and
+// bin in rowtab (bin * 8 + level); for the tensor cores, zero each row's
+// padding up to the next 32 bytes.
+template <typename T>
+__device__ void fwd_stage(const FwdArgs<T>& a, unsigned char* f1s,
+                          unsigned char* f2s, int rb, long long row,
+                          long long pix0, int np, int c0, int cw, int v0,
+                          int nv, bool with_f1, const int* blo,
+                          const int* boff, int* rowtab) {
+  using S = typename FwdTraits<T>::S;
+  constexpr int kIn = 16 / sizeof(T);       // source elements per load
+  constexpr int kOut = kIn * sizeof(S);     // staged bytes per load
+  const int vr = cw / kIn;
+  const int n1 = with_f1 ? np : 0;
+  // The source of staged row r, and where it lands (its first load notes
+  // a band row in rowtab).
+  auto locate = [&](int r, bool first, const T*& src, unsigned char*& dst) {
+    if (r < n1) {
+      src = a.f1 + (pix0 + r) * a.d + c0;
+      dst = f1s + r * rb;
     } else {
+      const int v = v0 + r - n1;
+      const int l = level_of_row(boff, v);
+      const int b = blo[l] + v - boff[l];
+      src = a.f2[l] + (row * a.w2[l] + b) * (long long)a.d + c0;
+      dst = f2s + (r - n1) * rb;
+      if (first) rowtab[r - n1] = b * 8 + l;
+    }
+  };
+  if (vr % 32 == 0) {
+    // rows of whole warps of 16-byte loads: a warp per row
+    for (int r = threadIdx.x / 32; r < n1 + nv; r += kFwdWarps) {
+      const T* src;
+      unsigned char* dst;
+      locate(r, threadIdx.x % 32 == 0, src, dst);
+      for (int k = threadIdx.x % 32; k < vr; k += 32) {
+        if constexpr (sizeof(S) == sizeof(T))
+          cp_async16(dst + k * kOut, src + k * kIn);
+        else
+          fp8_to_bf16(__ldg(reinterpret_cast<const uint4*>(src + k * kIn)),
+                      reinterpret_cast<uint4*>(dst + k * kOut));
+      }
+    }
+  } else {
+    // shorter rows: the block's threads over all the 16-byte loads, four
+    // per thread in flight (fp8's are plain loads, converted as they land)
+    constexpr int kBatch = 4;
+    const int total = (n1 + nv) * vr;
+    for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kFwdThreads) {
+      uint4 q[kBatch];
+      unsigned char* dst[kBatch];
 #pragma unroll
-      for (int e = 0; e < kN; ++e) a[i][e] = 0.f;
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kFwdThreads;
+        dst[u] = nullptr;
+        if (i < total) {
+          const int r = i / vr;
+          const int k = i - r * vr;
+          const T* src;
+          locate(r, k == 0, src, dst[u]);
+          src += k * kIn;
+          dst[u] += k * kOut;
+          if constexpr (sizeof(S) == sizeof(T))
+            cp_async16(dst[u], src);
+          else
+            q[u] = __ldg(reinterpret_cast<const uint4*>(src));
+        }
+      }
+      if constexpr (sizeof(S) != sizeof(T)) {
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (dst[u]) fp8_to_bf16(q[u], reinterpret_cast<uint4*>(dst[u]));
+      }
     }
   }
-
-  const float center = coords[p];
-  const int taps = 2 * radius + 1;
-  OutT* o = out + p * (long long)(levels * taps);
-  for (int l = 0; l < levels; ++l) {
-    const int w2 = lv.w2[l];
-    // c / 2^l is exact in fp32, as in the plain version.
-    const float xc = ldexpf(center, -l);
-    // A window wholly outside [0, W2-1] reads nothing and gives zeros.
-    if (!(xc > -(float)(radius + 2) && xc < (float)(w2 + radius + 1))) {
-      if (lane < taps) store_out(o + l * taps + lane, 0.f);
-      continue;
+  if constexpr (FwdTraits<T>::kTensor) {
+    const int used = cw * (int)sizeof(S);
+    if (used % 32) {  // 16 bytes of padding
+      for (int r = threadIdx.x; r < n1 + nv; r += kFwdThreads) {
+        unsigned char* dst = r < n1 ? f1s + r * rb : f2s + (r - n1) * rb;
+        *reinterpret_cast<uint4*>(dst + used) = make_uint4(0, 0, 0, 0);
+      }
     }
-    // Bins from tap 0's x0 to tap 2R's x0 + 1, each computed as the taps
-    // compute it, so every tap finds both of its bins in the window.
-    const int base = (int)floorf(xc + (float)(-radius));
-    const int nbins =
-        min((int)floorf(xc + (float)radius) + 2 - base, kMaxBins);
-    const T* f2 = lv.f2[l] + row * (long long)w2 * d;
+  }
+}
 
-    float s[kMaxBins];
+// Window dots on the tensor cores: each warp takes a 16-pixel x 16-row
+// block of the staged band (two m16n8 products per k step) that some
+// window of its pixels reaches, and adds each product that is a window
+// bin of its pixel into the dots.
+template <typename S>
+__device__ void fwd_dots_tc(const unsigned char* f1s,
+                            const unsigned char* f2s, int rb, int kbytes,
+                            int np, int nv, int tile, int ws,
+                            const int* rowtab, const int* umin,
+                            const int* umax, const int* los, const int* nbs,
+                            float* dots) {
+  using Acc = typename TcAcc<S>::type;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane / 4, t4 = lane % 4;
+  const int nmb = (np + 15) / 16;
+  const int npair = (nv + 15) / 16;
+  for (int task = warp; task < nmb * npair; task += kFwdWarps) {
+    const int m = task / npair;
+    const int pr = task - m * npair;
+    bool reach = false;
+    if (lane < 16 && pr * 16 + lane < nv) {
+      const int lb = rowtab[pr * 16 + lane];
+      const int l = lb & 7, b = lb >> 3;
+      reach = b >= umin[2 * l + m] && b < umax[2 * l + m];
+    }
+    if (!__any_sync(0xffffffffu, reach)) continue;
+    Acc acc[2][4] = {};
+    const unsigned char* ap =
+        f1s + (m * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * rb +
+        (lane >> 4) * 16;
+    const unsigned char* bp =
+        f2s + (pr * 16 + (lane & 7) + (lane >> 4) * 8) * rb +
+        ((lane >> 3) & 1) * 16;
+#pragma unroll 4
+    for (int kb = 0; kb < kbytes; kb += 32) {
+      uint32_t af[4], bf[4];
+      ldsm_x4(af, ap + kb);
+      ldsm_x4(bf, bp + kb);
+      mma_tc(acc[0], af, bf[0], bf[1]);
+      mma_tc(acc[1], af, bf[2], bf[3]);
+    }
 #pragma unroll
-    for (int j = 0; j < kMaxBins; ++j) {
-      s[j] = 0.f;
-      const int bin = base + j;
-      if (j < nbins && bin >= 0 && bin < w2) {
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int i = 0; i < kMaxVecPerLane; ++i) {
-          const int c = lane + 32 * i;
-          if (c < nvec) {
-            float b[kN];
-            Vec<T>::load(f2 + (long long)bin * d + c * kN, b);
+      for (int e = 0; e < 4; ++e) {
+        const int p = m * 16 + gq + (e >> 1) * 8;
+        const int r = pr * 16 + h * 8 + 2 * t4 + (e & 1);
+        if (p < np && r < nv) {
+          const int lb = rowtab[r];
+          const int l = lb & 7;
+          const int j = (lb >> 3) - los[l * tile + p];
+          if (j >= 0 && j < nbs[l * tile + p])
+            dots[(l * tile + p) * ws + j] += (float)acc[h][e];
+        }
+      }
+    }
+  }
+}
+
+// 16 staged bytes as fp32 values.
+__device__ __forceinline__ void load16(const unsigned char* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void load16(const unsigned char* p, float (&v)[8]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-            for (int e = 0; e < kN; ++e) s[j] = fmaf(a[i][e], b[e], s[j]);
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Window dots on the CUDA cores: eight threads take one pixel's window at
+// one level (its bins in this segment) and split the chunk's 16-byte
+// columns between them, so the eight read one 128-byte span of a staged
+// row together (no bank conflicts); each sums its columns in order, and
+// the eight partial sums of each bin are added by a fixed shuffle tree.
+template <typename S>
+__device__ void fwd_dots_cc(const unsigned char* f1s,
+                            const unsigned char* f2s, int rb, int cw, int np,
+                            int v0, int nv, int levels, int tile, int ws,
+                            const int* blo, const int* boff, const int* los,
+                            const int* nbs, float* dots) {
+  constexpr int kE = 16 / sizeof(S);
+  const int nvec = cw * (int)sizeof(S) / 16;
+  const int sub = threadIdx.x % 8;
+  // rounds of the loop are uniform across each octet (and so its shuffles)
+  for (int t = threadIdx.x / 8; t < ((levels * np + 3) / 4) * 4;
+       t += kFwdThreads / 8) {
+    int cnt = 0, j0 = 0, l = 0, p = 0;
+    if (t < levels * np) {
+      l = t / np;
+      p = t - l * np;
+      const int s = los[l * tile + p];
+      // the window's bins inside this segment's rows of the level
+      const int first = blo[l] + max(0, v0 - boff[l]);
+      const int end = blo[l] + min(boff[l + 1], v0 + nv) - boff[l];
+      j0 = max(0, first - s);
+      cnt = max(0, min(nbs[l * tile + p], end - s) - j0);
+    }
+    const int most = __reduce_max_sync(0xffffffffu, cnt);  // warp-uniform
+    if (most == 0) continue;
+    float acc[kMaxBins];
+#pragma unroll
+    for (int i = 0; i < kMaxBins; ++i) acc[i] = 0.f;
+    if (cnt > 0) {
+      const unsigned char* ar = f1s + p * rb;
+      const unsigned char* br =
+          f2s + (boff[l] + los[l * tile + p] + j0 - blo[l] - v0) * rb;
+      for (int q = sub; q < nvec; q += 8) {
+        float av[kE];
+        load16(ar + q * 16, av);
+#pragma unroll
+        for (int i = 0; i < kMaxBins; ++i) {
+          if (i < cnt) {
+            float bv[kE];
+            load16(br + i * rb + q * 16, bv);
+#pragma unroll
+            for (int e = 0; e < kE; ++e) acc[i] = fmaf(av[e], bv[e], acc[i]);
           }
         }
       }
     }
 #pragma unroll
-    for (int j = 0; j < kMaxBins; ++j) {
-      if (j < nbins) {  // the same for every lane of the warp
-        float v = s[j];
+    for (int i = 0; i < kMaxBins; ++i) {
+      if (i < most) {
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, off);
-        if (lane == 0) dots[warp][j] = v * scale;
+        for (int o = 4; o > 0; o >>= 1)
+          acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
       }
     }
-    __syncwarp();
-    if (lane < taps) {
-      const float x = xc + (float)(lane - radius);
-      const float x0 = floorf(x);
-      const float t = x - x0;
-      const int j0 = (int)x0 - base;
-      const float hi = (float)(w2 - 1);
-      const float v0 = (x0 >= 0.f && x0 <= hi && j0 >= 0 && j0 < nbins)
-                           ? dots[warp][j0]
-                           : 0.f;
-      const float v1 =
-          (x0 + 1.f >= 0.f && x0 + 1.f <= hi && j0 + 1 >= 0 && j0 + 1 < nbins)
-              ? dots[warp][j0 + 1]
-              : 0.f;
-      store_out(o + l * taps + lane, v0 * (1.f - t) + v1 * t);
+    if (sub == 0) {
+      float* dt = dots + (l * tile + p) * ws + j0;
+#pragma unroll
+      for (int i = 0; i < kMaxBins; ++i)
+        if (i < cnt) dt[i] += acc[i];
     }
-    __syncwarp();
   }
+}
+
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+corr_alt_fwd_kernel(const __grid_constant__ FwdArgs<T> a) {
+  using S = typename FwdTraits<T>::S;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int levels = a.levels;
+  const int radius = a.radius;
+  const int tile = a.tile;
+  const int taps = 2 * radius + 1;
+  const int ws = 2 * radius + 5;
+  const long long row = blockIdx.x / a.tiles;
+  const int p0 = (int)(blockIdx.x - row * a.tiles) * tile;
+  const int np = min(tile, a.w1 - p0);
+  const long long pix0 = row * a.w1 + p0;
+  const FwdSmem lay(levels, radius, tile, a.chunk, sizeof(S), a.seg,
+                    sizeof(OutT));
+  const int rb = lay.row_bytes;
+  unsigned char* f1s = smem + lay.f1;
+  unsigned char* f2s = smem + lay.f2;
+  float* dots = reinterpret_cast<float*>(smem + lay.dots);  // [L][tile][ws]
+  float* xcs = reinterpret_cast<float*>(smem + lay.xc);     // [L][tile]
+  int* los = reinterpret_cast<int*>(smem + lay.lo);         // window start
+  int* nbs = reinterpret_cast<int*>(smem + lay.nb);         // its bins
+  int* band = reinterpret_cast<int*>(smem + lay.band);
+  int* blo = band;         // per level: the band's first bin,
+  int* bhi = band + 8;     // its last,
+  int* boff = band + 16;   // its first staged row (9 entries),
+  int* umin = band + 25;   // per level and 16-pixel block: the union
+  int* umax = band + 41;   // of the windows' bins [umin, umax)
+  int* rowtab = reinterpret_cast<int*>(smem + lay.rows);
+  OutT* outs = reinterpret_cast<OutT*>(smem + lay.outs);
+
+  // ---- the windows, as the taps compute them
+  for (int e = tid; e < levels * tile * ws; e += kFwdThreads) dots[e] = 0.f;
+  if (tid < kMaxLevels) {
+    blo[tid] = INT_MAX;
+    bhi[tid] = INT_MIN;
+  }
+  if (tid < 2 * kMaxLevels) {
+    umin[tid] = INT_MAX;
+    umax[tid] = INT_MIN;
+  }
+  for (int e = tid; e < levels * np; e += kFwdThreads) {
+    const int l = e / np;
+    const int p = e - l * np;
+    // c / 2^l is exact in fp32, as in the plain version.
+    const float xc = ldexpf(a.coords[pix0 + p], -l);
+    int s = 0, n = 0;
+    // A window wholly outside [0, W2-1] reads nothing and gives zeros.
+    if (xc > -(float)(radius + 2) && xc < (float)(a.w2[l] + radius + 1)) {
+      // Bins from tap 0's x0 to tap 2R's x0 + 1, each computed as the taps
+      // compute it, so every tap finds both of its bins in the window.
+      s = (int)floorf(xc + (float)(-radius));
+      n = min((int)floorf(xc + (float)radius) + 2 - s, 2 * radius + 4);
+    }
+    xcs[l * tile + p] = xc;
+    los[l * tile + p] = s;
+    nbs[l * tile + p] = n;
+  }
+  __syncthreads();
+  for (int e = tid; e < levels * np; e += kFwdThreads) {
+    const int l = e / np;
+    const int p = e - l * np;
+    const int n = nbs[l * tile + p];
+    const int s = los[l * tile + p];
+    const int lo = max(s, 0);
+    const int hi = min(s + n - 1, a.w2[l] - 1);
+    if (n > 0 && lo <= hi) {
+      atomicMin(blo + l, lo);
+      atomicMax(bhi + l, hi);
+      atomicMin(umin + 2 * l + p / 16, s);
+      atomicMax(umax + 2 * l + p / 16, s + n);
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int v = 0;
+    for (int l = 0; l < levels; ++l) {
+      boff[l] = v;
+      if (blo[l] <= bhi[l]) {
+        v += bhi[l] - blo[l] + 1;
+      } else {  // no window of the tile reaches the level's row
+        blo[l] = 0;
+        bhi[l] = -1;
+      }
+    }
+    boff[levels] = v;
+  }
+  __syncthreads();
+
+  // ---- the window dots: D chunk by chunk, the band pass by pass
+  const int rows = boff[levels];
+  for (int c0 = 0; rows > 0 && c0 < a.d; c0 += a.chunk) {
+    const int cw = min(a.chunk, a.d - c0);
+    for (int v0 = 0; v0 < rows; v0 += a.seg) {
+      const int nv = min(a.seg, rows - v0);
+      if (c0 > 0 || v0 > 0) __syncthreads();  // the last pass is read
+      fwd_stage(a, f1s, f2s, rb, row, pix0, np, c0, cw, v0, nv, v0 == 0,
+                blo, boff, rowtab);
+      cp_async_wait_all();
+      __syncthreads();
+      if constexpr (FwdTraits<T>::kTensor) {
+        fwd_dots_tc<S>(f1s, f2s, rb, (cw * (int)sizeof(S) + 31) / 32 * 32,
+                       np, nv, tile, ws, rowtab, umin, umax, los, nbs, dots);
+      } else {
+        fwd_dots_cc<S>(f1s, f2s, rb, cw, np, v0, nv, levels, tile, ws, blo,
+                       boff, los, nbs, dots);
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- the taps, interpolated from the dots, staged for 16-byte stores
+  constexpr int kVo = 16 / sizeof(OutT);
+  const int per_pixel = levels * taps;
+  const int nout = np * per_pixel;
+  const long long o0 = pix0 * per_pixel;
+  const int lead = (int)(o0 % kVo);
+  for (int e = tid; e < np * levels; e += kFwdThreads) {
+    const int p = e / levels;
+    const int l = e - p * levels;
+    const int n = nbs[l * tile + p];
+    const int s0 = los[l * tile + p];
+    const float xc = xcs[l * tile + p];
+    const float hi = (float)(a.w2[l] - 1);
+    const float* dt = dots + (l * tile + p) * ws;
+    OutT* o = outs + lead + p * per_pixel + l * taps;
+    for (int k = 0; k < taps; ++k) {
+      float v = 0.f;
+      if (n > 0) {
+        const float x = xc + (float)(k - radius);
+        const float x0 = floorf(x);
+        const float t = x - x0;
+        const int j0 = (int)x0 - s0;
+        const float v0 = (x0 >= 0.f && x0 <= hi && j0 >= 0 && j0 < n)
+                             ? dt[j0] * a.scale
+                             : 0.f;
+        const float v1 =
+            (x0 + 1.f >= 0.f && x0 + 1.f <= hi && j0 + 1 >= 0 && j0 + 1 < n)
+                ? dt[j0 + 1] * a.scale
+                : 0.f;
+        v = v0 * (1.f - t) + v1 * t;
+      }
+      store_out(o + k, v);
+    }
+  }
+  __syncthreads();
+  OutT* dst = static_cast<OutT*>(a.out) + o0;
+  const int head = min(nout, (kVo - lead) % kVo);
+  const int nvec = (nout - head) / kVo;
+  for (int i = tid; i < head; i += kFwdThreads) dst[i] = outs[lead + i];
+  for (int i = tid; i < nvec; i += kFwdThreads)
+    reinterpret_cast<uint4*>(dst + head)[i] =
+        reinterpret_cast<const uint4*>(outs + lead + head)[i];
+  for (int i = head + nvec * kVo + tid; i < nout; i += kFwdThreads)
+    dst[i] = outs[lead + i];
 }
 
 template <typename T, typename OutT = T>
 int launch(const void* f1, const void* const* f2s, const int* w2s,
            int levels, const float* coords, void* out, long long pixels,
-           int w1, int d, int radius, float scale, void* stream) {
-  constexpr int kN = Vec<T>::kN;
+           int w1, int d, int radius, float scale, int tile, int chunk,
+           int seg, void* stream) {
+  using S = typename FwdTraits<T>::S;
+  constexpr int kIn = 16 / sizeof(T);
   if (levels < 1 || levels > kMaxLevels || radius < 0 ||
-      radius > kMaxRadius || w1 < 1 || d < kN || d % kN ||
-      d > 32 * kMaxVecPerLane * kN)
+      radius > kMaxRadius || w1 < 1 || d < kIn || d % kIn ||
+      d > 64 * kIn || pixels < 0 || pixels % w1 || chunk % kIn)
     return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem_bytes(levels, radius, tile, chunk, sizeof(S),
+                                     seg, sizeof(OutT));
+  if (smem == 0) return (int)cudaErrorInvalidValue;
   if (pixels == 0) return (int)cudaSuccess;
-  Levels<T> lv = {};
+  FwdArgs<T> a = {};
   for (int l = 0; l < levels; ++l) {
-    lv.f2[l] = static_cast<const T*>(f2s[l]);
-    lv.w2[l] = w2s[l];
+    if (w2s[l] < 0) return (int)cudaErrorInvalidValue;
+    a.f2[l] = static_cast<const T*>(f2s[l]);
+    a.w2[l] = w2s[l];
   }
-  const long long blocks = (pixels + kWarps - 1) / kWarps;
+  a.f1 = static_cast<const T*>(f1);
+  a.coords = coords;
+  a.out = out;
+  a.levels = levels;
+  a.w1 = w1;
+  a.d = d;
+  a.radius = radius;
+  a.tile = tile;
+  a.chunk = chunk;
+  a.seg = seg;
+  a.tiles = (w1 + tile - 1) / tile;
+  a.scale = scale;
+  const long long blocks = pixels / w1 * a.tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  corr_alt_kernel<T, OutT><<<(unsigned)blocks, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(f1), lv, levels, coords,
-      static_cast<OutT*>(out), pixels, w1, d, radius, scale);
+  static bool configured[64] = {};
+  const cudaError_t err = allow_smem(corr_alt_fwd_kernel<T, OutT>, configured);
+  if (err != cudaSuccess) return (int)err;
+  corr_alt_fwd_kernel<T, OutT><<<(unsigned)blocks, kFwdThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -331,12 +785,6 @@ constexpr int kBwdMaxTile = 2048;   // a bucket entry packs the pixel in 11 bits
 constexpr int kBwdMaxChunk = 64;    // 8 lanes x 8 channels
 constexpr int kBwdLoads = 6;        // 16-byte loads in flight per thread
 constexpr int kBinGroup = 2;        // df2's bins per task
-constexpr size_t kMaxSmem = 232448;
-
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~(size_t)15;
-}
-
 // Byte offsets of one backward block's shared memory: the row's f2 chunk
 // (bins x chunk, in the feature dtype), the f1 tile (tile x chunk, widened
 // to fp32), df2's fp32 partials (only when the row takes more than one
@@ -509,7 +957,7 @@ __device__ void build_weights(const BwdArgs<T>& a, long long row, int p0,
         const float x = xc + (float)(k - radius);
         const float x0 = floorf(x);
         const float t = x - x0;
-        const float gk = Vec<T>::to_float(gp[k]);
+        const float gk = to_float(gp[k]);
         const int j0 = (int)x0 - b0;
         if (x0 >= 0.f && x0 <= (float)(w2 - 1) && j0 >= 0 && j0 < n)
           w[j0] += (1.f - t) * gk;
@@ -808,26 +1256,6 @@ struct TcSmem {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // Two fp32 weights as bf16x2 high and low words (the first in the low half).
 __device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
                                        uint32_t& lo) {
@@ -1097,22 +1525,6 @@ inline size_t bwd_tc_smem_bytes(const int* w2s, int levels, int radius,
   return lay.total <= kMaxSmem ? lay.total : 0;
 }
 
-// Sets a kernel's dynamic shared-memory limit once per device.
-template <typename K>
-cudaError_t allow_smem(K kernel, bool* configured) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64 || !configured[dev]) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kMaxSmem);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) configured[dev] = true;
-  }
-  return cudaSuccess;
-}
-
 // Shared bytes of a backward launch (tensor_cores: the bf16 tensor-core
 // kernel over the whole row), 0 where the kernel refuses the plan.
 inline size_t bwd_plan_bytes(const int* w2s, int levels, int radius,
@@ -1186,44 +1598,35 @@ int launch_bwd(const void* f1, const void* const* f2s, void* const* df2s,
 
 // f1: (rows, w1, d); f2s: host array of `levels` device pointers, level l
 // (rows, w2s[l], d); coords: (rows, w1) fp32; out: (rows, w1,
-// levels*(2*radius+1)).  Features and out share one dtype, contiguous;
-// pixels = rows * w1; scale = 1/sqrt(d).
-extern "C" int raft_corr_alt_f32(const void* f1, const void* const* f2s,
-                                 const int* w2s, int levels,
-                                 const float* coords, void* out,
-                                 long long pixels, int w1, int d, int radius,
-                                 float scale, void* stream) {
-  return launch<float>(f1, f2s, w2s, levels, coords, out, pixels, w1, d,
-                       radius, scale, stream);
-}
-
-extern "C" int raft_corr_alt_bf16(const void* f1, const void* const* f2s,
-                                  const int* w2s, int levels,
-                                  const float* coords, void* out,
-                                  long long pixels, int w1, int d, int radius,
-                                  float scale, void* stream) {
-  return launch<__nv_bfloat16>(f1, f2s, w2s, levels, coords, out, pixels, w1,
-                               d, radius, scale, stream);
-}
-
+// levels*(2*radius+1)).  Features and out share one dtype, contiguous, the
+// features 16-byte aligned; pixels = rows * w1; scale = 1/sqrt(d).  tile
+// (pixels per block), chunk (channels per pass) and seg (band rows per
+// pass) come from kernels/corr_alt.py plan_fwd; a plan whose shared memory
+// exceeds a block's returns cudaErrorInvalidValue.
+#define RAFT_ALT_FWD(name, T, OutT)                                          \
+  extern "C" int name(const void* f1, const void* const* f2s,               \
+                      const int* w2s, int levels, const float* coords,       \
+                      void* out, long long pixels, int w1, int d,            \
+                      int radius, float scale, int tile, int chunk, int seg, \
+                      void* stream) {                                        \
+    return launch<T, OutT>(f1, f2s, w2s, levels, coords, out, pixels, w1,   \
+                           d, radius, scale, tile, chunk, seg, stream);      \
+  }
+RAFT_ALT_FWD(raft_corr_alt_f32, float, float)
+RAFT_ALT_FWD(raft_corr_alt_bf16, __nv_bfloat16, __nv_bfloat16)
 // Quantized features: int8 or float8_e4m3fn codes (d a multiple of 16),
 // out fp32: the raw correlation of the codes times scale.
-extern "C" int raft_corr_alt_q_int8(const void* f1, const void* const* f2s,
-                                    const int* w2s, int levels,
-                                    const float* coords, void* out,
-                                    long long pixels, int w1, int d,
-                                    int radius, float scale, void* stream) {
-  return launch<int8_t, float>(f1, f2s, w2s, levels, coords, out, pixels,
-                               w1, d, radius, scale, stream);
-}
+RAFT_ALT_FWD(raft_corr_alt_q_int8, int8_t, float)
+RAFT_ALT_FWD(raft_corr_alt_q_fp8, __nv_fp8_e4m3, float)
+#undef RAFT_ALT_FWD
 
-extern "C" int raft_corr_alt_q_fp8(const void* f1, const void* const* f2s,
-                                   const int* w2s, int levels,
-                                   const float* coords, void* out,
-                                   long long pixels, int w1, int d,
-                                   int radius, float scale, void* stream) {
-  return launch<__nv_fp8_e4m3, float>(f1, f2s, w2s, levels, coords, out,
-                                      pixels, w1, d, radius, scale, stream);
+// Shared bytes of a forward plan (item: bytes of a staged feature, 2 for
+// fp8; out_item: bytes of an output), 0 where the kernel refuses it.
+extern "C" int raft_corr_alt_fwd_smem_bytes(int levels, int radius, int tile,
+                                            int chunk, int item, int seg,
+                                            int out_item) {
+  return (int)fwd_smem_bytes(levels, radius, tile, chunk, item, seg,
+                             out_item);
 }
 
 // Backward: f1 (rows, w1, d), f2s level l (rows, w2s[l], d), coords

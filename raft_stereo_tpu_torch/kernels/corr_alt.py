@@ -56,6 +56,17 @@ _BWD_ENTRIES = {torch.float32: "raft_corr_alt_bwd_f32",
 MAX_BWD_SMEM = 232448
 MAX_BWD_TILE = 2048
 MAX_BWD_CHUNK = 64
+# The forward (csrc/corr_alt.cu corr_alt_fwd_kernel): shared memory that
+# leaves two blocks on an SM (233,472 bytes less 1 KB per block, halved),
+# its pixel tile, the band rows a pass should take at least before D is
+# chunked (fewer passes beat whole D: at the realtime shape fp32 is faster
+# as two chunks with 160 rows than D whole with 64, PERF.md §6), and the
+# bytes of a feature as staged (fp8 codes land as bf16).
+MAX_FWD_SMEM = 115712
+FWD_TILE = 32
+FWD_MIN_SEG = 160
+_FWD_ITEM = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1,
+             torch.float8_e4m3fn: 2}
 
 
 def alt_lookup_xla(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
@@ -100,7 +111,8 @@ def alt_lookup_bwd_xla(fmap1: torch.Tensor,
 _ARGTYPES = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
              ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p]
 
 
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
@@ -189,6 +201,58 @@ def plan_bwd(w1: int, w2s: Sequence[int], radius: int, d: int,
                      f"{MAX_BWD_SMEM}")
 
 
+def fwd_smem_bytes(levels: int, radius: int, tile: int, chunk: int,
+                   item: int, seg: int, out_item: int) -> int:
+    """Shared bytes of one block of the forward (csrc/corr_alt.cu
+    ``FwdSmem``): the tile's f1 chunk in 16-pixel blocks and ``seg`` band
+    rows, each row the chunk padded to 32 bytes plus 16; the window dots
+    (stride 2R+5), centers, starts and bin counts; the band table; each
+    band row's level and bin; the staged outputs with up to 16 bytes of
+    lead."""
+    row = -(-chunk * item // 32) * 32 + 16
+    pl = levels * tile
+    return (-(-tile // 16) * 16 * row + seg * (row + 4)
+            + _align16(pl * (2 * radius + 5) * 4) + 3 * _align16(pl * 4)
+            + 64 * 4 + _align16(tile * levels * (2 * radius + 1) * out_item
+                                + 16))
+
+
+def plan_fwd(w2s: Sequence[int], radius: int, d: int,
+             dtype: torch.dtype) -> Tuple[int, int, int]:
+    """(pixel tile, channel chunk, band rows per pass) of one forward launch.
+
+    A block takes ``FWD_TILE`` pixels of one image row and stages their f1
+    and, per pass, ``seg`` rows of the band of f2 bins their windows reach,
+    in at most ``MAX_FWD_SMEM`` bytes (two blocks per SM).  The centers are not known here, so the band is
+    sized for the worst case, every bin of every level, and a block whose
+    band is wider takes it in passes of ``seg`` rows.  D is taken whole
+    where at least ``FWD_MIN_SEG`` rows (or the whole worst band) fit,
+    else in 2, 4, ... chunks of whole 16-byte vectors.  At the realtime
+    shapes (W2 156/78/39/19 or 90/45/22/11, D 256): bf16 and fp8 D whole
+    with 160 rows, int8 with the whole band, fp32 in two chunks of 128
+    with 160 rows.  Raises where not even one vector of D with 16 rows
+    fits."""
+    vec, item = _VEC[dtype], _FWD_ITEM[dtype]
+    out_item = 2 if dtype == torch.bfloat16 else 4
+    levels = len(w2s)
+    band = -(-sum(w2s) // 16) * 16
+    parts = 1
+    while True:
+        chunk = -(-d // (vec * parts)) * vec
+        row = -(-chunk * item // 32) * 32 + 16
+        fixed = fwd_smem_bytes(levels, radius, FWD_TILE, chunk, item, 0,
+                               out_item)
+        seg = min(band, (MAX_FWD_SMEM - fixed) // (row + 4) // 16 * 16)
+        if seg >= min(band, FWD_MIN_SEG) and seg >= 16:
+            return FWD_TILE, chunk, seg
+        if chunk == vec:
+            raise ValueError(f"{levels} levels, radius {radius}, D={d} "
+                             f"{dtype}: the alt forward's smallest plan "
+                             f"exceeds {MAX_FWD_SMEM} bytes of shared "
+                             f"memory")
+        parts *= 2
+
+
 def _check(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
            coords: torch.Tensor, radius: int, entries=_ENTRIES) -> None:
     """Raise on what the kernels of ``entries`` do not take (CUDA
@@ -238,13 +302,15 @@ def _launch_fwd(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
     k = 2 * radius + 1
     out = torch.empty((b, h, w1, levels * k), device=coords.device,
                       dtype=out_dtype)
+    widths = [t.shape[2] for t in f2s]
+    tile, chunk, seg = plan_fwd(widths, radius, d, f1.dtype)
     ptrs = (ctypes.c_void_p * levels)(*[t.data_ptr() for t in f2s])
-    w2s = (ctypes.c_int * levels)(*[t.shape[2] for t in f2s])
+    w2s = (ctypes.c_int * levels)(*widths)
     with torch.cuda.device(coords.device):
         err = _lib(entry)(
             f1.data_ptr(), ptrs, w2s, levels, coords.data_ptr(),
             out.data_ptr(), b * h * w1, w1, d, radius, 1.0 / math.sqrt(d),
-            torch.cuda.current_stream().cuda_stream)
+            tile, chunk, seg, torch.cuda.current_stream().cuda_stream)
     _build.check(err, entry)
     return out
 

@@ -473,6 +473,161 @@ def test_alt_backward_plan_mirrors_the_kernel(cuda_device):
     assert fn(big, 4, 4, 64, 64, 2, 64, 1) == 0
 
 
+# (B, rows, W1, W2s, radius): rows whose W2 * itemsize is no multiple of 16
+# (45, 22, 7 fp32; 45, 3 bf16), element counts that are no multiple of a
+# 16-byte run (15 pixels x 7 bins), radius 0 and 8, one level, W2 = 1.
+LOOKUP_BWD_EDGE = [(2, 16, 180, (180, 90, 45, 22), 4), (1, 3, 5, (7,), 4),
+                   (2, 3, 37, (45, 22, 11, 5), 4), (1, 5, 13, (7, 3, 1), 8),
+                   (1, 2, 50, (40, 20, 10, 5), 0), (3, 1, 1, (1,), 4),
+                   (1, 4, 33, (35,), 2)]
+
+
+def _lookup_bwd_centers(rng, shape, w2, radius):
+    """Random centers past both ends, some far outside, and some at the
+    edges of the window test: -R-2 and W2+R+1 (wholly outside, just) and
+    a hair inside them."""
+    c = rng.uniform(-radius - 6, w2 + radius + 6, size=shape)
+    c.flat[::7] = -1e4
+    c.flat[3::11] = 1e4
+    c.flat[5::13] = -radius - 2
+    c.flat[6::17] = w2 + radius + 1
+    c.flat[8::19] = np.nextafter(np.float32(-radius - 2), np.float32(0))
+    c.flat[9::23] = np.nextafter(np.float32(w2 + radius + 1), np.float32(0))
+    return c.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,rows,w1,w2s,radius", LOOKUP_BWD_EDGE)
+def test_lookup_backward_redesign_edges(rng, cuda_device, dtype, b, rows, w1,
+                                        w2s, radius):
+    """Kernel #3/#4 (a thread per 16-byte run of the flat dV) against
+    ``lookup_pyramid_bwd_xla`` at its edges, all levels in one launch and
+    each level alone at 1/2^l, with the tolerances of
+    ``test_lookup_backward_kernel_matches_plain``; two launches bit for
+    bit equal."""
+    k = 2 * radius + 1
+    g = torch.from_numpy(rng.normal(size=(b, rows, w1, len(w2s) * k)).astype(
+        np.float32)).to(cuda_device, dtype)
+    c = torch.from_numpy(_lookup_bwd_centers(rng, (b, rows, w1), w2s[0],
+                                             radius)).to(cuda_device)
+    calls = [(g, c, list(w2s))] + [
+        (g[..., i * k:(i + 1) * k].contiguous(), c / 2 ** i, [w2])
+        for i, w2 in enumerate(w2s)]
+    for gg, cc, ws_ in calls:
+        got = lookup_pyramid_bwd_fused(gg, cc, ws_, radius, dtype)
+        again = lookup_pyramid_bwd_fused(gg, cc, ws_, radius, dtype)
+        torch.cuda.synchronize()
+        want = lookup_pyramid_bwd_xla(gg, cc, ws_, radius, dtype)
+        for gv, av, wv in zip(got, again, want):
+            assert gv.dtype == dtype and gv.shape == wv.shape
+            assert torch.equal(gv, av)
+            if dtype == torch.float32:
+                torch.testing.assert_close(gv, wv, atol=1e-6, rtol=0)
+            else:
+                assert_bf16_close(gv, wv)
+
+
+def _feats(rng, shape, dtype, device):
+    if dtype in Q_DTYPES:
+        return _q_codes(rng, shape, dtype, device)
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        device, dtype)
+
+
+def _coherent(rng, b, rows, w1):
+    """c = x - d, d a smooth field in [0, 24]: a grid with a node every 8
+    pixels, upsampled bilinearly."""
+    coarse = torch.from_numpy(rng.uniform(0, 24, size=(
+        b, 1, rows // 8 + 2, w1 // 8 + 2)).astype(np.float32))
+    d = torch.nn.functional.interpolate(coarse, size=(rows, w1),
+                                        mode="bilinear", align_corners=True)
+    return (torch.arange(w1, dtype=torch.float32) - d[:, 0]).numpy()
+
+
+# (rows, W1, W2 at level 0, D, levels, radius, centers): the realtime rows
+# on coherent and random centers; a band wider than one pass with D at
+# the cap (8 levels, radius 8: D in chunks); W2 = 1; a one-pixel row; one
+# 16-byte vector of D at radius 0; centers at the edges.
+def _alt_fwd_edge(dtype):
+    cap = 64 * {torch.float32: 4, torch.bfloat16: 8}.get(dtype, 16)
+    vec = {torch.float32: 4, torch.bfloat16: 8}.get(dtype, 16)
+    return [(4, 156, 156, 256, 4, 4, "coherent"),
+            (4, 156, 156, 256, 4, 4, "random"),
+            (2, 90, 90, 256, 4, 4, "coherent"),
+            (1, 40, 700, cap, 8, 8, "random"),
+            (2, 37, 1, cap, 1, 4, "random"), (3, 1, 20, 64, 4, 4, "random"),
+            (2, 33, 35, vec, 1, 0, "edges"), (2, 45, 50, 96, 4, 4, "edges")]
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("case", range(8))
+def test_alt_forward_redesign_edges(rng, cuda_device, dtype, case):
+    """Kernels #6/#7/#9 (tiles of a row, bands in shared memory, the dots on
+    the tensor cores or, in fp32, the CUDA cores) against
+    ``alt_lookup_xla``: fp32 1e-5 and bf16 one ulp + 1e-5 (the
+    tolerances of ``test_alt_kernel_matches_plain``), int8 1e-6 and fp8
+    1e-5 of the scale (``test_alt_q_kernel_matches_plain``); two launches
+    bit for bit equal."""
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16,
+             "int8": torch.int8, "fp8": torch.float8_e4m3fn}[dtype]
+    rows, w1, w2, d, levels, radius, field = _alt_fwd_edge(dtype)[case]
+    f1 = _feats(rng, (1, rows, w1, d), dtype, cuda_device)
+    pyr = [_feats(rng, (1, rows, w2, d), dtype, cuda_device)]
+    for _ in range(levels - 1):
+        pyr.append(pyr[-1][:, :, ::2].contiguous() if dtype in Q_DTYPES
+                   else pool_axis(pyr[-1], axis=2).contiguous())
+    if field == "coherent":
+        c = _coherent(rng, 1, rows, w1)
+    elif field == "edges":
+        c = _lookup_bwd_centers(rng, (1, rows, w1), w2, radius)
+    else:
+        c = rng.uniform(-10, w2 + 10, size=(1, rows, w1)).astype(np.float32)
+    c = torch.from_numpy(c).to(cuda_device)
+    if dtype in Q_DTYPES:
+        def call():
+            return alt_lookup_fused_q(f1, pyr, c, radius, torch.float32)
+        want = alt_lookup_xla(f1, pyr, c, radius, torch.float32)
+    else:
+        def call():
+            return alt_lookup_fused(f1, pyr, c, radius)
+        want = alt_lookup_xla(f1, pyr, c, radius)
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    elif dtype == torch.bfloat16:
+        assert_bf16_close(got, want)
+    else:
+        tol = 1e-6 if dtype == torch.int8 else 1e-5
+        torch.testing.assert_close(got, want, rtol=0, atol=tol * max(
+            float(want.abs().max()), 1.0))
+
+
+def test_alt_forward_plan_mirrors_the_kernel(cuda_device):
+    """``plan_fwd``'s shared-memory counts are the kernel's own
+    (``raft_corr_alt_fwd_smem_bytes``), and a plan above a block's shared
+    memory is refused by both."""
+    import ctypes
+    from raft_stereo_tpu_torch.kernels import _build
+    from raft_stereo_tpu_torch.kernels.corr_alt import (_FWD_ITEM,
+                                                        fwd_smem_bytes,
+                                                        plan_fwd)
+    fn = _build.entry("corr_alt", "raft_corr_alt_fwd_smem_bytes",
+                      [ctypes.c_int] * 7)
+    for dtype in (torch.float32, torch.bfloat16) + tuple(Q_DTYPES):
+        out_item = 2 if dtype == torch.bfloat16 else 4
+        for rows, w1, w2, d, levels, radius, _ in _alt_fwd_edge(dtype):
+            w2s = [max(w2 // 2 ** i, 1) for i in range(levels)]
+            tile, chunk, seg = plan_fwd(w2s, radius, d, dtype)
+            want = fwd_smem_bytes(levels, radius, tile, chunk,
+                                  _FWD_ITEM[dtype], seg, out_item)
+            assert fn(levels, radius, tile, chunk, _FWD_ITEM[dtype], seg,
+                      out_item) == want
+    assert fn(8, 8, 32, 1024, 4, 512, 4) == 0
+
+
 # (rows, W1, W2 at level 0, levels, radius): the KITTI row, W1 not a
 # multiple of a block's pixels, radius 0 and 8, 1 and 8 levels.
 LOOKUP_EDGE = [(4, 312, 312, 4, 4), (3, 77, 61, 4, 4), (2, 50, 40, 4, 0),

@@ -41,6 +41,7 @@ def _port_sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "torch_profile.py")
+    yield os.path.join(REPO, "tools", "torch_kernel_variants.py")
 
 
 def test_port_modules_import_no_jax():
