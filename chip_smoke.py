@@ -35,8 +35,11 @@ fails the run when it fails:
    once and rebound on every call;
 5. the main path: ``InferenceRunner`` on the default config at full
    width with seeded random weights, on a 375x1242 pair (padded to
-   384x1248) at 32 iterations; checks the output and that the lookup ran
-   32 times and the gate kernel 96 times; prints seconds per pair;
+   384x1248) at 32 iterations; its first call runs the forward eagerly,
+   captures it as a CUDA graph and replays it: checks the output and that
+   the capture holds 32 lookups and 96 gate calls (the wrappers count the
+   warm-up and the capture, twice that); prints seconds per pair by
+   replay beside the eager forward (``eager_call``);
 6. the same seeded model on the card and on the CPU (plain versions) at
    128x256 and 2 iterations, compared against a stated tolerance;
 7. the kernels of the realtime preset against their plain versions at its
@@ -56,9 +59,10 @@ fails the run when it fails:
    shape (8x40 rows, W1 90, W2 90/45/22/11, D 256) on both fields;
 9. the realtime path: ``InferenceRunner`` on ``RaftStereoConfig.realtime()``
    with seeded random weights on the 375x1242 pair at 7 iterations (7 alt
-   launches, 21 bf16 gate calls, no pyramid lookup; seconds per pair and
-   peak memory), then at 16 iterations, where the runner turns
-   ``corr_fp32`` on (16 alt launches in fp32);
+   launches, 21 bf16 gate calls, no pyramid lookup, read from the
+   capture; seconds per pair by replay and eager, peak memory), then at
+   16 iterations, where the runner turns ``corr_fp32`` on (16 alt
+   launches in fp32);
 10. the realtime preset on the card and on the CPU at 128x256 and 2
    iterations, held to 3x the card's own spread between bf16 and fp32
    correlation on the same input;
@@ -101,20 +105,44 @@ fails the run when it fails:
 18. the realtime ``int8_mxu`` path: ``InferenceRunner(..., quant=
    "int8_mxu")`` on the 375x1242 pair at 7 iterations (7 int8 #9
    launches, 21 bf16 gate calls, no pyramid lookup, one int8 GEMM per
-   encoder conv; seconds per pair and the call's own peak memory, beside
-   the unquantized bf16 path measured the same way), again with
+   encoder conv, read from the capture; seconds per pair by replay and
+   eager, and the first call's own peak memory, beside the unquantized
+   bf16 path measured the same way), again with
    ``quant_act_scales`` from ``calibrate()`` on the pair, and with
    ``quant_corr_fp8`` (7 fp8 #9 launches);
 19. the default ``int8`` path at 32 iterations (32 int8 #1 launches, 96
-   gate calls; beside the unquantized fp32 path), again with ``quant_corr_scales`` from ``calibrate()``,
-   and with ``quant_corr_fp8`` (32 fp8 #1 launches);
+   gate calls, from the capture; beside the unquantized fp32 path), again
+   with ``quant_corr_scales`` from ``calibrate()``, and with
+   ``quant_corr_fp8`` (32 fp8 #1 launches);
 20. card vs CPU at 128x256 and 2 iterations for the four variants
    (realtime int8_mxu and default int8, int8 and fp8 correlation), held
    to 3x the card's own spread with every weight moved by one fp32 ulp,
-   with the share of correlation codes that flipped.
+   with the share of correlation codes that flipped (the card's codes
+   from the runner's eager warm-up);
+21. the graphs of the main paths (the runners of phases 5 and 9): one
+   capture each and 6 replays after the timed calls, the launch counts
+   of each capture, the replay bitwise equal to the eager forward and to
+   a second replay, the ``fetch_dtype="fp16"`` result bitwise equal to
+   the fp32 result rounded, the capture's milliseconds, replay against
+   eager seconds per pair, memory;
+22. the graph cache: the three raw KITTI shapes on one graph; with
+   ``max_cached_shapes=2`` over three padded shapes replayed A, B, A
+   (bitwise equal), then C and B (evicting), the reserved memory after
+   each shape, bounded; ``run_batch(4)`` against 4 single calls at
+   128x256 and 2 iterations (phase 6's tolerance), and at 375x1242 its
+   seconds per pair beside batch 1;
+23. the evaluate path: a KITTI-shaped tree of 60 textured pairs in the
+   three raw shapes (the right image a warp of the left by a smooth known
+   disparity) written with the port's writers, ``cli/evaluate.py main``
+   over it with a port checkpoint of the seeded default config at 32
+   iterations: one capture for the whole tree (the wrappers count one
+   warm-up and one capture), finite EPE and D1, pairs per second past
+   the 50-image warm-up.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (times
-by graph replay; a redesigned row names its design under ``design``); the
+by graph replay; a redesigned row names its design under ``design``; an
+inference row's ``launches`` are the wrappers' counts over its path's
+first call, the warm-up and the capture, twice the per-pair counts); the
 last is ``{"ok": true, "device": {...}}``.  The fp32 path is full fp32:
 TF32 is switched off for matmuls and cuDNN convs.
 """
@@ -126,6 +154,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -181,6 +210,18 @@ BF16_GATES_ULPS = 2     # bf16 gates: two ulps + BF16_GATES_ATOL (r*h)
 BF16_ATOL = 1e-5
 BF16_GATES_ATOL = 1e-3  # a flip of r*h moves qpre by a weight x its ulp
 RT_SPREAD_FACTOR = 3.0  # phase 10
+# Phases 21-23, the runner's CUDA graphs.  The raw KITTI-2015 shapes, all
+# padded to 384x1248; three padded shapes of about one size for the
+# cache's eviction (A, B, A replays; C evicts B; B evicts A), whose
+# reserved memory after the evictions stays within CACHE_MEMORY_FACTOR of
+# its value after the second shape (the shapes' buffers differ a little
+# in size, so the pool's freed blocks need not fit exactly).
+KITTI_SHAPES = ((375, 1242), (370, 1224), (376, 1241))
+CACHE_SHAPES = {"A": (384, 1248), "B": (416, 1152), "C": (352, 1344)}
+CACHE_ORDER = "ABACB"
+CACHE_MEMORY_FACTOR = 1.25
+BATCH = 4
+KITTI_PAIRS = 60        # > the validator's 50-image warm-up
 # Training (phases 11-15): TrainConfig()'s batch and crop; feature maps at
 # 1/4 (default) and 1/8 (realtime).
 TRAIN_B, TRAIN_HW, TRAIN_ITERS = 8, (320, 720), 22
@@ -227,6 +268,132 @@ INT8_RATE = 1979e12
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def smooth_noise(rng, h: int, w: int, cell: int) -> np.ndarray:
+    """(h, w, 3) noise in [0, 1): a random grid of ``cell``-pixel cells,
+    bilinearly interpolated."""
+    g = rng.random((h // cell + 2, w // cell + 2, 3))
+    ys, xs = np.arange(h) / cell, np.arange(w) / cell
+    y0, x0 = ys.astype(np.int64), xs.astype(np.int64)
+    fy, fx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
+    top = g[y0][:, x0] * (1 - fx) + g[y0][:, x0 + 1] * fx
+    bottom = g[y0 + 1][:, x0] * (1 - fx) + g[y0 + 1][:, x0 + 1] * fx
+    return top * (1 - fy) + bottom * fy
+
+
+def kitti_pair(rng, canvas, hw):
+    """``(left, right, disparity)``: a textured left image (a random crop
+    of ``canvas``), and a right image that is a true warp of it by a
+    smooth known disparity (5 to ~50 px), ``right[y, x] = left[y, x +
+    d(y, x)]``."""
+    h, w = hw
+    y0 = int(rng.integers(0, canvas.shape[0] - h + 1))
+    x0 = int(rng.integers(0, canvas.shape[1] - w + 1))
+    left = canvas[y0:y0 + h, x0:x0 + w]
+    y, x = np.mgrid[0:h, 0:w]
+    disp = (5 + 40 * x / w + 6 * np.sin(2 * np.pi * y / h
+                                        + rng.uniform(0, 2 * np.pi))
+            ).astype(np.float32)
+    src = np.clip(x + disp, 0, w - 1)
+    xl = np.floor(src).astype(np.int64)
+    xr = np.minimum(xl + 1, w - 1)
+    fx = (src - xl)[..., None]
+    right = ((1 - fx) * left[y, xl] + fx * left[y, xr]).astype(np.uint8)
+    return np.ascontiguousarray(left), right, disp
+
+
+def write_kitti_tree(root: str, n: int, seed: int) -> None:
+    """``n`` pairs in the KITTI-2015 layout, cycling through the raw
+    shapes, cropped from one textured canvas (noise at four scales), the
+    GT written by the port's writer with 30% of it dropped (KITTI's GT is
+    sparse; 0 = invalid)."""
+    from PIL import Image
+
+    from raft_stereo_tpu_torch.data.frame_utils import write_disp_kitti
+
+    rng = np.random.default_rng(seed)
+    ch = 2 * max(h for h, _ in KITTI_SHAPES)
+    cw = 2 * max(w for _, w in KITTI_SHAPES)
+    canvas = (255 * sum(weight * smooth_noise(rng, ch, cw, cell)
+                        for cell, weight in ((64, 0.4), (16, 0.3), (4, 0.2),
+                                             (1, 0.1)))).astype(np.uint8)
+    for sub in ("image_2", "image_3", "disp_occ_0"):
+        os.makedirs(os.path.join(root, "training", sub))
+    for i in range(n):
+        left, right, disp = kitti_pair(rng, canvas, KITTI_SHAPES[i % 3])
+        disp[rng.random(disp.shape) < 0.3] = 0.0
+        name = f"{i:06d}_10.png"
+        for sub, img in (("image_2", left), ("image_3", right)):
+            Image.fromarray(img).save(
+                os.path.join(root, "training", sub, name), compress_level=0)
+        write_disp_kitti(os.path.join(root, "training", "disp_occ_0", name),
+                         disp)
+
+
+def zero_inference_counts() -> None:
+    """Every inference kernel wrapper's launch count to 0."""
+    from raft_stereo_tpu_torch.kernels.corr_alt import (alt_lookup_fused,
+                                                        alt_lookup_fused_q)
+    from raft_stereo_tpu_torch.kernels.corr_lookup import (
+        lookup_pyramid_fused, lookup_pyramid_fused_q)
+    from raft_stereo_tpu_torch.kernels.gru_fused import gru_gates_fused
+    from raft_stereo_tpu_torch.quant.matmul import int8_conv_int32
+    for fn in (lookup_pyramid_fused, lookup_pyramid_fused_q,
+               alt_lookup_fused, alt_lookup_fused_q, gru_gates_fused,
+               int8_conv_int32):
+        fn.launches = 0
+
+
+def capture_pair(runner, left, right, keys):
+    """The runner's first call at the pair's padded shape, with every
+    inference wrapper's count set to 0 just before it and read just after.
+    That call runs the forward twice through the wrappers, the warm-up and
+    the capture, and then replays the graph.  Returns ``(flow, counts,
+    per_pair)`` over ``keys``: the wrappers' counts, and the counts the
+    capture saw (one forward's launches; a replay runs no wrapper)."""
+    from raft_stereo_tpu_torch.eval.runner import launch_counts
+
+    zero_inference_counts()
+    captures = runner.captures
+    flow, _ = runner(left, right)
+    got = launch_counts()
+    if runner.captures != captures + 1:
+        raise AssertionError("a first call at a new shape must capture")
+    graph = list(runner._compiled.values())[-1]    # the LRU's newest
+    counts = {k: got[k] for k in keys}
+    per_pair = {k: graph.launches[k] for k in keys}
+    if counts != {k: 2 * v for k, v in per_pair.items()}:
+        raise AssertionError(f"wrapper counts {counts} are not those of "
+                             f"the warm-up and the capture {per_pair}")
+    return flow, counts, per_pair
+
+
+def eager_call(runner, left, right):
+    """The runner's closure (``make_forward``) called eagerly, with no
+    graph, on the runner's clock: host pad, upload, forward, copy to the
+    host, unpad.  Returns ``(flow, seconds)``."""
+    from raft_stereo_tpu_torch.eval.runner import make_forward
+    from raft_stereo_tpu_torch.ops.padding import InputPadder
+
+    t0 = time.perf_counter()
+    padder = InputPadder((1, 3) + left.shape[:2], divis_by=runner.divis_by)
+    pl, pr, pt, pb = padder.pads
+    spec = ((pt, pb), (pl, pr), (0, 0))
+    forward = make_forward(runner.model, runner.iters, runner.fetch_dtype)
+    with torch.inference_mode():
+        flow = forward(*[torch.from_numpy(np.pad(im, spec, mode="edge")[
+            None]).to(runner.device) for im in (left, right)])
+        out = padder.unpad(flow)[0].float().cpu().numpy()
+    return out, time.perf_counter() - t0
+
+
+def replay_and_eager_seconds(runner, left, right, reps: int = 5):
+    """Seconds per pair of ``reps`` replays (after the capture) and of
+    ``reps`` eager calls after one eager warm-up."""
+    secs = [runner(left, right)[1] for _ in range(reps)]
+    eager_call(runner, left, right)
+    return secs, [eager_call(runner, left, right)[1] for _ in range(reps)]
 
 
 def time_ms(fn, flush, reps: int = 20) -> float:
@@ -802,28 +969,28 @@ def main() -> int:
     rs = np.random.default_rng(SEED)
     left = rs.integers(0, 256, MAIN_HW + (3,), dtype=np.uint8)
     right = np.roll(left, -4, axis=1)
-    runner(left, right)                                    # warm-up
-    lookup_pyramid_fused.launches = 0
-    gru_gates_fused.launches = 0
-    alt_lookup_fused.launches = 0
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flow, _ = runner(left, right)
-    launches = {"lookup": lookup_pyramid_fused.launches,
-                "gates": gru_gates_fused.launches,
-                "alt": alt_lookup_fused.launches}
+    flow, launches, per_pair = capture_pair(runner, left, right,
+                                            ("lookup", "gates", "alt"))
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"main path {MAIN_HW[0]}x{MAIN_HW[1]} (padded 384x1248), "
-        f"iters {MAIN_ITERS}: launches {launches}, peak memory "
-        f"{peak_gib:.2f} GiB")
+        f"iters {MAIN_ITERS}: launches per pair {per_pair} (from the "
+        f"capture; the wrappers' counts {launches}: warm-up and capture), "
+        f"peak memory {peak_gib:.2f} GiB (warm-up and capture)")
     if flow.shape != MAIN_HW or not np.isfinite(flow).all():
         raise AssertionError(f"bad flow: shape {flow.shape}, finite "
                              f"{np.isfinite(flow).all()}")
-    if launches != {"lookup": MAIN_ITERS, "gates": 3 * MAIN_ITERS,
+    if per_pair != {"lookup": MAIN_ITERS, "gates": 3 * MAIN_ITERS,
                     "alt": 0}:
-        raise AssertionError(f"main path kernel launches {launches}")
-    secs = [runner(left, right)[1] for _ in range(5)]
-    log(f"main path seconds per pair: median {statistics.median(secs):.4f} "
-        f"(runs {[round(s, 4) for s in secs]}); flow range "
+        raise AssertionError(f"main path kernel launches {per_pair}")
+    secs, eager_secs = replay_and_eager_seconds(runner, left, right)
+    replays_after_timing = {"default": runner.replays}
+    log(f"main path seconds per pair: graph replay median "
+        f"{statistics.median(secs):.4f} (runs "
+        f"{[round(s, 4) for s in secs]}), eager median "
+        f"{statistics.median(eager_secs):.4f} (runs "
+        f"{[round(s, 4) for s in eager_secs]}); flow range "
         f"[{flow.min():.2f}, {flow.max():.2f}]")
 
     # ------------------------------------------------------------ phase 6
@@ -1029,27 +1196,27 @@ def main() -> int:
     if rt_runner.effective_config.corr_fp32:
         raise AssertionError("realtime at 7 iterations must keep bf16 "
                              "correlation")
-    rt_runner(left, right)                                 # warm-up
-    lookup_pyramid_fused.launches = 0
-    gru_gates_fused.launches = 0
-    alt_lookup_fused.launches = 0
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rt_flow, _ = rt_runner(left, right)
-    rt_launches = {"lookup": lookup_pyramid_fused.launches,
-                   "gates": gru_gates_fused.launches,
-                   "alt": alt_lookup_fused.launches}
+    rt_flow, rt_launches, rt_per_pair = capture_pair(
+        rt_runner, left, right, ("lookup", "gates", "alt"))
     rt_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"realtime path {MAIN_HW[0]}x{MAIN_HW[1]} (padded 384x1248), iters "
-        f"{RT_ITERS}, bf16: launches {rt_launches}, peak memory "
-        f"{rt_peak_gib:.3f} GiB")
+        f"{RT_ITERS}, bf16: launches per pair {rt_per_pair} (from the "
+        f"capture; the wrappers' counts {rt_launches}), peak memory "
+        f"{rt_peak_gib:.3f} GiB (warm-up and capture)")
     if rt_flow.shape != MAIN_HW or not np.isfinite(rt_flow).all():
         raise AssertionError(f"bad realtime flow: shape {rt_flow.shape}, "
                              f"finite {np.isfinite(rt_flow).all()}")
-    if rt_launches != {"lookup": 0, "gates": 3 * RT_ITERS, "alt": RT_ITERS}:
-        raise AssertionError(f"realtime path kernel launches {rt_launches}")
-    rt_secs = [rt_runner(left, right)[1] for _ in range(5)]
-    log(f"realtime path seconds per pair: median "
-        f"{statistics.median(rt_secs):.5f} (runs {rt_secs}); flow range "
+    if rt_per_pair != {"lookup": 0, "gates": 3 * RT_ITERS, "alt": RT_ITERS}:
+        raise AssertionError(f"realtime path kernel launches {rt_per_pair}")
+    rt_secs, rt_eager_secs = replay_and_eager_seconds(rt_runner, left, right)
+    replays_after_timing["realtime"] = rt_runner.replays
+    log(f"realtime path seconds per pair: graph replay median "
+        f"{statistics.median(rt_secs):.5f} (runs "
+        f"{[round(s, 5) for s in rt_secs]}), eager median "
+        f"{statistics.median(rt_eager_secs):.5f} (runs "
+        f"{[round(s, 5) for s in rt_eager_secs]}); flow range "
         f"[{rt_flow.min():.2f}, {rt_flow.max():.2f}]")
 
     deep = InferenceRunner(rt_cfg, rt_state, iters=RT_DEEP_ITERS,
@@ -1057,20 +1224,19 @@ def main() -> int:
     if not deep.effective_config.corr_fp32:
         raise AssertionError(f"realtime at {RT_DEEP_ITERS} iterations must "
                              "turn corr_fp32 on")
-    lookup_pyramid_fused.launches = 0
-    gru_gates_fused.launches = 0
-    alt_lookup_fused.launches = 0
-    deep_flow, deep_s = deep(left, right)
-    deep_launches = {"lookup": lookup_pyramid_fused.launches,
-                     "gates": gru_gates_fused.launches,
-                     "alt": alt_lookup_fused.launches}
+    t0 = time.perf_counter()
+    deep_flow, deep_launches, deep_per_pair = capture_pair(
+        deep, left, right, ("lookup", "gates", "alt"))
+    deep_s = time.perf_counter() - t0
     log(f"realtime path, iters {RT_DEEP_ITERS} (corr_fp32 on: fp32 alt): "
-        f"launches {deep_launches}, {deep_s:.5f} s (first call)")
+        f"launches per pair {deep_per_pair} (the wrappers' counts "
+        f"{deep_launches}), {deep_s:.5f} s (first call: warm-up, capture, "
+        f"replay)")
     if deep_flow.shape != MAIN_HW or not np.isfinite(deep_flow).all():
         raise AssertionError("bad realtime flow at corr_fp32")
-    if deep_launches != {"lookup": 0, "gates": 3 * RT_DEEP_ITERS,
+    if deep_per_pair != {"lookup": 0, "gates": 3 * RT_DEEP_ITERS,
                          "alt": RT_DEEP_ITERS}:
-        raise AssertionError(f"deep realtime launches {deep_launches}")
+        raise AssertionError(f"deep realtime launches {deep_per_pair}")
 
     # ----------------------------------------------------------- phase 10
     on_card = InferenceRunner(rt_cfg, rt_state, iters=2, device="cuda")(
@@ -1606,46 +1772,37 @@ def main() -> int:
             f1_q, pq, fields, 4, quantized=True)
 
     # ------------------------------------------------------ phases 18, 19
-    def q_counts():
-        return {"lookup": lookup_pyramid_fused.launches,
-                "lookup_q": lookup_pyramid_fused_q.launches,
-                "alt": alt_lookup_fused.launches,
-                "alt_q": alt_lookup_fused_q.launches,
-                "gates": gru_gates_fused.launches,
-                "gemm": int8_conv_int32.launches}
-
-    def zero_q_counts():
-        for fn in (lookup_pyramid_fused, lookup_pyramid_fused_q,
-                   alt_lookup_fused, alt_lookup_fused_q, gru_gates_fused,
-                   int8_conv_int32):
-            fn.launches = 0
-
     def drive_quant(what, cfg_, state_, iters, quant, want, **kw):
-        """The runner on the 375x1242 pair: a warm-up, then one pair with
-        the counts zeroed before it and read after it, then 5 timed
-        pairs.  Returns (counts, median seconds, peak GiB), the peak being
-        the call's own: device memory allocated above what was allocated
-        before it (earlier phases leave tensors alive)."""
+        """The runner on the 375x1242 pair: the first pair with the counts
+        zeroed before it and read after it (warm-up and capture; the
+        per-pair counts are the capture's), then 5 timed replays beside
+        5 eager calls.  Returns (counts, median replay seconds, peak
+        GiB), the peak being the first call's own: device memory
+        allocated above what was allocated before it (earlier phases
+        leave tensors alive)."""
         runner_ = InferenceRunner(cfg_, state_, iters=iters, device="cuda",
                                   quant=quant, **kw)
-        runner_(left, right)
-        zero_q_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        flow_, _ = runner_(left, right)
-        got = q_counts()
+        flow_, got, per_pair = capture_pair(runner_, left, right,
+                                            tuple(want))
         peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-        secs_ = [runner_(left, right)[1] for _ in range(5)]
+        secs_, eager_ = replay_and_eager_seconds(runner_, left, right)
         log(f"{what}, {MAIN_HW[0]}x{MAIN_HW[1]} (padded 384x1248), iters "
-            f"{iters}: launches {got}; seconds per pair median "
+            f"{iters}: launches per pair {per_pair} (the wrappers' counts "
+            f"{got}); seconds per pair, graph replay median "
             f"{statistics.median(secs_):.5f} (runs "
-            f"{[round(t, 5) for t in secs_]}), peak memory {peak:.3f} GiB; "
+            f"{[round(t, 5) for t in secs_]}), eager median "
+            f"{statistics.median(eager_):.5f}; peak memory {peak:.3f} GiB; "
             f"flow range [{flow_.min():.2f}, {flow_.max():.2f}]")
         if flow_.shape != MAIN_HW or not np.isfinite(flow_).all():
             raise AssertionError(f"{what}: bad flow")
-        if got != want:
-            raise AssertionError(f"{what}: launches {got}, want {want}")
+        if per_pair != want:
+            raise AssertionError(f"{what}: launches {per_pair}, want {want}")
+        if runner_.captures != 1 or runner_.replays != 6:
+            raise AssertionError(f"{what}: {runner_.captures} captures, "
+                                 f"{runner_.replays} replays")
         return got, statistics.median(secs_), peak
 
     n_enc = sum(1 for m_ in RAFTStereo(dataclasses.replace(
@@ -1704,8 +1861,12 @@ def main() -> int:
     real_make_corr_fn = raft_module.make_corr_fn
 
     def capturing_make_corr_fn(*args):
+        # The card's codes come from the runner's eager warm-up forward
+        # (a replay equals it bit for bit, phase 21): a capture may not
+        # copy to the host.
         fn = real_make_corr_fn(*args)
-        captured.append([c_.float().cpu() for c_ in fn.codes])
+        if not torch.cuda.is_current_stream_capturing():
+            captured.append([c_.float().cpu() for c_ in fn.codes])
         return fn
 
     raft_module.make_corr_fn = capturing_make_corr_fn
@@ -1748,6 +1909,158 @@ def main() -> int:
                 raise AssertionError(f"{what}: card and CPU disagree")
     finally:
         raft_module.make_corr_fn = real_make_corr_fn
+
+    # ----------------------------------------------------------- phase 21
+    for what, r_, cfg_, state_, secs_, eager_ in (
+            ("default", runner, cfg, state, secs, eager_secs),
+            ("realtime", rt_runner, rt_cfg, rt_state, rt_secs,
+             rt_eager_secs)):
+        graph = r_._compiled[(PADDED_HW, 1)]
+        one = r_(left, right)[0]
+        two = r_(left, right)[0]
+        eager_flow = eager_call(r_, left, right)[0]
+        half = InferenceRunner(cfg_, state_, iters=r_.iters, device="cuda",
+                               fetch_dtype="fp16")(left, right)[0]
+        rounded = torch.from_numpy(one).half().float().numpy()
+        ok = (r_.captures == 1 and replays_after_timing[what] == 6
+              and np.array_equal(one, two)
+              and np.array_equal(one, eager_flow)
+              and np.array_equal(half, rounded))
+        log(f"graphs, {what} path at {MAIN_HW[0]}x{MAIN_HW[1]}, iters "
+            f"{r_.iters}: captures {r_.captures}, replays "
+            f"{replays_after_timing[what]} after the 5 timed calls; launches "
+            f"per pair from the capture {graph.launches}; capture (warm-up "
+            f"forward and capture) {1e3 * graph.capture_s:.1f} ms; seconds "
+            f"per pair, replay median {statistics.median(secs_):.5f} "
+            f"against eager {statistics.median(eager_):.5f} "
+            f"({statistics.median(eager_) / statistics.median(secs_):.2f}x);"
+            f" replay bitwise equal to eager "
+            f"{np.array_equal(one, eager_flow)} (max |d| "
+            f"{np.abs(one - eager_flow).max():.3e}), two replays "
+            f"{np.array_equal(one, two)}, fp16 fetch equal to the fp32 "
+            f"result rounded {np.array_equal(half, rounded)}: "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"{what}: graph checks failed")
+    log(f"graphs, memory after phase 21: allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB; the first "
+        f"default call's peak {peak_gib:.2f} GiB, realtime "
+        f"{rt_peak_gib:.3f} GiB")
+
+    # ----------------------------------------------------------- phase 22
+    captures = runner.captures
+    for hw in KITTI_SHAPES:
+        l_ = rs.integers(0, 256, hw + (3,), dtype=np.uint8)
+        f_ = runner(l_, np.roll(l_, -4, axis=1))[0]
+        if f_.shape != hw or not np.isfinite(f_).all():
+            raise AssertionError(f"bad flow at {hw}")
+    log(f"cache: raw shapes {KITTI_SHAPES} ran on "
+        f"{runner.captures - captures} new captures; entries "
+        f"{list(runner._compiled)}")
+    if runner.captures != captures:
+        raise AssertionError("the raw KITTI shapes must share one graph")
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    cache_runner = InferenceRunner(cfg, state, iters=MAIN_ITERS,
+                                   device="cuda", max_cached_shapes=2)
+    pairs = {}
+    for key, hw in CACHE_SHAPES.items():
+        l_ = rs.integers(0, 256, hw + (3,), dtype=np.uint8)
+        pairs[key] = (l_, np.roll(l_, -4, axis=1))
+    outs, held = {}, []
+    for key in CACHE_ORDER:
+        outs.setdefault(key, []).append(cache_runner(*pairs[key])[0])
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_reserved() - base)
+        log(f"cache (max_cached_shapes=2): shape {key} "
+            f"{CACHE_SHAPES[key]}: entries {list(cache_runner._compiled)}, "
+            f"captures {cache_runner.captures}, memory reserved above the "
+            f"phase's start {held[-1] / 2 ** 30:.3f} GiB, allocated "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+    b_eager = eager_call(cache_runner, *pairs["B"])[0]
+    ok = (cache_runner.captures == 4 and len(cache_runner._compiled) == 2
+          and np.array_equal(outs["A"][0], outs["A"][1])
+          and np.array_equal(outs["B"][0], b_eager)
+          and np.array_equal(outs["B"][0], outs["B"][1])
+          and max(held[3:]) <= CACHE_MEMORY_FACTOR * held[1])
+    log(f"cache: order {CACHE_ORDER}, {cache_runner.captures} captures; A "
+        f"replayed after B bitwise equal {np.array_equal(*outs['A'])}; B "
+        f"equal to its eager forward {np.array_equal(outs['B'][0], b_eager)}"
+        f", B recaptured after its eviction equal "
+        f"{np.array_equal(*outs['B'])}; reserved memory after the "
+        f"evictions at most {max(held[3:]) / max(held[1], 1):.3f}x its "
+        f"value after the second shape (limit {CACHE_MEMORY_FACTOR}x): "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("graph cache checks failed")
+    del cache_runner, outs
+
+    b_runner = InferenceRunner(cfg, state, iters=2, device="cuda")
+    smalls = [rs.integers(0, 256, (128, 256, 3), dtype=np.uint8)
+              for _ in range(BATCH)]
+    small_rs = [np.roll(x_, -4, axis=1) for x_ in smalls]
+    flows4 = b_runner.run_batch(smalls, small_rs)[0]
+    err = max(float(np.abs(flows4[i] - b_runner(smalls[i], small_rs[i])[0]
+                            ).max()) for i in range(BATCH))
+    log(f"run_batch({BATCH}) against {BATCH} single calls, 128x256, iters "
+        f"2: max |Δflow| {err:.3e} px (atol {CARD_VS_CPU_ATOL})")
+    if not err <= CARD_VS_CPU_ATOL:
+        raise AssertionError("run_batch and single calls disagree")
+    lefts = [rs.integers(0, 256, MAIN_HW + (3,), dtype=np.uint8)
+             for _ in range(BATCH)]
+    rights = [np.roll(x_, -4, axis=1) for x_ in lefts]
+    runner.run_batch(lefts, rights)                        # capture
+    batch_secs = [runner.run_batch(lefts, rights)[1] / BATCH
+                  for _ in range(5)]
+    log(f"run_batch({BATCH}) at {MAIN_HW[0]}x{MAIN_HW[1]}, default, iters "
+        f"{MAIN_ITERS}: seconds per pair median "
+        f"{statistics.median(batch_secs):.4f} (runs "
+        f"{[round(t, 4) for t in batch_secs]}) against batch 1's "
+        f"{statistics.median(secs):.4f}; reserved memory "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+
+    # ----------------------------------------------------------- phase 23
+    from raft_stereo_tpu_torch.cli import evaluate
+    from raft_stereo_tpu_torch.eval.runner import launch_counts
+    from raft_stereo_tpu_torch.eval.validate import WARMUP_IMAGES
+    from raft_stereo_tpu_torch.io.jax_weights import save_checkpoint
+
+    tree = os.path.join(HERE, "_smoke_data")
+    shutil.rmtree(tree, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        write_kitti_tree(os.path.join(tree, "KITTI"), KITTI_PAIRS, SEED)
+        save_checkpoint(os.path.join(tree, "ckpt"), cfg, state)
+        log(f"evaluate: a KITTI-shaped tree of {KITTI_PAIRS} pairs in the "
+            f"raw shapes {KITTI_SHAPES}, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        zero_inference_counts()
+        t0 = time.perf_counter()
+        result = evaluate.main(
+            ["--restore_ckpt", os.path.join(tree, "ckpt"), "--dataset",
+             "kitti", "--data_root", tree, "--valid_iters",
+             str(MAIN_ITERS)])
+        eval_s = time.perf_counter() - t0
+        eval_launches = {k: v for k, v in launch_counts().items() if v}
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
+    ok = (eval_launches == {"lookup": 2 * MAIN_ITERS,
+                            "gates": 2 * 3 * MAIN_ITERS}
+          and math.isfinite(result["kitti-epe"])
+          and math.isfinite(result["kitti-d1"]) and "kitti-fps" in result)
+    log(f"evaluate (cli/evaluate.py main, --dataset kitti, default config, "
+        f"iters {MAIN_ITERS}, seeded random weights): {result}; "
+        f"{eval_s:.1f} s for the tree; the wrappers' counts {eval_launches}"
+        f" (one warm-up and one capture for the whole tree); "
+        f"{result.get('kitti-fps', float('nan')):.3f} pairs per second "
+        f"past the {WARMUP_IMAGES}-image warm-up on {card}: "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("the evaluate path failed its checks")
 
     def row(name_, source, replaces, launched, err, t, design=None):
         """One entry of the kernels line; ``t`` holds graph-replay times."""

@@ -40,6 +40,7 @@ def run_demo(args) -> int:
 
     cfg, state = load_checkpoint(args.restore_ckpt)
     runner = InferenceRunner(cfg, state, iters=args.valid_iters,
+                             fetch_dtype=args.fetch_dtype,
                              device=args.device)
     os.makedirs(args.output_directory, exist_ok=True)
     left_images = sorted(glob.glob(args.left_imgs, recursive=True))
@@ -74,6 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_directory", default="demo_output")
     p.add_argument("--save_numpy", action="store_true")
     p.add_argument("--valid_iters", type=int, default=32)
+    p.add_argument("--fetch_dtype", default=None, choices=["fp16", "bf16"],
+                   help="cast the disparity on the device before the "
+                        "device->host copy (results stay fp32)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions")
     return p

@@ -36,6 +36,7 @@ lookup with its scaling under ``raft::corr_lookup_q``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, List, Tuple
 
@@ -105,6 +106,15 @@ def _quantize(x: torch.Tensor, scale: torch.Tensor,
     return quantize_fp8(x, scale, q_dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def _static_scale(value: float, device: torch.device) -> torch.Tensor:
+    """A calibrated scale as an fp32 0-dim tensor on ``device``, made once:
+    a forward captured into a CUDA graph may not copy from the host.
+    Made outside inference mode, like the resize matrices."""
+    with torch.inference_mode(False):
+        return torch.tensor(value, dtype=torch.float32, device=device)
+
+
 def quantize_pyramid(pyramid: List[torch.Tensor], cfg: RaftStereoConfig
                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Per-level symmetric quantization of the fp32 pyramid on the
@@ -116,8 +126,7 @@ def quantize_pyramid(pyramid: List[torch.Tensor], cfg: RaftStereoConfig
     qmax = 127.0 if q_dtype == torch.int8 else FP8_QMAX
     pyramid = [v.detach() for v in pyramid]
     if cfg.quant_corr_scales is not None:
-        scales = [torch.tensor(s * (127.0 / qmax), dtype=torch.float32,
-                               device=v.device)
+        scales = [_static_scale(s * (127.0 / qmax), v.device)
                   for s, v in zip(cfg.quant_corr_scales, pyramid)]
     else:
         scales = [dynamic_scale(v, qmax=qmax) for v in pyramid]

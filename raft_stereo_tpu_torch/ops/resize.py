@@ -55,3 +55,11 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
 def interp_like(x: torch.Tensor, dest: torch.Tensor) -> torch.Tensor:
     """Resize ``x`` to ``dest``'s spatial size."""
     return resize_bilinear_align_corners(x, dest.shape[-2:])
+
+
+def upsample_flow_bilinear(flow: torch.Tensor, factor: int) -> torch.Tensor:
+    """x``factor`` bilinear upsample of NCHW ``flow``, its values scaled
+    by ``factor``."""
+    h, w = flow.shape[-2:]
+    return factor * resize_bilinear_align_corners(flow, (factor * h,
+                                                         factor * w))

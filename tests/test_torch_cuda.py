@@ -266,9 +266,14 @@ def test_tiny_realtime_card_matches_cpu(rng, cuda_device):
     right = np.roll(left, -3, axis=1)
     cpu = InferenceRunner(cfg, state, iters=1, device="cpu")(left, right)[0]
     alts, gates = alt_lookup_fused.launches, gru_gates_fused.launches
-    gpu = InferenceRunner(cfg, state, iters=1)(left, right)[0]
-    assert alt_lookup_fused.launches == alts + 1
-    assert gru_gates_fused.launches == gates + 3   # gru16 twice, gru08
+    runner = InferenceRunner(cfg, state, iters=1)
+    gpu = runner(left, right)[0]
+    (graph,) = runner._compiled.values()
+    assert graph.launches["alt"] == 1
+    assert graph.launches["gates"] == 3   # gru16 twice, gru08
+    # the first call runs the wrappers twice: the warm-up and the capture
+    assert alt_lookup_fused.launches == alts + 2
+    assert gru_gates_fused.launches == gates + 6
     np.testing.assert_allclose(gpu, cpu, atol=1e-3, rtol=0)
     bf16 = InferenceRunner(RaftStereoConfig(**{**cfg.to_dict(),
                                                "mixed_precision": True}),
@@ -285,9 +290,13 @@ def test_tiny_model_card_matches_cpu(rng, cuda_device):
     cpu = InferenceRunner(cfg, state, iters=1, device="cpu")(left, right)[0]
     lookups = lookup_pyramid_fused.launches
     gates = gru_gates_fused.launches
-    gpu = InferenceRunner(cfg, state, iters=1)(left, right)[0]
-    assert lookup_pyramid_fused.launches == lookups + 1
-    assert gru_gates_fused.launches == gates + 3
+    runner = InferenceRunner(cfg, state, iters=1)
+    gpu = runner(left, right)[0]
+    (graph,) = runner._compiled.values()
+    assert graph.launches["lookup"] == 1 and graph.launches["gates"] == 3
+    # the first call runs the wrappers twice: the warm-up and the capture
+    assert lookup_pyramid_fused.launches == lookups + 2
+    assert gru_gates_fused.launches == gates + 6
     # one iteration on random weights; cuDNN vs CPU conv summation order
     np.testing.assert_allclose(gpu, cpu, atol=1e-3, rtol=0)
 
@@ -312,7 +321,8 @@ def test_demo_cli_on_card(rng, cuda_device, tmp_path):
                "-l", str(tmp_path / "im0.png"), "-r", str(tmp_path / "im1.png"),
                "--output_directory", str(out), "--valid_iters", "1",
                "--save_numpy"])
-    assert gru_gates_fused.launches == gates + 3  # ran on the card
+    # ran on the card: the warm-up and the capture of one graph
+    assert gru_gates_fused.launches == gates + 6
     cpu = InferenceRunner(cfg, state, iters=1, device="cpu").disparity(
         left, right)
     np.testing.assert_allclose(np.load(out / "im0.npy"), cpu, atol=1e-3,
@@ -898,14 +908,138 @@ def test_tiny_quantized_card_matches_cpu(rng, cuda_device, realtime):
                           quant=quant)(left, right)[0]
     counts = (lookup_pyramid_fused_q.launches, alt_lookup_fused_q.launches,
               int8_conv_int32.launches)
-    gpu = InferenceRunner(cfg, state, iters=1, quant=quant)(left, right)[0]
+    runner = InferenceRunner(cfg, state, iters=1, quant=quant)
+    gpu = runner(left, right)[0]
     launched = [a - b for a, b in zip(
         (lookup_pyramid_fused_q.launches, alt_lookup_fused_q.launches,
          int8_conv_int32.launches), counts)]
-    assert launched[:2] == ([0, 1] if realtime else [1, 0])
+    # the warm-up and the capture each ran the forward once
+    (graph,) = runner._compiled.values()
+    assert [graph.launches["lookup_q"], graph.launches["alt_q"]] == \
+        ([0, 1] if realtime else [1, 0])
+    assert launched == [2 * graph.launches[k]
+                        for k in ("lookup_q", "alt_q", "gemm")]
     assert (launched[2] > 0) == realtime
     ulp = InferenceRunner(cfg, moved, iters=1, quant=quant)(left, right)[0]
     spread, err = np.abs(ulp - gpu), np.abs(gpu - cpu)
     assert np.isfinite(gpu).all()
     assert err.max() <= 3 * spread.max() and err.mean() <= 3 * spread.mean(
     ), (err.max(), err.mean(), spread.max(), spread.mean())
+
+
+# ------------------------------------------------- the runner's CUDA graphs
+GRAPH_CONFIGS = {
+    "default": ({}, None),
+    "realtime": (RaftStereoConfig.realtime().to_dict(), None),
+    "default int8": ({}, "int8"),
+    "default int8 calibrated": ({"quant_corr_scales": (0.05, 0.04, 0.03,
+                                                      0.02)}, "int8"),
+    "realtime int8_mxu": (RaftStereoConfig.realtime().to_dict(),
+                          "int8_mxu"),
+}
+
+
+def _graph_runner(name, **kw):
+    base, quant = GRAPH_CONFIGS[name]
+    torch.manual_seed(0)
+    cfg = RaftStereoConfig(**{**base, **TINY})
+    return InferenceRunner(cfg, RAFTStereo(cfg).state_dict(), iters=2,
+                           quant=quant, **kw)
+
+
+def _eager(runner, left, right):
+    """The runner's closure called eagerly on the padded pair, unpadded:
+    what a replay must reproduce bit for bit."""
+    from raft_stereo_tpu_torch.eval.runner import make_forward
+    from raft_stereo_tpu_torch.ops.padding import InputPadder
+
+    padder = InputPadder((1, 3) + left.shape[:2], divis_by=runner.divis_by)
+    pl, pr, pt, pb = padder.pads
+    spec = ((pt, pb), (pl, pr), (0, 0))
+    dev = runner.device
+    with torch.inference_mode():
+        flow = make_forward(runner.model, runner.iters, runner.fetch_dtype)(
+            torch.from_numpy(np.pad(left, spec, mode="edge")[None]).to(dev),
+            torch.from_numpy(np.pad(right, spec, mode="edge")[None]).to(dev))
+        return padder.unpad(flow)[0].float().cpu().numpy()
+
+
+@pytest.mark.parametrize("name", sorted(GRAPH_CONFIGS))
+def test_graph_replay_bitwise_equals_eager(rng, cuda_device, name):
+    """The first call captures (after an eager warm-up) and replays; the
+    replay equals the eager forward bit for bit, and so do two replays."""
+    runner = _graph_runner(name)
+    left = rng.integers(0, 256, (45, 70, 3), dtype=np.uint8)
+    right = np.roll(left, -3, axis=1)
+    first = runner(left, right)[0]
+    second = runner(left, right)[0]
+    assert runner.captures == 1 and runner.replays == 2
+    (graph,) = runner._compiled.values()
+    assert sum(graph.launches.values()) > 0
+    np.testing.assert_array_equal(first, second)
+    np.testing.assert_array_equal(first, _eager(runner, left, right))
+    other = np.roll(left, 5, axis=0)
+    np.testing.assert_array_equal(runner(other, right)[0],
+                                  _eager(runner, other, right))
+    assert runner.captures == 1
+
+
+def test_graphs_share_a_pool_a_b_a(rng, cuda_device):
+    """Two graphs in one pool, replayed A, B, A: A's results are equal bit
+    for bit, and B's equals B's eager forward."""
+    runner = _graph_runner("default")
+    a = rng.integers(0, 256, (45, 70, 3), dtype=np.uint8)
+    b = rng.integers(0, 256, (100, 130, 3), dtype=np.uint8)
+    a1 = runner(a, np.roll(a, -3, axis=1))[0]
+    b1 = runner(b, np.roll(b, -3, axis=1))[0]
+    a2 = runner(a, np.roll(a, -3, axis=1))[0]
+    assert runner.captures == 2 and len(runner._compiled) == 2
+    pools = {g.pool for g in runner._compiled.values()}
+    assert len(pools) == 1
+    np.testing.assert_array_equal(a1, a2)
+    np.testing.assert_array_equal(b1, _eager(runner, b,
+                                             np.roll(b, -3, axis=1)))
+
+
+def test_graph_eviction_frees_its_graph(rng, cuda_device):
+    import gc
+    import weakref
+
+    runner = _graph_runner("default", max_cached_shapes=1)
+    a = rng.integers(0, 256, (45, 70, 3), dtype=np.uint8)
+    b = rng.integers(0, 256, (100, 130, 3), dtype=np.uint8)
+    want = runner(a, a)[0]
+    first = weakref.ref(next(iter(runner._compiled.values())))
+    runner(b, b)
+    gc.collect()
+    assert first() is None and len(runner._compiled) == 1
+    np.testing.assert_array_equal(runner(a, a)[0], want)
+    assert runner.captures == 3
+
+
+def test_graph_run_batch_matches_single_calls(rng, cuda_device):
+    """Batch 3 is its own graph; it may take other cuDNN algorithms than
+    batch 1, so it is held to the card-vs-CPU bound at 2 iterations
+    (chip_smoke.py's CARD_VS_CPU_ATOL)."""
+    runner = _graph_runner("default")
+    lefts = [rng.integers(0, 256, (45, 70, 3), dtype=np.uint8)
+             for _ in range(3)]
+    rights = [np.roll(l, -3, axis=1) for l in lefts]
+    flows, _ = runner.run_batch(lefts, rights)
+    assert flows.shape == (3, 45, 70)
+    for i in range(3):
+        np.testing.assert_allclose(flows[i], runner(lefts[i], rights[i])[0],
+                                   atol=1e-2, rtol=0)
+    assert set(runner._compiled) == {((64, 96), 3), ((64, 96), 1)}
+
+
+@pytest.mark.parametrize("fetch", ["fp16", "bf16"])
+def test_graph_fetch_dtype_rounds_on_the_card(rng, cuda_device, fetch):
+    left = rng.integers(0, 256, (45, 70, 3), dtype=np.uint8)
+    right = np.roll(left, -3, axis=1)
+    full = _graph_runner("default")(left, right)[0]
+    half = _graph_runner("default", fetch_dtype=fetch)(left, right)[0]
+    dtype = {"fp16": torch.float16, "bf16": torch.bfloat16}[fetch]
+    assert half.dtype == np.float32
+    np.testing.assert_array_equal(
+        half, torch.from_numpy(full).to(dtype).float().numpy())

@@ -11,7 +11,8 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "raft_stereo_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "raft_stereo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "raft_stereo_tpu", "golden_data",
+             "tests.golden_data")
 
 # Import every module of the port in a fresh interpreter and list the
 # modules that importing it added (startup code of the environment may

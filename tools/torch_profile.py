@@ -7,7 +7,9 @@
 Without ``--train``: runs ``InferenceRunner`` on a config (seeded random
 weights) on the main-path shape of chip_smoke.py (375x1242): the default
 config at 32 iterations, or ``RaftStereoConfig.realtime()`` at its
-protocol depth of 7.  With ``--train``: one training step
+protocol depth of 7; the profiled call is a replay of the runner's CUDA
+graph (with ``--quant``, the runner's closure run eagerly, so that the
+port's ranges are recorded).  With ``--train``: one training step
 (``training/step.train_step``) of that config under ``TrainConfig()``
 (batch 8, 320x720, 22 iterations) on a seeded synthetic batch.
 
@@ -207,8 +209,25 @@ def main(argv=None) -> int:
             what += (f", quant {args.quant}, "
                      f"{'fp8' if args.fp8 else 'int8'} correlation")
 
-        def run():
-            runner(left, right)
+        if args.quant:
+            # The ranges of the split below are recorded only where Python
+            # runs the forward: profile the runner's closure eagerly.
+            from raft_stereo_tpu_torch.eval.runner import make_forward
+            from raft_stereo_tpu_torch.ops.padding import InputPadder
+
+            pl, pr, pt, pb = InputPadder((1, 3, HEIGHT, WIDTH),
+                                         divis_by=32).pads
+            spec = ((0, 0), (pt, pb), (pl, pr), (0, 0))
+            images = [torch.from_numpy(np.pad(im[None], spec, mode="edge")
+                                       ).cuda() for im in (left, right)]
+            forward = make_forward(runner.model, iters)
+
+            def run():
+                with torch.inference_mode():
+                    forward(*images).cpu()
+        else:
+            def run():  # a replay of the runner's CUDA graph
+                runner(left, right)
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
