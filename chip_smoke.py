@@ -80,7 +80,9 @@ fails the run when it fails:
    backward a ``torch.zeros`` of its dV bytes, the write floor;
 13. the default training step: ``train()`` with ``RaftStereoConfig()``
    fp32 and ``TrainConfig()`` (batch 8, 320x720, 22 iterations) on a
-   seeded synthetic loader, one warm-up step and 3 timed steps; checks
+   seeded synthetic loader, one warm-up step and 3 timed steps (timed at
+   each step's end, ``on_step``, as the loop's prefetcher pulls batches
+   ahead of the step); checks
    22 lookups, 22 lookup backwards and 132 gate calls per step (66
    forward, 66 in the remat recompute), finite loss and grad_norm, and
    that the parameters moved; prints seconds per step and peak memory;
@@ -137,7 +139,35 @@ fails the run when it fails:
    over it with a port checkpoint of the seeded default config at 32
    iterations: one capture for the whole tree (the wrappers count one
    warm-up and one capture), finite EPE and D1, pairs per second past
-   the 50-image warm-up.
+   the 50-image warm-up;
+24. the training entry point: a SceneFlow-shaped tree (48 TRAIN pairs in
+   the clean and the final pass, 8 TEST pairs, 540x960, right images
+   warped by a smooth known disparity) written with the port's writers,
+   ``cli/train.py main`` over it with the default config in fp32, batch
+   8, 320x720, 22 iterations, 6 steps, validation on the TEST pairs every
+   3 steps and keep-last-1 checkpoints: 22 lookups, 22 lookup backwards
+   and 132 gate calls per step (phase 13's counts, the validations'
+   launches taken out), finite losses, moved parameters, two validations
+   with finite EPE on one runner, the checkpoints left (``6_...`` and the
+   final one, manifests verified, none GOOD-stamped), the final
+   checkpoint loaded by ``InferenceRunner``; seconds per step past the
+   first, the loop's wait for each step's batch, the validation seconds,
+   peak memory;
+25. on the same tree with ``RaftStereoConfig.realtime()``: a run of 6
+   steps against a run stopped by SIGTERM at step 3 and resumed with
+   ``restore="latest"`` (the SHA-256 of every batch the loops consumed
+   equal; the final parameters bit-equal, or within 3x the card's spread
+   between two uninterrupted runs), the uninterrupted run's seconds and
+   loader wait per step with the loader's thread workers, again with
+   its process workers (the same batches), and over the same batches
+   decoded before the run; the anomaly policy over 8 steps with
+   NaN flow in the batches of steps 4-6 (the three updates skipped with
+   every leaf bit-equal to the step-3 state, one rewind at step 6 to the
+   step-4 checkpoint, the rest of the epoch reshuffled, the run finished;
+   with ``anomaly_max_rewinds 0`` it raises ``TrainingDiverged``); the
+   device jitter's draws on the card equal to the CPU's, one batch's
+   ``apply_photometric`` card vs CPU within 1e-4 of 255, two
+   ``device_photometric`` steps with finite loss.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (times
 by graph replay; a redesigned row names its design under ``design``; an
@@ -222,6 +252,17 @@ CACHE_ORDER = "ABACB"
 CACHE_MEMORY_FACTOR = 1.25
 BATCH = 4
 KITTI_PAIRS = 60        # > the validator's 50-image warm-up
+# Phases 24-25, the training entry point: a SceneFlow-shaped tree at
+# SceneFlow's frame size; the CLI run's flags; the resume check's bound on
+# the final parameters, a multiple of the card's own spread between two
+# uninterrupted runs; the jitter's tolerance (of 255).
+SF_HW = (540, 960)
+SF_TRAIN_PAIRS, SF_TEST_PAIRS = 48, 8
+CLI_STEPS, CLI_VAL_EVERY = 6, 3
+RESUME_STEPS = 6
+RESUME_SPREAD_FACTOR = 3.0
+ANOMALY_STEPS, ANOMALY_POISON = 8, (4, 5, 6)
+JITTER_ATOL = 1e-4 * 255
 # Training (phases 11-15): TrainConfig()'s batch and crop; feature maps at
 # 1/4 (default) and 1/8 (realtime).
 TRAIN_B, TRAIN_HW, TRAIN_ITERS = 8, (320, 720), 22
@@ -329,6 +370,58 @@ def write_kitti_tree(root: str, n: int, seed: int) -> None:
                 os.path.join(root, "training", sub, name), compress_level=0)
         write_disp_kitti(os.path.join(root, "training", "disp_occ_0", name),
                          disp)
+
+
+def write_sceneflow_tree(root: str, n_train: int, n_test: int,
+                         seed: int) -> None:
+    """A FlyingThings3D-shaped tree at ``SF_HW``: ``n_train`` TRAIN pairs
+    in the clean and the final pass (the final pass hard-linked to the
+    clean one), the passes ``build_training_mixture(("sceneflow",))``
+    reads, and ``n_test`` TEST pairs in the final pass, which
+    ``validate_things`` reads; textured left images cropped from one
+    canvas, right images warped by a smooth known disparity, written as
+    PFMs by the port's writer."""
+    from PIL import Image
+
+    from raft_stereo_tpu_torch.data.frame_utils import write_pfm
+
+    rng = np.random.default_rng(seed)
+    h, w = SF_HW
+    canvas = (255 * sum(weight * smooth_noise(rng, 2 * h, 2 * w, cell)
+                        for cell, weight in ((64, 0.4), (16, 0.3), (4, 0.2),
+                                             (1, 0.1)))).astype(np.uint8)
+    things = os.path.join(root, "FlyingThings3D")
+    for split, n in (("TRAIN", n_train), ("TEST", n_test)):
+        for i in range(n):
+            left, right, disp = kitti_pair(rng, canvas, SF_HW)
+            seq = os.path.join(split, "A", f"{i:04d}")
+            passes = (("frames_cleanpass", "frames_finalpass")
+                      if split == "TRAIN" else ("frames_finalpass",))
+            for side, img in (("left", left), ("right", right)):
+                first = None
+                for dstype in passes:
+                    d = os.path.join(things, dstype, seq, side)
+                    os.makedirs(d)
+                    path = os.path.join(d, "0006.png")
+                    if first is None:
+                        Image.fromarray(img).save(path, compress_level=1)
+                        first = path
+                    else:
+                        os.link(first, path)
+            d = os.path.join(things, "disparity", seq, "left")
+            os.makedirs(d)
+            write_pfm(os.path.join(d, "0006.pfm"), disp)
+
+
+def batch_sha(batch) -> str:
+    """SHA-256 over a host batch's arrays, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(batch[k]).tobytes())
+    return h.hexdigest()
 
 
 def zero_inference_counts() -> None:
@@ -1469,30 +1562,28 @@ def main() -> int:
     def drive_training(model_cfg, what):
         """``train()`` on the card: a warm-up step, then TIMED_STEPS steps
         with the launch counts zeroed before them; seconds per step from
-        a synchronised host clock at every batch the loop takes."""
+        a synchronised host clock at the end of every step (``on_step``:
+        the loop's prefetcher pulls batches ahead of the step)."""
         train_cfg = dataclasses.replace(
             TrainConfig(), batch_size=TRAIN_B, image_size=TRAIN_HW,
             train_iters=TRAIN_ITERS)
         src = SyntheticStereoLoader(train_cfg.batch_size,
                                     train_cfg.image_size, seed=SEED)
         batches = [src.batch(i) for i in range(1 + TIMED_STEPS)]
-        marks = []
-
-        def loader():
-            for i, b in enumerate(batches):
-                torch.cuda.synchronize()
-                marks.append(time.perf_counter())
-                if i == 1:
-                    zero_counts()
-                    torch.cuda.reset_peak_memory_stats()
-                yield b
-
+        marks = [time.perf_counter()]
         seen = []
-        state = train(model_cfg, train_cfg, loader(), device=dev,
-                      on_step=lambda s, m: seen.append(
-                          {k_: float(v) for k_, v in m.items()}))
+
+        def on_step(step, metrics):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            seen.append({k_: float(v) for k_, v in metrics.items()})
+            if step == 1:
+                zero_counts()
+                torch.cuda.reset_peak_memory_stats()
+
+        state = train(model_cfg, train_cfg, loader=batches, device=dev,
+                      checkpoint_dir=None, log_dir=None, on_step=on_step)
         torch.cuda.synchronize()
-        marks.append(time.perf_counter())
         launched = counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         steps = [marks[i + 1] - marks[i] for i in range(1, 1 + TIMED_STEPS)]
@@ -2061,6 +2152,383 @@ def main() -> int:
         f"{'ok' if ok else 'FAILED'}")
     if not ok:
         raise AssertionError("the evaluate path failed its checks")
+
+    # ------------------------------------------------------- phases 24, 25
+    import signal
+
+    from raft_stereo_tpu_torch.cli import train as train_cli
+    from raft_stereo_tpu_torch.data.datasets import build_training_mixture
+    from raft_stereo_tpu_torch.data.device_jitter import (apply_photometric,
+                                                          draw_factors,
+                                                          params_for_datasets)
+    from raft_stereo_tpu_torch.data.frame_utils import read_image
+    from raft_stereo_tpu_torch.data.loader import StereoLoader
+    from raft_stereo_tpu_torch.eval import validate as validate_mod
+    from raft_stereo_tpu_torch.io.jax_weights import load_checkpoint
+    from raft_stereo_tpu_torch.training import checkpoint as ckpt
+    from raft_stereo_tpu_torch.training import train_loop as loop_mod
+    from raft_stereo_tpu_torch.training.anomaly import TrainingDiverged
+
+    def step_counts(snaps, extra):
+        """Per-step launch counts from the counts at each step's end,
+        less ``extra[i]`` (launches between steps i and i+1)."""
+        out, prev = [], {k_: 0 for k_ in counts()}
+        for i, snap in enumerate(snaps):
+            out.append({k_: snap[k_] - prev[k_] - extra.get(i, {}).get(k_, 0)
+                        for k_ in snap})
+            prev = snap
+        return out
+
+    tree = os.path.join(HERE, "_smoke_data")
+    shutil.rmtree(tree, ignore_errors=True)
+    real_train = loop_mod.train
+    real_make_val = validate_mod.make_validation_fn
+    real_runner = validate_mod.InferenceRunner
+    real_make_step = loop_mod.make_train_step
+    try:
+        t0 = time.perf_counter()
+        write_sceneflow_tree(tree, SF_TRAIN_PAIRS, SF_TEST_PAIRS, SEED)
+        log(f"training entry point: a SceneFlow-shaped tree of "
+            f"{SF_TRAIN_PAIRS} TRAIN pairs (clean and final pass) and "
+            f"{SF_TEST_PAIRS} TEST pairs at {SF_HW[0]}x{SF_HW[1]}, written "
+            f"in {time.perf_counter() - t0:.1f} s")
+
+        # ---------------------------------------------------- phase 24
+        snaps, marks, seen, val_runs, runners = [], [], [], [], []
+
+        def on_step(step, metrics):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            snaps.append(counts())
+            seen.append({k_: float(v) for k_, v in metrics.items()})
+
+        def counted_train(*a, **kw):
+            return real_train(*a, on_step=on_step, **kw)
+
+        def counted_validation(*a, **kw):
+            fn = real_make_val(*a, **kw)
+
+            def run(sd, cfg_=None):
+                before, t = counts(), time.perf_counter()
+                out = fn(sd, cfg_)
+                val_runs.append((time.perf_counter() - t,
+                                 {k_: v - before[k_]
+                                  for k_, v in counts().items()}, out))
+                return out
+            return run
+
+        class CountedRunner(real_runner):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                runners.append(self)
+
+        loop_mod.train = counted_train
+        validate_mod.make_validation_fn = counted_validation
+        validate_mod.InferenceRunner = CountedRunner
+        ck_dir = os.path.join(tree, "checkpoints")
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        marks.append(time.perf_counter())
+        cli_state = train_cli.main(
+            ["--data_root", tree, "--checkpoint_dir", ck_dir, "--log_dir",
+             os.path.join(tree, "runs"), "--batch_size", str(TRAIN_B),
+             "--image_size", str(TRAIN_HW[0]), str(TRAIN_HW[1]),
+             "--train_iters", str(TRAIN_ITERS), "--num_steps",
+             str(CLI_STEPS), "--validation_frequency", str(CLI_VAL_EVERY),
+             "--validate_datasets", "things", "--validate_max_images",
+             str(SF_TEST_PAIRS), "--checkpoint_keep", "1"])
+        torch.cuda.synchronize()
+        cli_total = time.perf_counter() - marks[0]
+        cli_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        loop_mod.train = real_train
+        validate_mod.make_validation_fn = real_make_val
+        validate_mod.InferenceRunner = real_runner
+
+        per_step = step_counts(snaps, {
+            k_ * CLI_VAL_EVERY: val_runs[k_ - 1][1]
+            for k_ in range(1, len(val_runs) + 1)})
+        want_step = {"lookup": TRAIN_ITERS, "lookup_bwd": TRAIN_ITERS,
+                     "gates": 6 * TRAIN_ITERS, "alt": 0, "alt_bwd": 0}
+        intervals = [marks[i + 1] - marks[i] for i in range(1, len(marks) - 1)]
+        # the interval of the step after a validation boundary also holds
+        # the save and the validation
+        clean = [t for i, t in enumerate(intervals, start=2)
+                 if (i - 1) % CLI_VAL_EVERY]
+        start_w = create_train_state(RaftStereoConfig(), TrainConfig(), "cpu",
+                                     seed=TrainConfig().seed
+                                     ).model.state_dict()
+        cli_moved = max(float((p.detach().cpu() - start_w[n]).abs().max())
+                        for n, p in cli_state.model.named_parameters())
+        left_ck = sorted(e for e in os.listdir(ck_dir)
+                         if os.path.isdir(os.path.join(ck_dir, e)))
+        manifests = {e: ckpt.verify_manifest(os.path.join(ck_dir, e))
+                     for e in left_ck}
+        goods = [e for e in left_ck if ckpt.is_good(os.path.join(ck_dir, e))]
+        fcfg, fweights = load_checkpoint(os.path.join(ck_dir, "raft-stereo"))
+        test_dir = os.path.join(tree, "FlyingThings3D", "frames_finalpass",
+                                "TEST", "A", "0000")
+        flow_f, _ = InferenceRunner(fcfg, fweights, iters=MAIN_ITERS,
+                                    device="cuda")(
+            read_image(os.path.join(test_dir, "left", "0006.png")),
+            read_image(os.path.join(test_dir, "right", "0006.png")))
+        val_s = [v[0] for v in val_runs]
+        val_epe = [v[2].get("things-epe", float("nan")) for v in val_runs]
+        ok = (len(per_step) == CLI_STEPS
+              and all(c == want_step for c in per_step)
+              and all(math.isfinite(m["loss"]) for m in seen)
+              and cli_moved > 0
+              and len(val_runs) == 2 and len(runners) == 1
+              and all(math.isfinite(e) for e in val_epe)
+              and left_ck == [f"{CLI_STEPS}_raft-stereo", "raft-stereo"]
+              and all(v == (True, "ok") for v in manifests.values())
+              and not goods and flow_f.shape == SF_HW
+              and bool(np.isfinite(flow_f).all()))
+        log(f"training CLI (cli/train.py main, default config fp32, batch "
+            f"{TRAIN_B}, {TRAIN_HW[0]}x{TRAIN_HW[1]}, iters {TRAIN_ITERS}, "
+            f"{CLI_STEPS} steps over the ported StereoLoader, validation "
+            f"every {CLI_VAL_EVERY}): launches per step {per_step}; losses "
+            f"{[round(m['loss'], 4) for m in seen]}; largest parameter move "
+            f"{cli_moved:.3e}; seconds per step past the first "
+            f"{[round(t, 4) for t in intervals]}, median without the "
+            f"boundaries {statistics.median(clean):.4f}; the loop's wait "
+            f"for each step's batch {[round(m['loader_wait_s'], 4) for m in seen]}"
+            f" s; validations {len(val_runs)} on "
+            f"{len(runners)} runner(s), EPE {val_epe}, seconds "
+            f"{[round(t, 3) for t in val_s]}, launches "
+            f"{[v[1] for v in val_runs]}; checkpoints left {left_ck}, "
+            f"manifests {manifests}, GOOD {goods}; the final checkpoint's "
+            f"flow on a TEST pair finite; {cli_total:.1f} s in all, peak "
+            f"memory {cli_peak:.2f} GiB on {card}: "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError("the training CLI failed its checks")
+
+        # ---------------------------------------------------- phase 25
+        rt_cfg = RaftStereoConfig.realtime()
+        rt_tc = dataclasses.replace(
+            TrainConfig(), batch_size=TRAIN_B, image_size=TRAIN_HW,
+            train_iters=TRAIN_ITERS, num_steps=RESUME_STEPS,
+            validation_frequency=3)
+
+        class RecordingLoader(StereoLoader):
+            """The hashes of each iteration's batches, before the flow of
+            the first iteration's ``poison`` steps is set to NaN."""
+
+            def __init__(self, *a, poison=(), **kw):
+                super().__init__(*a, **kw)
+                self.poison = poison
+                self.iters = []
+
+            def __iter__(self):
+                hashes = []
+                self.iters.append(hashes)
+                first, offset = len(self.iters) == 1, self.start_offset
+                for i, b in enumerate(super().__iter__()):
+                    hashes.append(batch_sha(b))
+                    if first and offset + i + 1 in self.poison:
+                        b = dict(b, flow=np.full_like(b["flow"], np.nan))
+                    yield b
+
+        def rt_loader(tc, poison=(), **kw):
+            return RecordingLoader(build_training_mixture(tc, tree),
+                                   batch_size=tc.batch_size, seed=tc.seed,
+                                   poison=poison, **kw)
+
+        def rt_run(tc, ld, ck, restore=None, stop_at=None, losses=None,
+                   step_marks=None, waits=None):
+            def on_step_(step, metrics):
+                if step_marks is not None:
+                    torch.cuda.synchronize()
+                    step_marks.append(time.perf_counter())
+                if waits is not None:
+                    waits.append(metrics["loader_wait_s"])
+                if losses is not None:
+                    losses.append({k_: float(v) for k_, v in
+                                   metrics.items()})
+                if step == stop_at:
+                    signal.raise_signal(signal.SIGTERM)
+            return train(rt_cfg, tc, name="rt", checkpoint_dir=ck,
+                         log_dir=None, loader=ld, device=dev,
+                         restore=restore, on_step=on_step_)
+
+        t0 = time.perf_counter()
+        ld_a, ld_a2, ld_b1, ld_b2 = (rt_loader(rt_tc) for _ in range(4))
+        # the uninterrupted run over the loader's thread workers (its
+        # default), and again over its spawned process workers
+        rt_marks, rt_waits, rt_pmarks, rt_pwaits = [], [], [], []
+        st_a = rt_run(rt_tc, ld_a, os.path.join(tree, "ck_a"),
+                      step_marks=rt_marks, waits=rt_waits)
+        ld_p = rt_loader(rt_tc, worker_type="process")
+        rt_run(rt_tc, ld_p, os.path.join(tree, "ck_p"),
+               step_marks=rt_pmarks, waits=rt_pwaits)
+        # and over the same batches decoded before the run, so that no
+        # decode worker runs beside the steps
+        it = iter(rt_loader(rt_tc))
+        decoded = [next(it) for _ in range(RESUME_STEPS)]
+        it.close()
+        rt_dmarks = []
+        rt_run(rt_tc, decoded, os.path.join(tree, "ck_d"),
+               step_marks=rt_dmarks)
+
+        def past_first(marks_):
+            # the step after the step-3 boundary also holds its save
+            return [marks_[i] - marks_[i - 1]
+                    for i in range(1, len(marks_)) if i != 3]
+        rt_steps, rt_psteps, rt_dsteps = (past_first(rt_marks),
+                                          past_first(rt_pmarks),
+                                          past_first(rt_dmarks))
+        st_b = rt_run(rt_tc, ld_b1, os.path.join(tree, "ck_b"), stop_at=3)
+        stopped_at = st_b.step
+        st_b = rt_run(rt_tc, ld_b2, os.path.join(tree, "ck_b"),
+                      restore="latest")
+        st_a2 = rt_run(rt_tc, ld_a2, os.path.join(tree, "ck_a2"))
+        resume_s = time.perf_counter() - t0
+        consumed_a = ld_a.iters[0][:RESUME_STEPS]
+        consumed_b = ld_b1.iters[0][:stopped_at] + ld_b2.iters[0][
+            :RESUME_STEPS - stopped_at]
+        pa = dict(st_a.model.named_parameters())
+        diff = max(float((p - pa[n]).abs().max())
+                   for n, p in st_b.model.named_parameters())
+        spread = max(float((p - pa[n]).abs().max())
+                     for n, p in st_a2.model.named_parameters())
+        bitwise = diff == 0.0
+        ok = (stopped_at == 3 and st_b.step == st_a.step == RESUME_STEPS
+              and consumed_a == consumed_b
+              and ld_p.iters[0][:RESUME_STEPS] == consumed_a
+              and (bitwise or diff <= RESUME_SPREAD_FACTOR * spread))
+        log(f"resume (realtime bf16, {RESUME_STEPS} steps; SIGTERM at step "
+            f"3, stopped at {stopped_at}, restore='latest'): the batch "
+            f"hashes of both runs' loops equal: {consumed_a == consumed_b}; "
+            f"final parameters "
+            f"{'bit-equal' if bitwise else 'not bit-equal'}: max |diff| "
+            f"{diff:.3e} against {RESUME_SPREAD_FACTOR} x the card's own "
+            f"spread between two uninterrupted runs ({spread:.3e}); "
+            f"{resume_s:.1f} s for the six runs; the uninterrupted run "
+            f"over the ported StereoLoader's 4 thread workers: seconds per "
+            f"step past the first {[round(t, 4) for t in rt_steps]} (median "
+            f"{statistics.median(rt_steps):.4f}, the boundary step left "
+            f"out), the loop's wait for each step's batch "
+            f"{[round(w, 4) for w in rt_waits]} s; over 4 process workers "
+            f"(batch hashes equal: "
+            f"{ld_p.iters[0][:RESUME_STEPS] == consumed_a}): seconds per "
+            f"step {[round(t, 4) for t in rt_psteps]} (median "
+            f"{statistics.median(rt_psteps):.4f}), waits "
+            f"{[round(w, 4) for w in rt_pwaits]} s; over the same batches "
+            f"decoded before the run: seconds per step "
+            f"{[round(t, 4) for t in rt_dsteps]} (median "
+            f"{statistics.median(rt_dsteps):.4f}) on {card}: "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError("the resume check failed")
+
+        snapshots = {}
+
+        def recording_make_step(tc, anomaly=None):
+            fn = real_make_step(tc, anomaly=anomaly)
+
+            def step_(state, batch, ewma):
+                state, metrics, ewma = fn(state, batch, ewma)
+                if state.step not in snapshots:
+                    opt_state = state.optimizer.state
+                    snapshots[state.step] = (
+                        [p.detach().clone() for p in state.model.parameters()]
+                        + [t.clone() for p in state.model.parameters()
+                           for t in (opt_state[p]["exp_avg"],
+                                     opt_state[p]["exp_avg_sq"],
+                                     opt_state[p]["step"])]
+                        + [state.count.clone(), ewma.clone()])
+                return state, metrics, ewma
+            return step_
+
+        an_tc = dataclasses.replace(
+            rt_tc, num_steps=ANOMALY_STEPS, validation_frequency=2,
+            anomaly_policy=True, anomaly_rewind_after=3)
+        ld_an = rt_loader(an_tc, poison=ANOMALY_POISON)
+        an_seen = []
+        loop_mod.make_train_step = recording_make_step
+        try:
+            t0 = time.perf_counter()
+            st_an = rt_run(an_tc, ld_an, os.path.join(tree, "ck_an"),
+                           losses=an_seen)
+            an_s = time.perf_counter() - t0
+        finally:
+            loop_mod.make_train_step = real_make_step
+        base = snapshots[3]
+        kept = {s_: all(torch.equal(a_, b_) for a_, b_ in
+                        zip(snapshots[s_], base)) for s_ in ANOMALY_POISON}
+        skipped = [int(m["skipped"]) for m in an_seen]
+        history = ckpt.load_runtime_state(
+            os.path.join(tree, "ck_an", "rt"))["anomaly"]
+        rewinds = [r for r in history["recent"] if r["kind"] == "rewind"]
+        target = os.path.join(tree, "ck_an", "4_rt")
+        after_rewind = ld_an.iters[1][0] if len(ld_an.iters) > 1 else None
+        ok = (all(kept.values())
+              and skipped == [0, 0, 0, 1, 1, 1] + [0] * (ANOMALY_STEPS - 4)
+              and history["rewinds"] == 1 and len(rewinds) == 1
+              and rewinds[0]["step"] == 6 and rewinds[0]["to_step"] == 4
+              and rewinds[0]["checkpoint"] == target and ckpt.is_good(target)
+              and after_rewind is not None
+              and after_rewind != ld_a.iters[0][4]
+              and st_an.step == ANOMALY_STEPS
+              and all(bool(torch.isfinite(p).all())
+                      for p in st_an.model.parameters()))
+        diverged = None
+        try:
+            rt_run(dataclasses.replace(an_tc, anomaly_max_rewinds=0),
+                   rt_loader(an_tc, poison=ANOMALY_POISON),
+                   os.path.join(tree, "ck_div"))
+        except TrainingDiverged as e:
+            diverged = e
+        ok = ok and diverged is not None and diverged.step == 6
+        log(f"anomaly policy (realtime, {ANOMALY_STEPS} steps, NaN flow in "
+            f"the batches of steps {ANOMALY_POISON}): skipped flags "
+            f"{skipped}; every leaf after steps 4-6 bit-equal to step 3's: "
+            f"{kept}; rewinds {rewinds} (to the GOOD-stamped "
+            f"{os.path.basename(target)}: {ckpt.is_good(target)}); the "
+            f"first batch after the rewind differs from the uninterrupted "
+            f"order's: {after_rewind != ld_a.iters[0][4]}; finished at step "
+            f"{st_an.step} in {an_s:.1f} s; with max_rewinds 0: "
+            f"{diverged!r} on {card}: {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError("the anomaly policy failed its checks")
+
+        jp = params_for_datasets(("sceneflow",))
+        jbatch = next(iter(StereoLoader(build_training_mixture(rt_tc, tree),
+                                        batch_size=TRAIN_B, num_workers=0,
+                                        seed=SEED)))
+        f_card = draw_factors(SEED, torch.full((), 5, device=dev), TRAIN_B,
+                              jp)
+        f_cpu = draw_factors(SEED, torch.tensor(5), TRAIN_B, jp)
+        same_draws = all(torch.equal(f_card[k_].cpu(), f_cpu[k_])
+                         for k_ in f_cpu)
+        j_card = apply_photometric(
+            torch.from_numpy(jbatch["image1"]).to(dev),
+            torch.from_numpy(jbatch["image2"]).to(dev), f_card)
+        j_cpu = apply_photometric(torch.from_numpy(jbatch["image1"]),
+                                  torch.from_numpy(jbatch["image2"]), f_cpu)
+        jitter_err = max(float((a_.cpu() - b_).abs().max())
+                         for a_, b_ in zip(j_card, j_cpu))
+        j_tc = dataclasses.replace(rt_tc, num_steps=2,
+                                   device_photometric=True)
+        j_seen = []
+        rt_run(j_tc, rt_loader(j_tc), None, losses=j_seen)
+        ok = (same_draws and jitter_err <= JITTER_ATOL and len(j_seen) == 2
+              and all(math.isfinite(m["loss"]) for m in j_seen))
+        log(f"device jitter: the card's factor draws equal the CPU's: "
+            f"{same_draws}; apply_photometric on a batch of {TRAIN_B} at "
+            f"{TRAIN_HW[0]}x{TRAIN_HW[1]}, card vs CPU max |diff| "
+            f"{jitter_err:.3e} (tolerance {JITTER_ATOL:.4f}); two "
+            f"device_photometric steps, losses "
+            f"{[round(m['loss'], 4) for m in j_seen]}: "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError("the device jitter failed its checks")
+    finally:
+        loop_mod.train = real_train
+        validate_mod.make_validation_fn = real_make_val
+        validate_mod.InferenceRunner = real_runner
+        loop_mod.make_train_step = real_make_step
+        shutil.rmtree(tree, ignore_errors=True)
 
     def row(name_, source, replaces, launched, err, t, design=None):
         """One entry of the kernels line; ``t`` holds graph-replay times."""

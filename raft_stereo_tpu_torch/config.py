@@ -210,11 +210,11 @@ class TrainConfig:
     """Training hyper-parameters, field for field the JAX package's
     ``TrainConfig`` (reference: train_stereo.py:221-247).
 
-    The port's training loop (training/train_loop.py) reads the optimizer,
-    loss, step-count and checkpoint fields; the augmentation and dataset
-    fields belong to the data layer (ROADMAP.md §D4) and are carried for
-    ``train_config.json`` round trips.  Options whose machinery is not
-    ported raise ``NotImplementedError`` at construction."""
+    The port's training loop (training/train_loop.py) reads every field;
+    the augmentation and dataset fields build the loader's mixture
+    (data/datasets.py ``build_training_mixture``).  Options whose
+    machinery is not ported (data parallelism, span tracing) raise
+    ``NotImplementedError`` at construction."""
 
     batch_size: int = 8
     train_iters: int = 22
@@ -272,15 +272,9 @@ class TrainConfig:
 def _unsupported_training(cfg: TrainConfig):
     """(field, ROADMAP item) for every set training option not ported."""
     checks = (
-        ("device_photometric", "§D2 training (device jitter)",
-         cfg.device_photometric),
-        ("anomaly_policy", "§D2 training (anomaly gate and rewind)",
-         cfg.anomaly_policy),
         ("data_parallel > 1", "§D7 parallel executors",
          cfg.data_parallel > 1),
-        ("trace_sample_rate > 0", "§D2 training (telemetry)",
+        ("trace_sample_rate > 0", "§D9 telemetry",
          cfg.trace_sample_rate > 0),
-        ("checkpoint_keep > 0", "§D2 training (checkpoint manifest, latest "
-         "and pruning)", cfg.checkpoint_keep > 0),
     )
     return [(field, item) for field, item, on in checks if on]

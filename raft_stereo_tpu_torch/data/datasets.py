@@ -359,8 +359,8 @@ def build_training_mixture(train_cfg, data_root: str = "datasets"
         "max_scale": train_cfg.spatial_scale[1],
         "do_flip": train_cfg.do_flip,
         "yjitter": not train_cfg.noyjitter,
-        # device_photometric (not ported: TrainConfig raises) would move
-        # the jitter onto the device; the host augmentor then skips it
+        # device_photometric moves the jitter into the training step
+        # (data/device_jitter.py); the host augmentor then skips it
         "photometric": not train_cfg.device_photometric,
     }
     if train_cfg.saturation_range is not None:

@@ -6,12 +6,14 @@ left image is uniform uint8 noise, the right image is the left shifted
 the border), the flow is ``-shift`` in fp16, and ``valid`` (uint8) is 1
 except in the ``shift`` leftmost columns, whose match lies outside the
 right image.  Batch ``i`` depends only on ``(seed, i)``, so a loader
-fast-forwarded with ``set_state`` yields what an uninterrupted one would.
+positioned with ``set_state`` yields what an uninterrupted one would; its
+``state``/``set_state`` speak the offset of ``data/loader.StereoLoader``
+(no reshuffle salts: the order is fixed).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -27,9 +29,14 @@ class SyntheticStereoLoader:
         self.num_batches = num_batches
         self.start = 0
 
-    def set_state(self, state: Dict[str, int]) -> None:
-        """Start the next iteration at batch ``state["batches"]``."""
-        self.start = int(state["batches"])
+    def state(self, consumed: int = 0) -> Dict[str, Any]:
+        """The position after ``consumed`` batches of the current
+        iterator."""
+        return {"offset": self.start + consumed, "salts": []}
+
+    def set_state(self, state: Dict[str, Any]) -> None:
+        """Start the next iteration at batch ``state["offset"]``."""
+        self.start = int(state.get("offset", 0))
 
     def batch(self, i: int) -> Dict[str, np.ndarray]:
         h, w = self.image_size

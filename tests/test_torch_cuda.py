@@ -1043,3 +1043,187 @@ def test_graph_fetch_dtype_rounds_on_the_card(rng, cuda_device, fetch):
     assert half.dtype == np.float32
     np.testing.assert_array_equal(
         half, torch.from_numpy(full).to(dtype).float().numpy())
+
+
+# ------------------------------------------------ the training entry point
+def test_prefetcher_uploads_equal_the_host_batches(cuda_device):
+    """20 batches through ``_Upload`` (pinned memory, side stream) and the
+    prefetcher, each read by a kernel on the compute stream after ``take``
+    while other allocations churn the caching allocator: every uploaded
+    tensor equals its host batch (the compact dtypes included)."""
+    from raft_stereo_tpu_torch.training.train_loop import (_DevicePrefetcher,
+                                                           _Upload, compact)
+    src = SyntheticStereoLoader(4, (96, 160), seed=3)
+    hosts = []
+
+    def batches():
+        for i in range(20):
+            b = src.batch(i)
+            b["flow"] = b["flow"].astype(np.float32) + 0.25 * i
+            b["valid"] = b["valid"].astype(np.float32)
+            hosts.append(compact(b))
+            yield b
+
+    up = _Upload(cuda_device, compact_upload=True)
+    pf = _DevicePrefetcher(batches(), up.put)
+    seen = 0
+    for item in pf:
+        got = up.take(item)
+        # pressure: allocate and free blocks of the batch's sizes on the
+        # compute stream while the upload's tensors are live
+        junk = [torch.empty_like(t).fill_(7) for t in got.values()
+                for _ in range(3)]
+        sums = {k: t.double().sum() for k, t in got.items()}
+        del junk
+        want = hosts[seen]
+        for k, t in got.items():
+            assert t.device.type == cuda_device.type, k
+            assert t.dtype == torch.as_tensor(want[k]).dtype, k
+            assert torch.equal(t.cpu(), torch.from_numpy(want[k])), k
+            assert float(sums[k]) == float(want[k].astype(np.float64).sum())
+        seen += 1
+    pf.close()
+    assert seen == 20 and pf.wait_s >= 0
+
+
+def test_anomaly_step_on_card_keeps_every_leaf(cuda_device):
+    """A NaN batch through the anomaly step on the card: the parameters,
+    the AdamW moments and steps, the count and the EWMA keep their bits;
+    a clean step then advances the count."""
+    from raft_stereo_tpu_torch.training.anomaly import AnomalyPolicy
+    from raft_stereo_tpu_torch.training.step import make_train_step
+    cfg = RaftStereoConfig(**TINY)
+    tc = TrainConfig(batch_size=2, train_iters=2, image_size=(64, 96),
+                     num_steps=1000, anomaly_policy=True)
+    state = create_train_state(cfg, tc, cuda_device, seed=0, anomaly=True)
+    step = make_train_step(tc, anomaly=AnomalyPolicy.from_train_config(tc))
+    ok = SyntheticStereoLoader(2, (64, 96), seed=2).batch(0)
+    nan = dict(ok, flow=np.full_like(ok["flow"], np.nan))
+    ewma = torch.zeros((), device=cuda_device)
+    state, m, ewma = step(state, ok, ewma)
+    assert float(m["skipped"]) == 0 and int(state.count) == 1
+
+    def leaves():
+        opt = state.optimizer.state
+        return ([p.detach().clone() for p in state.model.parameters()]
+                + [opt[p][k].clone() for p in state.model.parameters()
+                   for k in ("exp_avg", "exp_avg_sq", "step")]
+                + [state.count.clone(), ewma.clone()])
+
+    before = leaves()
+    state, m, ewma = step(state, nan, ewma)
+    assert float(m["skipped"]) == float(m["skip_nonfinite"]) == 1.0
+    after = leaves()
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    state, m, ewma = step(state, ok, ewma)
+    assert float(m["skipped"]) == 0 and int(state.count) == 2
+    assert state.step == 3
+
+
+def test_gated_adamw_on_card_matches_float64_without_a_host_sync(
+        cuda_device):
+    """The anomaly policy's update on the card (torch AdamW,
+    ``capturable``, the LR a device tensor) over 5 steps with a skip fed
+    NaN gradients, against the same AdamW in float64
+    (``torch_train_support.adamw_f64``): every parameter within 4 fp32
+    ulps of its leaf's largest |p| plus what the fp32 bias corrections
+    can move it (the capturable path computes ``1 - beta^t`` in fp32 on
+    the card, as optax does; the CPU path in float64 on the host); the
+    counts and AdamW's ``step`` equal the applied updates; and no step
+    synchronises with the host (``torch.cuda.set_sync_debug_mode``
+    "error")."""
+    import types
+    from raft_stereo_tpu_torch.training.optimizer import (
+        clip_by_global_norm_, make_optimizer)
+    from raft_stereo_tpu_torch.training.step import _gated_adamw_
+    from torch_train_support import adamw_f64
+    gen = np.random.default_rng(5)
+    cfg = TrainConfig(num_steps=300, lr=0.1, wdecay=0.5)
+    shapes = {"w": (64, 3, 3, 3), "b": (64,), "x": (7, 5)}
+    params = {k: gen.normal(size=s).astype(np.float32)
+              for k, s in shapes.items()}
+    grads = [{k: (gen.normal(size=s) * scale).astype(np.float32)
+              for k, s in shapes.items()} for scale in (0.05, 1, 2, 0.3, 0.1)]
+    skips = (1,)
+    ps = {k: torch.nn.Parameter(torch.from_numpy(v.copy()).to(cuda_device))
+          for k, v in params.items()}
+    opt, _ = make_optimizer(ps.values(), cfg, anomaly=True)
+    state = types.SimpleNamespace(
+        train_cfg=cfg, optimizer=opt,
+        count=torch.zeros((), dtype=torch.int64, device=cuda_device))
+    flags = [torch.full((), i in skips, device=cuda_device)
+             for i in range(len(grads))]
+    gs = [{k: torch.from_numpy(np.full_like(v, np.nan) if i in skips
+                               else v).to(cuda_device)
+           for k, v in g.items()} for i, g in enumerate(grads)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for flag, step_grads in zip(flags, gs):
+            for k, p in ps.items():
+                p.grad = step_grads[k].clone()
+            clip_by_global_norm_(ps.values(), cfg.clip_grad_norm)
+            _gated_adamw_(state, flag)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    applied = len(grads) - len(skips)
+    assert int(state.count) == applied
+    want, bc_bound = adamw_f64(params, grads, skips, cfg)
+    for k, p in ps.items():
+        assert float(opt.state[p]["step"]) == applied
+        got = p.detach().cpu().numpy()
+        ulp = np.spacing(np.float32(np.abs(want[k]).max()))
+        assert np.all(np.abs(got - want[k]) <= 4 * ulp + bc_bound[k]), k
+
+
+def test_device_jitter_on_card_matches_cpu(rng, cuda_device):
+    from raft_stereo_tpu_torch.data.device_jitter import (
+        JitterParams, apply_photometric, draw_factors)
+    params = JitterParams(asymmetric_prob=0.5, gamma=(0.8, 1.2, 0.9, 1.1))
+    f_card = draw_factors(7, torch.full((), 11, device=cuda_device), 4,
+                          params)
+    f_cpu = draw_factors(7, torch.tensor(11), 4, params)
+    for k in f_cpu:
+        assert torch.equal(f_card[k].cpu(), f_cpu[k]), k
+    a = rng.integers(0, 256, (4, 64, 96, 3), dtype=np.uint8)
+    b = rng.integers(0, 256, (4, 64, 96, 3), dtype=np.uint8)
+    g = apply_photometric(torch.from_numpy(a).to(cuda_device),
+                          torch.from_numpy(b).to(cuda_device), f_card)
+    w = apply_photometric(torch.from_numpy(a), torch.from_numpy(b), f_cpu)
+    for x, y in zip(g, w):
+        torch.testing.assert_close(x.cpu(), y, atol=1e-4 * 255, rtol=0)
+
+
+def test_tiny_train_resume_on_card(cuda_device, tmp_path):
+    """``train()`` on the card: 4 steps against 2 steps, a SIGTERM, and a
+    resume from ``latest``; the loader's batches are the same, and the
+    parameters equal (bit for bit, or within the card's own spread
+    between two uninterrupted runs)."""
+    import os
+    import signal
+
+    from raft_stereo_tpu_torch.training.train_loop import train
+    cfg = RaftStereoConfig(**TINY)
+    tc = TrainConfig(batch_size=2, train_iters=2, image_size=(64, 96),
+                     num_steps=4, validation_frequency=100, seed=3)
+
+    def run(ck, **kw):
+        return train(cfg, tc, name="run", checkpoint_dir=str(tmp_path / ck),
+                     log_dir=None, device=cuda_device,
+                     loader=SyntheticStereoLoader(2, (64, 96), seed=9), **kw)
+
+    full, again = run("a"), run("a2")
+
+    def stop_at_2(step, metrics):
+        if step == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    assert run("b", on_step=stop_at_2).step == 2
+    resumed = run("b", restore="latest")
+    assert resumed.step == 4
+
+    def gap(x, y):
+        return max(float((p.detach() - q.detach()).abs().max())
+                   for p, q in zip(x.model.parameters(),
+                                   y.model.parameters()))
+    assert gap(full, resumed) <= 3 * gap(full, again)

@@ -181,12 +181,22 @@ def test_train_config_fields_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("device_photometric", True), ("anomaly_policy", True),
-    ("data_parallel", 2), ("trace_sample_rate", 0.5),
-    ("checkpoint_keep", 3)])
+    ("data_parallel", 2), ("trace_sample_rate", 0.5)])
 def test_unported_training_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TrainConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("device_photometric", True), ("anomaly_policy", True),
+    ("checkpoint_keep", 3)])
+def test_ported_training_options_round_trip(field, value):
+    """The options the training entry point now runs construct, and
+    round-trip with the JAX package's ``TrainConfig.to_dict()``."""
+    tc = TrainConfig(**{field: value})
+    jtc = JaxTrainConfig(**{field: value})
+    assert tc.to_dict() == jtc.to_dict()
+    assert TrainConfig.from_dict(jtc.to_dict()) == tc
 
 
 @pytest.mark.parametrize("saves", [("gru_gates",),
@@ -387,12 +397,12 @@ def test_train_resume_is_bitwise_and_loads_for_inference(tmp_path):
     def loader(n):
         return SyntheticStereoLoader(1, (32, 64), seed=9, num_batches=n)
 
-    full = train(cfg, tc, loader(3), device="cpu", name="run",
-                 checkpoint_dir=str(tmp_path / "full"))
-    train(cfg, tc, loader(2), device="cpu", name="run",
-          checkpoint_dir=str(tmp_path / "part"))
-    resumed = train(cfg, tc, loader(3), device="cpu", name="run",
-                    checkpoint_dir=str(tmp_path / "resumed"),
+    full = train(cfg, tc, loader=loader(3), device="cpu", name="run",
+                 checkpoint_dir=str(tmp_path / "full"), log_dir=None)
+    train(cfg, tc, loader=loader(2), device="cpu", name="run",
+          checkpoint_dir=str(tmp_path / "part"), log_dir=None)
+    resumed = train(cfg, tc, loader=loader(3), device="cpu", name="run",
+                    checkpoint_dir=str(tmp_path / "resumed"), log_dir=None,
                     restore=str(tmp_path / "part" / "run"))
     assert full.step == resumed.step == 3
     for (n, a), (_, b) in zip(full.model.named_parameters(),
@@ -405,7 +415,8 @@ def test_train_resume_is_bitwise_and_loads_for_inference(tmp_path):
     assert full.scheduler.last_epoch == resumed.scheduler.last_epoch == 3
 
     ckpt = tmp_path / "resumed" / "run"
-    assert sorted(os.listdir(ckpt)) == ["config.json", "train_config.json",
+    assert sorted(os.listdir(ckpt)) == ["COMMIT", "MANIFEST", "config.json",
+                                        "runtime.json", "train_config.json",
                                         "train_state.pt", "weights.pt"]
     cfg2, weights = load_checkpoint(str(ckpt))
     assert cfg2 == cfg
@@ -435,4 +446,4 @@ def test_train_without_device_needs_cuda():
         pytest.skip("checks the host without a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train(RaftStereoConfig(**TINY), TrainConfig(**TRAIN),
-              SyntheticStereoLoader(1, (32, 64), num_batches=1))
+              loader=SyntheticStereoLoader(1, (32, 64), num_batches=1))
