@@ -167,7 +167,40 @@ fails the run when it fails:
    with ``anomaly_max_rewinds 0`` it raises ``TrainingDiverged``); the
    device jitter's draws on the card equal to the CPU's, one batch's
    ``apply_photometric`` card vs CPU within 1e-4 of 255, two
-   ``device_photometric`` steps with finite loss.
+   ``device_photometric`` steps with finite loss;
+26. early exit (``exit_threshold_px``) on the default path (fp32, cap
+   32) and the realtime path (bf16, cap 7) at 375x1242, with the settling
+   GRU (``settle_state``) on the seeded weights: the per-iteration deltas
+   of an eager loop give a threshold between two iterations' deltas (an
+   exit strictly between ``min_iters`` 2 and the cap); the exit graph (one
+   graph, the loop a CUDA WHILE node whose predicate kernel
+   ``exit_predicate`` of ``csrc/graph_loop.cu`` runs on the card): the
+   replay bitwise equal to the eager exit loop and to a second replay,
+   ``iters_used`` equal, the launches per iteration (one lookup or alt
+   call, 3 gate calls, one predicate) and none outside the loop, per pair
+   ``iters_used`` times those and equal to the eager loop's counts;
+   seconds per pair of the exit graph and of the fixed-depth replay at the
+   same depth, replayed in turns, and the exit graph's host overhead per
+   iteration; before them the predicate kernel
+   against its plain version (trip counts of WHILE loops over bounds,
+   deltas and NaN) and its time per iteration beside the host loop's;
+27. the confidence map (fixed depth and early exit) card vs CPU at
+   128x256, 2 iterations (flows within phase 6's tolerance, the map
+   within the bound that gives through exp(-score / 0.25)); ``run_stream``
+   over three frames (cold, warm, warm with the hidden state) on the exit
+   graphs, the last frame bitwise equal to its eager streaming program;
+   ``cli/evaluate.py --sequence --exit_threshold_px --stream_out`` over a
+   written KITTI-shaped sequence of 8 pairs: finite cold and warm EPE, the
+   passes' mean ``iters_used`` and FPS, the record with the card's name;
+28. the drift gates: ``tools/quant_drift --full`` (the hermetic
+   architecture trained 300 steps at 320x704, calibrated, the five
+   variants at 384x1248, bands 48/96/192, depths 7 and 32) and the bf16
+   drift's trained leg (the realtime architecture at full width trained
+   300 steps, three variants), every row printed with the gate, its
+   verdict and the seconds; fails on a missing variant, a non-finite row,
+   or the quantized variants' gate kernels and int8 GEMMs not launching
+   (the gate's pass or fail is a measurement, not a check); the records
+   go to the tools' default, ``raft_stereo_tpu_torch/_build/records/``.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (times
 by graph replay; a redesigned row names its design under ``design``; an
@@ -297,6 +330,18 @@ ALT_Q_RTOL = {"int8": 1e-6, "fp8": 1e-5}
 # output by the inverse of the scale, ~1e2-1e3.
 SCALED_RTOL = 1e-5
 Q_SPREAD_FACTOR = 3.0
+# Phases 26-28, early exit, state carry and the drift gates.  The exit
+# phases run the settling GRU (``settle_state``) so that the updates
+# shrink and a threshold between two iterations' deltas exits strictly
+# between EXIT_MIN_ITERS and the cap; the confidence map card vs CPU is
+# held to CONF_ATOL, the bound the flows' CARD_VS_CPU_ATOL gives through
+# exp(-score / 0.25) (score = dmag + ewma / 2 moves by 3x the flows' bound,
+# the map by 4x that).  The sequence tree's pairs; the drift gate's budget.
+SETTLE_Z_BIAS = -1.0
+EXIT_MIN_ITERS = 2
+CONF_ATOL = 12 * CARD_VS_CPU_ATOL
+SEQ_PAIRS = 8
+GATE_PX = 0.05
 # Published peaks of the H100 SXM (NVIDIA data sheet, 700 W): memory
 # bytes/s, fp32 FLOP/s on the CUDA cores, and on the tensor cores dense
 # TF32 and bf16 FLOP/s and dense int8/fp8 operations/s.
@@ -431,10 +476,11 @@ def zero_inference_counts() -> None:
     from raft_stereo_tpu_torch.kernels.corr_lookup import (
         lookup_pyramid_fused, lookup_pyramid_fused_q)
     from raft_stereo_tpu_torch.kernels.gru_fused import gru_gates_fused
+    from raft_stereo_tpu_torch.kernels.graph_loop import exit_predicate
     from raft_stereo_tpu_torch.quant.matmul import int8_conv_int32
     for fn in (lookup_pyramid_fused, lookup_pyramid_fused_q,
                alt_lookup_fused, alt_lookup_fused_q, gru_gates_fused,
-               int8_conv_int32):
+               int8_conv_int32, exit_predicate):
         fn.launches = 0
 
 
@@ -477,6 +523,9 @@ def eager_call(runner, left, right):
     with torch.inference_mode():
         flow = forward(*[torch.from_numpy(np.pad(im, spec, mode="edge")[
             None]).to(runner.device) for im in (left, right)])
+        if isinstance(flow, tuple):         # early exit: (flow, iters_used)
+            runner.eager_iters_used = int(flow[1])
+            flow = flow[0]
         out = padder.unpad(flow)[0].float().cpu().numpy()
     return out, time.perf_counter() - t0
 
@@ -794,6 +843,387 @@ def cuobjdump(nvcc: str) -> str:
         if os.path.exists(path):
             return path
     raise RuntimeError(f"no cuobjdump (looked at {found})")
+
+
+def settle_state(state):
+    """A copy of a port state dict with a settling GRU: the candidate
+    state q and the update gate's input weights zeroed, the gate held at
+    sigmoid(SETTLE_Z_BIAS), the flow head's biases zeroed.  Every hidden
+    state then decays by 0.73 an iteration and the disparity updates
+    shrink geometrically, as a trained network's settle (random weights
+    make them grow); the other weights stay random, every kernel runs."""
+    state = {k: v.clone() for k, v in state.items()}
+    for key in list(state):
+        if key.endswith((".convq.weight", ".convq.bias",
+                         "flow_head.conv1.bias", "flow_head.conv2.bias")):
+            state[key].zero_()
+        elif key.endswith((".convzr.weight", ".convzr.bias")):
+            n = state[key].shape[0] // 2
+            state[key][:n] = SETTLE_Z_BIAS if key.endswith("bias") else 0
+        elif key.startswith("context_zqr_conv"):
+            n = state[key].shape[0] // 3
+            state[key][:n] = 0
+            state[key][2 * n:] = 0
+    return state
+
+
+def padded_batch(runner, left, right):
+    """The runner's padded (1, Hp, Wp, 3) inputs on its device."""
+    from raft_stereo_tpu_torch.ops.padding import InputPadder
+
+    pl, pr, pt, pb = InputPadder((1, 3) + left.shape[:2],
+                                 divis_by=runner.divis_by).pads
+    spec = ((pt, pb), (pl, pr), (0, 0))
+    return [torch.from_numpy(np.pad(im, spec, mode="edge")[None]).to(
+        runner.device) for im in (left, right)]
+
+
+def iteration_deltas(runner, left, right, iters: int):
+    """Each iteration's exit quantity (the worst member's mean |delta|),
+    from an eager fixed-depth loop over the runner's model."""
+    model = runner.model
+    out = []
+    with torch.inference_mode():
+        step, net, disp, _ = model.begin(*padded_batch(runner, left, right))
+        for _ in range(iters):
+            net, new, _mask = step(net, disp)
+            out.append(float(model.batch_delta((new - disp).abs())))
+            disp = new
+    return out
+
+
+def exit_threshold(deltas, min_iters: int, cap: int):
+    """``(threshold, iters_used)``: the midpoint of the deltas of the
+    iterations j - 1 and j, j the middle of (min_iters, cap), and the trip
+    count the plain predicate gives with it (strictly between the
+    bounds, or the deltas did not shrink)."""
+    from raft_stereo_tpu_torch.kernels.graph_loop import exit_continues, f32
+
+    j = (min_iters + cap + 1) // 2
+    thr = f32((deltas[j - 2] + deltas[j - 1]) / 2)
+    it, delta = 0, math.inf
+    while exit_continues(it, delta, min_iters, cap, thr):
+        delta, it = deltas[it], it + 1
+    if not min_iters < it < cap:
+        raise AssertionError(f"deltas {deltas} give no exit strictly "
+                             f"between {min_iters} and {cap}")
+    return thr, it
+
+
+def phase_exit(what, cfg, state, cap, left, right, card, rounds: int = 10):
+    """Phase 26 on one path: the exit loop's graph against the eager exit
+    loop, bit for bit with ``iters_used``; launch counts; its seconds per
+    pair beside the fixed-depth replay at the same depth (the two replayed
+    in turns, fixed, while, while, fixed, ``rounds`` times), and its host
+    overhead per iteration."""
+    from raft_stereo_tpu_torch.eval.runner import (InferenceRunner,
+                                                   launch_counts)
+
+    settled = settle_state(state)
+    probe = InferenceRunner(cfg, settled, iters=cap, device="cuda")
+    deltas = iteration_deltas(probe, left, right, cap)
+    del probe
+    thr, used = exit_threshold(deltas, EXIT_MIN_ITERS, cap)
+    corr = "alt" if cfg.corr_backend == "alt" else "lookup"
+    per_iter = {corr: 1, "gates": 3}
+    fixed = InferenceRunner(cfg, settled, iters=used, device="cuda")
+    fixed_flow = fixed(left, right)[0]
+    log(f"exit, {what} path (settled weights, cap {cap}, min_iters "
+        f"{EXIT_MIN_ITERS}): per-iteration deltas "
+        f"{[round(d, 5) for d in deltas]}, threshold {thr:.6g} -> "
+        f"iters_used {used}")
+    out = {"threshold": thr, "iters_used": used, "deltas": deltas}
+    r = InferenceRunner(cfg, settled, iters=cap, device="cuda",
+                        exit_threshold_px=thr, exit_min_iters=EXIT_MIN_ITERS)
+    zero_inference_counts()
+    flow = r(left, right)[0]
+    counts = {k: v for k, v in launch_counts().items() if v}
+    (entry,) = r._compiled.values()
+    got_used = r.last_iters_used
+    again = r(left, right)[0]
+    zero_inference_counts()
+    eager, _ = eager_call(r, left, right)
+    eager_counts = {k: v for k, v in launch_counts().items() if v}
+    body = {k: v for k, v in entry.body_launches.items() if v}
+    outer = {k: v for k, v in entry.launches.items() if v}
+    pair = {k: v for k, v in entry.pair_launches(got_used).items() if v}
+    # the wrappers count the warm-up's eager loop (used iterations) and
+    # the capture's one iteration
+    want_counts = {k: (used + 1) * v for k, v in per_iter.items()}
+    want_counts["exit"] = 1
+    ok = (got_used == used == r.eager_iters_used
+          and np.array_equal(flow, eager) and np.array_equal(flow, again)
+          and body == dict(per_iter, exit=1) and not outer
+          and {k: v for k, v in pair.items() if k != "exit"}
+          == {k: used * v for k, v in per_iter.items()} == eager_counts
+          and counts == want_counts)
+    log(f"exit, {what}, WHILE graph: iters_used {got_used} (eager "
+        f"{r.eager_iters_used}); replay bitwise equal to the eager exit "
+        f"loop {np.array_equal(flow, eager)} (max |d| "
+        f"{np.abs(flow - eager).max():.3e}), to a second replay "
+        f"{np.array_equal(flow, again)}, to the fixed-depth replay at "
+        f"{used} iterations {np.array_equal(flow, fixed_flow)}; launches "
+        f"per iteration {body}, outside the loop {outer}, per pair "
+        f"{pair}, eager per pair {eager_counts}; the wrappers' counts "
+        f"over the first call {counts}; capture "
+        f"{1e3 * entry.capture_s:.1f} ms: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"exit {what}: checks failed")
+    runners = {"fixed": fixed, "while": r}
+    secs = {k: [] for k in runners}
+    for _ in range(rounds):
+        for k in ("fixed", "while", "while", "fixed"):
+            secs[k].append(runners[k](left, right)[1])
+    fixed_s = statistics.median(secs["fixed"])
+    s_ = statistics.median(secs["while"])
+    out.update(fixed_s=fixed_s, counts=counts, pair=pair, s=s_,
+               secs=secs["while"], overhead_ms=1e3 * (s_ - fixed_s) / used)
+    log(f"exit, {what}: seconds per pair, medians of {2 * rounds} replays "
+        f"in turns: fixed depth at {used} iterations {fixed_s:.5f} (runs "
+        f"{[round(t, 5) for t in secs['fixed']]}); the WHILE graph "
+        f"{s_:.5f} (runs {[round(t, 5) for t in secs['while']]}), host "
+        f"overhead {out['overhead_ms']:.4f} ms per iteration on {card}")
+    return out
+
+
+def predicate_row(card):
+    """The predicate kernel against its plain version (the trip counts of
+    a WHILE node whose body is the kernel alone, over bounds, deltas and
+    NaN), and its times: the kernel by a replay of a loop of LIMIT
+    iterations, the plain version as the host loop's per-iteration cost
+    (an event wait, the delta read, the predicate) over a graph of one
+    tiny kernel, each per iteration."""
+    from raft_stereo_tpu_torch.kernels.graph_loop import (WhileGraph,
+                                                          exit_continues,
+                                                          exit_predicate)
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.Stream()
+    pool = torch.cuda.graph_pool_handle()
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    delta = torch.zeros((), device=dev)
+    err = 0
+    cases = [(d, lo, lim, 0.5) for d in (0.3, 0.5, 0.7, math.nan)
+             for lo, lim in ((1, 5), (3, 5), (2, 2), (1, 64))]
+    loops = []
+    for d, lo, lim, thr in cases:
+        wg = WhileGraph()
+        graphs = [torch.cuda.CUDAGraph(keep_graph=True) for _ in range(3)]
+        with torch.cuda.graph(graphs[0], pool=pool, stream=stream):
+            it.zero_()
+            delta.fill_(d)
+        with torch.cuda.graph(graphs[1], pool=pool, stream=stream):
+            exit_predicate(wg.handle, it, delta, lo, lim, thr)
+        with torch.cuda.graph(graphs[2], pool=pool, stream=stream):
+            it.add_(0)
+        wg.build(*graphs)
+        wg.launch(torch.cuda.current_stream())
+        got = int(it)
+        n, dd = 0, math.inf
+        while exit_continues(n, dd, lo, lim, thr):
+            n, dd = n + 1, d
+        err = max(err, abs(got - n))
+        loops.append((wg, graphs, lim, d))
+    wg = next(w for w, _, l_, d_ in loops if l_ == 64 and d_ == 0.7)
+    for _ in range(3):
+        wg.launch(torch.cuda.current_stream())
+    torch.cuda.synchronize()
+    reps = 50
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        wg.launch(torch.cuda.current_stream())
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps / 64
+    host = torch.empty((), pin_memory=True)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, pool=pool, stream=stream):
+        it.add_(1)
+        host.copy_(delta, non_blocking=True)
+    ev = torch.cuda.Event()
+    for _ in range(10):
+        g.replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for _ in range(reps):
+        k, dd = 0, math.inf
+        while exit_continues(k, dd, 1, 64, 0.5):
+            g.replay()
+            ev.record()
+            ev.synchronize()
+            k, dd = k + 1, float(host)
+            n += 1
+    plain_ms = 1e3 * (time.perf_counter() - t0) / n
+    for w, *_ in loops:
+        w.close()
+    bound_ms = 1e3 * 12 / MEM_RATE             # 8 bytes read, 4 written
+    log(f"exit predicate kernel vs plain over {len(cases)} cases (delta "
+        f"0.3/0.5/0.7/NaN, bounds (1,5) (3,5) (2,2) (1,64), threshold "
+        f"0.5): max |trip count error| {err}; the kernel "
+        f"{1e3 * ms:.3f} us per iteration in a WHILE loop of 64 (replays "
+        f"of the loop), the plain host loop {1e3 * plain_ms:.3f} us per "
+        f"iteration on {card}")
+    if err:
+        raise AssertionError("the predicate kernel disagrees with its "
+                             "plain version")
+    return {"ms": ms, "plain": plain_ms, "bound": bound_ms, "by": "bytes",
+            "lib": None, "err": float(err)}
+
+
+def phase_stream(cfg, state, thr, cap, left, right, small, small_r, card):
+    """Phase 27: confidence card vs CPU; ``run_stream`` over three frames
+    (cold, warm, warm with the hidden state) on the exit graphs against
+    the eager streaming closure, bit for bit; ``cli/evaluate.py
+    --sequence --exit_threshold_px --stream_out`` over a written
+    KITTI-shaped sequence."""
+    from raft_stereo_tpu_torch.cli import evaluate
+    from raft_stereo_tpu_torch.eval.runner import (InferenceRunner,
+                                                   launch_counts,
+                                                   make_forward)
+    from raft_stereo_tpu_torch.io.jax_weights import save_checkpoint
+
+    settled = settle_state(state)
+    worst = {}
+    for adaptive in (False, True):
+        conf_cfg = (dataclasses.replace(cfg, exit_threshold_px=thr,
+                                        exit_min_iters=1) if adaptive
+                    else cfg)
+        outs = []
+        for device in ("cuda", "cpu"):
+            r = InferenceRunner(conf_cfg, settled, iters=2, device=device)
+            fwd = make_forward(r.model, 2, return_confidence=True)
+            with torch.inference_mode():
+                o = fwd(*padded_batch(r, small, small_r))
+            flat = [o[0]] + ([o[1]] if adaptive else []) + list(o[-1])
+            outs.append([t.float().cpu() for t in flat])
+        (card_o, cpu_o) = outs
+        worst[adaptive] = (float((card_o[0] - cpu_o[0]).abs().max()),
+                           max(float((a - b).abs().max())
+                               for a, b in zip(card_o[-2:], cpu_o[-2:])))
+        if adaptive and int(card_o[1]) != int(cpu_o[1]):
+            raise AssertionError("confidence: iters_used card vs CPU")
+    ok = all(f <= CARD_VS_CPU_ATOL and c <= CONF_ATOL
+             for f, c in worst.values())
+    log(f"confidence card vs CPU, 128x256, iters 2 (fixed depth, then "
+        f"early exit at threshold {thr:.6g}): max |dflow| / max |dconf| "
+        f"{worst} (limits {CARD_VS_CPU_ATOL}, {CONF_ATOL}): "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("confidence card and CPU disagree")
+
+    r = InferenceRunner(cfg, settled, iters=cap, device="cuda",
+                        exit_threshold_px=thr, exit_min_iters=EXIT_MIN_ITERS)
+    frames, prev, hidden = [], None, None
+    rs = np.random.default_rng(SEED + 1)
+    for i in range(3):
+        shifted = np.roll(left, -i, axis=1)
+        f = r.run_stream(shifted, np.roll(right, -i, axis=1),
+                         prev_flow_low=prev, prev_hidden=hidden,
+                         carry_hidden=i >= 1)
+        frames.append(f)
+        prev, hidden = f.flow_low, (f.hidden if i >= 1 else None)
+    # the third frame's program eagerly: warm start and hidden state in
+    fwd = make_forward(r.model, cap, warm_start=True, return_state=True,
+                       hidden_init=True, return_hidden=True)
+    with torch.inference_mode():
+        imgs = padded_batch(r, np.roll(left, -2, axis=1),
+                            np.roll(right, -2, axis=1))
+        init = torch.from_numpy(frames[1].flow_low[None]).cuda()
+        hid = tuple(torch.from_numpy(h[None]).cuda()
+                    for h in frames[1].hidden)
+        e_up, e_low, e_used, e_hid = fwd(*imgs, init, hid)
+    same = (np.array_equal(e_low[0].cpu().numpy(), frames[2].flow_low)
+            and int(e_used) == frames[2].iters_used
+            and all(np.array_equal(a[0].float().cpu().numpy(),
+                                   b.astype(np.float32))
+                    for a, b in zip(e_hid, frames[2].hidden)))
+    log(f"run_stream on the exit graphs (cap {cap}): frames "
+        f"{[(f.warm, f.iters_used, round(f.seconds, 4)) for f in frames]} "
+        f"(warm, iters_used, seconds); {len(r._stream_compiled)} stream "
+        f"programs; the warm frame with the hidden state equal to its "
+        f"eager program bit for bit (flow_low, iters_used, hidden): {same}")
+    if not same or not all(np.isfinite(f.flow).all() for f in frames):
+        raise AssertionError("run_stream failed its checks")
+
+    tree = os.path.join(HERE, "_smoke_data")
+    shutil.rmtree(tree, ignore_errors=True)
+    try:
+        write_kitti_tree(os.path.join(tree, "KITTI"), SEQ_PAIRS, SEED)
+        save_checkpoint(os.path.join(tree, "ckpt"), cfg, settled)
+        rec_path = os.path.join(tree, "stream.json")
+        zero_inference_counts()
+        t0 = time.perf_counter()
+        res = evaluate.main(
+            ["--restore_ckpt", os.path.join(tree, "ckpt"), "--dataset",
+             "kitti", "--data_root", tree, "--valid_iters", str(cap),
+             "--sequence", "--exit_threshold_px", repr(thr), "--min_iters",
+             str(EXIT_MIN_ITERS), "--stream_out", rec_path])
+        seq_s = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        rec = json.load(open(rec_path))
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
+    ok = (all(math.isfinite(v) for v in res.values())
+          and EXIT_MIN_ITERS <= res["kitti-iters-cold-mean"] <= cap
+          and EXIT_MIN_ITERS <= res["kitti-iters-warm-mean"] <= cap
+          and rec["run"]["device"] == torch.cuda.get_device_name(0)
+          and counts.get("lookup", 0) > 0 and counts.get("exit", 0) > 0)
+    log(f"sequence (cli/evaluate.py --sequence --exit_threshold_px "
+        f"{thr:.6g} --stream_out, {SEQ_PAIRS} KITTI-shaped pairs, cap "
+        f"{cap}): {res}; {seq_s:.1f} s; the wrappers' counts {counts}; "
+        f"record run block {rec['run']} on {card}: "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("the sequence path failed its checks")
+    return res
+
+
+def phase_drift(card):
+    """Phase 28: the drift gates on the card: ``tools/quant_drift --full``
+    and the bf16 drift's trained leg.  Prints every row, the gate and
+    their seconds; fails on a missing variant, a non-finite row, or the
+    quantized variants' gate kernels and int8 GEMMs not launching.  The
+    gate's verdict is a measurement, printed, not a check."""
+    from raft_stereo_tpu_torch.eval.runner import launch_counts
+    from raft_stereo_tpu_torch.tools import bf16_drift, quant_drift
+
+    zero_inference_counts()
+    t0 = time.perf_counter()
+    q = quant_drift.run(quant_drift.build_parser().parse_args(
+        ["--full", "--device", "cuda"]))
+    q_s = time.perf_counter() - t0
+    q_counts = {k: v for k, v in launch_counts().items() if v}
+    zero_inference_counts()
+    t0 = time.perf_counter()
+    b = bf16_drift.run(bf16_drift.build_parser().parse_args(
+        ["--device", "cuda"]))
+    b_s = time.perf_counter() - t0
+    b_counts = {k: v for k, v in launch_counts().items() if v}
+    names = {"quant": ("fp32", "bf16", "int8", "int8_w", "int8_mxu"),
+             "bf16": ("bf16_alt", "fp32corr_alt", "fp32_reg")}
+    ok = True
+    for tag, rows in (("quant", q["rows"]), ("bf16", b["rows"])):
+        for row in rows:
+            log(f"drift {tag}: {json.dumps(row)}")
+            ok = ok and all(f"epe_{n}" in row for n in names[tag]) and all(
+                math.isfinite(v) for k, v in row.items()
+                if k.startswith(("epe", "depe", "drift")))
+    ok = (ok and len(q["rows"]) == 6 and len(b["rows"]) == 6
+          and q_counts.get("gates", 0) > 0 and q_counts.get("gemm", 0) > 0
+          and b_counts.get("alt", 0) > 0 and b_counts.get("gates", 0) > 0)
+    log(f"quant drift gate (--full, {q['train_steps']} training steps in "
+        f"{q['train_seconds']} s, evaluation {q['eval_seconds']} s, "
+        f"{q_s:.1f} s in all): {json.dumps(q['gate'])}; param bytes "
+        f"{q['param_bytes']}; the wrappers' counts {q_counts} on {card}")
+    log(f"bf16 drift, trained leg ({b['train_steps']} steps of the realtime "
+        f"architecture in {b['train_seconds']} s, evaluation "
+        f"{b['eval_seconds']} s, {b_s:.1f} s in all); the wrappers' counts "
+        f"{b_counts}: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("the drift gates failed their checks")
+    return q, b
 
 
 def main() -> int:
@@ -2530,11 +2960,24 @@ def main() -> int:
         loop_mod.make_train_step = real_make_step
         shutil.rmtree(tree, ignore_errors=True)
 
+    # ------------------------------------------------- phases 26, 27, 28
+    pred_t = predicate_row(card)
+    exit_runs = {}
+    for what, cfg_, state_, cap in (("default", cfg, state, MAIN_ITERS),
+                                    ("realtime", rt_cfg, rt_state,
+                                     RT_ITERS)):
+        exit_runs[what] = phase_exit(what, cfg_, state_, cap, left, right,
+                                     card)
+    phase_stream(cfg, state, exit_runs["default"]["threshold"], MAIN_ITERS,
+                 left, right, small, small_r, card)
+    phase_drift(card)
+
     def row(name_, source, replaces, launched, err, t, design=None):
         """One entry of the kernels line; ``t`` holds graph-replay times."""
         out = {"name": name_, "route": "cuda",
                "source": f"raft_stereo_tpu_torch/csrc/{source}",
-               "replaces": f"raft_stereo_tpu/kernels/{replaces}",
+               "replaces": (replaces if replaces.startswith("raft_stereo_tpu/")
+                            else f"raft_stereo_tpu/kernels/{replaces}"),
                "launches": launched, "max_abs_err": err, "ms": t["ms"],
                "plain_ms": t["plain"], "bound_ms": t["bound"],
                "bound_by": t["by"], "library_ms": t["lib"]}
@@ -2591,6 +3034,12 @@ def main() -> int:
                            "row tiles, bands in shared memory, mma.sync "
                            + ("s8 dots" if tag == "int8" else
                               "bf16 dots of the upcast codes")))
+    kernels.append(row(
+        "exit_predicate", "graph_loop.cu",
+        "raft_stereo_tpu/models/raft_stereo.py:510",
+        exit_runs["default"]["counts"]["exit"], pred_t["err"],
+        pred_t, "the predicate of a CUDA graph WHILE node: it += 1, "
+        "cudaGraphSetConditional"))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -9,9 +9,11 @@ directory.  Datasets: eth3d | kitti | things | middlebury_F |
 middlebury_H | middlebury_Q.  KITTI also reports the FPS protocol (the
 first 50 images discarded).  Runs on the CUDA card by default, one CUDA
 graph per padded shape; ``--device cpu`` runs the plain versions.
-The JAX package's sequence mode and adaptive early exit (``--sequence``,
-``--stream_out``, ``--exit_threshold_px``, ``--min_iters``) are accepted
-and raise: they wait for ROADMAP.md §D3.
+``--exit_threshold_px`` (with ``--min_iters``) turns on the early exit and
+adds the mean ``iters_used`` to the results; ``--sequence`` runs the
+dataset's frames in order, cold and warm-started
+(``eval/validate.sequence_drift``), and ``--stream_out PATH`` writes that
+row as a record (``eval/records.py``, with the run's versions and card).
 """
 
 from __future__ import annotations
@@ -24,33 +26,55 @@ from raft_stereo_tpu_torch.cli import common
 
 log = logging.getLogger(__name__)
 
-_D3 = "§D3 early exit and state carry"
-
 
 def run_eval(args) -> dict:
     from raft_stereo_tpu_torch.eval.runner import InferenceRunner
-    from raft_stereo_tpu_torch.eval.validate import (validate_eth3d,
+    from raft_stereo_tpu_torch.eval.validate import (sequence_drift,
+                                                     validate_eth3d,
                                                      validate_kitti,
                                                      validate_middlebury,
                                                      validate_things)
 
-    for flag, on in (("--sequence", args.sequence),
-                     ("--stream_out", args.stream_out is not None),
-                     ("--exit_threshold_px",
-                      args.exit_threshold_px is not None),
-                     ("--min_iters", args.min_iters is not None)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported to the PyTorch package yet "
-                f"(ROADMAP.md {_D3})")
     overrides = common.arch_overrides(args)
     cfg, state = common.load_any_checkpoint(args.restore_ckpt, **overrides)
     log.info("model config: %s", cfg.to_dict())
     runner = InferenceRunner(cfg, state, iters=args.valid_iters,
                              fetch_dtype=args.fetch_dtype,
+                             exit_threshold_px=args.exit_threshold_px,
+                             exit_min_iters=args.min_iters,
                              device=args.device)
 
     root = args.data_root
+    if args.sequence:
+        from raft_stereo_tpu_torch.data import datasets as ds
+
+        if args.dataset == "eth3d":
+            dataset = ds.ETH3D(root=f"{root}/ETH3D")
+        elif args.dataset == "kitti":
+            dataset = ds.KITTI(root=f"{root}/KITTI")
+        elif args.dataset == "things":
+            dataset = ds.SceneFlow(root=root, dstype="frames_finalpass",
+                                   things_test=True)
+        else:
+            dataset = ds.Middlebury(
+                root=f"{root}/Middlebury",
+                split=args.dataset.removeprefix("middlebury_"))
+        results = sequence_drift(runner, dataset, args.dataset,
+                                 max_images=args.max_images)
+        if args.stream_out:
+            from raft_stereo_tpu_torch.eval.records import write_record
+            write_record(args.stream_out, {
+                "metric": "warm_start_sequence_drift",
+                "value": results[f"{args.dataset}-warm-drift-epe"],
+                "unit": "EPE(warm chained) - EPE(cold per-frame), px",
+                "dataset": args.dataset,
+                "valid_iters": args.valid_iters,
+                "exit_threshold_px": args.exit_threshold_px,
+                "min_iters": args.min_iters,
+                "results": {k: round(v, 5) for k, v in results.items()},
+            }, runner.device)
+            log.info("sequence-drift record -> %s", args.stream_out)
+        return results
     if args.dataset == "eth3d":
         results = validate_eth3d(runner, root=f"{root}/ETH3D",
                                  max_images=args.max_images)
@@ -67,6 +91,12 @@ def run_eval(args) -> dict:
             max_images=args.max_images)
     log.info("graphs: %d captured, %d replays", runner.captures,
              runner.replays)
+    if runner.iters_used_mean() is not None:
+        results[f"{args.dataset}-iters-used-mean"] = round(
+            runner.iters_used_mean(), 3)
+        print(f"Adaptive early exit: mean iters_used "
+              f"{runner.iters_used_mean():.2f} of {args.valid_iters} "
+              f"(threshold {args.exit_threshold_px} px)")
     return results
 
 
@@ -79,20 +109,29 @@ def build_parser() -> argparse.ArgumentParser:
                             "middlebury_H", "middlebury_Q"])
     p.add_argument("--data_root", default="datasets")
     p.add_argument("--valid_iters", type=int, default=32,
-                   help="GRU iterations (reference: --valid_iters)")
+                   help="GRU iterations (reference: --valid_iters); the "
+                        "depth cap when --exit_threshold_px is set")
     p.add_argument("--exit_threshold_px", type=float, default=None,
-                   help=f"not ported (ROADMAP.md {_D3}); raises")
+                   help="early exit: stop once an iteration's mean "
+                        "|delta disparity| (px at feature resolution) "
+                        "falls below this; the results gain the mean "
+                        "iters_used.  <= 0 or unset: fixed depth")
     p.add_argument("--min_iters", type=int, default=None,
-                   help=f"not ported (ROADMAP.md {_D3}); raises")
+                   help="iterations that always run before the early-exit "
+                        "threshold may fire (default 1)")
     p.add_argument("--fetch_dtype", default=None, choices=["fp16", "bf16"],
                    help="cast the disparity on the device before the "
                         "device->host copy (results stay fp32)")
     p.add_argument("--max_images", type=int, default=None,
                    help="evaluate only the first N images (smoke runs)")
     p.add_argument("--sequence", action="store_true",
-                   help=f"not ported (ROADMAP.md {_D3}); raises")
+                   help="run the dataset's frames in order twice, cold "
+                        "and warm-started from the previous frame's "
+                        "disparity, and report the warm-start EPE drift "
+                        "with each pass's iters and FPS")
     p.add_argument("--stream_out", default=None,
-                   help=f"not ported (ROADMAP.md {_D3}); raises")
+                   help="with --sequence: write the drift row as a JSON "
+                        "record to this path")
     p.add_argument("--json", action="store_true",
                    help="print results as one JSON line")
     p.add_argument("--device", default="cuda",

@@ -2,8 +2,10 @@
 
 A copy of ``RaftStereoConfig`` with every field of the JAX package's
 dataclass, so one ``config.json`` describes a model in either package.
-The port runs fixed-depth inference and training of the default and the
-realtime architectures: every correlation backend, the shared backbone,
+The port runs inference (at fixed depth or with the early exit of
+``exit_threshold_px``, ``exit_min_iters`` and ``exit_max_iters``) and
+training of the default and the realtime architectures: every
+correlation backend, the shared backbone,
 the slow-fast GRU schedule, fp32 or bf16 (``mixed_precision``) with
 ``corr_fp32``, ``remat_gru`` with the lookup saved or recomputed, and the
 quantized inference tier (``quant`` "int8" or "int8_mxu", the 1-byte
@@ -134,6 +136,14 @@ class RaftStereoConfig:
         for norm in (self.context_norm, self.fnet_norm):
             if norm not in ("batch", "instance", "group", "none"):
                 raise ValueError(f"unknown norm_fn {norm!r}")
+        if self.exit_min_iters < 1:
+            raise ValueError(
+                f"exit_min_iters={self.exit_min_iters} must be >= 1")
+        if (self.exit_max_iters is not None
+                and self.exit_max_iters < self.exit_min_iters):
+            raise ValueError(
+                f"exit_max_iters={self.exit_max_iters} must be >= "
+                f"exit_min_iters={self.exit_min_iters}")
         if self.corr_w2_shards > 1 and self.corr_backend == "alt":
             raise ValueError(
                 f"corr_w2_shards={self.corr_w2_shards} shards the 'reg' "
@@ -191,8 +201,6 @@ class RaftStereoConfig:
 def _unsupported(cfg: RaftStereoConfig):
     """(field, ROADMAP item) for every set option this slice does not run."""
     checks = (
-        ("exit_threshold_px > 0", "§D3 early exit and state carry",
-         cfg.exit_threshold_px > 0),
         ("banded_encoder", "§D7 parallel executors", cfg.banded_encoder),
         ("rows_shards > 1", "§D7 parallel executors", cfg.rows_shards > 1),
         ("rows_gru", "§D7 parallel executors", cfg.rows_gru),

@@ -21,6 +21,14 @@ no Python, so the kernel wrappers' launch counters move only during the
 warm-up and the capture; each graph keeps the counts its capture saw (one
 forward's launches), and the runner counts captures and replays.
 
+Under early exit (``exit_threshold_px > 0``) the loop's depth depends on
+the data, and a CUDA graph has a fixed launch sequence.  The program is
+then ``ExitStages`` (prologue, one iteration, epilogue), and on the card
+``WhileForward`` captures its three parts after a warm-up of the eager
+loop over them and joins them into one graph whose loop is a CUDA WHILE
+node with its predicate on the card (``kernels/graph_loop.py``).  It
+gives the eager loop's result and trip count bit for bit.
+
 The runner's
 entry sets ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False: the fp32 model is full fp32.
@@ -46,13 +54,16 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from raft_stereo_tpu_torch.config import RaftStereoConfig
-from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
+from raft_stereo_tpu_torch.kernels.graph_loop import (WhileGraph,
+                                                      exit_predicate)
+from raft_stereo_tpu_torch.models.raft_stereo import ExitLoop, RAFTStereo
 from raft_stereo_tpu_torch.ops.padding import InputPadder
 from raft_stereo_tpu_torch.quant.core import is_quantized, quantize_state_dict
 
@@ -102,7 +113,8 @@ def launch_counts() -> Dict[str, int]:
         lookup_pyramid_fused, lookup_pyramid_fused_q)
     from raft_stereo_tpu_torch.kernels.gru_fused import gru_gates_fused
     from raft_stereo_tpu_torch.quant.matmul import int8_conv_int32
-    return {"lookup": lookup_pyramid_fused.launches,
+    return {"exit": exit_predicate.launches,
+            "lookup": lookup_pyramid_fused.launches,
             "lookup_q": lookup_pyramid_fused_q.launches,
             "alt": alt_lookup_fused.launches,
             "alt_q": alt_lookup_fused_q.launches,
@@ -112,109 +124,323 @@ def launch_counts() -> Dict[str, int]:
 
 FETCH_DTYPES = {None: None, "fp16": torch.float16, "bf16": torch.bfloat16}
 
+def early_exit_enabled(config: RaftStereoConfig) -> bool:
+    """Whether ``make_forward`` programs of this config return the extra
+    ``iters_used`` (the convergence-gated loop)."""
+    return config.exit_threshold_px > 0
+
+
+def _split_extra(extra, warm_start: bool, hidden_init: bool,
+                 ctx: Optional[str]):
+    """``(flow_init, hidden, ctx_init)`` from a streaming program's inputs
+    after the images, in the JAX order ``[flow_init][, hidden][, ctx]``."""
+    extra = list(extra)
+    flow_init = extra.pop(0).float() if warm_start else None
+    hidden = extra.pop(0) if hidden_init else None
+    ctx_init = extra.pop(0) if ctx == "reuse" else None
+    return flow_init, hidden, ctx_init
+
 
 def make_forward(model: RAFTStereo, iters: int,
-                 fetch_dtype: Optional[torch.dtype] = None):
-    """The inference program the runner caches per (padded shape, batch):
-    ``forward(images1, images2)`` takes (N, Hp, Wp, 3) uint8 (or float)
-    images on the model's device and returns the (N, Hp, Wp) x-flow, cast
-    to ``fetch_dtype`` on the device (before the copy to the host) when
-    one is given.  The model casts the images to fp32 itself."""
+                 fetch_dtype: Optional[torch.dtype] = None,
+                 warm_start: bool = False, return_state: bool = False,
+                 ctx: Optional[str] = None, hidden_init: bool = False,
+                 return_hidden: bool = False,
+                 return_confidence: bool = False):
+    """The inference program the runner caches, as the JAX package's
+    ``make_forward``: ``forward(images1, images2, *extra)`` takes (N, Hp,
+    Wp, 3) uint8 (or float) images on the model's device and runs the
+    test-mode forward; the flow is cast to ``fetch_dtype`` on the device
+    when one is given.  The model casts the images to fp32 itself.
 
-    def forward(images1: torch.Tensor, images2: torch.Tensor
-                ) -> torch.Tensor:
-        _, flow_up = model(images1, images2, iters=iters, test_mode=True)
-        return flow_up if fetch_dtype is None else flow_up.to(fetch_dtype)
+    The base program returns the (N, Hp, Wp) x-flow alone, or ``(flow_up,
+    iters_used)`` under early exit (``early_exit_enabled``; ``iters_used``
+    a 0-d int32 tensor; the program is then an ``ExitStages``), and with
+    ``return_confidence`` ``(flow_up[, iters_used], (conf_low,
+    conf_up))``.  The streaming variants (any of
+    ``warm_start``, ``return_state``, ``ctx`` "save"/"reuse",
+    ``hidden_init``, ``return_hidden``) return ``(flow_up, flow_low[,
+    iters_used][, confidence][, hidden][, ctx])``, ``flow_low`` the padded
+    (N, Hp/f, Wp/f) fp32 x-flow whatever the fetch dtype (the next frame's
+    ``flow_init``), and take ``[flow_init][, hidden][, ctx]`` after the
+    images: ``warm_start`` seeds the loop from ``flow_init``,
+    ``hidden_init`` resumes the GRU from a hidden tree (per level, NCHW),
+    ``ctx="reuse"`` skips the context encoder for a ``ctx="save"`` bundle.
+    """
+    if ctx not in (None, "save", "reuse"):
+        raise ValueError(f"ctx={ctx!r}: use None, 'save', or 'reuse'")
+    stream = (warm_start or return_state or ctx is not None or hidden_init
+              or return_hidden)
+    if early_exit_enabled(model.config):
+        return ExitStages(model, iters, fetch_dtype, (warm_start,
+                          hidden_init, ctx), stream, return_hidden,
+                          return_confidence)
+
+    def forward(images1: torch.Tensor, images2: torch.Tensor, *extra):
+        flow_init, hidden, ctx_init = _split_extra(extra, warm_start,
+                                                   hidden_init, ctx)
+        kwargs = {}
+        if stream:
+            kwargs = dict(flow_init=flow_init, hidden_init=hidden,
+                          ctx_init=ctx_init, return_ctx=ctx == "save",
+                          return_hidden=return_hidden)
+        if return_confidence:
+            kwargs["return_confidence"] = True
+        out = model(images1, images2, iters=iters, test_mode=True,
+                    **kwargs)
+        return _outputs(out, fetch_dtype, stream)
 
     return forward
 
 
-def _to_host(flow: torch.Tensor) -> np.ndarray:
-    """A host tensor of the fetch dtype -> a new fp32 array."""
-    return flow.float().numpy().copy()
+def _outputs(out, fetch_dtype, stream: bool):
+    """The model's test-mode tuple -> the program's outputs."""
+    flow_up = out[1] if fetch_dtype is None else out[1].to(fetch_dtype)
+    if stream:
+        return (flow_up, out[0].float()) + tuple(out[2:])
+    return flow_up if len(out) == 2 else (flow_up,) + tuple(out[2:])
+
+
+class ExitStages:
+    """The early-exit program ``make_forward`` builds, in the three parts
+    ``WhileForward`` captures: ``prologue`` (everything before the loop,
+    then ``ExitLoop.start``), ``loop.body`` (one iteration written back
+    into the carry, with its delta) and ``epilogue``
+    (``ExitLoop.finish`` and the outputs).  They are the model's own eager
+    loop (``models/raft_stereo.ExitLoop``), so a graph of them gives its
+    result bit for bit.  Calling it runs the loop eagerly: the program on
+    the CPU, and the warm-up before a capture.  ``flags`` are
+    ``(warm_start, hidden_init, ctx)``, the inputs after the images."""
+
+    def __init__(self, model: RAFTStereo, iters: int,
+                 fetch_dtype: Optional[torch.dtype], flags: Tuple,
+                 stream: bool, return_hidden: bool,
+                 return_confidence: bool):
+        self.model = model
+        self.loop = ExitLoop(model, iters, return_confidence)
+        self.fetch_dtype = fetch_dtype
+        self.flags = flags
+        self.stream = stream
+        self.return_hidden = return_hidden
+        self.return_ctx = flags[2] == "save"
+
+    def prologue(self, images1: torch.Tensor, images2: torch.Tensor,
+                 *extra) -> Dict:
+        flow_init, hidden, ctx_init = _split_extra(extra, *self.flags)
+        step, net, disp, ctx_out = self.model.begin(
+            images1, images2, flow_init, hidden, ctx_init, self.return_ctx)
+        carry = self.loop.start(step, net, disp)
+        carry["ctx"] = ctx_out
+        return carry
+
+    def epilogue(self, carry: Dict):
+        out = self.loop.finish(carry)
+        if self.return_hidden:
+            out += (tuple(carry["net"]),)
+        if self.return_ctx:
+            out += (carry["ctx"],)
+        return _outputs(out, self.fetch_dtype, self.stream)
+
+    def __call__(self, *inputs):
+        carry = self.prologue(*inputs)
+        self.loop.iterate(carry)
+        return self.epilogue(carry)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor -> a new array; half-precision flows become fp32."""
+    if t.dtype in (torch.float16, torch.bfloat16):
+        t = t.float()
+    return t.numpy().copy()
 
 
 class PlainForward:
-    """The CPU entry of the runner's cache: the closure itself."""
+    """The CPU entry of the runner's cache: the closure itself.  Takes the
+    program's inputs as flat numpy arrays (``spec`` their structure, as
+    ``tree_flatten`` gives it) and returns its outputs likewise."""
 
-    def __init__(self, forward):
+    def __init__(self, forward, spec):
         self.forward = forward
+        self.spec = spec
 
-    def __call__(self, p1: np.ndarray, p2: np.ndarray) -> np.ndarray:
+    def __call__(self, *arrays: np.ndarray) -> List[np.ndarray]:
         with torch.inference_mode():
-            return _to_host(self.forward(torch.from_numpy(p1),
-                                         torch.from_numpy(p2)))
+            args = tree_unflatten([torch.from_numpy(a) for a in arrays],
+                                  self.spec)
+            flat, _ = tree_flatten(self.forward(*args))
+        return [_to_numpy(t) for t in flat]
 
 
-class GraphForward:
-    """One captured CUDA graph of ``forward`` at one (N, Hp, Wp) input
-    shape, with its static inputs and output on the card and pinned host
-    buffers for the copies.
+class _Graphed:
+    """What the card's entries share: static device inputs with pinned host
+    staging, the captured outputs with pinned host copies, the launch
+    counts of the capture, and its seconds.  ``capture(*arrays)`` runs once
+    and returns the first result; ``__call__(*arrays)`` replays."""
 
-    ``capture(p1, p2)`` (once) runs ``forward`` eagerly on ``stream``
-    outside capture, captures it on ``stream`` into ``pool``, replays it
-    and returns the replay's result; ``launches`` holds the wrapper
-    launch counts seen during the capture.  ``__call__(p1, p2)`` copies
-    the inputs in, replays, and returns the output as a new fp32 array.
-    """
-
-    def __init__(self, forward, shape: Tuple[int, int, int, int],
-                 dtype: np.dtype, device: torch.device,
-                 stream: torch.cuda.Stream, pool):
-        self.forward = forward
+    def __init__(self, arrays: Sequence[np.ndarray], spec,
+                 device: torch.device, stream: torch.cuda.Stream, pool):
         self.stream = stream
         self.pool = pool
-        self.graph = torch.cuda.CUDAGraph()
-        self.dtype = np.dtype(dtype)
-        tdtype = torch.from_numpy(np.empty(0, self.dtype)).dtype
-        self.images1 = torch.empty(shape, dtype=tdtype, device=device)
-        self.images2 = torch.empty_like(self.images1)
-        self.host1 = torch.empty(shape, dtype=tdtype, pin_memory=True)
-        self.host2 = torch.empty_like(self.host1, pin_memory=True)
-        self.output: Optional[torch.Tensor] = None
-        self.host_out: Optional[torch.Tensor] = None
+        self.specs = [(a.shape, a.dtype) for a in arrays]
+        self.inputs = [torch.empty(a.shape, device=device,
+                                   dtype=torch.from_numpy(a[:0]).dtype)
+                       for a in arrays]
+        self.args = tree_unflatten(self.inputs, spec)
+        self.host_in = [torch.empty_like(t, device="cpu", pin_memory=True)
+                        for t in self.inputs]
+        self.outputs: Optional[List[torch.Tensor]] = None
+        self.host_out: List[torch.Tensor] = []
         self.launches: Dict[str, int] = {}
         self.capture_s = 0.0
 
-    def _upload(self, p1: np.ndarray, p2: np.ndarray) -> None:
-        if p1.dtype != self.dtype or p2.dtype != self.dtype:
-            raise ValueError(f"images of {p1.dtype} and {p2.dtype} into a "
-                             f"graph captured for {self.dtype}")
-        self.host1.numpy()[...] = p1
-        self.host2.numpy()[...] = p2
-        self.images1.copy_(self.host1, non_blocking=True)
-        self.images2.copy_(self.host2, non_blocking=True)
+    def _upload(self, arrays: Sequence[np.ndarray]) -> None:
+        specs = [(a.shape, a.dtype) for a in arrays]
+        if specs != self.specs:
+            raise ValueError(f"inputs {specs} into a graph captured for "
+                             f"{self.specs}")
+        for a, host, dev in zip(arrays, self.host_in, self.inputs):
+            host.numpy()[...] = a
+            dev.copy_(host, non_blocking=True)
 
-    def _fetch(self) -> np.ndarray:
-        self.host_out.copy_(self.output, non_blocking=True)
+    def _set_outputs(self, out) -> None:
+        self.outputs, _ = tree_flatten(out)
+        # normal (not inference) tensors: they are written on every call
+        with torch.inference_mode(False):
+            self.host_out = [torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True)
+                             for t in self.outputs]
+
+    def _fetch(self) -> List[np.ndarray]:
+        for host, dev in zip(self.host_out, self.outputs):
+            host.copy_(dev, non_blocking=True)
         torch.cuda.current_stream().synchronize()
-        return _to_host(self.host_out)
+        return [_to_numpy(t) for t in self.host_out]
 
-    def capture(self, p1: np.ndarray, p2: np.ndarray) -> np.ndarray:
+    def _graph(self, fn, *args, keep: bool = False):
+        """Capture ``fn(*args)`` on the runner's stream into its pool."""
+        g = torch.cuda.CUDAGraph(keep_graph=True) if keep \
+            else torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, pool=self.pool, stream=self.stream):
+            out = fn(*args)
+        return g, out
+
+    def capture(self, *arrays: np.ndarray) -> List[np.ndarray]:
         t0 = time.perf_counter()
-        self._upload(p1, p2)
+        self._upload(arrays)
         self.stream.wait_stream(torch.cuda.current_stream())
         with torch.inference_mode():
             with torch.cuda.stream(self.stream):
-                self.forward(self.images1, self.images2)   # warm-up
-            before = launch_counts()
-            with torch.cuda.graph(self.graph, pool=self.pool,
-                                  stream=self.stream):
-                self.output = self.forward(self.images1, self.images2)
-            after = launch_counts()
-        self.launches = {k: after[k] - before[k] for k in after}
-        # a normal (not inference) tensor: it is written on every call
-        self.host_out = torch.empty(self.output.shape,
-                                    dtype=self.output.dtype,
-                                    pin_memory=True)
+                self._warm_up()
+            self.launches = self._capture()
         self.capture_s = time.perf_counter() - t0
-        self.graph.replay()
+        torch.cuda.current_stream().wait_stream(self.stream)
+        return self(*arrays, uploaded=True)
+
+    def __call__(self, *arrays: np.ndarray,
+                 uploaded: bool = False) -> List[np.ndarray]:
+        if not uploaded:
+            self._upload(arrays)
+        self._replay()
         return self._fetch()
 
-    def __call__(self, p1: np.ndarray, p2: np.ndarray) -> np.ndarray:
-        self._upload(p1, p2)
+
+class GraphForward(_Graphed):
+    """One captured CUDA graph of ``forward`` at one set of input shapes:
+    the fixed-depth program (and any program without a data-dependent
+    loop).  ``launches`` holds one forward's wrapper launch counts."""
+
+    def __init__(self, forward, *args):
+        super().__init__(*args)
+        self.forward = forward
+        self.graph = None
+
+    def _warm_up(self) -> None:
+        self.forward(*self.args)
+
+    def _capture(self) -> Dict[str, int]:
+        before = launch_counts()
+        self.graph, out = self._graph(self.forward, *self.args)
+        after = launch_counts()
+        self._set_outputs(out)
+        return {k: after[k] - before[k] for k in after}
+
+    def _replay(self) -> None:
         self.graph.replay()
-        return self._fetch()
+
+
+class WhileForward(_Graphed):
+    """An early-exit entry: one graph per pair, prologue -> WHILE(iteration)
+    -> epilogue (``kernels/graph_loop.WhileGraph``), captured from
+    ``stages`` (``ExitStages``) after a warm-up of the eager loop over
+    them.  The iteration ends in ``exit_predicate``, which counts it and
+    sets the loop's condition on the card, so a replay is one graph
+    launch and no host synchronisation until the fetch.  ``launches``
+    holds the prologue's and epilogue's counts, ``body_launches`` one
+    iteration's; a pair launches ``launches + iters_used *
+    body_launches``."""
+
+    def __init__(self, stages: ExitStages, *args):
+        super().__init__(*args)
+        self.stages = stages
+        self.body_launches: Dict[str, int] = {}
+
+    def _warm_up(self) -> None:
+        self.stages(*self.args)
+
+    def _capture(self) -> Dict[str, int]:
+        self.graph_loop = WhileGraph()
+        stages, loop = self.stages, self.stages.loop
+
+        def body(carry):
+            loop.body(carry)
+            exit_predicate(self.graph_loop.handle, carry["it"],
+                           carry["delta"], loop.min_iters, loop.limit,
+                           loop.threshold)
+
+        def counted(fn, *args):
+            before = launch_counts()
+            g, out = self._graph(fn, *args, keep=True)
+            after = launch_counts()
+            return g, out, {k: after[k] - before[k] for k in after}
+
+        gp, carry, lp = counted(stages.prologue, *self.args)
+        gb, _, self.body_launches = counted(body, carry)
+        ge, out, le = counted(stages.epilogue, carry)
+        self.carry = carry
+        self._set_outputs(out)
+        self.graph_loop.build(gp, gb, ge)
+        return {k: lp[k] + le[k] for k in lp}
+
+    def pair_launches(self, iters_used: int) -> Dict[str, int]:
+        return {k: self.launches[k] + iters_used * self.body_launches[k]
+                for k in self.launches}
+
+    def _replay(self) -> None:
+        self.graph_loop.launch(torch.cuda.current_stream())
+
+
+@dataclasses.dataclass
+class StreamFrame:
+    """One frame of a warm-started sequence (``InferenceRunner.run_stream``).
+
+    ``flow`` is the unpadded (H, W) x-flow; ``flow_low`` the PADDED
+    low-resolution x-flow to feed back as the next frame's
+    ``prev_flow_low`` (consecutive frames share the padded grid, so the
+    state round-trips without resampling)."""
+
+    flow: np.ndarray             # (H, W) float32 x-flow (= -disparity)
+    flow_low: np.ndarray         # (Hp/f, Wp/f) float32 padded low-res state
+    seconds: float               # same clock as __call__ (to the fetch)
+    iters_used: Optional[int]    # GRU trip count (None without early exit)
+    warm: bool                   # True when prev_flow_low seeded the GRU
+    # final per-level GRU hidden states, (C_l, h_l, w_l) host arrays (the
+    # port's NCHW layout, batch axis stripped): the next frame's
+    # ``prev_hidden``; None unless asked for (``carry_hidden``)
+    hidden: Optional[Tuple[np.ndarray, ...]] = None
+
+    @property
+    def disparity(self) -> np.ndarray:
+        return -self.flow
 
 
 class InferenceRunner:
@@ -222,17 +448,27 @@ class InferenceRunner:
 
     Inputs are (H, W, 3) uint8 (or float) numpy images, uploaded in the
     caller's dtype as the JAX runner does; padding to ``divis_by``, the
-    test-mode forward and exact unpadding happen inside.  ``shape_bucket`` (a multiple of
-    ``divis_by``, e.g. 64) pads to a coarser grid, so nearby image shapes
-    share one cache entry; ``max_cached_shapes`` bounds the cache, LRU.
-    ``fetch_dtype`` ("fp16", "bf16" or None) casts the flow on the device
-    before the copy to the host; results are fp32 either way.
-    ``corr_fp32_auto`` (default on) turns ``corr_fp32`` on for bf16
-    correlation at ``iters >= DEEP_ITERS_FP32_CORR``
+    test-mode forward and exact unpadding happen inside.  ``shape_bucket``
+    (a multiple of ``divis_by``, e.g. 64) pads to a coarser grid, so
+    nearby image shapes share one cache entry; ``max_cached_shapes``
+    bounds the cache, LRU.  ``fetch_dtype`` ("fp16", "bf16" or None)
+    casts the flow on the device before the copy to the host; results are
+    fp32 either way.  ``corr_fp32_auto`` (default on) turns ``corr_fp32``
+    on for bf16 correlation at ``iters >= DEEP_ITERS_FP32_CORR``
     (``effective_inference_config``); pass False to run raw bf16
     correlation at any depth.  ``quant`` and ``quant_act_scales`` run the
     quantized tier (module docstring).  ``captures`` and ``replays`` count
     the graphs captured and replayed (both stay 0 on the CPU).
+
+    ``exit_threshold_px`` / ``exit_min_iters`` (None: the config's own)
+    turn on the early exit: ``iters`` becomes the depth cap and each call
+    records its trip count (``last_iters_used``, ``iters_used_mean``,
+    ``reset_iters_used``).  On the card the loop runs in one graph whose
+    loop is a CUDA WHILE node (``WhileForward``), with the eager loop's
+    result bit for bit.  ``run_stream`` chains the frames of
+    a sequence (warm start, optionally the GRU's hidden state) over its
+    own LRU of stream programs.  Threshold 0 keeps the fixed-depth
+    program as it was.
     """
 
     def __init__(self, config: RaftStereoConfig,
@@ -244,6 +480,8 @@ class InferenceRunner:
                  max_cached_shapes: int = 16,
                  corr_fp32_auto: bool = True,
                  fetch_dtype: Optional[str] = None,
+                 exit_threshold_px: Optional[float] = None,
+                 exit_min_iters: Optional[int] = None,
                  quant: Optional[str] = None,
                  quant_act_scales: Optional[Mapping[str, float]] = None):
         if shape_bucket is not None and shape_bucket % divis_by:
@@ -259,10 +497,20 @@ class InferenceRunner:
         self.device = resolve_device(device)
         full_fp32()
         self.config = config
-        if quant is not None:
-            config = dataclasses.replace(config, quant=quant)
+        if (exit_threshold_px is not None or exit_min_iters is not None
+                or quant is not None):
+            config = dataclasses.replace(
+                config,
+                exit_threshold_px=(config.exit_threshold_px
+                                   if exit_threshold_px is None
+                                   else exit_threshold_px),
+                exit_min_iters=(config.exit_min_iters
+                                if exit_min_iters is None
+                                else exit_min_iters),
+                quant=config.quant if quant is None else quant)
         self.effective_config = effective_inference_config(
             config, iters, corr_fp32_auto)
+        self.early_exit = early_exit_enabled(self.effective_config)
         self._quant_act_scales = quant_act_scales
         state = (state_dict_or_model.state_dict()
                  if isinstance(state_dict_or_model, RAFTStereo)
@@ -274,13 +522,17 @@ class InferenceRunner:
         self.divis_by = shape_bucket or divis_by
         self.max_cached_shapes = max_cached_shapes
         self.fetch_dtype = FETCH_DTYPES[fetch_dtype]
-        self._compiled: Dict[Tuple[Tuple[int, int], int],
-                             Union[PlainForward, GraphForward]] = {}
-        self._forward = make_forward(self.model, iters, self.fetch_dtype)
+        # one program per (padded shape, batch); the streaming programs
+        # (state in and out) in their own LRU, as in the JAX runner
+        self._compiled: Dict[Tuple, object] = {}
+        self._stream_compiled: Dict[Tuple, object] = {}
         self._stream: Optional[torch.cuda.Stream] = None
         self._pool = None
         self.captures = 0
         self.replays = 0
+        self.last_iters_used: Optional[int] = None
+        self._iters_used_sum = 0
+        self._iters_used_calls = 0
 
     def _prepare(self, state: Mapping[str, torch.Tensor]
                  ) -> Mapping[str, torch.Tensor]:
@@ -298,46 +550,84 @@ class InferenceRunner:
         with torch.no_grad():
             self.model.load_state_dict(self._prepare(state), strict=True)
         self._compiled.clear()
+        self._stream_compiled.clear()
+
+    def _exit_key(self) -> Tuple:
+        """The early-exit knobs a program was built for (empty at fixed
+        depth, so those keys stay the JAX runner's)."""
+        if not self.early_exit:
+            return ()
+        c = self.effective_config
+        return ((c.exit_threshold_px, c.exit_min_iters, c.exit_max_iters),)
+
+    def _entry(self, cache: Dict, key: Tuple, args, **flags):
+        """``(entry, flat inputs)``: the LRU entry of ``cache`` at ``key``,
+        built on a miss from the ``make_forward`` program of ``flags``,
+        and the program's inputs ``args`` (a tuple of arrays and tuples of
+        arrays) flattened."""
+        arrays, spec = tree_flatten(tuple(args))
+        if key in cache:
+            cache[key] = cache.pop(key)  # LRU refresh
+            return cache[key], arrays
+        while len(cache) >= self.max_cached_shapes:
+            evicted = next(iter(cache))
+            del cache[evicted]
+            log.info("graph cache full (max_cached_shapes=%d): evicting "
+                     "%s; its next use captures again",
+                     self.max_cached_shapes, evicted)
+        forward = make_forward(self.model, self.iters, self.fetch_dtype,
+                               **flags)
+        if self.device.type == "cuda":
+            if self._pool is None or not (self._compiled
+                                          or self._stream_compiled):
+                # a pool whose graphs are all gone cannot be shared again
+                self._stream = self._stream or torch.cuda.Stream(
+                    self.device)
+                self._pool = torch.cuda.graph_pool_handle()
+            entry = (WhileForward if self.early_exit else GraphForward)(
+                forward, arrays, spec, self.device, self._stream,
+                self._pool)
+        else:
+            entry = PlainForward(forward, spec)
+        cache[key] = entry
+        return entry, arrays
 
     def _forward_for(self, padded_hw: Tuple[int, int], batch: int = 1,
-                     dtype: np.dtype = np.uint8):
-        """The cache entry for one (padded shape, batch), LRU: distinct
-        raw shapes that pad to one grid share it (KITTI's 375x1242,
-        370x1224 and 376x1241 all pad to 384x1248)."""
-        key = (tuple(padded_hw), batch)
-        if key in self._compiled:
-            self._compiled[key] = self._compiled.pop(key)  # LRU refresh
-            return self._compiled[key]
-        while len(self._compiled) >= self.max_cached_shapes:
-            evicted = next(iter(self._compiled))
-            del self._compiled[evicted]
-            log.info("graph cache full (max_cached_shapes=%d): evicting "
-                     "padded shape %s batch %d; its next use captures "
-                     "again", self.max_cached_shapes, evicted[0],
-                     evicted[1])
-        if self.device.type == "cuda":
-            if self._pool is None:
-                self._stream = torch.cuda.Stream(self.device)
-                self._pool = torch.cuda.graph_pool_handle()
-            entry = GraphForward(self._forward,
-                                 (batch,) + tuple(padded_hw) + (3,),
-                                 dtype, self.device, self._stream,
-                                 self._pool)
-        else:
-            entry = PlainForward(self._forward)
-        self._compiled[key] = entry
-        return entry
+                     args=()):
+        """The cache entry for one (padded shape, batch), LRU, and its
+        flat inputs: distinct raw shapes that pad to one grid share it
+        (KITTI's 375x1242, 370x1224 and 376x1241 all pad to 384x1248)."""
+        key = (tuple(padded_hw), batch) + self._exit_key()
+        return self._entry(self._compiled, key, args)
 
-    def _run(self, p1: np.ndarray, p2: np.ndarray) -> np.ndarray:
-        """(N, Hp, Wp, 3) padded images -> (N, Hp, Wp) fp32 flow."""
-        entry = self._forward_for(p1.shape[1:3], p1.shape[0], p1.dtype)
-        if isinstance(entry, GraphForward):
-            if entry.output is None:
-                self.captures += 1
-                self.replays += 1
-                return entry.capture(p1, p2)
+    def _run(self, entry, arrays) -> List[np.ndarray]:
+        """One call of a cache entry: capture on its first call."""
+        if isinstance(entry, _Graphed):
             self.replays += 1
-        return entry(p1, p2)
+            if entry.outputs is None:
+                self.captures += 1
+                return entry.capture(*arrays)
+        return entry(*arrays)
+
+    # ---------------------------------------------- iters-used accounting
+    def _note_iters_used(self, iters_used) -> int:
+        used = int(iters_used)
+        self.last_iters_used = used
+        self._iters_used_sum += used
+        self._iters_used_calls += 1
+        return used
+
+    def iters_used_mean(self) -> Optional[float]:
+        """Mean GRU trip count over the calls since the last reset; None
+        without early exit (the fixed path always runs ``iters``)."""
+        if not self._iters_used_calls:
+            return None
+        return self._iters_used_sum / self._iters_used_calls
+
+    def reset_iters_used(self) -> None:
+        self.last_iters_used = None
+        self._iters_used_sum = 0
+        self._iters_used_calls = 0
 
     def __call__(self, image1: np.ndarray, image2: np.ndarray
                  ) -> Tuple[np.ndarray, float]:
@@ -352,9 +642,18 @@ class InferenceRunner:
         flows, seconds = self.run_batch([image1], [image2])
         return flows[0], seconds
 
+    def _pad(self, images1, images2):
+        shape = np.asarray(images1[0]).shape
+        padder = InputPadder((1, 3) + shape[:2], divis_by=self.divis_by)
+        l, r, t, b = padder.pads
+        spec = ((0, 0), (t, b), (l, r), (0, 0))
+        return (padder, np.pad(np.stack(images1), spec, mode="edge"),
+                np.pad(np.stack(images2), spec, mode="edge"))
+
     def run_batch(self, images1, images2) -> Tuple[np.ndarray, float]:
         """N same-shape pairs in one program: one upload, one replay, one
-        fetch.  Returns ``(flows (N, H, W), seconds)``."""
+        fetch.  Returns ``(flows (N, H, W), seconds)``; under early exit
+        the batch runs to its worst member's depth."""
         if len(images1) != len(images2) or not len(images1):
             raise ValueError(f"run_batch takes two equal, non-empty lists; "
                              f"got {len(images1)} and {len(images2)}")
@@ -365,13 +664,75 @@ class InferenceRunner:
                              "upstream or use per-image calls for mixed "
                              "shapes")
         t0 = time.perf_counter()
-        padder = InputPadder((1, 3) + shape[:2], divis_by=self.divis_by)
-        l, r, t, b = padder.pads
-        spec = ((0, 0), (t, b), (l, r), (0, 0))
-        p1 = np.pad(np.stack(images1), spec, mode="edge")
-        p2 = np.pad(np.stack(images2), spec, mode="edge")
-        flows = padder.unpad(self._run(p1, p2))
+        padder, p1, p2 = self._pad(images1, images2)
+        entry, arrays = self._forward_for(p1.shape[1:3], p1.shape[0],
+                                          (p1, p2))
+        out = self._run(entry, arrays)
+        if self.early_exit:
+            self._note_iters_used(out[1])
+        flows = padder.unpad(out[0])
         return np.ascontiguousarray(flows), time.perf_counter() - t0
+
+    # ------------------------------------------------------------ streaming
+    def run_stream(self, image1: np.ndarray, image2: np.ndarray,
+                   prev_flow_low: Optional[np.ndarray] = None,
+                   prev_hidden: Optional[Sequence[np.ndarray]] = None,
+                   carry_hidden: bool = False) -> StreamFrame:
+        """One frame of a temporally ordered sequence: like ``__call__``,
+        but the GRU warm-starts from ``prev_flow_low`` (the previous
+        frame's ``StreamFrame.flow_low``) and the frame carries the state
+        forward.  ``prev_flow_low=None`` (frame 0, or after a scene cut)
+        runs the cold zero init.  A ``prev_flow_low`` whose shape is not
+        this frame's padded low-resolution grid raises (the stream changed
+        resolution).  ``carry_hidden`` returns the final GRU hidden states
+        (``StreamFrame.hidden``); passing them back as ``prev_hidden``,
+        with ``prev_flow_low``, resumes the GRU's own trajectory."""
+        if image1.ndim != 3 or image1.shape != image2.shape:
+            raise ValueError(f"expected two (H, W, 3) images of one shape, "
+                             f"got {image1.shape} and {image2.shape}")
+        t0 = time.perf_counter()
+        padder, p1, p2 = self._pad([image1], [image2])
+        f = self.effective_config.downsample_factor
+        low_hw = (p1.shape[1] // f, p1.shape[2] // f)
+        warm = prev_flow_low is not None
+        if prev_hidden is not None and not warm:
+            raise ValueError("prev_hidden needs prev_flow_low: the hidden "
+                             "state is meaningless without the disparity "
+                             "it evolved against")
+        if warm and tuple(prev_flow_low.shape) != low_hw:
+            raise ValueError(
+                f"prev_flow_low shape {prev_flow_low.shape} does not match "
+                f"this frame's padded low-res grid {low_hw} — the stream "
+                f"changed resolution; restart with prev_flow_low=None")
+        hidden_in = prev_hidden is not None
+        hidden_out = carry_hidden or hidden_in
+        args = [p1, p2]
+        if warm:
+            args.append(np.ascontiguousarray(prev_flow_low,
+                                             dtype=np.float32)[None])
+        if hidden_in:
+            args.append(tuple(np.ascontiguousarray(h)[None]
+                              for h in prev_hidden))
+        key = ((tuple(p1.shape[1:3]), warm, hidden_in, hidden_out)
+               + self._exit_key())
+        entry, arrays = self._entry(
+            self._stream_compiled, key, args, warm_start=warm,
+            return_state=True, hidden_init=hidden_in,
+            return_hidden=hidden_out)
+        out = self._run(entry, arrays)
+        pos = 2
+        iters_used = None
+        if self.early_exit:
+            iters_used = self._note_iters_used(out[2])
+            pos = 3
+        hidden = (tuple(h[0] for h in out[pos:])
+                  if hidden_out else None)
+        flow = padder.unpad(out[0])[0]
+        return StreamFrame(flow=np.ascontiguousarray(flow),
+                           flow_low=np.ascontiguousarray(out[1][0],
+                                                         dtype=np.float32),
+                           seconds=time.perf_counter() - t0,
+                           iters_used=iters_used, warm=warm, hidden=hidden)
 
     def disparity(self, image1: np.ndarray, image2: np.ndarray) -> np.ndarray:
         """Positive disparity map (-flow)."""

@@ -14,8 +14,8 @@ metric definitions:
 
 KITTI also times each forward and reports FPS with the first 50 images
 discarded as warm-up; on the card the warm-up absorbs the runner's CUDA
-graph captures.  ``sequence_drift`` waits for the runner's streaming
-path (ROADMAP §D3).
+graph captures.  ``sequence_drift`` runs a dataset's frames in order,
+cold and warm-started (``InferenceRunner.run_stream``).
 """
 
 from __future__ import annotations
@@ -132,6 +132,59 @@ def make_validation_fn(model_cfg, train_cfg, data_root: str = "datasets",
         return results
 
     return validate_fn
+
+
+def sequence_drift(runner: InferenceRunner, dataset, name: str,
+                   max_images: Optional[int] = None) -> Dict[str, float]:
+    """The warm-start drift harness of the JAX package: the dataset's
+    frames run in order twice, cold (every frame from a zero init) and
+    warm (each frame's GRU seeded from the previous frame's low-resolution
+    disparity, ``run_stream``), and ``<name>-warm-drift-epe`` is the warm
+    EPE less the cold one on the ``valid >= 0.5`` mask of known GT (the
+    known-GT mask alone where that selects nothing, as Middlebury's valid
+    array marks occlusion).  Each pass also reports its frames per second
+    (past its first frame, and the warm pass's second, which capture) and,
+    under early exit, its mean ``iters_used``."""
+    n = len(dataset) if max_images is None else min(len(dataset),
+                                                   max_images)
+
+    def _epe(flow_pr, flow_gt, valid_gt) -> float:
+        err = np.abs(flow_pr - flow_gt).ravel()
+        gt = flow_gt.ravel()
+        known = np.isfinite(gt) & (gt > -1000)
+        mask = (valid_gt.ravel() >= 0.5) & known
+        if not mask.any():
+            mask = known
+        return float(err[mask].mean())
+
+    out: Dict[str, float] = {}
+    for mode in ("cold", "warm"):
+        runner.reset_iters_used()
+        state = None
+        epes, secs, iters = [], [], []
+        for i in range(n):
+            sample = dataset[i]
+            frame = runner.run_stream(
+                sample["image1"], sample["image2"],
+                prev_flow_low=state if mode == "warm" else None)
+            if mode == "warm":
+                state = frame.flow_low
+            if i > (1 if mode == "warm" else 0):
+                secs.append(frame.seconds)
+            if frame.iters_used is not None:
+                iters.append(frame.iters_used)
+            epes.append(_epe(frame.flow, sample["flow"], sample["valid"]))
+        out[f"{name}-epe-{mode}"] = float(np.mean(epes))
+        if secs:
+            out[f"{name}-fps-{mode}"] = float(1.0 / np.mean(secs))
+        if iters:
+            out[f"{name}-iters-{mode}-mean"] = float(np.mean(iters))
+    out[f"{name}-warm-drift-epe"] = (out[f"{name}-epe-warm"]
+                                     - out[f"{name}-epe-cold"])
+    print(f"Sequence {name}: cold EPE {out[f'{name}-epe-cold']:.4f}, "
+          f"warm EPE {out[f'{name}-epe-warm']:.4f}, drift "
+          f"{out[f'{name}-warm-drift-epe']:+.4f}")
+    return out
 
 
 def validate_eth3d(runner: InferenceRunner, root: str = "datasets/ETH3D",

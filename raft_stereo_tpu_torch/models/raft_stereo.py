@@ -1,4 +1,4 @@
-"""RAFT-Stereo at fixed depth, test and train mode (NCHW inside).
+"""RAFT-Stereo, test and train mode (NCHW inside).
 
 One forward: normalize both images; run cnet (frozen BN) on the left image
 and fnet (instance norm) on both as one batch (one image at a time once
@@ -6,9 +6,16 @@ H*W reaches ``sequential_fnet_threshold``, as the JAX model does), or, with
 ``shared_backbone``, the cnet trunk on both images and the feature head
 (``conv2_res``, ``conv2_out``) on its output; build the per-level GRU
 context biases; build the correlation (volume and pyramid, or the pooled
-right features of ``alt``); run ``iters`` refinement iterations (lookup ->
+right features of ``alt``); run the refinement iterations (lookup ->
 slow-fast coarse-only GRU steps when set -> motion encoder -> ConvGRUs ->
 flow and mask heads -> x-only disparity update); convex-upsample once.
+``begin`` is everything before the loop and hands out one iteration as
+``step``, so the inference runner can capture the loop's parts apart.
+
+Test mode runs ``iters`` iterations, or, with ``exit_threshold_px > 0``,
+the JAX model's convergence-gated loop (``ExitLoop``); it can also
+return a confidence map and carry the GRU state between frames
+(``hidden_init``/``return_hidden``, ``ctx_init``/``return_ctx``).
 
 Train mode (``test_mode=False``) returns the full-resolution x-flow of
 every iteration, (iters, B, H, W), as the JAX model does: each iteration
@@ -38,6 +45,7 @@ built only for the motion encoder's 2-channel flow input.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -47,6 +55,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from raft_stereo_tpu_torch.config import RaftStereoConfig
+from raft_stereo_tpu_torch.kernels.graph_loop import exit_continues, f32
 from raft_stereo_tpu_torch.models.corr import make_corr_fn
 from raft_stereo_tpu_torch.models.extractor import (BasicEncoder, Conv2d,
                                                     MultiBasicEncoder,
@@ -66,6 +75,13 @@ from raft_stereo_tpu_torch.ops.upsample import convex_upsample
 _STEM_EXTRA_BYTES_PER_PIXEL = 1180
 _SEQ_FNET_MEMORY_FRACTION = 0.10
 _CPU_MEMORY_BYTES = 16 * 2 ** 30
+
+# The JAX model's confidence map: the per-pixel convergence score (final
+# |delta disparity| plus half its EWMA, px at feature resolution) maps to
+# exp(-score / CONFIDENCE_SCALE_PX); the EWMA keeps CONFIDENCE_EWMA_DECAY
+# of the history each iteration.
+CONFIDENCE_SCALE_PX = 0.25
+CONFIDENCE_EWMA_DECAY = 0.8
 
 
 def sequential_fnet_threshold(cfg: RaftStereoConfig,
@@ -140,36 +156,114 @@ class RAFTStereo(nn.Module):
 
         Args:
           image1, image2: (B, H, W, 3) images in 0..255.
-          iters: GRU refinement iterations.
-          flow_init: optional (B, H/f, W/f) initial x-flow.
+          iters: GRU refinement iterations; the depth cap under early exit.
+          flow_init: optional (B, H/f, W/f) initial x-flow (warm start).
           test_mode: True for inference, False for training.
-          return_confidence, hidden_init, return_hidden, ctx_init,
-          return_ctx: not ported yet (ROADMAP.md §D3); setting any raises.
+          return_confidence: test mode only; also return ``(conf_low,
+            conf_up)``, the (B, H/f, W/f) per-pixel confidence in (0, 1]
+            and its convex-upsampled (B, H, W) counterpart
+            (``_confidence_maps``).
+          hidden_init: test mode only; the per-level GRU hidden states an
+            earlier frame's ``return_hidden`` gave ((B, C_l, h_l, w_l),
+            the port's NCHW layout): the loop resumes from them, the
+            context biases still come from this frame.
+          return_hidden: test mode only; also return the final per-level
+            hidden states.
+          ctx_init: test mode only; an earlier frame's ``return_ctx``
+            bundle ``(net_list, context)``: the initial hidden states and
+            the per-level (cz, cr, cq) biases, NCHW.  cnet and the
+            context convs do not run.  Refused with ``shared_backbone``.
+          return_ctx: test mode only; also return this frame's bundle,
+            taken before the loop.
 
-        Returns, in test mode, ``(flow_low, flow_up)``: the (B, H/f, W/f)
-        x-flow at feature resolution and its convex-upsampled (B, H, W)
-        counterpart (x-flow = -disparity); in train mode the (iters, B, H,
-        W) upsampled x-flow of every iteration."""
-        if (return_confidence or return_hidden or return_ctx
-                or hidden_init is not None or ctx_init is not None):
-            raise NotImplementedError(
-                "confidence maps and hidden/ctx state carry are not ported "
-                "yet (ROADMAP.md §D3)")
+        With ``config.exit_threshold_px > 0`` the test-mode loop is the
+        JAX model's convergence-gated loop (``exit_bounds``): it stops
+        once the worst batch member's mean |delta disparity| of an
+        iteration falls below the threshold, within ``exit_min_iters``
+        and ``min(iters, exit_max_iters)`` iterations, and the result
+        gains ``iters_used`` (an int).  Each iteration's delta comes to
+        the host (``exit_continues``); ``eval/runner.py`` replays the same
+        iterations in a CUDA graph.  At threshold 0 the fixed-depth loop
+        runs the same operations as it did before early exit existed.
+
+        Returns, in test mode, ``(flow_low, flow_up[, iters_used][,
+        confidence][, hidden][, ctx])``: the (B, H/f, W/f) x-flow at
+        feature resolution and its convex-upsampled (B, H, W) counterpart
+        (x-flow = -disparity), then the tails whose flag is set, in the
+        JAX model's order; in train mode the (iters, B, H, W) upsampled
+        x-flow of every iteration."""
         cfg = self.config
+        if (ctx_init is not None or return_ctx) and not test_mode:
+            raise ValueError("ctx_init/return_ctx are test-mode only (the "
+                             "streaming ctx cache is an inference feature)")
+        if (hidden_init is not None or return_hidden) and not test_mode:
+            raise ValueError("hidden_init/return_hidden are test-mode only "
+                             "(hidden-state warm start is an inference "
+                             "feature)")
+        if return_confidence and not test_mode:
+            raise ValueError("return_confidence is test-mode only (the "
+                             "confidence map is an inference product)")
         if cfg.quant != "off" and not test_mode:
             raise ValueError(f"quant={cfg.quant!r} is an inference tier: "
                              f"the model runs in test mode only")
+        step, net, disp, ctx_out = self.begin(
+            image1, image2, flow_init, hidden_init, ctx_init, return_ctx)
+
+        if not test_mode:
+            return self._train_loop(step, net, disp, iters)
+
+        def tail(net_fin):
+            return (((tuple(net_fin),) if return_hidden else ())
+                    + ((ctx_out,) if return_ctx else ()))
+
+        if cfg.exit_threshold_px > 0:
+            return self._exit_loop(step, net, disp, iters,
+                                   return_confidence, tail)
+        if return_confidence:
+            dmag = ewma = torch.zeros_like(disp)
+            mask = self.mask0(disp)
+            for _ in range(iters):
+                net, new_disp, mask = step(net, disp)
+                dmag, ewma = self.trajectory(new_disp, disp, ewma)
+                disp = new_disp
+            return ((disp, self._upsample(disp, mask),
+                     self._confidence_maps(dmag, ewma, mask, 1.0))
+                    + tail(net))
+        mask = None
+        for _ in range(iters):
+            net, disp, mask = step(net, disp)
+        if mask is None:
+            mask = self.mask0(disp)
+        return (disp, self._upsample(disp, mask)) + tail(net)
+
+    def begin(self, image1: torch.Tensor, image2: torch.Tensor,
+              flow_init: Optional[torch.Tensor] = None, hidden_init=None,
+              ctx_init=None, return_ctx: bool = False):
+        """Everything before the refinement loop: returns ``(step, net,
+        disp, ctx_out)``, where ``step(net, disp) -> (net, disp, mask)`` is
+        one iteration (lookup -> slow-fast coarse steps -> motion encoder
+        -> ConvGRUs -> heads -> x-only update) over this pair's context
+        and correlation, ``net`` and ``disp`` the loop's initial state and
+        ``ctx_out`` the ``return_ctx`` bundle (None unless asked)."""
+        cfg = self.config
+        if ctx_init is not None and cfg.shared_backbone:
+            raise ValueError(
+                "ctx_init is unsupported with shared_backbone: fnet is "
+                "computed from the cnet trunk there, so the context "
+                "encoder cannot be skipped")
         dtype = self.compute_dtype
         img1 = (2 * (image1.float() / 255.0) - 1.0).to(dtype).permute(
             0, 3, 1, 2)
         img2 = (2 * (image2.float() / 255.0) - 1.0).to(dtype).permute(
             0, 3, 1, 2)
 
+        levels = None
         if cfg.shared_backbone:
             levels, v = self.cnet(torch.cat([img1, img2]))
             fmap1, fmap2 = torch.chunk(self.conv2_out(self.conv2_res(v)), 2)
         else:
-            levels, _ = self.cnet(img1)
+            if ctx_init is None:
+                levels, _ = self.cnet(img1)
             if (image1.shape[1] * image1.shape[2]
                     >= sequential_fnet_threshold(cfg, img1.device)):
                 fmap1, fmap2 = self.fnet(img1), self.fnet(img2)
@@ -177,13 +271,27 @@ class RAFTStereo(nn.Module):
                 fmap1, fmap2 = torch.chunk(
                     self.fnet(torch.cat([img1, img2])), 2)
 
-        # levels[l] = [hidden_head, context_head], fine -> coarse
-        net = [torch.tanh(lv[0]) for lv in levels]
-        context = [
-            tuple(torch.chunk(
-                getattr(self, f"context_zqr_conv{l}")(F.relu(lv[1])), 3,
-                dim=1))
-            for l, lv in enumerate(levels)]
+        if ctx_init is not None:
+            net = [n.to(dtype) for n in ctx_init[0]]
+            context = [tuple(c.to(dtype) for c in cs) for cs in ctx_init[1]]
+        else:
+            # levels[l] = [hidden_head, context_head], fine -> coarse
+            net = [torch.tanh(lv[0]) for lv in levels]
+            context = [
+                tuple(torch.chunk(
+                    getattr(self, f"context_zqr_conv{l}")(F.relu(lv[1])), 3,
+                    dim=1))
+                for l, lv in enumerate(levels)]
+        # taken before the loop: a frame that reuses it starts where a
+        # cold frame would
+        ctx_out = ((tuple(net), tuple(tuple(c) for c in context))
+                   if return_ctx else None)
+        if hidden_init is not None:
+            if len(hidden_init) != len(net):
+                raise ValueError(
+                    f"hidden_init carries {len(hidden_init)} levels, model "
+                    f"has {len(net)} GRU levels")
+            net = [h.to(dtype) for h in hidden_init]
 
         b, _, h8, w8 = net[0].shape
         disp = torch.zeros((b, h8, w8), device=img1.device)
@@ -212,30 +320,68 @@ class RAFTStereo(nn.Module):
             # epipolar projection: only the x component updates
             return net, disp + delta[:, 0].float(), mask
 
-        if test_mode:
-            mask = None
-            for _ in range(iters):
-                net, disp, mask = update(net, disp, lookup(disp))
-            if mask is None:
-                mask = torch.zeros((b, cfg.mask_channels, h8, w8),
-                                   device=img1.device, dtype=dtype)
-            return disp, self._upsample(disp, mask)
+        def step(net, disp, corr=None):
+            return update(list(net), disp,
+                          lookup(disp) if corr is None else corr)
 
+        step.lookup = lookup
+        return step, net, disp, ctx_out
+
+    def exit_bounds(self, iters: int):
+        """``(limit, min_iters, threshold)`` of the early-exit loop at the
+        depth cap ``iters``, the JAX model's: ``limit = min(iters,
+        exit_max_iters)``, ``min_iters = max(1, min(exit_min_iters,
+        limit))``, the threshold rounded to fp32."""
+        cfg = self.config
+        limit = (iters if cfg.exit_max_iters is None
+                 else min(iters, cfg.exit_max_iters))
+        return (limit, max(1, min(cfg.exit_min_iters, limit)),
+                f32(cfg.exit_threshold_px))
+
+    def mask0(self, disp: torch.Tensor) -> torch.Tensor:
+        """The upsampling mask before the first iteration (zeros)."""
+        b, h8, w8 = disp.shape
+        return torch.zeros((b, self.config.mask_channels, h8, w8),
+                           device=disp.device, dtype=self.compute_dtype)
+
+    @staticmethod
+    def trajectory(new_disp: torch.Tensor, disp: torch.Tensor,
+                   ewma: torch.Tensor):
+        """One iteration's per-pixel |delta disparity| (fp32) and the
+        updated EWMA of it (``CONFIDENCE_EWMA_DECAY``)."""
+        dmag = (new_disp - disp).abs()
+        return dmag, (CONFIDENCE_EWMA_DECAY * ewma
+                      + (1.0 - CONFIDENCE_EWMA_DECAY) * dmag)
+
+    @staticmethod
+    def batch_delta(dmag: torch.Tensor) -> torch.Tensor:
+        """The exit test's quantity: the per-image mean |delta| (fp32),
+        worst over the batch, a 0-d tensor."""
+        return dmag.mean(dim=(1, 2)).amax()
+
+    def _exit_loop(self, step, net, disp, iters, return_confidence, tail):
+        """The convergence-gated test-mode loop, eagerly (``ExitLoop``)."""
+        loop = ExitLoop(self, iters, return_confidence)
+        carry = loop.start(step, net, disp)
+        loop.iterate(carry)
+        out = loop.finish(carry)
+        return (out[0], out[1], int(out[2])) + out[3:] + tail(carry["net"])
+
+    def _train_loop(self, step, net, disp, iters):
+        cfg = self.config
         save_lookup = "corr_lookup" in cfg.remat_save
 
         def train_iteration(disp, corr, *net):
             # named in profiler traces, where the remat recompute shows as
             # this range inside the backward
             with record_function("raft::gru_iteration"):
-                if corr is None:
-                    corr = lookup(disp)
-                net, disp, mask = update(list(net), disp, corr)
+                net, disp, mask = step(net, disp, corr)
                 return (*net, disp, self._upsample(disp, mask))
 
         flow_ups = []
         for _ in range(iters):
             disp = disp.detach()
-            corr = lookup(disp) if save_lookup else None
+            corr = step.lookup(disp) if save_lookup else None
             if cfg.remat_gru and torch.is_grad_enabled():
                 *net, disp, flow_up = checkpoint(
                     train_iteration, disp, corr, *net, use_reentrant=False,
@@ -250,3 +396,86 @@ class RAFTStereo(nn.Module):
         """Convex-upsample a (B,h,w) disparity to full resolution."""
         return convex_upsample(disp[:, None], mask.float(),
                                self.config.downsample_factor)[:, 0]
+
+    def _confidence_maps(self, dmag: torch.Tensor, ewma: torch.Tensor,
+                         mask: torch.Tensor, depth_frac):
+        """The ``return_confidence`` element, ``(conf_low, conf_up)``: the
+        per-pixel score ``dmag + ewma / 2`` (px at feature resolution),
+        scaled by ``(1 + depth_frac) / 2`` (the share of the depth cap the
+        loop spent: 1 at fixed depth, ``iters_used / limit`` under early
+        exit), maps to ``exp(-score / CONFIDENCE_SCALE_PX)``; the full
+        resolution map is the convex upsampling of it with the final
+        mask, clipped to [0, 1]."""
+        score = (dmag + 0.5 * ewma).float()
+        conf_low = torch.exp(-score * (0.5 + 0.5 * depth_frac)
+                             / CONFIDENCE_SCALE_PX)
+        return conf_low, self._upsample(conf_low, mask).clamp(0.0, 1.0)
+
+
+class ExitLoop:
+    """The JAX model's convergence-gated test-mode loop over a carry of
+    tensors that each iteration updates in place, in three parts:
+    ``start`` (the carry: the state, the upsampling mask, the count ``it``
+    and the last ``delta``, and with ``return_confidence`` the per-pixel
+    |delta| and its EWMA), ``body`` (one iteration and its delta, the
+    worst member's mean |delta disparity|) and ``finish`` ((flow_low,
+    flow_up, it[, (conf_low, conf_up)])).  ``iterate`` runs the loop
+    eagerly, reading each delta on the host (``exit_continues``); the
+    inference runner captures the same three parts as CUDA graphs and
+    counts with ``it`` on the card, so its graphs give this loop's result
+    bit for bit."""
+
+    def __init__(self, model: RAFTStereo, iters: int,
+                 return_confidence: bool = False):
+        self.model = model
+        self.limit, self.min_iters, self.threshold = model.exit_bounds(
+            iters)
+        self.conf = return_confidence
+
+    def continues(self, it: int, delta: float) -> bool:
+        return exit_continues(it, delta, self.min_iters, self.limit,
+                              self.threshold)
+
+    def start(self, step, net, disp: torch.Tensor) -> dict:
+        carry = {"step": step, "net": [n.clone() for n in net],
+                 "disp": disp.clone(), "mask": self.model.mask0(disp),
+                 "it": torch.zeros((), dtype=torch.int32,
+                                   device=disp.device),
+                 "delta": torch.full((), math.inf, device=disp.device)}
+        if self.conf:
+            carry["dmag"] = torch.zeros_like(disp)
+            carry["ewma"] = torch.zeros_like(disp)
+        return carry
+
+    def body(self, carry: dict) -> None:
+        """One iteration; every new value is computed before any is
+        written back."""
+        net, disp, mask = carry["step"](carry["net"], carry["disp"])
+        if self.conf:
+            dmag, ewma = self.model.trajectory(disp, carry["disp"],
+                                               carry["ewma"])
+            carry["dmag"].copy_(dmag)
+            carry["ewma"].copy_(ewma)
+        else:
+            dmag = (disp - carry["disp"]).abs()
+        carry["delta"].copy_(self.model.batch_delta(dmag))
+        for dst, src in zip(carry["net"], net):
+            dst.copy_(src)
+        carry["disp"].copy_(disp)
+        carry["mask"].copy_(mask)
+
+    def iterate(self, carry: dict) -> None:
+        it, delta = 0, math.inf
+        while self.continues(it, delta):
+            self.body(carry)
+            carry["it"] += 1
+            it, delta = it + 1, float(carry["delta"])
+
+    def finish(self, carry: dict):
+        disp, mask = carry["disp"], carry["mask"]
+        out = (disp, self.model._upsample(disp, mask), carry["it"])
+        if self.conf:
+            frac = carry["it"].float() / self.limit
+            out += (self.model._confidence_maps(carry["dmag"],
+                                                carry["ewma"], mask, frac),)
+        return out

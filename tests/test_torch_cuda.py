@@ -961,6 +961,9 @@ def _eager(runner, left, right):
         flow = make_forward(runner.model, runner.iters, runner.fetch_dtype)(
             torch.from_numpy(np.pad(left, spec, mode="edge")[None]).to(dev),
             torch.from_numpy(np.pad(right, spec, mode="edge")[None]).to(dev))
+        if isinstance(flow, tuple):         # early exit: (flow, iters_used)
+            runner.eager_iters_used = int(flow[1])
+            flow = flow[0]
         return padder.unpad(flow)[0].float().cpu().numpy()
 
 
@@ -1227,3 +1230,183 @@ def test_tiny_train_resume_on_card(cuda_device, tmp_path):
                    for p, q in zip(x.model.parameters(),
                                    y.model.parameters()))
     assert gap(full, resumed) <= 3 * gap(full, again)
+
+
+# ------------------------------------------- early exit under CUDA graphs
+EXIT_CAP = 6
+
+
+def _settled_runner(name, **kw):
+    from torch_port_support import settle_state
+
+    base, _ = GRAPH_CONFIGS[name]
+    torch.manual_seed(0)
+    cfg = RaftStereoConfig(**{**base, **TINY})
+    return cfg, settle_state(RAFTStereo(cfg).state_dict())
+
+
+def _exit_threshold(cfg, state, left, right):
+    """A threshold between the eager loop's deltas of iterations 3 and 4
+    (the settling GRU's updates shrink), and the trip count it gives."""
+    probe = InferenceRunner(cfg, state, iters=EXIT_CAP, device="cuda")
+    from raft_stereo_tpu_torch.ops.padding import InputPadder
+    pl, pr, pt, pb = InputPadder((1, 3) + left.shape[:2], divis_by=32).pads
+    spec = ((pt, pb), (pl, pr), (0, 0))
+    imgs = [torch.from_numpy(np.pad(x, spec, mode="edge")[None]).cuda()
+            for x in (left, right)]
+    deltas = []
+    with torch.inference_mode():
+        step, net, disp, _ = probe.model.begin(*imgs)
+        for _ in range(EXIT_CAP):
+            net, new, _ = step(net, disp)
+            deltas.append(float(probe.model.batch_delta((new - disp).abs())))
+            disp = new
+    assert all(b < 0.9 * a for a, b in zip(deltas, deltas[1:])), deltas
+    return (deltas[2] + deltas[3]) / 2, 4
+
+
+def test_exit_predicate_kernel_matches_plain(cuda_device):
+    """WHILE loops whose body is the predicate alone: the kernel's trip
+    counts are the plain predicate's, NaN ending the loop."""
+    import math
+
+    from raft_stereo_tpu_torch.kernels.graph_loop import (WhileGraph,
+                                                          exit_continues,
+                                                          exit_predicate)
+
+    stream, pool = torch.cuda.Stream(), torch.cuda.graph_pool_handle()
+    it = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    delta = torch.zeros((), device=cuda_device)
+    keep = []
+    for d in (0.2, 0.5, 0.9, math.nan):
+        for lo, lim in ((1, 6), (4, 6), (3, 3), (1, 1)):
+            wg = WhileGraph()
+            graphs = [torch.cuda.CUDAGraph(keep_graph=True) for _ in range(3)]
+            with torch.cuda.graph(graphs[0], pool=pool, stream=stream):
+                it.zero_()
+                delta.fill_(d)
+            with torch.cuda.graph(graphs[1], pool=pool, stream=stream):
+                exit_predicate(wg.handle, it, delta, lo, lim, 0.5)
+            with torch.cuda.graph(graphs[2], pool=pool, stream=stream):
+                it.add_(0)
+            wg.build(*graphs)
+            for _ in range(2):
+                wg.launch(torch.cuda.current_stream())
+                n, dd = 0, math.inf
+                while exit_continues(n, dd, lo, lim, 0.5):
+                    n, dd = n + 1, d
+                assert int(it) == n, (d, lo, lim)
+            keep.append((wg, graphs))
+    for wg, _ in keep:
+        wg.close()
+
+
+@pytest.mark.parametrize("name", ["default", "realtime"])
+def test_exit_graph_matches_the_eager_exit_loop(rng, cuda_device, name):
+    """The WHILE graph replays the eager exit loop bit for bit, with its
+    trip count, and launches one iteration's kernels (and the predicate)
+    per iteration."""
+    from raft_stereo_tpu_torch.eval.runner import launch_counts
+
+    left = rng.integers(0, 256, (45, 70, 3), dtype=np.uint8)
+    right = np.roll(left, -3, axis=1)
+    cfg, state = _settled_runner(name)
+    thr, used = _exit_threshold(cfg, state, left, right)
+    runner = InferenceRunner(cfg, state, iters=EXIT_CAP, device="cuda",
+                             exit_threshold_px=thr, exit_min_iters=2)
+    first = runner(left, right)[0]
+    assert runner.last_iters_used == used
+    again = runner(left, right)[0]
+    eager = _eager(runner, left, right)
+    assert runner.eager_iters_used == used
+    np.testing.assert_array_equal(first, again)
+    np.testing.assert_array_equal(first, eager)
+    (entry,) = runner._compiled.values()
+    corr = "alt" if name == "realtime" else "lookup"
+    assert entry.body_launches[corr] == 1 and entry.body_launches[
+        "gates"] == 3
+    assert entry.body_launches["exit"] == 1
+    assert not any(entry.launches.values())
+    assert entry.pair_launches(used)[corr] == used
+    before = launch_counts()
+    runner(left, right)
+    assert launch_counts() == before          # a replay runs no wrapper
+    assert runner.captures == 1 and runner.iters_used_mean() == used
+
+
+def test_exit_stream_graph_matches_eager(rng, cuda_device):
+    """A warm frame with the hidden state in and out, on the WHILE graph,
+    against its eager streaming program."""
+    from raft_stereo_tpu_torch.eval.runner import make_forward
+
+    left = rng.integers(0, 256, (45, 70, 3), dtype=np.uint8)
+    right = np.roll(left, -3, axis=1)
+    cfg, state = _settled_runner("default")
+    thr, _ = _exit_threshold(cfg, state, left, right)
+    runner = InferenceRunner(cfg, state, iters=EXIT_CAP, device="cuda",
+                             exit_threshold_px=thr, exit_min_iters=2)
+    cold = runner.run_stream(left, right, carry_hidden=True)
+    warm = runner.run_stream(np.roll(left, -1, axis=1),
+                             np.roll(right, -1, axis=1),
+                             prev_flow_low=cold.flow_low,
+                             prev_hidden=cold.hidden)
+    fwd = make_forward(runner.model, EXIT_CAP, warm_start=True,
+                       return_state=True, hidden_init=True,
+                       return_hidden=True)
+    from raft_stereo_tpu_torch.ops.padding import InputPadder
+    pl, pr, pt, pb = InputPadder((1, 3, 45, 70), divis_by=32).pads
+    spec = ((pt, pb), (pl, pr), (0, 0))
+    imgs = [torch.from_numpy(np.pad(np.roll(x, -1, axis=1), spec,
+                                    mode="edge")[None]).cuda()
+            for x in (left, right)]
+    with torch.inference_mode():
+        _, low, used, hid = fwd(
+            *imgs, torch.from_numpy(cold.flow_low[None]).cuda(),
+            tuple(torch.from_numpy(h[None]).cuda() for h in cold.hidden))
+    np.testing.assert_array_equal(low[0].cpu().numpy(), warm.flow_low)
+    assert int(used) == warm.iters_used
+    for a, b in zip(hid, warm.hidden):
+        np.testing.assert_array_equal(a[0].cpu().numpy(), b)
+    assert len(runner._stream_compiled) == 2
+
+
+def test_exit_graph_cache_recaptures_after_eviction(rng, cuda_device):
+    """One cache entry: a second shape evicts the first (its WHILE graph
+    is destroyed and its pool released) and the first captures again,
+    with the same result."""
+    a = rng.integers(0, 256, (45, 70, 3), dtype=np.uint8)
+    b = rng.integers(0, 256, (100, 130, 3), dtype=np.uint8)
+    cfg, state = _settled_runner("default")
+    thr, _ = _exit_threshold(cfg, state, a, np.roll(a, -3, axis=1))
+    runner = InferenceRunner(cfg, state, iters=EXIT_CAP, device="cuda",
+                             exit_threshold_px=thr, max_cached_shapes=1)
+    want = runner(a, np.roll(a, -3, axis=1))[0]
+    runner(b, np.roll(b, -3, axis=1))
+    np.testing.assert_array_equal(runner(a, np.roll(a, -3, axis=1))[0], want)
+    assert runner.captures == 3 and len(runner._compiled) == 1
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_confidence_card_vs_cpu(rng, cuda_device, adaptive):
+    """The confidence map on the card against the CPU, TINY, iters 2:
+    flows within chip_smoke.py's 1e-2 px, the map within 12x that (the
+    bound exp(-score / 0.25) gives, score moving 3x the flows)."""
+    from raft_stereo_tpu_torch.eval.runner import make_forward
+
+    cfg, state = _settled_runner("default")
+    if adaptive:
+        cfg = RaftStereoConfig(**{**cfg.to_dict(), "exit_threshold_px": 0.05})
+    left = rng.integers(0, 256, (1, 64, 96, 3), dtype=np.uint8)
+    right = np.roll(left, -3, axis=2)
+    outs = []
+    for device in ("cuda", "cpu"):
+        r = InferenceRunner(cfg, state, iters=2, device=device)
+        with torch.inference_mode():
+            o = make_forward(r.model, 2, return_confidence=True)(
+                torch.from_numpy(left).to(device),
+                torch.from_numpy(right).to(device))
+        outs.append([o[0].cpu()] + [t.cpu() for t in o[-1]])
+    (f1, c1, u1), (f2, c2, u2) = outs
+    assert float((f1 - f2).abs().max()) <= 1e-2
+    assert float((c1 - c2).abs().max()) <= 0.12
+    assert float((u1 - u2).abs().max()) <= 0.12

@@ -503,9 +503,7 @@ def test_arch_overrides_same_flags_as_jax():
 @pytest.mark.parametrize("argv,item", [
     (["--banded_encoder"], "§D7"), (["--rows_shards", "2"], "§D7"),
     (["--rows_gru"], "§D7"), (["--rows_gru_halo", "4"], "§D7"),
-    (["--corr_w2_shards", "2"], "§D7"), (["--sequence"], "§D3"),
-    (["--stream_out", "x.json"], "§D3"),
-    (["--exit_threshold_px", "0.5"], "§D3"), (["--min_iters", "2"], "§D3")])
+    (["--corr_w2_shards", "2"], "§D7")])
 def test_unported_flags_raise(argv, item):
     args = evaluate.build_parser().parse_args(
         ["--restore_ckpt", "unused", "--dataset", "kitti"] + argv)

@@ -150,8 +150,7 @@ def test_config_fields_match_jax():
 
 @pytest.mark.parametrize("field,value", [
     ("rows_gru", True), ("banded_encoder", True), ("rows_shards", 2),
-    ("corr_w2_shards", 2), ("exit_threshold_px", 0.05),
-    ("remat_save", ("gru_gates",))])
+    ("corr_w2_shards", 2), ("remat_save", ("gru_gates",))])
 def test_unported_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         RaftStereoConfig(**{field: value})
@@ -188,13 +187,15 @@ def test_sequential_fnet_route(pixels):
 
 
 def test_unported_forward_modes_raise():
+    """Confidence and state carry are ported (tests/test_torch_early_exit.py);
+    in train mode they raise the JAX model's ValueError."""
     cfg = RaftStereoConfig(**TINY)
     model = RAFTStereo(cfg)
     img = torch.zeros((1, 32, 32, 3))
     for kwargs in ({"return_confidence": True}, {"return_hidden": True},
                    {"ctx_init": ()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            model(img, img, iters=1, **kwargs)
+        with pytest.raises(ValueError, match="test-mode only"):
+            model(img, img, iters=1, test_mode=False, **kwargs)
 
 
 def test_checkpoint_and_demo_cli(tmp_path):

@@ -209,8 +209,11 @@ def test_quant_configs_construct_and_validate():
             RaftStereoConfig(**kw)
         with pytest.raises(ValueError):
             JaxConfig(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RaftStereoConfig(quant="int8", exit_threshold_px=0.5)
+    # the turbo tier: int8_mxu with the early exit (ported since §D3)
+    assert RaftStereoConfig(quant="int8_mxu", exit_threshold_px=0.05,
+                            exit_min_iters=2).to_dict() == dataclasses.asdict(
+        JaxConfig(quant="int8_mxu", exit_threshold_px=0.05,
+                  exit_min_iters=2))
 
 
 # --------------------------------------------------- 1-byte kernel entries

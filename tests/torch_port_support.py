@@ -63,3 +63,54 @@ def assert_bf16_close(got, want, ulps=1, atol=1e-5):
     assert not bad.any(), (
         f"{bad.sum()} of {bad.size} values beyond {ulps} bf16 ulp + {atol}: "
         f"max error {err.max():.3e}")
+
+
+# A settling GRU (the early-exit tests): the candidate state q and the
+# update gate's input weights zeroed, the update gate held at
+# sigmoid(SETTLE_Z_BIAS) and the flow head's biases zeroed, so every hidden
+# state decays by 1 - sigmoid(-1) = 0.73 an iteration and the disparity
+# updates shrink geometrically, as a trained network's settle; random
+# weights make them grow.  Everything else keeps its random weights.
+SETTLE_Z_BIAS = -1.0
+
+
+def settle_state(state):
+    """A copy of a port state dict with the settling GRU."""
+    state = {k: v.clone() for k, v in state.items()}
+    for key in list(state):
+        if key.endswith((".convq.weight", ".convq.bias",
+                         "flow_head.conv1.bias", "flow_head.conv2.bias")):
+            state[key].zero_()
+        elif key.endswith(".convzr.weight") or key.endswith(".convzr.bias"):
+            n = state[key].shape[0] // 2
+            state[key][:n] = SETTLE_Z_BIAS if key.endswith("bias") else 0
+        elif key.startswith("context_zqr_conv"):
+            n = state[key].shape[0] // 3
+            state[key][:n] = 0        # cz
+            state[key][2 * n:] = 0    # cq
+    return state
+
+
+def settle_jax(variables):
+    """``settle_state`` on a numpy JAX variables tree (a copy)."""
+    import copy
+
+    v = copy.deepcopy(variables)
+    p = v["params"]
+    for name, mod in p["update_block"].items():
+        if name.startswith("gru"):
+            mod["convq"]["kernel"][...] = 0
+            mod["convq"]["bias"][...] = 0
+            n = mod["convzr"]["bias"].shape[0] // 2
+            mod["convzr"]["kernel"][..., :n] = 0
+            mod["convzr"]["bias"][:n] = SETTLE_Z_BIAS
+    for conv in p["update_block"]["flow_head"].values():
+        conv["bias"][...] = 0
+    for name, conv in p.items():
+        if name.startswith("context_zqr_conv"):
+            n = conv["bias"].shape[0] // 3
+            conv["kernel"][..., :n] = 0
+            conv["bias"][:n] = 0
+            conv["kernel"][..., 2 * n:] = 0
+            conv["bias"][2 * n:] = 0
+    return v
