@@ -201,6 +201,23 @@ fails the run when it fails:
    or the quantized variants' gate kernels and int8 GEMMs not launching
    (the gate's pass or fail is a measurement, not a check); the records
    go to the tools' default, ``raft_stereo_tpu_torch/_build/records/``.
+29. telemetry on the card, run right after phase 25 on its tree:
+   ``cli/train.py main`` at phase 24's configuration for 7 steps with
+   ``--metrics_port 0 --event_log --trace_sample_rate 1.0
+   --cost_telemetry --stall_watchdog``, its endpoint scraped from a
+   thread while it runs (the step counter and step-time histogram, device
+   bytes in use, ``/healthz``, ``/debug/spans``, ``/debug/compiles``
+   listing the step with the FLOP formula's count, the MFU gauge in (0,
+   1.05]); ``POST /debug/trace`` after step 4, whose Chrome trace must
+   name the gate, lookup and lookup-backward kernels; the event log
+   replayed (run_start, step stats, run_end, no build inside a step);
+   phase 24's launch counts per step, and the median step outside the
+   trace window within 5% of the same run's with telemetry off (4 steps,
+   just before; phase 24's median printed beside); then the default
+   runner with a
+   ``CompileRegistry`` at 375x1242 and 32 iterations: one record for its
+   one capture, the capture's seconds and memory, FLOPs per pair, the MFU
+   at replay time against the card's fp32 peak.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (times
 by graph replay; a redesigned row names its design under ``design``; an
@@ -342,6 +359,20 @@ EXIT_MIN_ITERS = 2
 CONF_ATOL = 12 * CARD_VS_CPU_ATOL
 SEQ_PAIRS = 8
 GATE_PX = 0.05
+# Phase 29, telemetry on the card: the steps of the training run and of
+# its telemetry-off control run just before it, the step after which the
+# trace window opens and its length, the step time's bound against the
+# control's (the instruments add host work only; phase 24's median is
+# printed beside, but a default step ran 3.40 s before phase 24's first
+# validation and 2.90 s after it, PERF.md section 6), and the kernels the
+# window's trace must name (csrc/gru_gates.cu, csrc/corr_lookup.cu).
+TELEMETRY_STEPS = 7
+TELEMETRY_CONTROL_STEPS = 4
+TELEMETRY_TRACE_AFTER = 4
+TELEMETRY_TRACE_MS = 5000
+TELEMETRY_STEP_RTOL = 0.05
+TELEMETRY_KERNELS = ("gates_conv_kernel", "corr_lookup_kernel",
+                     "corr_lookup_bwd_kernel")
 # Published peaks of the H100 SXM (NVIDIA data sheet, 700 W): memory
 # bytes/s, fp32 FLOP/s on the CUDA cores, and on the tensor cores dense
 # TF32 and bf16 FLOP/s and dense int8/fp8 operations/s.
@@ -1168,7 +1199,7 @@ def phase_stream(cfg, state, thr, cap, left, right, small, small_r, card):
     ok = (all(math.isfinite(v) for v in res.values())
           and EXIT_MIN_ITERS <= res["kitti-iters-cold-mean"] <= cap
           and EXIT_MIN_ITERS <= res["kitti-iters-warm-mean"] <= cap
-          and rec["run"]["device"] == torch.cuda.get_device_name(0)
+          and rec["run"]["device_kind"] == torch.cuda.get_device_name(0)
           and counts.get("lookup", 0) > 0 and counts.get("exit", 0) > 0)
     log(f"sequence (cli/evaluate.py --sequence --exit_threshold_px "
         f"{thr:.6g} --stream_out, {SEQ_PAIRS} KITTI-shaped pairs, cap "
@@ -1178,6 +1209,244 @@ def phase_stream(cfg, state, thr, cap, left, right, small, small_r, card):
     if not ok:
         raise AssertionError("the sequence path failed its checks")
     return res
+
+
+def phase_telemetry(tree, p24_step_s, want_step, counts, zero_counts,
+                    cfg, state, left, right, card):
+    """Phase 29: telemetry on the card.  (a) ``cli/train.py main`` on
+    phase 24's tree at ``RaftStereoConfig()`` and ``TrainConfig()``'s
+    batch, crop and iterations with every telemetry option on; (b) its
+    endpoint scraped from a thread while it runs; (c) ``POST
+    /debug/trace`` once TELEMETRY_TRACE_AFTER steps are done, its Chrome
+    trace naming the gate, lookup and lookup-backward kernels; (d) the
+    event log replayed; (e) the median step outside the trace window
+    within TELEMETRY_STEP_RTOL of a telemetry-off run of the same CLI just
+    before it (phase 24's median printed beside), and phase 24's launch
+    counts per step; (f) the default runner with a ``CompileRegistry`` at
+    375x1242 and 32 iterations: one record per capture, its seconds, FLOPs
+    and memory, and the MFU against the card's peak at replay time."""
+    import threading
+    import urllib.request
+
+    from raft_stereo_tpu_torch.cli import train as train_cli
+    from raft_stereo_tpu_torch.eval.runner import InferenceRunner
+    from raft_stereo_tpu_torch.telemetry import (CompileRegistry,
+                                                 MetricsRegistry, replay)
+    from raft_stereo_tpu_torch.telemetry.flops import (forward_flops,
+                                                       train_step_flops)
+    from raft_stereo_tpu_torch.training import train_loop as loop_mod
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.read().decode()
+
+    def post(url, body):
+        req = urllib.request.Request(url, data=body.encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return json.loads(r.read())
+
+    def gauge(text, name):
+        for line in text.splitlines():
+            if line.startswith(name + " "):
+                return float(line.split()[1])
+        return None
+
+    run_dir = os.path.join(tree, "telemetry_run")
+    events_path = os.path.join(run_dir, "events.jsonl")
+    built, snaps, marks, scrapes = {}, [], [], {"metrics": [], "health": [],
+                                                "spans": [], "compiles": []}
+    real_build, real_train = train_cli.build_telemetry, loop_mod.train
+    done = threading.Event()
+    errors = []
+
+    def capture(args, model_cfg, train_cfg):
+        built["parts"] = real_build(args, model_cfg, train_cfg)
+        return built["parts"]
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        snaps.append(counts())
+
+    def scrape():
+        while "parts" not in built and not done.is_set():
+            time.sleep(0.05)
+        if done.is_set():
+            return
+        url = built["parts"][1].url
+        while not done.is_set():
+            try:
+                scrapes["metrics"].append(get(url + "/metrics"))
+                scrapes["health"].append(json.loads(get(url + "/healthz")))
+                scrapes["spans"].append(json.loads(get(url + "/debug/spans")))
+                scrapes["compiles"].append(
+                    json.loads(get(url + "/debug/compiles")))
+                if ("trace" not in scrapes and len(snaps)
+                        >= TELEMETRY_TRACE_AFTER):
+                    scrapes["trace_post"] = time.perf_counter()
+                    scrapes["trace"] = post(
+                        url + "/debug/trace",
+                        json.dumps({"duration_ms": TELEMETRY_TRACE_MS}))
+            except OSError as e:      # the endpoint closes as the run ends
+                if not done.is_set():
+                    errors.append(repr(e))
+            time.sleep(0.2)
+
+    def argv(name, steps, val_every):
+        return ["--data_root", tree, "--checkpoint_dir",
+                os.path.join(run_dir, name), "--log_dir", run_dir,
+                "--batch_size", str(TRAIN_B), "--image_size",
+                str(TRAIN_HW[0]), str(TRAIN_HW[1]), "--train_iters",
+                str(TRAIN_ITERS), "--num_steps", str(steps),
+                "--validation_frequency", str(val_every)]
+
+    loop_mod.train = lambda *a, **kw: real_train(*a, on_step=on_step, **kw)
+    thread = threading.Thread(target=scrape, daemon=True)
+    try:
+        # the control: the same run with telemetry off, just before
+        marks.append(time.perf_counter())
+        train_cli.main(argv("ck_off", TELEMETRY_CONTROL_STEPS, 10_000))
+        off_marks, off_snaps = marks[:], snaps[:]
+        marks.clear()
+        snaps.clear()
+        train_cli.build_telemetry = capture
+        thread.start()
+        zero_counts()
+        marks.append(time.perf_counter())
+        t0 = time.perf_counter()
+        train_cli.main(argv("ck", TELEMETRY_STEPS, CLI_VAL_EVERY) + [
+            "--metrics_port", "0", "--event_log", events_path,
+            "--trace_sample_rate", "1.0", "--cost_telemetry",
+            "--stall_watchdog"])
+        run_s = time.perf_counter() - t0
+    finally:
+        done.set()
+        if thread.ident is not None:
+            thread.join(timeout=60)
+        train_cli.build_telemetry = real_build
+        loop_mod.train = real_train
+    tel = built["parts"][0]
+
+    # (e) launch counts per step and the step time outside the window
+    per_step, prev = [], {k: 0 for k in counts()}
+    for snap in snaps:
+        per_step.append({k: snap[k] - prev[k] for k in snap})
+        prev = snap
+    trace_info = scrapes.get("trace", {})
+    trace_file = os.path.join(trace_info.get("trace_dir", run_dir),
+                              "trace.json")
+    window = (scrapes.get("trace_post", math.inf),
+              (os.path.getmtime(trace_file) - time.time()
+               + time.perf_counter()) if os.path.exists(trace_file)
+              else math.inf)
+    steps = {i: (marks[i - 1], marks[i]) for i in range(2, len(marks))}
+    # past the first step, not after a drain and save, not in the window
+    clean = {i: b - a for i, (a, b) in steps.items()
+             if (i - 1) % CLI_VAL_EVERY and (b < window[0] or a > window[1])}
+    step_s = statistics.median(clean.values()) if clean else math.nan
+    # what the window (its profiler and its trace export) adds to training
+    in_window = {i: b - a for i, (a, b) in steps.items()
+                 if not (b < window[0] or a > window[1])}
+    stall_s = sum(t - step_s for t in in_window.values())
+    off_steps = [off_marks[i] - off_marks[i - 1]
+                 for i in range(2, len(off_marks))]
+    off_s = statistics.median(off_steps)
+    # (b) the scrapes
+    last = scrapes["metrics"][-1] if scrapes["metrics"] else ""
+    seen_steps = max((gauge(m, "train_steps_total") or 0
+                      for m in scrapes["metrics"]), default=0)
+    device_bytes = max((gauge(m, "train_device_bytes_in_use") or 0
+                        for m in scrapes["metrics"]), default=0)
+    mfus = [gauge(m, "train_mfu") for m in scrapes["metrics"]]
+    mfus = [m for m in mfus if m]
+    step_counts = [gauge(m, "train_step_seconds_count") or 0
+                   for m in scrapes["metrics"]]
+    compiles = [c for c in scrapes["compiles"] if c["count"]]
+    rec = compiles[-1]["executables"][0] if compiles else {}
+    want_flops = train_step_flops(cfg, TRAIN_HW, TRAIN_B, TRAIN_ITERS)
+    # (c) the Chrome trace of the window
+    kernel_names = set()
+    if os.path.exists(trace_file):
+        for e in json.load(open(trace_file))["traceEvents"]:
+            if e.get("cat") == "kernel":
+                kernel_names.add(e.get("name", ""))
+    named = {k: any(k in n for n in kernel_names) for k in TELEMETRY_KERNELS}
+    # (d) the event log
+    recs = list(replay(events_path))
+    kinds = [r["event"] for r in recs]
+    build_events = [r for r in recs if r["event"] == "compile"]
+    ok = (len(per_step) == TELEMETRY_STEPS
+          and all(c == want_step for c in per_step)
+          and seen_steps >= TELEMETRY_TRACE_AFTER and max(step_counts,
+                                                          default=0) >= 1
+          and device_bytes > 0
+          and any(h["status"] == "running" and h["step"] >= 1
+                  for h in scrapes["health"])
+          and any(s["traceEvents"] for s in scrapes["spans"])
+          and rec.get("key") == "train.step" and rec.get("flops") == want_flops
+          and not rec.get("degraded", True) and mfus
+          and all(0 < m <= 1.05 for m in mfus)
+          and trace_info.get("duration_ms") == TELEMETRY_TRACE_MS
+          and all(named.values())
+          and kinds[0] == "run_start" and kinds[-1] == "run_end"
+          and "step_stats" in kinds
+          and [r.get("site") for r in build_events] == ["train"]
+          and tel.recompiles.value == 0
+          and len(clean) >= 2 and len(off_snaps) == TELEMETRY_CONTROL_STEPS
+          and abs(step_s - off_s) <= TELEMETRY_STEP_RTOL * off_s)
+    log(f"telemetry on the card (cli/train.py main, default config fp32, "
+        f"batch {TRAIN_B}, {TRAIN_HW[0]}x{TRAIN_HW[1]}, iters {TRAIN_ITERS}, "
+        f"{TELEMETRY_STEPS} steps, --metrics_port 0 --event_log "
+        f"--trace_sample_rate 1.0 --cost_telemetry --stall_watchdog): "
+        f"launches per step {per_step}; {len(scrapes['metrics'])} scrapes, "
+        f"steps seen {seen_steps}, device bytes in use {device_bytes:.0f}, "
+        f"MFU readings {mfus}, health {scrapes['health'][-1:]}, span "
+        f"traces {max((len(s['traceEvents']) for s in scrapes['spans']), default=0)} "
+        f"events; /debug/compiles {json.dumps(rec)}; the formula's step "
+        f"FLOPs {want_flops}; trace window {trace_info} holds the kernels "
+        f"{named} ({len(kernel_names)} kernel names); event kinds "
+        f"{sorted(set(kinds))}, compile events {build_events}, recompiles "
+        f"{tel.recompiles.value}; scrape errors {errors[:3]}; seconds per "
+        f"step {[round(b - a, 4) for a, b in steps.values()]}, clean "
+        f"outside the window {clean}, median {step_s:.4f} against "
+        f"{off_s:.4f} with telemetry off just before "
+        f"({100 * (step_s / off_s - 1):+.2f}%; steps "
+        f"{[round(t, 4) for t in off_steps]}) and phase 24's "
+        f"{p24_step_s:.4f} ({100 * (step_s / p24_step_s - 1):+.2f}%); "
+        f"the {TELEMETRY_TRACE_MS} ms trace window added {stall_s:.4f} s "
+        f"to the steps it overlapped {in_window}; the step's MFU at that "
+        f"median {want_flops / step_s / FP32_RATE:.4f} against the fp32 "
+        f"peak; {run_s:.1f} s on {card}: "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("the training telemetry failed its checks")
+
+    # (f) the default runner's cost records
+    reg = CompileRegistry(registry=MetricsRegistry())
+    runner = InferenceRunner(cfg, state, iters=MAIN_ITERS, device="cuda",
+                             cost_registry=reg)
+    zero_inference_counts()
+    flow, _ = runner(left, right)
+    times = [runner(left, right)[1] for _ in range(5)]
+    replay_s = statistics.median(times)
+    pair_flops = forward_flops(cfg, PADDED_HW, 1, MAIN_ITERS)
+    rec = runner.compiled_cost(PADDED_HW)
+    mfu = pair_flops / replay_s / reg.peak_flops if reg.peak_flops else 0.0
+    ok = (runner.captures == 1 and len(reg.records()) == 1
+          and rec is not None and rec.flops == pair_flops
+          and not rec.degraded and rec.compile_s > 0 and rec.hbm_bytes > 0
+          and rec.key == "eval.forward(384x1248,b1)"
+          and bool(np.isfinite(flow).all()) and 0 < mfu <= 1.05)
+    log(f"runner cost record (default fp32, {MAIN_HW[0]}x{MAIN_HW[1]}, iters "
+        f"{MAIN_ITERS}): {json.dumps(rec.to_dict() if rec else None)}; "
+        f"capture {rec.compile_s if rec else math.nan:.3f} s, "
+        f"{pair_flops / 1e12:.4f} TFLOP per pair, replay median "
+        f"{replay_s:.5f} s, MFU {mfu:.4f} against {reg.peak_flops} FLOP/s "
+        f"on {card}: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("the runner's cost records failed their checks")
+    return {"step_s": step_s, "mfu_pair": mfu, "pair_flops": pair_flops,
+            "step_flops": want_flops}
 
 
 def phase_drift(card):
@@ -2732,6 +3001,7 @@ def main() -> int:
             f"{'ok' if ok else 'FAILED'}")
         if not ok:
             raise AssertionError("the training CLI failed its checks")
+        p24_step_s = statistics.median(clean)
 
         # ---------------------------------------------------- phase 25
         rt_cfg = RaftStereoConfig.realtime()
@@ -2953,6 +3223,10 @@ def main() -> int:
             f"{'ok' if ok else 'FAILED'}")
         if not ok:
             raise AssertionError("the device jitter failed its checks")
+
+        # ---------------------------------------------------- phase 29
+        phase_telemetry(tree, p24_step_s, want_step, counts, zero_counts,
+                        cfg, state, left, right, card)
     finally:
         loop_mod.train = real_train
         validate_mod.make_validation_fn = real_make_val

@@ -13,7 +13,7 @@ graph per padded shape; ``--device cpu`` runs the plain versions.
 adds the mean ``iters_used`` to the results; ``--sequence`` runs the
 dataset's frames in order, cold and warm-started
 (``eval/validate.sequence_drift``), and ``--stream_out PATH`` writes that
-row as a record (``eval/records.py``, with the run's versions and card).
+row as a record (``telemetry/events.write_record``, with the run's versions and card).
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ def run_eval(args) -> dict:
         results = sequence_drift(runner, dataset, args.dataset,
                                  max_images=args.max_images)
         if args.stream_out:
-            from raft_stereo_tpu_torch.eval.records import write_record
+            from raft_stereo_tpu_torch.telemetry.events import write_record
             write_record(args.stream_out, {
                 "metric": "warm_start_sequence_drift",
                 "value": results[f"{args.dataset}-warm-drift-epe"],
@@ -72,7 +72,7 @@ def run_eval(args) -> dict:
                 "exit_threshold_px": args.exit_threshold_px,
                 "min_iters": args.min_iters,
                 "results": {k: round(v, 5) for k, v in results.items()},
-            }, runner.device)
+            }, indent=1, device=runner.device)
             log.info("sequence-drift record -> %s", args.stream_out)
         return results
     if args.dataset == "eth3d":

@@ -9,22 +9,22 @@ into the two config dataclasses and saved with every checkpoint.  Runs on
 the CUDA card by default; ``--device cpu`` runs the plain versions.  The
 telemetry flags (``--metrics_port``, ``--metrics_host``, ``--event_log``,
 ``--trace_sample_rate``, ``--cost_telemetry``, ``--device_peak_tflops``,
-``--stall_watchdog``, ``--flight_recorder_dir``) are accepted and raise
-when set away from their defaults: they wait for ROADMAP.md §D9.
-``--data_parallel`` above 1 waits for §D7.
+``--stall_watchdog``, ``--flight_recorder_dir``) build the JAX CLI's
+instruments (``build_telemetry``); the endpoint answers before training
+starts and shuts down when it ends.  ``--data_parallel`` above 1 waits
+for ROADMAP.md §D7.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 from raft_stereo_tpu_torch.cli import common
 from raft_stereo_tpu_torch.config import RaftStereoConfig, TrainConfig
 
 log = logging.getLogger(__name__)
-
-_D9 = "§D9 telemetry"
 
 
 def configs_from_args(args):
@@ -132,25 +132,44 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_parallel", type=_nonneg_int, default=0,
                    help="devices along the data axis (0 = all); above 1 "
                         "not ported (ROADMAP.md §D7), raises")
+    # observability (telemetry/): off by default; with no --metrics_port
+    # and no --event_log the loop runs without any instrument
     p.add_argument("--metrics_port", type=int, default=None,
-                   help=f"not ported (ROADMAP.md {_D9}); raises")
-    p.add_argument("--metrics_host", default="127.0.0.1",
-                   help=f"not ported (ROADMAP.md {_D9}); raises")
+                   help="serve GET /metrics (Prometheus), GET /healthz "
+                        "(last-step age), GET /debug/* and POST "
+                        "/debug/trace (bounded profiler window) on this "
+                        "port; 0 = ephemeral")
+    p.add_argument("--metrics_host", default="127.0.0.1")
     p.add_argument("--event_log", default=None,
-                   help=f"not ported (ROADMAP.md {_D9}); raises")
+                   help="append structured JSONL run events (run-start "
+                        "config snapshot, step stats, validation, "
+                        "checkpoint/preemption, compile events) to this "
+                        "file; defaults to <log_dir>/events.jsonl when "
+                        "--metrics_port is set")
     p.add_argument("--gru_telemetry", action="store_true",
                    help="also record per-iteration GRU disparity-delta "
                         "magnitudes (a small reduction on the device)")
     p.add_argument("--trace_sample_rate", type=float, default=0.0,
-                   help=f"above 0 not ported (ROADMAP.md {_D9}); raises")
+                   help="fraction of train steps whose span tree "
+                        "(data-wait/dispatch/drain/checkpoint) is recorded "
+                        "and served as Chrome trace JSON on GET "
+                        "/debug/spans; 0 (default) disables tracing")
     p.add_argument("--cost_telemetry", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help=f"--no-cost_telemetry not ported (ROADMAP.md "
-                        f"{_D9}); raises")
+                   help="with the endpoint or event log on, record the "
+                        "step's first dispatch (wall time, memory, FLOPs "
+                        "from telemetry/flops.py) so GET /debug/compiles "
+                        "lists it and the train_mfu / train_step_flops "
+                        "gauges are live")
     p.add_argument("--device_peak_tflops", type=float, default=None,
-                   help=f"not ported (ROADMAP.md {_D9}); raises")
+                   help="peak TFLOP/s for the MFU denominator; default: "
+                        "the table keyed by the card's name "
+                        "(costs.DEVICE_PEAK_TFLOPS); MFU gauges stay 0 "
+                        "when unknown")
     p.add_argument("--stall_watchdog", action="store_true",
-                   help=f"not ported (ROADMAP.md {_D9}); raises")
+                   help="alarm (anomaly event + flight-recorder bundle) "
+                        "when no step completes within 10x the rolling "
+                        "median step time")
     # anomaly policy (training/anomaly.py); off by default
     p.add_argument("--anomaly_policy", action="store_true",
                    help="drop non-finite (and, with --anomaly_spike_factor, "
@@ -171,33 +190,68 @@ def build_parser() -> argparse.ArgumentParser:
                         "(0 = keep all; the newest GOOD-stamped rewind "
                         "target is never pruned)")
     p.add_argument("--flight_recorder_dir", default=None,
-                   help=f"not ported (ROADMAP.md {_D9}); raises")
+                   help="debug-bundle directory for the flight recorder "
+                        "(spans + events ring, /metrics snapshot, stack "
+                        "dump, device memory); defaults to "
+                        "<log_dir>/flightrecorder")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions")
     common.add_arch_overrides(p)
     return p
 
 
-def _unported_flags(args):
-    return [flag for flag, on in (
-        ("--metrics_port", args.metrics_port is not None),
-        ("--metrics_host", args.metrics_host != "127.0.0.1"),
-        ("--event_log", args.event_log is not None),
-        ("--trace_sample_rate", args.trace_sample_rate > 0),
-        ("--no-cost_telemetry", not args.cost_telemetry),
-        ("--device_peak_tflops", args.device_peak_tflops is not None),
-        ("--stall_watchdog", args.stall_watchdog),
-        ("--flight_recorder_dir", args.flight_recorder_dir is not None),
-    ) if on]
+def build_telemetry(args, model_cfg, train_cfg):
+    """The instruments the flags ask for: ``(telemetry, server, events)``,
+    each None when off.  The endpoint is started, answering /healthz
+    before training starts; the caller shuts it down and closes the event
+    log.  Its threads and the stall watchdog's may start before the
+    loader's process workers: those are spawned, not forked."""
+    event_log_path = args.event_log
+    if args.metrics_port is not None and event_log_path is None:
+        event_log_path = os.path.join(args.log_dir, "events.jsonl")
+    if args.metrics_port is None and event_log_path is None:
+        return None, None, None
+    from raft_stereo_tpu_torch.telemetry import (CompileRegistry, EventLog,
+                                                 FlightRecorder,
+                                                 MetricsRegistry, SpanTracer,
+                                                 TelemetryHTTPServer,
+                                                 TraceCapture,
+                                                 TrainTelemetry)
+    events = EventLog(event_log_path) if event_log_path is not None else None
+    tracer = SpanTracer(train_cfg.trace_sample_rate)
+    recorder = FlightRecorder(
+        args.flight_recorder_dir
+        or os.path.join(args.log_dir, "flightrecorder"), tracer=tracer)
+    registry = MetricsRegistry()
+    costs = None
+    if args.cost_telemetry:
+        costs = CompileRegistry(
+            registry=registry, events=events,
+            device_peak_tflops=args.device_peak_tflops,
+            dtype="bf16" if model_cfg.mixed_precision else "fp32")
+    telemetry = TrainTelemetry(registry=registry, events=events,
+                               tracer=tracer, recorder=recorder, costs=costs)
+    recorder.registry = telemetry.registry
+    if args.stall_watchdog:
+        telemetry.enable_stall_watchdog()
+    server = None
+    if args.metrics_port is not None:
+        server = TelemetryHTTPServer(
+            telemetry.registry, telemetry.healthz,
+            host=args.metrics_host, port=args.metrics_port,
+            trace=TraceCapture(root=os.path.join(args.log_dir, "profiles"),
+                               gate=telemetry.step_boundary),
+            tracer=tracer, recorder=recorder, costs=costs).start()
+        log.info("training metrics endpoint on %s (GET /metrics, "
+                 "GET /healthz, GET /debug/spans, GET /debug/stacks, "
+                 "GET /debug/flightrecorder, GET /debug/compiles, "
+                 "POST /debug/trace)", server.url)
+    return telemetry, server, events
 
 
 def main(argv=None):
     common.setup_logging()
     args = build_parser().parse_args(argv)
-    for flag in _unported_flags(args):
-        raise NotImplementedError(
-            f"{flag} is not ported to the PyTorch package yet "
-            f"(ROADMAP.md {_D9})")
     if args.data_parallel > 1:
         raise NotImplementedError(
             "--data_parallel > 1 is not ported to the PyTorch package yet "
@@ -215,12 +269,20 @@ def main(argv=None):
             max_images=args.validate_max_images, device=args.device)
 
     from raft_stereo_tpu_torch.training.train_loop import train
-    return train(model_cfg, train_cfg, name=args.name,
-                 data_root=args.data_root,
-                 checkpoint_dir=args.checkpoint_dir,
-                 restore=args.restore_ckpt, log_dir=args.log_dir,
-                 validate_fn=validate_fn, warm_start=args.warm_start,
-                 device=args.device)
+    telemetry, server, events = build_telemetry(args, model_cfg,
+                                                train_cfg)
+    try:
+        return train(model_cfg, train_cfg, name=args.name,
+                     data_root=args.data_root,
+                     checkpoint_dir=args.checkpoint_dir,
+                     restore=args.restore_ckpt, log_dir=args.log_dir,
+                     validate_fn=validate_fn, warm_start=args.warm_start,
+                     telemetry=telemetry, device=args.device)
+    finally:
+        if server is not None:
+            server.shutdown()
+        if events is not None:
+            events.close()
 
 
 if __name__ == "__main__":

@@ -282,7 +282,5 @@ def _unsupported_training(cfg: TrainConfig):
     checks = (
         ("data_parallel > 1", "§D7 parallel executors",
          cfg.data_parallel > 1),
-        ("trace_sample_rate > 0", "§D9 telemetry",
-         cfg.trace_sample_rate > 0),
     )
     return [(field, item) for field, item, on in checks if on]

@@ -47,6 +47,15 @@ overridden, then ``effective_inference_config`` applies, then the fp32
 state dict is quantized here, once (``quant.core.quantize_state_dict``,
 with the calibrated conv input scales ``quant_act_scales`` baked into the
 packs).  A state dict that is already quantized is used as it is.
+
+``cost_registry`` (a ``telemetry.CompileRegistry``) records one entry per
+program built for the (padded shape, batch) cache, under the JAX runner's
+key ``eval.forward(<H>x<W>,b<N>)``: on the card the capture (its
+wall time, the allocator's peak around it), on the CPU the first call
+(degraded: no allocator reading), each with the forward's FLOPs
+(telemetry/flops.py, at the depth cap under early exit); the cache's
+evictions and size feed its instruments.  Every capture runs under
+``profiling.graph_capture``, so no profiler window is open during one.
 """
 
 from __future__ import annotations
@@ -60,12 +69,14 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from raft_stereo_tpu_torch import profiling
 from raft_stereo_tpu_torch.config import RaftStereoConfig
 from raft_stereo_tpu_torch.kernels.graph_loop import (WhileGraph,
                                                       exit_predicate)
 from raft_stereo_tpu_torch.models.raft_stereo import ExitLoop, RAFTStereo
 from raft_stereo_tpu_torch.ops.padding import InputPadder
 from raft_stereo_tpu_torch.quant.core import is_quantized, quantize_state_dict
+from raft_stereo_tpu_torch.telemetry.flops import forward_flops
 
 log = logging.getLogger(__name__)
 
@@ -331,7 +342,8 @@ class _Graphed:
         with torch.inference_mode():
             with torch.cuda.stream(self.stream):
                 self._warm_up()
-            self.launches = self._capture()
+            with profiling.graph_capture():
+                self.launches = self._capture()
         self.capture_s = time.perf_counter() - t0
         torch.cuda.current_stream().wait_stream(self.stream)
         return self(*arrays, uploaded=True)
@@ -483,7 +495,8 @@ class InferenceRunner:
                  exit_threshold_px: Optional[float] = None,
                  exit_min_iters: Optional[int] = None,
                  quant: Optional[str] = None,
-                 quant_act_scales: Optional[Mapping[str, float]] = None):
+                 quant_act_scales: Optional[Mapping[str, float]] = None,
+                 cost_registry=None):
         if shape_bucket is not None and shape_bucket % divis_by:
             raise ValueError(f"shape_bucket={shape_bucket} must be a "
                              f"multiple of the model's /{divis_by} "
@@ -530,6 +543,7 @@ class InferenceRunner:
         self._pool = None
         self.captures = 0
         self.replays = 0
+        self.cost_registry = cost_registry
         self.last_iters_used: Optional[int] = None
         self._iters_used_sum = 0
         self._iters_used_calls = 0
@@ -569,12 +583,17 @@ class InferenceRunner:
         if key in cache:
             cache[key] = cache.pop(key)  # LRU refresh
             return cache[key], arrays
+        costs = (self.cost_registry if cache is self._compiled
+                 else None)
         while len(cache) >= self.max_cached_shapes:
             evicted = next(iter(cache))
             del cache[evicted]
             log.info("graph cache full (max_cached_shapes=%d): evicting "
                      "%s; its next use captures again",
                      self.max_cached_shapes, evicted)
+            if costs is not None:
+                costs.note_runner_eviction(self._cost_key(*evicted[:2]),
+                                           len(cache))
         forward = make_forward(self.model, self.iters, self.fetch_dtype,
                                **flags)
         if self.device.type == "cuda":
@@ -590,7 +609,22 @@ class InferenceRunner:
         else:
             entry = PlainForward(forward, spec)
         cache[key] = entry
+        if costs is not None:
+            entry.cost_key = self._cost_key(*key[:2])
+            costs.note_runner_cache_size(len(cache))
         return entry, arrays
+
+    def _cost_key(self, padded_hw: Tuple[int, int], batch: int) -> str:
+        """The cost registry's label of one (padded shape, batch) program,
+        the JAX runner's."""
+        return f"eval.forward({padded_hw[0]}x{padded_hw[1]},b{batch})"
+
+    def compiled_cost(self, padded_hw: Tuple[int, int], batch: int = 1):
+        """The cost record of a built (padded shape, batch) program, or
+        None (no registry, or not built yet)."""
+        if self.cost_registry is None:
+            return None
+        return self.cost_registry.get(self._cost_key(padded_hw, batch))
 
     def _forward_for(self, padded_hw: Tuple[int, int], batch: int = 1,
                      args=()):
@@ -601,13 +635,25 @@ class InferenceRunner:
         return self._entry(self._compiled, key, args)
 
     def _run(self, entry, arrays) -> List[np.ndarray]:
-        """One call of a cache entry: capture on its first call."""
+        """One call of a cache entry: capture on its first call (recorded
+        as its build where the entry carries a cost key)."""
+        call = entry
         if isinstance(entry, _Graphed):
             self.replays += 1
             if entry.outputs is None:
                 self.captures += 1
-                return entry.capture(*arrays)
-        return entry(*arrays)
+                call = entry.capture
+        key = getattr(entry, "cost_key", None)
+        if key is None:
+            return call(*arrays)
+        del entry.cost_key
+        batch, hw = arrays[0].shape[0], arrays[0].shape[1:3]
+        iters = (self.model.exit_bounds(self.iters)[0] if self.early_exit
+                 else self.iters)
+        return self.cost_registry.measure(
+            call, *arrays, key=key, site="eval",
+            flops=forward_flops(self.effective_config, hw, batch, iters),
+            device=self.device)
 
     # ---------------------------------------------- iters-used accounting
     def _note_iters_used(self, iters_used) -> int:

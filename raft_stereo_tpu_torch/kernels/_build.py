@@ -58,7 +58,8 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str) -> float:
-    """Compile one source if its library is missing; returns seconds."""
+    """Compile one source if its library is missing; returns seconds and
+    reports a compile to ``profiling.note_build``."""
     lib = library_path(name)
     if lib.exists():
         return 0.0
@@ -74,7 +75,10 @@ def build(name: str) -> float:
                            f"{proc.stderr}")
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
-    return time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    from raft_stereo_tpu_torch.profiling import note_build
+    note_build(f"kernel_build:{name}", seconds)
+    return seconds
 
 
 def build_all() -> Dict[str, float]:

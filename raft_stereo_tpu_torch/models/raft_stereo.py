@@ -65,6 +65,7 @@ from raft_stereo_tpu_torch.models.update import (BasicMultiUpdateBlock,
 from raft_stereo_tpu_torch.ops.grids import coords_grid_x
 from raft_stereo_tpu_torch.quant.core import in_encoder_scope
 from raft_stereo_tpu_torch.ops.upsample import convex_upsample
+from raft_stereo_tpu_torch.profiling import annotate
 
 
 # The JAX model's sequential-fnet gate (raft_stereo_tpu/models/
@@ -257,19 +258,26 @@ class RAFTStereo(nn.Module):
         img2 = (2 * (image2.float() / 255.0) - 1.0).to(dtype).permute(
             0, 3, 1, 2)
 
+        # the JAX model's phase names (profiling.annotate): profiler
+        # traces and NVTX timelines break out the same phases
         levels = None
         if cfg.shared_backbone:
-            levels, v = self.cnet(torch.cat([img1, img2]))
-            fmap1, fmap2 = torch.chunk(self.conv2_out(self.conv2_res(v)), 2)
+            with annotate("cnet"):
+                levels, v = self.cnet(torch.cat([img1, img2]))
+            with annotate("fnet"):
+                fmap1, fmap2 = torch.chunk(
+                    self.conv2_out(self.conv2_res(v)), 2)
         else:
             if ctx_init is None:
-                levels, _ = self.cnet(img1)
-            if (image1.shape[1] * image1.shape[2]
-                    >= sequential_fnet_threshold(cfg, img1.device)):
-                fmap1, fmap2 = self.fnet(img1), self.fnet(img2)
-            else:
-                fmap1, fmap2 = torch.chunk(
-                    self.fnet(torch.cat([img1, img2])), 2)
+                with annotate("cnet"):
+                    levels, _ = self.cnet(img1)
+            with annotate("fnet"):
+                if (image1.shape[1] * image1.shape[2]
+                        >= sequential_fnet_threshold(cfg, img1.device)):
+                    fmap1, fmap2 = self.fnet(img1), self.fnet(img2)
+                else:
+                    fmap1, fmap2 = torch.chunk(
+                        self.fnet(torch.cat([img1, img2])), 2)
 
         if ctx_init is not None:
             net = [n.to(dtype) for n in ctx_init[0]]
@@ -297,7 +305,8 @@ class RAFTStereo(nn.Module):
         disp = torch.zeros((b, h8, w8), device=img1.device)
         if flow_init is not None:
             disp = disp + flow_init
-        corr_fn = make_corr_fn(cfg, fmap1, fmap2)
+        with annotate("corr_pyramid"):
+            corr_fn = make_corr_fn(cfg, fmap1, fmap2)
         grid_x = coords_grid_x(b, h8, w8, device=img1.device)
 
         def lookup(disp):
@@ -321,8 +330,9 @@ class RAFTStereo(nn.Module):
             return net, disp + delta[:, 0].float(), mask
 
         def step(net, disp, corr=None):
-            return update(list(net), disp,
-                          lookup(disp) if corr is None else corr)
+            with annotate("gru_iter"):
+                return update(list(net), disp,
+                              lookup(disp) if corr is None else corr)
 
         step.lookup = lookup
         return step, net, disp, ctx_out
@@ -394,8 +404,9 @@ class RAFTStereo(nn.Module):
     def _upsample(self, disp: torch.Tensor, mask: torch.Tensor
                   ) -> torch.Tensor:
         """Convex-upsample a (B,h,w) disparity to full resolution."""
-        return convex_upsample(disp[:, None], mask.float(),
-                               self.config.downsample_factor)[:, 0]
+        with annotate("upsample"):
+            return convex_upsample(disp[:, None], mask.float(),
+                                   self.config.downsample_factor)[:, 0]
 
     def _confidence_maps(self, dmag: torch.Tensor, ewma: torch.Tensor,
                          mask: torch.Tensor, depth_frac):
@@ -406,10 +417,11 @@ class RAFTStereo(nn.Module):
         exit), maps to ``exp(-score / CONFIDENCE_SCALE_PX)``; the full
         resolution map is the convex upsampling of it with the final
         mask, clipped to [0, 1]."""
-        score = (dmag + 0.5 * ewma).float()
-        conf_low = torch.exp(-score * (0.5 + 0.5 * depth_frac)
-                             / CONFIDENCE_SCALE_PX)
-        return conf_low, self._upsample(conf_low, mask).clamp(0.0, 1.0)
+        with annotate("confidence"):
+            score = (dmag + 0.5 * ewma).float()
+            conf_low = torch.exp(-score * (0.5 + 0.5 * depth_frac)
+                                 / CONFIDENCE_SCALE_PX)
+            return conf_low, self._upsample(conf_low, mask).clamp(0.0, 1.0)
 
 
 class ExitLoop:

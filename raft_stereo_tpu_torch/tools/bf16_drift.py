@@ -34,7 +34,7 @@ import sys
 import time
 
 from raft_stereo_tpu_torch.eval import drift
-from raft_stereo_tpu_torch.eval.records import default_path, write_record
+from raft_stereo_tpu_torch.telemetry.events import default_path, write_record
 
 DEFAULT_OUT = "BF16_DRIFT_torch.json"
 HW = (384, 1248)                # KITTI-class, /32-aligned
@@ -107,7 +107,7 @@ def run(args) -> dict:
            "eval_seconds": round(time.perf_counter() - t0, 1),
            "hw": list(HW), "rows": rows}
     out = args.out or default_path(DEFAULT_OUT)
-    write_record(out, rec, device)
+    write_record(out, rec, indent=1, device=device)
     print(json.dumps({k: v for k, v in rec.items() if k != "rows"}),
           flush=True)
     print(f"bf16 drift -> {out}", flush=True)

@@ -40,7 +40,7 @@ import sys
 import time
 
 from raft_stereo_tpu_torch.eval import drift
-from raft_stereo_tpu_torch.eval.records import default_path, write_record
+from raft_stereo_tpu_torch.telemetry.events import default_path, write_record
 
 DEFAULT_OUT = "QUANT_DRIFT_torch.json"
 DEFAULT_SCALES = "QUANT_SCALES_torch.json"
@@ -214,7 +214,7 @@ def run(args) -> dict:
         "rows": rows,
     }
     print(json.dumps(rec), flush=True)
-    write_record(out, rec, device)
+    write_record(out, rec, indent=1, device=device)
     print(f"quant drift -> {out} (scales -> {scales_out})", flush=True)
     return rec
 

@@ -23,7 +23,12 @@ finite-state probe after ``anomaly_rewind_after`` skips in a row
 (training/anomaly.py).  Metrics stay on the device until a buffered drain
 every ``SUM_FREQ`` steps: the loop never waits for the card in between.
 The fp32 path is full fp32: TF32 is switched off for matmuls and cuDNN
-convs, as in the JAX package.  ``telemetry`` waits for ROADMAP.md §D9.
+convs, as in the JAX package.  ``telemetry`` (a ``telemetry.TrainTelemetry``)
+receives the JAX loop's calls: run start and end, each step's data wait
+and dispatch time, the drained metrics, skips, rewinds, checkpoints and
+validations; with its cost registry the step's first dispatch is recorded
+with the step's FLOPs (telemetry/flops.py).  Without it the loop reads no
+clock and fetches nothing more.
 """
 
 from __future__ import annotations
@@ -213,19 +218,28 @@ class _Upload:
         return out
 
 
-def _fetch(pending) -> list:
+def _fetch(pending, gru_deltas: bool = False) -> list:
     """The buffered metrics on the host, the device ones in one
-    device-to-host copy (the per-iteration ``gru_delta_px`` vectors stay
-    behind); host floats pass through."""
+    device-to-host copy; host floats pass through.  The per-iteration
+    ``gru_delta_px`` vectors stay behind unless ``gru_deltas`` (telemetry
+    reads them), when they ride the same copy as numpy arrays."""
     keys = [k for k, v in pending[0].items()
             if isinstance(v, torch.Tensor) and k != "gru_delta_px"]
-    values = torch.stack([torch.stack([m[k].float().reshape(())
-                                       for k in keys])
-                          for m in pending]).cpu().numpy()
-    return [dict({k: v for k, v in m.items()
-                  if not isinstance(v, torch.Tensor)},
-                 **dict(zip(keys, map(float, row))))
-            for m, row in zip(pending, values)]
+    vec = gru_deltas and "gru_delta_px" in pending[0]
+    rows = [torch.stack([m[k].float().reshape(()) for k in keys])
+            for m in pending]
+    if vec:
+        rows = [torch.cat([r, m["gru_delta_px"].float().reshape(-1)])
+                for r, m in zip(rows, pending)]
+    values = torch.stack(rows).cpu().numpy()
+    out = [dict({k: v for k, v in m.items()
+                 if not isinstance(v, torch.Tensor)},
+                **dict(zip(keys, map(float, row))))
+           for m, row in zip(pending, values)]
+    if vec:
+        for m, row in zip(out, values):
+            m["gru_delta_px"] = row[len(keys):]
+    return out
 
 
 def _get_host_rng():
@@ -284,10 +298,6 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
     boundary.  ``on_step(step, metrics)``, when given, sees every step's
     metrics: 0-d tensors on the device, and ``loader_wait_s``, the host
     seconds the loop blocked for that step's batch (also logged)."""
-    if telemetry is not None:
-        raise NotImplementedError(
-            "telemetry is not ported to the PyTorch package yet "
-            "(ROADMAP.md §D9 telemetry)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: training runs on the GPU; pass "
@@ -303,6 +313,8 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
     if restore == "latest":
         def _reject(path, reason):
             log.warning("skipping corrupt checkpoint %s (%s)", path, reason)
+            if telemetry is not None:
+                telemetry.observe_checkpoint_rejected(path, reason)
         restore = ckpt.latest_checkpoint(checkpoint_dir or ".", name=name,
                                          deep=True, on_reject=_reject)
         if restore is None:
@@ -371,11 +383,28 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
         tracker.load_history(runtime.get("anomaly"))
     loss_ewma = float(runtime.get("loss_ewma", 0.0)) if runtime else 0.0
     step_fn = make_train_step(train_cfg, anomaly=policy)
+    if telemetry is not None and getattr(telemetry, "costs", None) is not None:
+        # the first dispatch is the step's build (kernel builds, first
+        # allocations): recorded with its wall time, memory and FLOPs
+        from raft_stereo_tpu_torch.telemetry.flops import train_step_flops
+        from raft_stereo_tpu_torch.telemetry.train_metrics import (
+            TRAIN_STEP_COST_KEY)
+        step_fn = telemetry.costs.instrument(
+            step_fn, key=TRAIN_STEP_COST_KEY, site="train",
+            flops=train_step_flops(model_cfg, train_cfg.image_size,
+                                   train_cfg.batch_size,
+                                   train_cfg.train_iters),
+            device=device)
     schedule = one_cycle_lr(train_cfg.lr, train_cfg.num_steps + 100)
     if checkpoint_dir:
         os.makedirs(checkpoint_dir, exist_ok=True)
     total = train_cfg.num_steps
     t0 = time.time()
+
+    if telemetry is not None:
+        telemetry.run_start(model_cfg, train_cfg, start_step, name=name)
+        if restore:
+            telemetry.resumed(restore, start_step)
 
     # SIGTERM/SIGINT: checkpoint at the next step boundary, then stop; a
     # second signal force-quits (the first keeps the save itself safe).
@@ -393,6 +422,8 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
             _restore_handlers()
             raise KeyboardInterrupt(f"second signal {signum}: force quit")
         stop_requested = True
+        if telemetry is not None:
+            telemetry.stop_requested(signum)
         log.warning("signal %d: checkpointing at next step boundary "
                     "(send again to force-quit)", signum)
 
@@ -404,19 +435,38 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
     # would make the loop wait for the card every step.
     pending_metrics = []
     upload = _Upload(device, train_cfg.compact_upload)
+    run_status = "failed"  # overwritten on every clean exit path
 
     with Logger(log_dir=log_dir or "runs", total_steps=start_step,
                 enable_tensorboard=log_dir is not None) as logger:
         def drain_metrics():
             if not pending_metrics:
                 return
-            fetched = _fetch(pending_metrics)
+            if telemetry is None:
+                fetched = _fetch(pending_metrics)
+            else:
+                t_drain = time.perf_counter()
+                fetched = _fetch(pending_metrics, gru_deltas=True)
             pending_metrics.clear()
             first = state.step - len(fetched) + 1
+            gru_deltas = [m.pop("gru_delta_px") for m in fetched
+                          if "gru_delta_px" in m]
             for offset, m in enumerate(fetched):
                 logger.push(m, lr=schedule(first + offset))
                 if tracker is not None:
-                    tracker.observe(first + offset, m)
+                    kind = tracker.observe(first + offset, m)
+                    if kind is not None and telemetry is not None:
+                        telemetry.observe_anomaly_skip(first + offset, kind)
+            if telemetry is not None:
+                means = ({k: float(np.mean([m[k] for m in fetched]))
+                          for k in fetched[0]} if fetched else {})
+                telemetry.observe_drain(time.perf_counter() - t_drain,
+                                        means, state.step,
+                                        window=len(fetched))
+                for d in gru_deltas:
+                    telemetry.observe_gru_deltas(np.asarray(d).ravel())
+                if hasattr(loader, "stats"):
+                    telemetry.observe_loader_stats(loader.stats)
 
         batches = _DevicePrefetcher(iter(loader), upload.put)
         # the current iterator started at the loader's own offset when the
@@ -440,9 +490,13 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
             return blob
 
         def save(path):
+            t_save = time.perf_counter() if telemetry is not None else 0.0
             ckpt.save_train_checkpoint(path, state,
                                        runtime_state=runtime_blob())
             log.info("saved checkpoint %s", path)
+            if telemetry is not None:
+                telemetry.observe_checkpoint(time.perf_counter() - t_save,
+                                             path, state.step)
 
         def do_rewind():
             """Restore the newest checkpoint that passes the finite-state
@@ -491,6 +545,8 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
                             "(remaining epoch order reshuffled)",
                             tracker.rewinds, policy.max_rewinds, from_step,
                             to_step, path)
+                if telemetry is not None:
+                    telemetry.observe_rewind(from_step, to_step, path)
                 return
             raise TrainingDiverged(
                 state.step, "no checkpoint passes the finite-state probe "
@@ -498,10 +554,18 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
 
         try:
             while True:
+                # every telemetry site is gated on ``telemetry is not
+                # None``: without it the loop reads no clock
+                if telemetry is not None:
+                    t_loop = time.perf_counter()
                 item = next(batches, None)
+                if telemetry is not None:
+                    t_batch = time.perf_counter()
                 if state.step >= total or stop_requested or item is None:
                     break
                 batch = upload.take(item)
+                if telemetry is not None:
+                    telemetry.note_batch(batch)
                 if policy is not None:
                     state, metrics, ewma_dev = step_fn(state, batch,
                                                        ewma_dev)
@@ -510,6 +574,13 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
                 del batch, item
                 metrics["loader_wait_s"] = batches.last_wait_s
                 step = state.step
+                if telemetry is not None:
+                    # the dispatch leg only: the launches return before
+                    # the card finishes; the device-bound tail shows in
+                    # the drain histogram
+                    telemetry.observe_step(
+                        step, data_wait_s=t_batch - t_loop,
+                        dispatch_s=time.perf_counter() - t_batch)
                 if on_step is not None:
                     on_step(step, metrics)
                 pending_metrics.append(metrics)
@@ -534,10 +605,13 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
                     if run_validation is not None:
                         results = run_validation(state.model.state_dict())
                         logger.write_dict(results)
+                        if telemetry is not None:
+                            telemetry.observe_validation(results, step)
             # final (or preemption) checkpoint, written while the handler
             # is still installed
             if checkpoint_dir:
                 save(os.path.join(checkpoint_dir, name))
+            run_status = "stopped" if stop_requested else "complete"
         finally:
             try:
                 drain_metrics()
@@ -545,6 +619,8 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
                 log.exception("could not drain buffered metrics")
             batches.close()
             _restore_handlers()
+            if telemetry is not None:
+                telemetry.run_end(run_status, state.step)
 
     if stop_requested:
         log.warning("stopped by signal at step %d; resume with restore=%s",

@@ -1410,3 +1410,76 @@ def test_confidence_card_vs_cpu(rng, cuda_device, adaptive):
     assert float((f1 - f2).abs().max()) <= 1e-2
     assert float((c1 - c2).abs().max()) <= 0.12
     assert float((u1 - u2).abs().max()) <= 0.12
+
+
+# ------------------------------------------------ telemetry on the card
+def test_device_memory_stats_keys_on_the_card(cuda_device):
+    from raft_stereo_tpu_torch.profiling import (device_hbm_bytes,
+                                                 device_memory_stats)
+
+    x = torch.empty(1 << 20, device=cuda_device)
+    stats = device_memory_stats()
+    assert set(stats) == {"bytes_in_use", "peak_bytes_in_use",
+                          "bytes_reserved", "peak_bytes_reserved",
+                          "num_allocs", "bytes_limit"}
+    assert stats["bytes_in_use"] >= x.numel() * 4
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"]
+    assert stats["bytes_limit"] == device_hbm_bytes(fallback=1) == (
+        torch.cuda.get_device_properties(0).total_memory)
+    assert device_memory_stats("cpu") == {}
+
+
+def test_trace_window_names_the_kernels(rng, cuda_device, tmp_path):
+    """A ``TraceCapture`` window opened on its own thread records the
+    card's kernels launched by this one: the gate, lookup and
+    lookup-backward kernels of one TINY training step."""
+    import json
+    import os
+    import time
+
+    from raft_stereo_tpu_torch.telemetry import TraceCapture
+    from raft_stereo_tpu_torch.training.step import make_train_step
+
+    cfg = RaftStereoConfig(**TINY)
+    tc = TrainConfig(batch_size=2, train_iters=2, image_size=(64, 96))
+    state = create_train_state(cfg, tc, cuda_device, seed=0)
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in
+             SyntheticStereoLoader(2, (64, 96), seed=1).batch(0).items()}
+    step = make_train_step(tc)
+    step(state, batch)                      # builds and warms the kernels
+    torch.cuda.synchronize()
+    capture = TraceCapture(root=str(tmp_path))
+    info = capture.start(duration_ms=30_000)
+    time.sleep(1.0)                         # the window opens
+    step(state, batch)
+    torch.cuda.synchronize()
+    assert capture.stop() and capture.error is None
+    events = json.load(open(os.path.join(info["trace_dir"], "trace.json")))[
+        "traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    for kernel in ("gates_conv_kernel", "corr_lookup_kernel",
+                   "corr_lookup_bwd_kernel"):
+        assert any(kernel in n for n in names), (kernel, sorted(set(names)))
+
+
+def test_cost_registry_records_a_real_capture(rng, cuda_device):
+    from raft_stereo_tpu_torch.telemetry import (CompileRegistry,
+                                                 MetricsRegistry)
+    from raft_stereo_tpu_torch.telemetry.flops import forward_flops
+
+    cfg = RaftStereoConfig(**TINY)
+    torch.manual_seed(0)
+    reg = CompileRegistry(registry=MetricsRegistry())
+    runner = InferenceRunner(cfg, RAFTStereo(cfg).state_dict(), iters=2,
+                             device="cuda", cost_registry=reg)
+    left = rng.integers(0, 256, (64, 96, 3), dtype=np.uint8)
+    for _ in range(3):
+        runner(left, np.roll(left, -3, axis=1))
+    (rec,) = reg.records()
+    assert runner.captures == 1 and reg.compiles.value == 1
+    assert rec.key == "eval.forward(64x96,b1)" and rec.site == "eval"
+    assert rec.flops == forward_flops(cfg, (64, 96), 1, 2)
+    assert not rec.degraded and rec.hbm_bytes > 0 and rec.compile_s > 0
+    assert rec.device == torch.cuda.get_device_name(0)
+    # the default config is fp32: MFU against the card's fp32 peak
+    assert reg.peak_flops == 67e12 or "H100" not in rec.device

@@ -494,7 +494,7 @@ def test_demo_and_evaluate_sequence_flags(setup, tmp_path):
     assert rec["results"] == {k: round(v, 5) for k, v in results.items()}
     assert {"dataset", "valid_iters", "exit_threshold_px", "min_iters",
             "unit", "run"} <= set(rec)
-    assert rec["run"]["device"] == "cpu"
+    assert rec["run"]["device_kind"] == "cpu"
     plain = evaluate.main(
         ["--restore_ckpt", ckpt, "--dataset", "kitti", "--data_root",
          str(tmp_path / "data"), "--valid_iters", str(CAP),

@@ -255,10 +255,20 @@ def test_merge_warm_start_config_matches_jax(caller):
     assert got.to_dict() == dataclasses.asdict(want)
 
 
-def test_telemetry_waits_for_d9():
-    with pytest.raises(NotImplementedError, match="§D9"):
-        train(RaftStereoConfig(**TINY), _tc(), device="cpu",
-              telemetry=object())
+def test_telemetry_waits_for_d9(tree, tmp_path):
+    """Named for the refusal it replaced: ``train(telemetry=...)`` now runs
+    and receives the loop's calls (tests/test_torch_telemetry.py holds the
+    whole surface)."""
+    from raft_stereo_tpu_torch.telemetry import EventLog, TrainTelemetry
+    from raft_stereo_tpu_torch.telemetry.events import replay
+
+    path = str(tmp_path / "events.jsonl")
+    tel = TrainTelemetry(events=EventLog(path))
+    _run(tree, _tc(num_steps=2), None, telemetry=tel)
+    tel.events.close()
+    kinds = [e["event"] for e in replay(path)]
+    assert kinds[0] == "run_start" and kinds[-1] == "run_end"
+    assert tel.steps.value == 2 and tel.healthz()["status"] == "complete"
 
 
 # ------------------------------------------------------------------ logger
@@ -314,18 +324,57 @@ def test_configs_from_args_match_jax(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--metrics_port", "9000"], "§D9"),
-    (["--metrics_host", "0.0.0.0"], "§D9"),
-    (["--event_log", "events.jsonl"], "§D9"),
-    (["--trace_sample_rate", "0.5"], "§D9"),
-    (["--no-cost_telemetry"], "§D9"),
-    (["--device_peak_tflops", "989"], "§D9"),
-    (["--stall_watchdog"], "§D9"),
-    (["--flight_recorder_dir", "fr"], "§D9"),
     (["--data_parallel", "2"], "§D7")])
 def test_unported_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--metrics_port", "0"],
+    ["--metrics_port", "0", "--metrics_host", "localhost"],
+    ["--event_log", "events.jsonl"],
+    ["--event_log", "events.jsonl", "--trace_sample_rate", "0.5"],
+    ["--event_log", "events.jsonl", "--no-cost_telemetry"],
+    ["--event_log", "events.jsonl", "--device_peak_tflops", "989"],
+    ["--event_log", "events.jsonl", "--stall_watchdog"],
+    ["--event_log", "events.jsonl", "--flight_recorder_dir", "fr"]])
+def test_telemetry_flags_build_their_instruments(argv, tmp_path):
+    """The eight telemetry flags (once refused) build the JAX CLI's
+    instruments: an endpoint answering before training, an event log
+    (by default under --log_dir), the tracer's rate, the cost registry and
+    its peak, the stall watchdog, the flight recorder's directory."""
+    import json
+    import urllib.request
+
+    argv = [a if a not in ("events.jsonl", "fr") else str(tmp_path / a)
+            for a in argv]
+    args = tcli.build_parser().parse_args(
+        argv + ["--log_dir", str(tmp_path / "runs"), "--device", "cpu"])
+    mcfg, tcfg = tcli.configs_from_args(args)
+    tel, server, events = tcli.build_telemetry(args, mcfg, tcfg)
+    try:
+        assert tel is not None and events is not None
+        assert os.path.exists(args.event_log or str(tmp_path / "runs" /
+                                                    "events.jsonl"))
+        assert tel.tracer.sample_rate == args.trace_sample_rate
+        assert (tel.costs is None) == (not args.cost_telemetry)
+        if args.device_peak_tflops:
+            assert tel.costs.peak_flops == 989e12
+        assert (tel.stall_watchdog is not None) == args.stall_watchdog
+        assert tel.recorder.root == (args.flight_recorder_dir or str(
+            tmp_path / "runs" / "flightrecorder"))
+        if args.metrics_port is not None:
+            with urllib.request.urlopen(server.url + "/healthz") as r:
+                assert json.loads(r.read())["status"] == "starting"
+        else:
+            assert server is None
+    finally:
+        if tel.stall_watchdog is not None:
+            tel.stall_watchdog.stop()
+        if server is not None:
+            server.shutdown()
+        events.close()
 
 
 def _cli_argv(tree, root, steps=2):
