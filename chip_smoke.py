@@ -218,6 +218,43 @@ fails the run when it fails:
    ``CompileRegistry`` at 375x1242 and 32 iterations: one record for its
    one capture, the capture's seconds and memory, FLOPs per pair, the MFU
    at replay time against the card's fp32 peak.
+30. serving on the card (``serving/engine.py``, ``serving/http.py``).
+   First every reference answer, from runners built for it and dropped
+   after (so no runner launch lands in an engine's counts).  (a) the
+   realtime preset's engine (bf16, 7 iterations, tiers quality,
+   interactive and turbo, batch sizes 1/2/4/8) prewarmed at 375x1242 (one
+   capture per distinct tier program and batch size, on the worker's
+   thread while another thread scrapes ``/metrics``, ``/readyz`` and the
+   device memory; ``/readyz`` 503 before, 200 after; the captures,
+   seconds and reserved GiB printed); per tier, the pair alone bitwise
+   equal to an ``InferenceRunner`` replay with its ``iters_used``, and
+   batches of 2/4/8 distinct pairs, each row bitwise equal to the
+   runner's ``run_batch`` of the same stack at the deepest member's
+   depth; the quality rows also within phase 10's bound (3x the card's
+   bf16 vs fp32-correlation spread on the main pair) of each pair's
+   batch-1 answer; each tier's launches per dispatch from its program
+   (#6 or #9, the bf16 gates, the predicate, the int8 GEMMs); (a') the
+   exit tiers (interactive, and turbo on int8_mxu) at phase 26's
+   realtime threshold on its settled weights, batch sizes 1/2/4, over
+   the main pair at four contrasts: the same checks, every dispatch
+   exiting below the cap, the members of each batch differing in depth
+   alone, the batch at the deepest's; (b) the default config's engine
+   (fp32, 32 iterations, batch sizes 1/2): the batch-1 answer bitwise
+   equal to phase 5's runner's replay, 32 lookups and 96 gate calls per
+   dispatch, a batch of two distinct pairs bitwise equal to a runner's
+   ``run_batch``; phase 22's eviction check on an engine with
+   ``max_cached_shapes=2`` (the reserved memory bounded, a replay and a
+   recapture bitwise equal); (c) the HTTP front end: 16 client threads
+   posting the pair as npz for about 10 s on the quality tier (requests
+   per second, p50/p99 latency, the mean batch size, which must exceed
+   1), a side-by-side PNG round trip (the 16-bit PNG of the batch-1
+   answer, byte for byte), a burst past ``max_queue=4`` on the default
+   engine (429 with ``Retry-After`` while every admitted request answers
+   200), ``/metrics`` with the serve_* families, and ``begin_shutdown``
+   then ``drain`` finishing in-flight requests (200) while a new one gets
+   503.  The wrappers' counts are set to 0 just before each engine is
+   built and read just after its last checked dispatch; the kernels line
+   carries (a) plus (a') and (b) as ``launches_serving``.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (times
 by graph replay; a redesigned row names its design under ``design``; an
@@ -373,6 +410,25 @@ TELEMETRY_TRACE_MS = 5000
 TELEMETRY_STEP_RTOL = 0.05
 TELEMETRY_KERNELS = ("gates_conv_kernel", "corr_lookup_kernel",
                      "corr_lookup_bwd_kernel")
+# Phase 30, serving: the realtime engine's tiers and ladder, the closed
+# loop's clients and seconds, the burst engine's queue bound, and the
+# serve_* families /metrics must hold.
+SERVE_TIERS = ("quality", "interactive", "turbo")
+SERVE_SIZES = (1, 2, 4, 8)
+# ... and the exit engine on settled weights (phase 26's realtime
+# threshold): its ladder, and the contrasts of its pairs (1 exits after 5
+# iterations, the others sooner), so that a batch's members differ in depth
+SERVE_EXIT_SIZES = (1, 2, 4)
+SERVE_CONTRASTS = (1.0, 0.25, 0.5, 0.1)
+SERVE_CLIENTS = 16
+SERVE_LOAD_S = 10.0
+SERVE_BURST_QUEUE = 4
+SERVE_FAMILIES = ("serve_requests_admitted_total",
+                  "serve_requests_completed_total", "serve_batches_total",
+                  "serve_dispatches_total", "serve_queue_wait_seconds",
+                  "serve_total_latency_seconds", "serve_device_seconds",
+                  "serve_requests_rejected_queue_full_total",
+                  "infer_gru_iters_used")
 # Published peaks of the H100 SXM (NVIDIA data sheet, 700 W): memory
 # bytes/s, fp32 FLOP/s on the CUDA cores, and on the tensor cores dense
 # TF32 and bf16 FLOP/s and dense int8/fp8 operations/s.
@@ -1493,6 +1549,498 @@ def phase_drift(card):
     if not ok:
         raise AssertionError("the drift gates failed their checks")
     return q, b
+
+
+def post(url: str, body: bytes, ctype: str = "application/x-npz",
+         timeout: float = 120.0):
+    """``(status, headers, body)`` of one POST."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def get(url: str, timeout: float = 30.0):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def npz_body(left, right) -> bytes:
+    import io
+    buf = io.BytesIO()
+    np.savez(buf, left=left, right=right)
+    return buf.getvalue()
+
+
+def wait_depth(engine, n: int, timeout: float = 60.0) -> None:
+    t_end = time.monotonic() + timeout
+    while engine.queue.depth < n:
+        if time.monotonic() > t_end:
+            raise AssertionError(f"queue depth {engine.queue.depth} never "
+                                 f"reached {n}")
+        time.sleep(0.005)
+
+
+def dispatch_counts(engine, bucket, n, tier, iters_used):
+    """One dispatch's launches from its program: the capture's counts, or
+    under early exit ``launches + iters_used * body_launches``."""
+    entry = engine.program(bucket, n, tier)
+    if hasattr(entry, "pair_launches"):
+        return entry.pair_launches(iters_used)
+    return dict(entry.launches)
+
+
+def cache_check(cfg, state):
+    """Phase 22's eviction check on the engine: one worker with
+    ``max_cached_shapes=2`` over CACHE_SHAPES in CACHE_ORDER, the
+    reserved memory after the evictions within CACHE_MEMORY_FACTOR of its
+    value after the second shape, a replay and a recapture bitwise equal
+    to the first answers."""
+    import gc
+
+    from raft_stereo_tpu_torch.serving import ServeConfig, ServingEngine
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    eng = ServingEngine(cfg, state, ServeConfig(
+        iters=MAIN_ITERS, batch_sizes=(1,), max_batch=1,
+        max_cached_shapes=2), device="cuda")
+    rs = np.random.default_rng(SEED + 30)
+    pairs = {}
+    for key, hw in CACHE_SHAPES.items():
+        l_ = rs.integers(0, 256, hw + (3,), dtype=np.uint8)
+        pairs[key] = (l_, np.roll(l_, -4, axis=1))
+    outs, held = {}, []
+    for key in CACHE_ORDER:
+        outs.setdefault(key, []).append(eng.infer(*pairs[key],
+                                                  timeout=120).flow)
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_reserved() - base)
+    programs = [k[1] for k in eng.cached_programs()]
+    ok = (eng.captures == 4 and len(programs) == 2
+          and np.array_equal(*outs["A"]) and np.array_equal(*outs["B"])
+          and max(held[3:]) <= CACHE_MEMORY_FACTOR * held[1])
+    log(f"serving cache (max_cached_shapes=2): order {CACHE_ORDER}, "
+        f"{eng.captures} captures, programs {programs}; reserved memory "
+        f"above the start after each shape "
+        f"{[round(h / 2 ** 30, 3) for h in held]} GiB, after the evictions "
+        f"at most {max(held[3:]) / max(held[1], 1):.3f}x its value after "
+        f"the second shape (limit {CACHE_MEMORY_FACTOR}x); A replayed and "
+        f"B recaptured bitwise equal: {'ok' if ok else 'FAILED'}")
+    eng.close()
+    if not ok:
+        raise AssertionError("serving cache checks failed")
+
+
+def serve_pairs(left, right, contrasts=None):
+    """The ladder's distinct pairs at the main shape: the main pair first,
+    then noise pairs of other seeds and shifts, or (``contrasts``) the
+    main pair at each contrast about mid-grey (on settled weights a lower
+    contrast exits earlier)."""
+    if contrasts is not None:
+        out = []
+        for c in contrasts:
+            l_ = (128 + (left.astype(np.float32) - 128) * c).astype(np.uint8)
+            out.append((l_, np.roll(l_, -4, axis=1)))
+        return out
+    out = [(left, right)]
+    for k in range(1, max(SERVE_SIZES)):
+        l_ = np.random.default_rng(SEED + 300 + k).integers(
+            0, 256, MAIN_HW + (3,), dtype=np.uint8)
+        out.append((l_, np.roll(l_, -(2 + k), axis=1)))
+    return out
+
+
+def serve_references(cfg, state, iters, tiers, pairs, sizes):
+    """Each tier's answers from an ``InferenceRunner`` of its knobs, made
+    before the engine so that no runner launch lands in the engine's
+    counts: ``{tier: (solo, stacked)}``, ``solo`` a ``(flow,
+    iters_used)`` per pair alone, ``stacked[n]`` the ``(flows,
+    iters_used)`` of the first ``n`` pairs in one ``run_batch``.  Each
+    runner is dropped after its tier."""
+    import gc
+
+    from raft_stereo_tpu_torch.config import parse_tier
+    from raft_stereo_tpu_torch.eval.runner import InferenceRunner
+
+    refs = {}
+    for spec in tiers:
+        t = parse_tier(spec)
+        knobs = {} if t.exit_threshold_px <= 0 and t.quant == "off" else {
+            "exit_threshold_px": t.exit_threshold_px,
+            "exit_min_iters": t.min_iters,
+            "quant": None if t.quant == "off" else t.quant}
+        r = InferenceRunner(cfg, state, iters=iters, device="cuda", **knobs)
+        solo = []
+        for l_, r_ in pairs[:max(sizes)]:
+            flow, _ = r(l_, r_)
+            solo.append((flow, r.last_iters_used or iters))
+        stacked = {}
+        for n in sizes[1:]:
+            flows, _ = r.run_batch([p[0] for p in pairs[:n]],
+                                   [p[1] for p in pairs[:n]])
+            stacked[n] = (flows, r.last_iters_used or iters)
+        refs[t.name] = (solo, stacked)
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def tier_dispatch_counts(counts, tier, iters_used):
+    """The launches one dispatch of a realtime tier must make: #6 (or #9
+    on a quantized tier) and three gate calls per iteration, the
+    predicate per iteration of an exit tier, the int8 GEMMs only on a
+    quantized one."""
+    from raft_stereo_tpu_torch.config import parse_tier
+
+    t = parse_tier(tier)
+    k = iters_used
+    quant = t.quant != "off"
+    want = {"lookup": 0, "lookup_q": 0, "gates": 3 * k,
+            "alt": 0 if quant else k, "alt_q": k if quant else 0,
+            "exit": k if t.exit_threshold_px > 0 else 0}
+    got = {c: counts[c] for c in want}
+    if got != want or quant != (counts["gemm"] > 0):
+        raise AssertionError(f"tier {t.name} launches per dispatch {counts},"
+                             f" want {want}")
+
+
+def check_tiers(eng, what, tiers, pairs, sizes, refs, cap, per_dispatch,
+                spread=None, exits_below_cap=False):
+    """Each tier on the engine: the first pair alone, bitwise equal to its
+    runner's answer (with its ``iters_used``), and its launches per
+    dispatch; then at each batch size ``n`` the first ``n`` pairs queued
+    together, run as one batch, each row bitwise equal to the runner's
+    ``run_batch`` of the same stack, every row at the batch's depth, which
+    is the deepest member's alone.  ``spread``: the fixed-depth tier's
+    rows must also stay within RT_SPREAD_FACTOR of it of each pair's
+    batch-1 answer.  ``exits_below_cap``: an exit tier must exit before
+    ``cap`` and its members' depths alone must differ in every batch.
+    Returns the batch-1 results."""
+    from raft_stereo_tpu_torch.config import parse_tier
+
+    answers = {}
+    bucket = PADDED_HW
+    for spec in tiers:
+        name = parse_tier(spec).name
+        exits = parse_tier(spec).exit_threshold_px > 0
+        solo, stacked = refs[name]
+        res = eng.infer(*pairs[0], tier=name, timeout=120)
+        if res.batch_size != 1 or not np.array_equal(res.flow, solo[0][0]):
+            raise AssertionError(f"{what} {name}: batch-1 answer differs "
+                                 f"from the runner's replay by "
+                                 f"{np.abs(res.flow - solo[0][0]).max()}")
+        if res.iters_used != solo[0][1]:
+            raise AssertionError(f"{what} {name}: iters_used "
+                                 f"{res.iters_used} vs the runner's "
+                                 f"{solo[0][1]}")
+        counts = dispatch_counts(eng, bucket, 1, name, res.iters_used)
+        tier_dispatch_counts(counts, spec, res.iters_used)
+        per_dispatch[f"{what} {name}"] = counts
+        answers[name] = res
+        depths = [d for _, d in solo]
+        log(f"serving {what} {name}: batch 1 bitwise equal to the runner's "
+            f"replay, iters_used {res.iters_used}, launches per dispatch "
+            f"{counts}; each pair's depth alone {depths}")
+        for n in sizes[1:]:
+            eng.queue.pause()
+            futs = [eng.submit(l_, r_, tier=name) for l_, r_ in pairs[:n]]
+            eng.queue.resume()
+            rows = [f.result(timeout=120) for f in futs]
+            want, used = stacked[n]
+            equal = [np.array_equal(r.flow, w) for r, w in zip(rows, want)]
+            ok = ([r.batch_size for r in rows] == [n] * n and all(equal)
+                  and {r.iters_used for r in rows} == {used}
+                  and used == max(depths[:n]))
+            if exits_below_cap:
+                ok = ok and used < cap and len(set(depths[:n])) > 1
+            msg = (f"serving {what} {name} batch {n} ({n} distinct pairs): "
+                   f"sizes {[r.batch_size for r in rows]}, rows bitwise "
+                   f"equal to the runner's run_batch {equal}, iters_used "
+                   f"{sorted({r.iters_used for r in rows})} (runner {used},"
+                   f" members alone {depths[:n]}, cap {cap})")
+            if spread is not None and not exits:
+                err = np.stack([np.abs(r.flow - solo[i][0])
+                                for i, r in enumerate(rows)])
+                ok = ok and (err.max() <= RT_SPREAD_FACTOR * spread.max()
+                             and err.mean()
+                             <= RT_SPREAD_FACTOR * spread.mean())
+                msg += (f"; rows vs their pairs' batch-1 answers max / mean "
+                        f"{err.max():.4e} / {err.mean():.4e} px (limit "
+                        f"{RT_SPREAD_FACTOR}x the bf16 vs fp32-correlation "
+                        f"spread {spread.max():.4e} / {spread.mean():.4e})")
+            log(f"{msg}: {'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise AssertionError(f"{what} {name} batch {n} failed")
+    return answers
+
+
+def phase_serving(cfg, state, rt_cfg, rt_state, runner, left, right,
+                  exit_thr):
+    """Phase 30 (module docstring).  Returns the wrappers' counts over
+    the realtime engines (a) and (a'), over (b), and the launches per
+    dispatch of each program checked."""
+    import gc
+    import threading
+
+    from raft_stereo_tpu_torch.eval.runner import (InferenceRunner,
+                                                   launch_counts)
+    from raft_stereo_tpu_torch.profiling import device_memory_stats
+    from raft_stereo_tpu_torch.serving import ServeConfig, ServingEngine
+    from raft_stereo_tpu_torch.serving.http import (StereoHTTPServer,
+                                                    _encode_disparity)
+
+    t_phase = time.perf_counter()
+    bucket = PADDED_HW
+    per_dispatch = {}
+    # ---- the runners' answers first, each runner dropped after its use
+    pairs = serve_pairs(left, right)
+    settled = settle_state(rt_state)
+    thr = repr(float(exit_thr))
+    exit_tiers = (f"interactive:{thr}:{EXIT_MIN_ITERS}",
+                  f"turbo:{thr}:{EXIT_MIN_ITERS}:int8_mxu")
+    exit_pairs = serve_pairs(left, right, SERVE_CONTRASTS)
+    refs = serve_references(rt_cfg, rt_state, RT_ITERS, SERVE_TIERS, pairs,
+                            SERVE_SIZES)
+    exit_refs = serve_references(rt_cfg, settled, RT_ITERS, exit_tiers,
+                                 exit_pairs, SERVE_EXIT_SIZES)
+    fp32_corr = InferenceRunner(dataclasses.replace(rt_cfg, corr_fp32=True),
+                                rt_state, iters=RT_ITERS, device="cuda")
+    spread = np.abs(fp32_corr(left, right)[0] - refs["quality"][0][0][0])
+    del fp32_corr
+    want_b1, _ = runner(left, right)
+    ref_b = InferenceRunner(cfg, state, iters=MAIN_ITERS, device="cuda")
+    want_b2, _ = ref_b.run_batch([p[0] for p in pairs[:2]],
+                                 [p[1] for p in pairs[:2]])
+    del ref_b
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"serving references (runners, before the engines): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # ---- (a) the realtime engine, three tiers, the 1/2/4/8 ladder
+    reserved0 = torch.cuda.memory_reserved()
+    zero_inference_counts()
+    eng = ServingEngine(rt_cfg, rt_state, ServeConfig(
+        iters=RT_ITERS, tiers=SERVE_TIERS, batch_sizes=SERVE_SIZES,
+        max_batch=max(SERVE_SIZES), max_queue=64, warmup_shapes=(MAIN_HW,),
+        prewarm_on_init=False, cost_telemetry=True), device="cuda")
+    server = StereoHTTPServer(eng, port=0).start()
+    code, _ = get(server.url + "/readyz")
+    if code != 503 or eng.ready:
+        raise AssertionError(f"/readyz answered {code} before prewarm")
+    scrapes = {"n": 0, "errors": []}
+    stop = threading.Event()
+
+    def scrape():
+        while not stop.is_set():
+            try:
+                for route in ("/metrics", "/readyz", "/healthz"):
+                    get(server.url + route)
+                device_memory_stats()
+                scrapes["n"] += 1
+            except Exception as e:  # noqa: BLE001 - reported below
+                scrapes["errors"].append(repr(e))
+            time.sleep(0.02)
+
+    scraper = threading.Thread(target=scrape, daemon=True)
+    scraper.start()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.prewarm(MAIN_HW)
+    prewarm_s = time.perf_counter() - t0
+    stop.set()
+    scraper.join(timeout=30)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    code, _ = get(server.url + "/readyz")
+    programs = len(SERVE_SIZES) * len(eng._distinct_cache_tiers())
+    log(f"serving prewarm at {MAIN_HW[0]}x{MAIN_HW[1]}: {eng.captures} "
+        f"captures ({programs} programs: tiers {eng._distinct_cache_tiers()}"
+        f" x batch sizes {SERVE_SIZES}) in {prewarm_s:.2f} s on the worker "
+        f"thread, {scrapes['n']} scrapes meanwhile; reserved memory "
+        f"{reserved / 2 ** 30:.2f} GiB, the engine's "
+        f"{(reserved - reserved0) / 2 ** 30:.2f} GiB of it; /readyz {code}")
+    if scrapes["errors"] or code != 200 or not eng.ready:
+        raise AssertionError(f"prewarm: /readyz {code}, scrape errors "
+                             f"{scrapes['errors'][:3]}")
+    if eng.captures != programs:
+        raise AssertionError(f"{eng.captures} captures, want {programs}")
+    answers = check_tiers(eng, "realtime", SERVE_TIERS, pairs, SERVE_SIZES,
+                          refs, RT_ITERS, per_dispatch, spread=spread)
+    counts_a = launch_counts()
+    log(f"serving (a) wrapper counts over the engine's prewarm and "
+        f"dispatches: {counts_a}")
+    # ---- (a') exit tiers on settled weights: exits below the cap
+    zero_inference_counts()
+    eng_x = ServingEngine(rt_cfg, settled, ServeConfig(
+        iters=RT_ITERS, tiers=exit_tiers, batch_sizes=SERVE_EXIT_SIZES,
+        max_batch=max(SERVE_EXIT_SIZES), prewarm_on_init=False),
+        device="cuda")
+    eng_x.prewarm(MAIN_HW)
+    check_tiers(eng_x, "settled", exit_tiers, exit_pairs, SERVE_EXIT_SIZES,
+                exit_refs, RT_ITERS, per_dispatch, exits_below_cap=True)
+    counts_x = launch_counts()
+    eng_x.close()
+    del eng_x
+    log(f"serving (a') wrapper counts over the settled engine's prewarm "
+        f"and dispatches: {counts_x}")
+    counts_a = {k: counts_a[k] + counts_x[k] for k in counts_a}
+    # ---- (b) the default config, fp32, 32 iterations, batch sizes 1/2
+    zero_inference_counts()
+    eng_b = ServingEngine(cfg, state, ServeConfig(
+        iters=MAIN_ITERS, batch_sizes=(1, 2), max_batch=2,
+        max_queue=SERVE_BURST_QUEUE, warmup_shapes=(MAIN_HW,),
+        prewarm_on_init=False), device="cuda")
+    eng_b.prewarm(MAIN_HW)
+    res = eng_b.infer(left, right, timeout=120)
+    if not np.array_equal(res.flow, want_b1):
+        raise AssertionError(f"default engine batch 1 differs from phase "
+                             f"5's runner by "
+                             f"{np.abs(res.flow - want_b1).max()}")
+    counts = dispatch_counts(eng_b, bucket, 1, None, res.iters_used)
+    per_dispatch["default"] = counts
+    if (counts["lookup"], counts["gates"], counts["alt"]) != (
+            MAIN_ITERS, 3 * MAIN_ITERS, 0):
+        raise AssertionError(f"default engine launches per dispatch "
+                             f"{counts}")
+    eng_b.queue.pause()
+    futs = [eng_b.submit(l_, r_) for l_, r_ in pairs[:2]]
+    eng_b.queue.resume()
+    rows = [f.result(timeout=120) for f in futs]
+    equal = [np.array_equal(r.flow, w) for r, w in zip(rows, want_b2)]
+    counts_b = launch_counts()
+    log(f"serving default engine: batch 1 bitwise equal to phase 5's "
+        f"runner, launches per dispatch {counts}; batch 2 of two distinct "
+        f"pairs, sizes {[r.batch_size for r in rows]}, rows bitwise equal "
+        f"to a runner's run_batch of the same stack {equal}; wrapper "
+        f"counts over its prewarm and dispatches {counts_b}")
+    if [r.batch_size for r in rows] != [2, 2] or not all(equal):
+        raise AssertionError("default engine batch 2")
+    cache_check(cfg, state)
+    # ---- (c) HTTP: closed loop, PNG, burst past max_queue, drain
+    body = npz_body(left, right)
+    latencies, statuses = [], []
+    lock = threading.Lock()
+    m = eng.metrics
+    done0, batches0 = m.completed.value, m.batches.value
+    t_end = time.perf_counter() + SERVE_LOAD_S
+
+    def client():
+        while time.perf_counter() < t_end:
+            t = time.perf_counter()
+            code, hdr, raw = post(server.url + "/v1/disparity?tier=quality",
+                                  body)
+            with lock:
+                latencies.append(time.perf_counter() - t)
+                statuses.append(code)
+
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, daemon=True)
+               for _ in range(SERVE_CLIENTS)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=SERVE_LOAD_S + 120)
+    load_s = time.perf_counter() - t0
+    done, batches = m.completed.value - done0, m.batches.value - batches0
+    mean_batch = done / max(batches, 1)
+    lat = np.array(latencies) * 1e3
+    log(f"serving closed loop: {SERVE_CLIENTS} clients x {load_s:.2f} s, "
+        f"{len(latencies)} requests ({statuses.count(200)} answered 200): "
+        f"{len(latencies) / load_s:.2f} requests/s, latency p50 "
+        f"{np.percentile(lat, 50):.2f} ms, p99 {np.percentile(lat, 99):.2f}"
+        f" ms; {done} completed in {batches} dispatches, mean batch "
+        f"{mean_batch:.3f}; dispatches by size "
+        f"{ {n: m.dispatches_at(n) for n in SERVE_SIZES} }")
+    if statuses.count(200) != len(statuses) or not mean_batch > 1:
+        raise AssertionError(f"closed loop: statuses "
+                             f"{sorted(set(statuses))}, mean batch "
+                             f"{mean_batch}")
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(np.concatenate([left, right], axis=1)).save(buf, "PNG")
+    code, hdr, raw = post(server.url + "/v1/disparity?format=png&tier="
+                          "quality", buf.getvalue(), "image/png")
+    want_png = _encode_disparity(answers["quality"].disparity, "png")[0]
+    if code != 200 or raw != want_png:
+        raise AssertionError(f"PNG round trip: {code}, bytes equal "
+                             f"{raw == want_png}")
+    server_b = StereoHTTPServer(eng_b, port=0).start()
+    eng_b.queue.pause()
+    held, held_out = [], []
+
+    def held_post():
+        out = post(server_b.url + "/v1/disparity", body)
+        with lock:
+            held_out.append(out[0])
+
+    for _ in range(SERVE_BURST_QUEUE):
+        held.append(threading.Thread(target=held_post, daemon=True))
+        held[-1].start()
+    wait_depth(eng_b, SERVE_BURST_QUEUE)
+    burst = [post(server_b.url + "/v1/disparity", body) for _ in range(4)]
+    eng_b.queue.resume()
+    for t in held:
+        t.join(timeout=120)
+    shed = [(c, h.get("Retry-After"), json.loads(r)["error"])
+            for c, h, r in burst]
+    log(f"serving burst past max_queue={SERVE_BURST_QUEUE}: admitted "
+        f"{held_out}, beyond the bound {shed}")
+    if held_out != [200] * SERVE_BURST_QUEUE or any(
+            s != (429, "1", "overloaded") for s in shed):
+        raise AssertionError("burst past max_queue")
+    code, text = get(server.url + "/metrics")
+    missing = [f for f in SERVE_FAMILIES if f not in text.decode()]
+    if code != 200 or missing:
+        raise AssertionError(f"/metrics {code}, missing {missing}")
+    eng.queue.pause()
+    inflight, inflight_out = [], []
+
+    def inflight_post():
+        out = post(server.url + "/v1/disparity", body)
+        with lock:
+            inflight_out.append(out[0])
+
+    for _ in range(5):
+        inflight.append(threading.Thread(target=inflight_post, daemon=True))
+        inflight[-1].start()
+    wait_depth(eng, 5)
+    eng.begin_shutdown()
+    late = post(server.url + "/v1/disparity", body)[0]
+    ready_code = get(server.url + "/readyz")[0]
+    eng.queue.resume()
+    drained = eng.drain(timeout=120)
+    for t in inflight:
+        t.join(timeout=120)
+    log(f"serving drain: in-flight answers {inflight_out}, a request after "
+        f"begin_shutdown {late}, /readyz {ready_code}, drained {drained}")
+    if (inflight_out != [200] * 5 or late != 503 or ready_code != 503
+            or not drained):
+        raise AssertionError("begin_shutdown / drain")
+    server.shutdown()
+    server_b.shutdown()
+    eng_b.close()
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 30 (serving) took {phase_s:.1f} s")
+    return counts_a, counts_b, per_dispatch
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -3246,6 +3794,11 @@ def main() -> int:
                  left, right, small, small_r, card)
     phase_drift(card)
 
+    # ----------------------------------------------------------- phase 30
+    serve_a, serve_b, serve_per_dispatch = phase_serving(
+        cfg, state, rt_cfg, rt_state, runner, left, right,
+        exit_runs["realtime"]["threshold"])
+
     def row(name_, source, replaces, launched, err, t, design=None):
         """One entry of the kernels line; ``t`` holds graph-replay times."""
         out = {"name": name_, "route": "cuda",
@@ -3262,7 +3815,16 @@ def main() -> int:
                 out[key] = t[key]
         if design:
             out["design"] = design
+        out["launches_serving"] = serving.get(name_, 0)
         return out
+
+    # the wrappers' counts over phase 30's engines (set to 0 before each)
+    serving = {"corr_lookup": serve_b["lookup"],
+               "gru_gates": serve_b["gates"],
+               "gru_gates_bf16": serve_a["gates"],
+               "corr_alt": serve_a["alt"],
+               "corr_alt_q_int8": serve_a["alt_q"],
+               "exit_predicate": serve_a["exit"]}
 
     lookup_t.update(bound=lookup_bound_ms, by="bytes")
     lbwd_t.update(bound=lbwd_bound, by="bytes")
@@ -3314,6 +3876,8 @@ def main() -> int:
         exit_runs["default"]["counts"]["exit"], pred_t["err"],
         pred_t, "the predicate of a CUDA graph WHILE node: it += 1, "
         "cudaGraphSetConditional"))
+    log(f"serving launches per dispatch: {serve_per_dispatch}")
+    log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 CORR_BACKENDS = ("reg", "alt", "reg_fused")
 
@@ -211,6 +211,81 @@ def _unsupported(cfg: RaftStereoConfig):
          cfg.remat_save not in (("corr_lookup",), ())),
     )
     return [(field, item) for field, item, on in checks if on]
+
+
+# ------------------------------------------------------------ request tiers
+@dataclasses.dataclass(frozen=True)
+class RequestTier:
+    """A named accuracy/latency point on the early-exit knob, the JAX
+    package's ``RequestTier`` field for field.
+
+    A tier is a preset of (exit_threshold_px, min_iters, quant): the
+    serving engine builds one program family per tier
+    (serving/engine.py) and requests select one by name.
+    ``exit_threshold_px <= 0`` runs the fixed-depth program;
+    ``quant="int8"`` or ``"int8_mxu"`` runs the tier on the quantized
+    inference path (the engine quantizes the fp32 state dict once)."""
+
+    name: str
+    exit_threshold_px: float
+    min_iters: int = 1
+    quant: str = "off"
+
+    def apply(self, cfg: RaftStereoConfig) -> RaftStereoConfig:
+        """The model config this tier's requests run: the base
+        architecture with the early-exit and quantization knobs swapped
+        in.  A tier that changes nothing maps back to the base config
+        exactly, which is how the engine finds programs it can share."""
+        return dataclasses.replace(
+            cfg, exit_threshold_px=self.exit_threshold_px,
+            exit_min_iters=self.min_iters, exit_max_iters=None,
+            quant=self.quant)
+
+
+# The JAX package's presets, unchanged.  Thresholds are px of mean
+# |Δdisparity| per iteration at feature resolution.  "turbo" is
+# interactive's exit knobs on the int8 compute path ("int8_mxu"); it fails
+# the int8 drift gate in both packages (ROADMAP §C7).
+REQUEST_TIERS: Dict[str, RequestTier] = {
+    "interactive": RequestTier("interactive", exit_threshold_px=0.05,
+                               min_iters=2),
+    "balanced": RequestTier("balanced", exit_threshold_px=0.01,
+                            min_iters=3),
+    "quality": RequestTier("quality", exit_threshold_px=0.0, min_iters=1),
+    "turbo": RequestTier("turbo", exit_threshold_px=0.05, min_iters=2,
+                         quant="int8_mxu"),
+}
+
+
+def parse_tier(spec: Union[str, RequestTier]) -> RequestTier:
+    """A tier from a preset name or an inline
+    ``name:threshold[:min[:quant]]`` spec, with the JAX package's errors."""
+    if isinstance(spec, RequestTier):
+        return spec
+    parts = str(spec).split(":")
+    if len(parts) == 1:
+        tier = REQUEST_TIERS.get(parts[0])
+        if tier is None:
+            raise ValueError(
+                f"unknown tier {parts[0]!r}: use one of "
+                f"{sorted(REQUEST_TIERS)} or an inline "
+                f"'name:threshold_px[:min_iters[:quant]]' spec")
+        return tier
+    if len(parts) not in (2, 3, 4) or not parts[0]:
+        raise ValueError(f"tier spec {spec!r}: expected "
+                         f"'name:threshold_px[:min_iters[:quant]]'")
+    try:
+        threshold = float(parts[1])
+        min_iters = int(parts[2]) if len(parts) >= 3 else 1
+    except ValueError as e:
+        raise ValueError(f"tier spec {spec!r}: expected "
+                         f"'name:threshold_px[:min_iters[:quant]]'") from e
+    quant = parts[3] if len(parts) == 4 else "off"
+    if quant not in ("off", "int8", "int8_mxu"):
+        raise ValueError(f"tier spec {spec!r}: quant {quant!r} not in "
+                         f"('off', 'int8', 'int8_mxu')")
+    return RequestTier(parts[0], exit_threshold_px=threshold,
+                       min_iters=min_iters, quant=quant)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -355,6 +355,17 @@ class _Graphed:
         self._replay()
         return self._fetch()
 
+    def timed_call(self, *arrays: np.ndarray
+                   ) -> Tuple[List[np.ndarray], float]:
+        """A replay that also says when the card finished it: upload,
+        replay, synchronize, fetch.  Returns ``(outputs, t_ready)``, the
+        ``time.monotonic()`` of the synchronization before the fetch."""
+        self._upload(arrays)
+        self._replay()
+        torch.cuda.current_stream().synchronize()
+        t_ready = time.monotonic()
+        return self._fetch(), t_ready
+
 
 class GraphForward(_Graphed):
     """One captured CUDA graph of ``forward`` at one set of input shapes:
@@ -429,6 +440,58 @@ class WhileForward(_Graphed):
 
     def _replay(self) -> None:
         self.graph_loop.launch(torch.cuda.current_stream())
+
+
+class ProgramCache:
+    """The programs one owner keeps on one device: LRU caches of at most
+    ``limit`` entries each (``lru()`` opens one), whose graphs share one
+    side stream and one memory pool.  ``add`` evicts the cache's oldest
+    entries past the limit (``on_evict(cache, key)`` after each), then
+    wraps ``forward``: a ``WhileForward`` (early exit) or ``GraphForward``
+    on the card, a ``PlainForward`` on the CPU.  A pool whose graphs are
+    all gone cannot be shared again, so a build into empty caches takes a
+    new one."""
+
+    def __init__(self, device: torch.device, limit: int, on_evict=None):
+        self.device = device
+        self.limit = limit
+        self.on_evict = on_evict
+        self.caches: List[Dict[Tuple, object]] = []
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.pool = None
+
+    def lru(self) -> Dict[Tuple, object]:
+        cache: Dict[Tuple, object] = {}
+        self.caches.append(cache)
+        return cache
+
+    @staticmethod
+    def get(cache: Dict[Tuple, object], key: Tuple):
+        """The entry at ``key``, refreshed as the newest, or None."""
+        if key not in cache:
+            return None
+        cache[key] = cache.pop(key)
+        return cache[key]
+
+    def add(self, cache: Dict[Tuple, object], key: Tuple, forward, arrays,
+            spec, early_exit: bool):
+        while len(cache) >= self.limit:
+            evicted = next(iter(cache))
+            del cache[evicted]
+            log.info("graph cache full (max_cached_shapes=%d): evicting "
+                     "%s; its next use captures again", self.limit, evicted)
+            if self.on_evict is not None:
+                self.on_evict(cache, evicted)
+        if self.device.type == "cuda":
+            if self.pool is None or not any(self.caches):
+                self.stream = self.stream or torch.cuda.Stream(self.device)
+                self.pool = torch.cuda.graph_pool_handle()
+            entry = (WhileForward if early_exit else GraphForward)(
+                forward, arrays, spec, self.device, self.stream, self.pool)
+        else:
+            entry = PlainForward(forward, spec)
+        cache[key] = entry
+        return entry
 
 
 @dataclasses.dataclass
@@ -537,10 +600,10 @@ class InferenceRunner:
         self.fetch_dtype = FETCH_DTYPES[fetch_dtype]
         # one program per (padded shape, batch); the streaming programs
         # (state in and out) in their own LRU, as in the JAX runner
-        self._compiled: Dict[Tuple, object] = {}
-        self._stream_compiled: Dict[Tuple, object] = {}
-        self._stream: Optional[torch.cuda.Stream] = None
-        self._pool = None
+        self._programs = ProgramCache(self.device, max_cached_shapes,
+                                      on_evict=self._evicted)
+        self._compiled = self._programs.lru()
+        self._stream_compiled = self._programs.lru()
         self.captures = 0
         self.replays = 0
         self.cost_registry = cost_registry
@@ -580,39 +643,22 @@ class InferenceRunner:
         and the program's inputs ``args`` (a tuple of arrays and tuples of
         arrays) flattened."""
         arrays, spec = tree_flatten(tuple(args))
-        if key in cache:
-            cache[key] = cache.pop(key)  # LRU refresh
-            return cache[key], arrays
-        costs = (self.cost_registry if cache is self._compiled
-                 else None)
-        while len(cache) >= self.max_cached_shapes:
-            evicted = next(iter(cache))
-            del cache[evicted]
-            log.info("graph cache full (max_cached_shapes=%d): evicting "
-                     "%s; its next use captures again",
-                     self.max_cached_shapes, evicted)
-            if costs is not None:
-                costs.note_runner_eviction(self._cost_key(*evicted[:2]),
-                                           len(cache))
+        entry = self._programs.get(cache, key)
+        if entry is not None:
+            return entry, arrays
         forward = make_forward(self.model, self.iters, self.fetch_dtype,
                                **flags)
-        if self.device.type == "cuda":
-            if self._pool is None or not (self._compiled
-                                          or self._stream_compiled):
-                # a pool whose graphs are all gone cannot be shared again
-                self._stream = self._stream or torch.cuda.Stream(
-                    self.device)
-                self._pool = torch.cuda.graph_pool_handle()
-            entry = (WhileForward if self.early_exit else GraphForward)(
-                forward, arrays, spec, self.device, self._stream,
-                self._pool)
-        else:
-            entry = PlainForward(forward, spec)
-        cache[key] = entry
-        if costs is not None:
+        entry = self._programs.add(cache, key, forward, arrays, spec,
+                                   self.early_exit)
+        if cache is self._compiled and self.cost_registry is not None:
             entry.cost_key = self._cost_key(*key[:2])
-            costs.note_runner_cache_size(len(cache))
+            self.cost_registry.note_runner_cache_size(len(cache))
         return entry, arrays
+
+    def _evicted(self, cache: Dict, key: Tuple) -> None:
+        if cache is self._compiled and self.cost_registry is not None:
+            self.cost_registry.note_runner_eviction(self._cost_key(*key[:2]),
+                                                    len(cache))
 
     def _cost_key(self, padded_hw: Tuple[int, int], batch: int) -> str:
         """The cost registry's label of one (padded shape, batch) program,

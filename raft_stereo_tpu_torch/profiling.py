@@ -171,14 +171,19 @@ def device_memory_stats(device: Union[None, int, str, torch.device] = None
     ``peak_bytes_in_use``, ``bytes_reserved``, ``peak_bytes_reserved``,
     ``num_allocs`` and ``bytes_limit`` (the card's total memory).  {} on
     the CPU and before CUDA is initialized (so a scrape never starts
-    it)."""
+    it).  Waits while another thread captures a CUDA graph (a scrape of
+    the serving engine's gauges runs beside its workers' captures)."""
     if device is not None and torch.device(device).type != "cuda":
         return {}
     if not torch.cuda.is_available() or not torch.cuda.is_initialized():
         return {}
-    stats = torch.cuda.memory_stats(device)
-    props = torch.cuda.get_device_properties(
-        device if device is not None else torch.cuda.current_device())
+    me = threading.get_ident()
+    with _cond:
+        # read under the lock, which graph_capture takes to begin one
+        _cond.wait_for(lambda: not any(t != me for t in _captures))
+        stats = torch.cuda.memory_stats(device)
+        props = torch.cuda.get_device_properties(
+            device if device is not None else torch.cuda.current_device())
     return {"bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
             "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak",
                                                0)),

@@ -1483,3 +1483,129 @@ def test_cost_registry_records_a_real_capture(rng, cuda_device):
     assert rec.device == torch.cuda.get_device_name(0)
     # the default config is fp32: MFU against the card's fp32 peak
     assert reg.peak_flops == 67e12 or "H100" not in rec.device
+
+
+# --------------------------------------------------------------- serving
+def _serving_pair(rng, hw=(60, 90)):
+    left = rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+    return left, np.roll(left, -3, axis=1)
+
+
+@pytest.mark.parametrize("tier", ["quality", "interactive", "turbo"])
+def test_serving_batch1_replay_bit_equal_to_the_runner(rng, cuda_device,
+                                                       tier):
+    """The engine's batch-1 program of each tier, captured on its worker
+    thread and replayed, gives the runner's replay bit for bit (the
+    realtime architecture at TINY widths, 3 iterations)."""
+    from raft_stereo_tpu_torch.config import parse_tier
+    from raft_stereo_tpu_torch.serving import ServeConfig, ServingEngine
+
+    cfg = RaftStereoConfig(**{**RaftStereoConfig.realtime().to_dict(),
+                              **TINY})
+    torch.manual_seed(0)
+    state = RAFTStereo(cfg).state_dict()
+    left, right = _serving_pair(rng)
+    t = parse_tier(tier)
+    runner = InferenceRunner(cfg, state, iters=3,
+                             quant=None if t.quant == "off" else t.quant,
+                             exit_threshold_px=t.exit_threshold_px,
+                             exit_min_iters=t.min_iters)
+    want, _ = runner(left, right)
+    with ServingEngine(cfg, state, ServeConfig(
+            iters=3, tiers=("quality", "interactive", "turbo"),
+            batch_sizes=(1, 2))) as eng:
+        for _ in range(2):                     # the capture, then a replay
+            res = eng.infer(left, right, tier=tier, timeout=300)
+            assert res.batch_size == 1
+            assert np.array_equal(res.flow, want)
+        assert eng.captures == 1 and eng.replays == 2
+        if tier != "quality":
+            assert res.iters_used == runner.last_iters_used
+
+
+@pytest.mark.parametrize("tier", ["quality", "interactive", "turbo"])
+def test_serving_batch_of_distinct_pairs_bit_equal_to_run_batch(
+        rng, cuda_device, tier):
+    """A batch of two distinct pairs replays the runner's batch-2 program:
+    each row equals the runner's ``run_batch`` row bit for bit, at the
+    runner's depth under an exit tier."""
+    from raft_stereo_tpu_torch.config import parse_tier
+    from raft_stereo_tpu_torch.serving import ServeConfig, ServingEngine
+
+    cfg = RaftStereoConfig(**{**RaftStereoConfig.realtime().to_dict(),
+                              **TINY})
+    torch.manual_seed(0)
+    state = RAFTStereo(cfg).state_dict()
+    pairs = [_serving_pair(rng) for _ in range(2)]
+    t = parse_tier(tier)
+    runner = InferenceRunner(cfg, state, iters=3,
+                             quant=None if t.quant == "off" else t.quant,
+                             exit_threshold_px=t.exit_threshold_px,
+                             exit_min_iters=t.min_iters)
+    want, _ = runner.run_batch([p[0] for p in pairs], [p[1] for p in pairs])
+    with ServingEngine(cfg, state, ServeConfig(
+            iters=3, tiers=("quality", "interactive", "turbo"),
+            batch_sizes=(1, 2))) as eng:
+        eng.queue.pause()
+        futures = [eng.submit(l, r, tier=tier) for l, r in pairs]
+        eng.queue.resume()
+        rows = [f.result(timeout=300) for f in futures]
+    assert [r.batch_size for r in rows] == [2, 2]
+    for res, row in zip(rows, want):
+        assert np.array_equal(res.flow, row)
+    if tier != "quality":
+        assert {r.iters_used for r in rows} == {runner.last_iters_used}
+
+
+def test_serving_captures_on_a_worker_thread_while_scraped(rng,
+                                                           cuda_device):
+    """Prewarm captures every program on the engine's worker thread while
+    another thread scrapes /metrics, /readyz and the device memory
+    without pause; every capture succeeds and the answers stay the
+    runner's."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from raft_stereo_tpu_torch.profiling import device_memory_stats
+    from raft_stereo_tpu_torch.serving import ServeConfig, ServingEngine
+    from raft_stereo_tpu_torch.serving.http import StereoHTTPServer
+
+    cfg = RaftStereoConfig(**TINY)
+    torch.manual_seed(1)
+    state = RAFTStereo(cfg).state_dict()
+    left, right = _serving_pair(rng)
+    want, _ = InferenceRunner(cfg, state, iters=2)(left, right)
+    eng = ServingEngine(cfg, state, ServeConfig(
+        iters=2, batch_sizes=(1, 2, 4), warmup_shapes=((60, 90),),
+        prewarm_on_init=False))
+    server = StereoHTTPServer(eng, port=0).start()
+    stop, scrapes, errors = threading.Event(), [0], []
+
+    def scrape():
+        while not stop.is_set():
+            try:
+                for route in ("/metrics", "/readyz"):
+                    urllib.request.urlopen(server.url + route, timeout=30)
+            except urllib.error.HTTPError as e:
+                if e.code != 503:              # /readyz while warming
+                    errors.append(repr(e))
+            except Exception as e:  # noqa: BLE001
+                errors.append(repr(e))
+            device_memory_stats()
+            scrapes[0] += 1
+
+    t = threading.Thread(target=scrape, daemon=True)
+    t.start()
+    try:
+        eng.prewarm((60, 90))
+        stop.set()
+        t.join(timeout=30)
+        assert errors == [] and scrapes[0] > 0
+        assert eng.ready and eng.captures == 3
+        assert np.array_equal(eng.infer(left, right, timeout=300).flow,
+                              want)
+    finally:
+        stop.set()
+        server.shutdown()
+        eng.close()
