@@ -255,6 +255,45 @@ fails the run when it fails:
    503.  The wrappers' counts are set to 0 just before each engine is
    built and read just after its last checked dispatch; the kernels line
    carries (a) plus (a') and (b) as ``launches_serving``.
+31. streaming sessions on the serving engine (``serving/sessions.py``,
+   ``ServingEngine.submit_session``).  First the references, from runners
+   dropped after: ``InferenceRunner.run_stream`` over each chain, under
+   the engine's keyframe rule.  (a) the realtime preset's engine on phase
+   26's settled weights (bf16, cap 7, tiers quality and interactive at
+   phase 26's realtime threshold, ``sessions=True``, batch sizes 1/2/4)
+   prewarmed with the session families (state, warm); one session of 8
+   frames of the main pair shifted one pixel a frame on the interactive
+   tier, each frame bitwise equal to ``run_stream`` fed the same chain; a
+   scene cut (the frame darkened to 30%: cold, delta > 40, then warm
+   again); the keyframe guard on a tier that never exits (a warm frame at
+   the cap reseeds the next one cold); 4 sessions x 8 frames of distinct
+   pairs submitted concurrently (each ordered, 4 cold and 28 warm
+   frames, mean batch > 1, every flow finite); then an engine with
+   ``session_hidden`` (the warm_h family): the chain bitwise equal to
+   ``run_stream`` with ``carry_hidden``, and its warm frames exiting
+   before its cold one; then flow-only warm starts on trained weights
+   (phase 28's bf16 leg: the realtime architecture after 300 steps) on
+   the main pair and on a warped textured scene of the training's kind,
+   an engine at a threshold from the cold frame's deltas (as phase 26
+   takes it): the cold frame must exit there, and the warm frames'
+   ``iters_used`` are printed, a measurement (300 steps teach no use of a
+   warm start: PERF.md).  (c) HTTP over that engine: ``POST
+   /v1/stream/<id>`` for 4 frames (X-Warm, X-Frame-Index), ``DELETE``
+   returning the close stats, a 410 ``expired`` past a 2 s TTL, and a 400
+   ``sessions_disabled`` from a stateless engine.  (b) the default config's
+   engine (fp32, 32 iterations) with the context cache: a chain 4 grey
+   levels brighter a frame (past the static gate: warm, not cached)
+   bitwise equal to ``run_stream``, and a static scene of 4 frames whose 3
+   warm frames hit the cache: the bundle the cold frame saved bitwise
+   equal to ``run_stream``'s ``save_ctx`` bundle, each hit to
+   ``run_stream`` with ``prev_ctx`` on the saved bundle, and the first
+   hit to the plain warm frame from the same state (the context encoder
+   run again on the same images).  Printed: seconds per frame
+   by family, ``iters_used`` warm against cold, prewarm seconds and
+   reserved GiB, launches per frame.  The wrappers' counts are set to 0
+   before the realtime engines and before the default one; the kernels
+   line carries them as ``launches_sessions``, and each kernel of the
+   session path must have launched.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (times
 by graph replay; a redesigned row names its design under ``design``; an
@@ -423,6 +462,12 @@ SERVE_CONTRASTS = (1.0, 0.25, 0.5, 0.1)
 SERVE_CLIENTS = 16
 SERVE_LOAD_S = 10.0
 SERVE_BURST_QUEUE = 4
+SESSION_FRAMES = 8       # phase 31: frames of a realtime chain
+SESSION_CLIENTS = 4      # concurrent realtime sessions
+SESSION_SIZES = (1, 2, 4)
+SESSION_DEF_FRAMES = 4   # frames of a default-engine chain
+SESSION_TTL_S = 2.0      # the HTTP leg's engine: a 410 after it
+SCENE_CUT_DIM = 0.3      # a cut: the frame darkened to 30%
 SERVE_FAMILIES = ("serve_requests_admitted_total",
                   "serve_requests_completed_total", "serve_batches_total",
                   "serve_dispatches_total", "serve_queue_wait_seconds",
@@ -965,18 +1010,25 @@ def padded_batch(runner, left, right):
         runner.device) for im in (left, right)]
 
 
-def iteration_deltas(runner, left, right, iters: int):
-    """Each iteration's exit quantity (the worst member's mean |delta|),
-    from an eager fixed-depth loop over the runner's model."""
-    model = runner.model
+def loop_deltas(model, p1, p2, iters, flow_init=None):
+    """``(deltas, disp)``: each iteration's exit quantity from an eager
+    fixed-depth loop over ``model`` (from ``flow_init`` where given), and
+    the final low-resolution disparity."""
     out = []
     with torch.inference_mode():
-        step, net, disp, _ = model.begin(*padded_batch(runner, left, right))
+        step, net, disp, _ = model.begin(p1, p2, flow_init)
         for _ in range(iters):
             net, new, _mask = step(net, disp)
             out.append(float(model.batch_delta((new - disp).abs())))
             disp = new
-    return out
+    return out, disp
+
+
+def iteration_deltas(runner, left, right, iters: int):
+    """Each iteration's exit quantity (the worst member's mean |delta|),
+    from an eager fixed-depth loop over the runner's model."""
+    return loop_deltas(runner.model, *padded_batch(runner, left, right),
+                       iters)[0]
 
 
 def exit_threshold(deltas, min_iters: int, cap: int):
@@ -1510,7 +1562,9 @@ def phase_drift(card):
     and the bf16 drift's trained leg.  Prints every row, the gate and
     their seconds; fails on a missing variant, a non-finite row, or the
     quantized variants' gate kernels and int8 GEMMs not launching.  The
-    gate's verdict is a measurement, printed, not a check."""
+    gate's verdict is a measurement, printed, not a check.  Returns the
+    bf16 leg's trained realtime weights (phase 31 warm-starts on them)."""
+    from raft_stereo_tpu_torch.eval import drift
     from raft_stereo_tpu_torch.eval.runner import launch_counts
     from raft_stereo_tpu_torch.tools import bf16_drift, quant_drift
 
@@ -1522,8 +1576,19 @@ def phase_drift(card):
     q_counts = {k: v for k, v in launch_counts().items() if v}
     zero_inference_counts()
     t0 = time.perf_counter()
-    b = bf16_drift.run(bf16_drift.build_parser().parse_args(
-        ["--device", "cuda"]))
+    trained = {}
+    brief_train = drift.brief_train
+
+    def keep(*args, **kwargs):
+        trained.update(brief_train(*args, **kwargs))
+        return trained
+
+    drift.brief_train = keep
+    try:
+        b = bf16_drift.run(bf16_drift.build_parser().parse_args(
+            ["--device", "cuda"]))
+    finally:
+        drift.brief_train = brief_train
     b_s = time.perf_counter() - t0
     b_counts = {k: v for k, v in launch_counts().items() if v}
     names = {"quant": ("fp32", "bf16", "int8", "int8_w", "int8_mxu"),
@@ -1548,7 +1613,7 @@ def phase_drift(card):
         f"{b_counts}: {'ok' if ok else 'FAILED'}")
     if not ok:
         raise AssertionError("the drift gates failed their checks")
-    return q, b
+    return trained
 
 
 def post(url: str, body: bytes, ctype: str = "application/x-npz",
@@ -1591,10 +1656,10 @@ def wait_depth(engine, n: int, timeout: float = 60.0) -> None:
         time.sleep(0.005)
 
 
-def dispatch_counts(engine, bucket, n, tier, iters_used):
+def dispatch_counts(engine, bucket, n, tier, iters_used, family=None):
     """One dispatch's launches from its program: the capture's counts, or
     under early exit ``launches + iters_used * body_launches``."""
-    entry = engine.program(bucket, n, tier)
+    entry = engine.program(bucket, n, tier, family=family)
     if hasattr(entry, "pair_launches"):
         return entry.pair_launches(iters_used)
     return dict(entry.launches)
@@ -2038,6 +2103,484 @@ def phase_serving(cfg, state, rt_cfg, rt_state, runner, left, right,
     phase_s = time.perf_counter() - t_phase
     log(f"phase 30 (serving) took {phase_s:.1f} s")
     return counts_a, counts_b, per_dispatch
+
+
+def session_frames(left, right, n, brighten=0):
+    """A coherent sequence: the pair shifted one pixel a frame (and, with
+    ``brighten``, that many grey levels brighter a frame)."""
+    out = []
+    for k in range(n):
+        pair = [np.roll(x, -k, axis=1) for x in (left, right)]
+        if brighten:
+            pair = [np.clip(x.astype(np.int16) + brighten * k, 0,
+                            255).astype(np.uint8) for x in pair]
+        out.append(tuple(pair))
+    return out
+
+
+def stream_reference(runner, frames, hidden=False, cap=None):
+    """``InferenceRunner.run_stream`` over a chain, under the engine's
+    rules: each frame warm from the one before, except after a warm frame
+    that ran to ``cap`` (the keyframe guard: the next frame starts cold)."""
+    out, prev, hid = [], None, None
+    for l_, r_ in frames:
+        f = runner.run_stream(l_, r_, prev_flow_low=prev, prev_hidden=hid,
+                              carry_hidden=hidden)
+        out.append(f)
+        guard = cap is not None and f.warm and f.iters_used >= cap
+        prev = None if guard else f.flow_low
+        hid = None if guard else f.hidden
+    return out
+
+
+def check_chain(what, got, want):
+    """Each engine frame bitwise equal to the runner's chain frame (flow,
+    state, hidden state, warm flag, iters_used)."""
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not (np.array_equal(g.flow, w.flow)
+                   and np.array_equal(g.flow_low, w.flow_low)
+                   and g.warm == w.warm
+                   and g.iters_used == (w.iters_used or g.iters_used)
+                   and (w.hidden is None or all(
+                       np.array_equal(a, b)
+                       for a, b in zip(g.hidden, w.hidden))))]
+    log(f"sessions {what}: {len(got)} frames (warm, iters_used) "
+        f"{[(g.warm, g.iters_used) for g in got]}, each bitwise equal to "
+        f"run_stream over the same chain: {'ok' if not bad else bad}")
+    if bad or len(got) != len(want):
+        raise AssertionError(f"sessions {what}: frames {bad} differ from "
+                             f"run_stream")
+
+
+def frame_seconds(results):
+    """Median seconds per frame by family: admission to result, and the
+    dispatch's device share."""
+    by = {}
+    for r in results:
+        fam = ("warm" if r.warm else "cold") + ("_ctx" if r.ctx_cached
+                                                 else "") + (
+            "_h" if r.warm_hidden else "")
+        by.setdefault(fam, []).append((r.total_s, r.device_s))
+    return {k: (round(statistics.median(t for t, _ in v), 5),
+                round(statistics.median(d for _, d in v), 5), len(v))
+            for k, v in sorted(by.items())}
+
+
+def program_ms(entry, card_last: int = 0, reps: int = 10):
+    """One cached graph's parts, each a median of ``reps`` in ms: the
+    upload of its inputs as a session frame gives them (from the host,
+    but the last ``card_last``, a context bundle, device to device), the
+    replay alone (CUDA events), and the fetch as the program does it (the
+    outputs it keeps on the card cloned there)."""
+    n_host = len(entry.specs) - card_last
+    host = [np.zeros(shape, torch.empty(0, dtype=dtype).numpy().dtype)
+            for shape, dtype in entry.specs]
+    card = host[:n_host] + [torch.zeros(shape, dtype=dtype, device="cuda")
+                            for shape, dtype in entry.specs[n_host:]]
+    kept = entry.outputs[len(entry.outputs) - entry.keep_last:]
+    times = {k: [] for k in ("upload_ms", "replay_ms", "fetch_ms")}
+
+    def clock(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[key].append((time.perf_counter() - t0) * 1e3)
+
+    for _ in range(reps):
+        clock("upload_ms", lambda: entry._upload(card))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        entry._replay()
+        b.record()
+        b.synchronize()
+        times["replay_ms"].append(a.elapsed_time(b))
+        clock("fetch_ms", entry._fetch)
+    out = {k: round(statistics.median(v), 4) for k, v in times.items()}
+    out["in_MB"] = round(sum(x.nbytes for x in host) / 1e6, 3)
+    out["kept_MB"] = round(sum(t.numel() * t.element_size()
+                               for t in kept) / 1e6, 3)
+    return out
+
+
+def trained_warm(rt_cfg, trained, pairs):
+    """Flow-only warm starts on trained realtime weights, per pair of
+    ``pairs`` (name -> (left, right)): an engine whose exit tier's
+    threshold is the midpoint of the cold frame's deltas at the middle of
+    (EXIT_MIN_ITERS, RT_ITERS), as phase 26 takes it, and one session of
+    SESSION_FRAMES frames of the pair shifted a pixel a frame.  Prints the
+    cold frame's per-iteration deltas beside the first warm frame's (from
+    the cold frame's disparity at its exit depth) and each frame's
+    ``iters_used``; returns name -> (cold iters_used, warm iters_used)."""
+    from raft_stereo_tpu_torch.eval.runner import InferenceRunner
+    from raft_stereo_tpu_torch.serving import ServeConfig, ServingEngine
+
+    out = {}
+    for name, (left, right) in pairs.items():
+        frames = session_frames(left, right, SESSION_FRAMES)
+        probe = InferenceRunner(rt_cfg, trained, iters=RT_ITERS,
+                                device="cuda")
+        deltas = iteration_deltas(probe, left, right, RT_ITERS)
+        thr, used = exit_threshold(deltas, EXIT_MIN_ITERS, RT_ITERS)
+        _, disp = loop_deltas(probe.model, *padded_batch(probe, left, right),
+                              used)
+        warm_deltas, _ = loop_deltas(
+            probe.model, *padded_batch(probe, *frames[1]), RT_ITERS, disp)
+        del probe
+        release()
+        eng = ServingEngine(rt_cfg, trained, ServeConfig(
+            iters=RT_ITERS, tiers=("quality",
+                                   f"interactive:{thr!r}:{EXIT_MIN_ITERS}"),
+            sessions=True, batch_sizes=(1,), max_batch=1), device="cuda")
+        eng.prewarm(MAIN_HW, tiers=("interactive",))
+        got = [eng.infer_session(name, l_, r_, tier="interactive",
+                                 timeout=120) for l_, r_ in frames]
+        eng.close()
+        del eng
+        release()
+        if not (got[0].iters_used == used
+                and all(np.isfinite(g.flow).all() for g in got)):
+            raise AssertionError(f"trained {name}: cold frame at "
+                                 f"{got[0].iters_used}, want {used}")
+        out[name] = (got[0].iters_used, [g.iters_used for g in got[1:]])
+        log(f"sessions iters_used on trained weights ({name}, flow-only "
+            f"warm starts, threshold {thr:.6g}, cap {RT_ITERS}): cold "
+            f"frame's per-iteration deltas {[round(d, 5) for d in deltas]}"
+            f", the first warm frame's {[round(d, 5) for d in warm_deltas]}"
+            f"; (warm, iters_used) {[(g.warm, g.iters_used) for g in got]}")
+    return out
+
+
+def release() -> None:
+    """Collect dropped runners and engines now, on this thread, with the
+    card idle: a graph destroyed by a collection that happens to run
+    during another capture would invalidate that capture."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_sessions(cfg, state, rt_cfg, rt_state, left, right, exit_thr,
+                   trained):
+    """Phase 31 (module docstring); ``trained`` the realtime weights of
+    phase 28's bf16 leg.  Returns the wrappers' counts over the realtime
+    session engines and over the default one, and the launches per frame
+    of each family checked."""
+    import threading
+
+    from torch.utils._pytree import tree_leaves
+
+    from raft_stereo_tpu_torch.eval.drift import warped_scenes
+
+    from raft_stereo_tpu_torch.eval.runner import (InferenceRunner,
+                                                   launch_counts)
+    from raft_stereo_tpu_torch.serving import (FAMILY_STATE,
+                                               FAMILY_STATE_CTX,
+                                               FAMILY_STATE_H, FAMILY_WARM,
+                                               FAMILY_WARM_CTX,
+                                               FAMILY_WARM_H, ServeConfig,
+                                               ServingEngine)
+    from raft_stereo_tpu_torch.serving.http import StereoHTTPServer
+
+    release()    # phase 30's engines
+    t_phase = time.perf_counter()
+    bucket = PADDED_HW
+    settled = settle_state(rt_state)
+    thr = repr(float(exit_thr))
+    tiers = ("quality", f"interactive:{thr}:{EXIT_MIN_ITERS}")
+    never = f"never:1e-9:{EXIT_MIN_ITERS}"
+    per_frame = {}
+    # ---- the runners' chains first, each runner dropped after its use
+    chain = session_frames(left, right, SESSION_FRAMES)
+    drift = session_frames(left, right, SESSION_DEF_FRAMES, brighten=4)
+    r = InferenceRunner(rt_cfg, settled, iters=RT_ITERS, device="cuda",
+                        exit_threshold_px=float(exit_thr),
+                        exit_min_iters=EXIT_MIN_ITERS)
+    want_rt = stream_reference(r, chain, cap=RT_ITERS)
+    want_h = stream_reference(r, chain, hidden=True, cap=RT_ITERS)
+    solo_s = statistics.median(r(left, right)[1] for _ in range(6))
+    del r
+    release()
+    r = InferenceRunner(cfg, state, iters=MAIN_ITERS, device="cuda")
+    want_def = stream_reference(r, drift)
+    def_s = statistics.median(r(left, right)[1] for _ in range(4))
+    del r
+    release()
+    log(f"sessions references (run_stream, before the engines): "
+        f"{time.perf_counter() - t_phase:.1f} s; realtime interactive "
+        f"pair by replay {solo_s:.5f} s")
+    # ---- (a) the realtime engine: chains, scene cut, guard, concurrency
+    reserved0 = torch.cuda.memory_reserved()
+    zero_inference_counts()
+    eng = ServingEngine(rt_cfg, settled, ServeConfig(
+        iters=RT_ITERS, tiers=tiers + (never,), sessions=True,
+        batch_sizes=SESSION_SIZES, max_batch=max(SESSION_SIZES),
+        max_cached_shapes=3 * len(SESSION_SIZES) * 3,
+        warmup_shapes=(MAIN_HW,), prewarm_on_init=False), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.prewarm(MAIN_HW, tiers=("quality", "interactive"))
+    prewarm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    programs = len(SESSION_SIZES) * 2 * len(eng._families())
+    log(f"sessions prewarm at {MAIN_HW[0]}x{MAIN_HW[1]}: {eng.captures} "
+        f"captures ({programs}: tiers quality and interactive x batch "
+        f"sizes {SESSION_SIZES} x families {eng._families()}) in "
+        f"{prewarm_s:.2f} s; reserved memory {reserved / 2 ** 30:.2f} GiB, "
+        f"the engine's {(reserved - reserved0) / 2 ** 30:.2f} GiB of it")
+    if eng.captures != programs:
+        raise AssertionError(f"{eng.captures} captures, want {programs}")
+    got = [eng.infer_session("chain", l_, r_, tier="interactive",
+                             timeout=120) for l_, r_ in chain]
+    check_chain("realtime interactive chain", got, want_rt)
+    cold_iters = got[0].iters_used
+    warm_iters = [g.iters_used for g in got[1:]]
+    results = list(got)
+    for fam, res in ((FAMILY_STATE, got[0]), (FAMILY_WARM, got[1])):
+        per_frame[f"realtime {fam}"] = dispatch_counts(
+            eng, bucket, 1, "interactive", res.iters_used, fam)
+    # a scene cut: the next frame darkened, then the stream goes on warm
+    dark = [(x.astype(np.float32) * SCENE_CUT_DIM).astype(np.uint8)
+            for x in chain[-1]]
+    cut = [eng.infer_session("chain", *dark, tier="interactive",
+                             timeout=120) for _ in range(2)]
+    ok_cut = (not cut[0].warm and cut[0].scene_cut
+              and cut[0].frame_delta > 40.0 and cut[1].warm
+              and not cut[1].scene_cut and eng.metrics.scene_cuts.value == 1)
+    flags = [(c.warm, c.scene_cut, c.frame_delta) for c in cut]
+    log(f"sessions scene cut (the frame darkened to {SCENE_CUT_DIM}): "
+        f"(warm, scene_cut, frame_delta) {flags}: "
+        f"{'ok' if ok_cut else 'FAILED'}")
+    # the keyframe guard: a tier that never exits, every warm frame at
+    # the cap, so the frame after it starts cold
+    guard = [eng.infer_session("guard", *chain[0], tier="never",
+                               timeout=120) for _ in range(3)]
+    ok_guard = ([g.warm for g in guard] == [False, True, False]
+                and [g.iters_used for g in guard] == [RT_ITERS] * 3
+                and eng.metrics.session_reseeds.value == 1)
+    log(f"sessions keyframe guard (tier {never}): (warm, iters_used) "
+        f"{[(g.warm, g.iters_used) for g in guard]}, reseeds "
+        f"{eng.metrics.session_reseeds.value}: "
+        f"{'ok' if ok_guard else 'FAILED'}")
+    if not (ok_cut and ok_guard):
+        raise AssertionError("scene cut or keyframe guard")
+    # concurrency: SESSION_CLIENTS sessions, each its own chain
+    m = eng.metrics
+    done0, batches0 = m.completed.value, m.batches.value
+    warm0, cold0 = m.session_frames("warm"), m.session_frames("cold")
+    streams, errors = {}, []
+    pairs = serve_pairs(left, right)
+
+    def client(k):
+        try:
+            frames = session_frames(*pairs[k], SESSION_FRAMES)
+            streams[k] = [eng.infer_session(f"c{k}", l_, r_,
+                                            tier="interactive", timeout=120)
+                          for l_, r_ in frames]
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(SESSION_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    conc_s = time.perf_counter() - t0
+    done, batches = m.completed.value - done0, m.batches.value - batches0
+    warm_n = m.session_frames("warm") - warm0
+    cold_n = m.session_frames("cold") - cold0
+    ordered = all([x.frame_index for x in streams.get(k, [])]
+                  == list(range(SESSION_FRAMES))
+                  for k in range(SESSION_CLIENTS))
+    finite = all(np.isfinite(x.flow).all() for v in streams.values()
+                 for x in v)
+    mean_batch = done / max(batches, 1)
+    ok_conc = (not errors and ordered and finite and mean_batch > 1
+               and (cold_n, warm_n) == (SESSION_CLIENTS, SESSION_CLIENTS
+                                        * (SESSION_FRAMES - 1)))
+    for v in streams.values():
+        results += v
+    log(f"sessions concurrency: {SESSION_CLIENTS} sessions x "
+        f"{SESSION_FRAMES} frames in {conc_s:.2f} s, ordered per session "
+        f"{ordered}, cold / warm {cold_n} / {warm_n} (predicted "
+        f"{SESSION_CLIENTS} / {SESSION_CLIENTS * (SESSION_FRAMES - 1)}), "
+        f"{done} frames in {batches} dispatches, mean batch "
+        f"{mean_batch:.3f}, dispatches by size "
+        f"{ {n: m.dispatches_at(n) for n in SESSION_SIZES} }, finite "
+        f"{finite}, errors {errors[:2]}: {'ok' if ok_conc else 'FAILED'}")
+    if not ok_conc:
+        raise AssertionError("concurrent sessions")
+    parts = {fam: program_ms(eng.program(bucket, 1, "interactive",
+                                         family=fam))
+             for fam in (FAMILY_STATE, FAMILY_WARM)}
+    eng.close()
+    del eng
+    release()
+    # the hidden-state carry, with the HTTP leg's short TTL
+    eng_h = ServingEngine(rt_cfg, settled, ServeConfig(
+        iters=RT_ITERS, tiers=tiers, sessions=True, session_hidden=True,
+        session_ttl_s=SESSION_TTL_S, batch_sizes=(1,), max_batch=1),
+        device="cuda")
+    eng_h.prewarm(MAIN_HW, tiers=("interactive",))
+    got_h = [eng_h.infer_session("chain", l_, r_, tier="interactive",
+                                 timeout=120) for l_, r_ in chain]
+    check_chain("realtime interactive chain, hidden carry", got_h, want_h)
+    results += got_h
+    per_frame[f"realtime {FAMILY_WARM_H}"] = dispatch_counts(
+        eng_h, bucket, 1, "interactive", got_h[1].iters_used, FAMILY_WARM_H)
+    per_frame[f"realtime {FAMILY_STATE_H}"] = dispatch_counts(
+        eng_h, bucket, 1, "interactive", got_h[0].iters_used,
+        FAMILY_STATE_H)
+    parts.update({fam: program_ms(eng_h.program(bucket, 1, "interactive",
+                                                 family=fam))
+                  for fam in (FAMILY_STATE_H, FAMILY_WARM_H)})
+    log(f"sessions realtime programs by part (ms; zero inputs, so the "
+        f"replays exit at other depths than the chains'; the flow and the "
+        f"hidden state ride the host): {parts}")
+    h_iters = [g.iters_used for g in got_h[1:]]
+    ok_iters = max(h_iters) < got_h[0].iters_used
+    log(f"sessions iters_used on settled weights (threshold {thr}, cap "
+        f"{RT_ITERS}): cold frame {cold_iters}, warm frames {warm_iters} "
+        f"(the settling GRU's deltas follow its hidden state alone, so a "
+        f"flow-only warm start exits where the cold frame does); with the "
+        f"hidden state carried: cold {got_h[0].iters_used}, warm {h_iters}"
+        f": warm below cold {'ok' if ok_iters else 'FAILED'}")
+    if not ok_iters:
+        raise AssertionError("warm frames did not exit earlier")
+    counts_rt = launch_counts()
+    log(f"sessions (a) wrapper counts over the realtime engines' prewarms "
+        f"and frames: {counts_rt}")
+    # ---- (c) HTTP on the card
+    server = StereoHTTPServer(eng_h, port=0).start()
+    http_codes = []
+    for l_, r_ in chain[:4]:
+        code, hdr, _ = post(server.url + "/v1/stream/cam0?tier=interactive",
+                            npz_body(l_, r_))
+        http_codes.append((code, hdr.get("X-Warm"), hdr.get("X-Frame-Index")))
+    import urllib.request
+    req = urllib.request.Request(server.url + "/v1/stream/cam0",
+                                 method="DELETE")
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        stats = json.loads(resp.read())
+    code, _, _ = post(server.url + "/v1/stream/ttl", npz_body(*chain[0]))
+    time.sleep(SESSION_TTL_S + 0.5)
+    code_410, _, body_410 = post(server.url + "/v1/stream/ttl",
+                                 npz_body(*chain[1]))
+    body_410 = json.loads(body_410)
+    stateless = ServingEngine(rt_cfg, rt_state, ServeConfig(
+        iters=RT_ITERS), device="cuda")
+    server_s = StereoHTTPServer(stateless, port=0).start()
+    code_400, _, body_400 = post(server_s.url + "/v1/stream/cam0",
+                                 npz_body(*chain[0]))
+    body_400 = json.loads(body_400)
+    ok_http = (http_codes == [(200, "0", "0"), (200, "1", "1"),
+                              (200, "1", "2"), (200, "1", "3")]
+               and stats["status"] == "closed" and stats["frames"] == 4
+               and code == 200 and code_410 == 410
+               and body_410["reason"] == "expired" and code_400 == 400
+               and body_400["error"] == "sessions_disabled")
+    log(f"sessions HTTP: 4 frames {http_codes}, DELETE {stats}; after the "
+        f"{SESSION_TTL_S} s TTL {code_410} {body_410}; a stateless engine "
+        f"{code_400} {body_400}: {'ok' if ok_http else 'FAILED'}")
+    server.shutdown()
+    server_s.shutdown()
+    stateless.close()
+    eng_h.close()
+    del eng_h, stateless
+    release()
+    if not ok_http:
+        raise AssertionError("the stream protocol on the card")
+    textured = warped_scenes(MAIN_HW, 1, 6.0, seed=SEED)[0][:2]
+    trained_iters = trained_warm(rt_cfg, trained, {
+        "the main pair": (left, right),
+        "a textured scene of the training's kind": tuple(
+            np.clip(np.round(x), 0, 255).astype(np.uint8)
+            for x in textured)})
+    log(f"sessions iters_used on trained weights, (cold, warm frames) by "
+        f"pair (a measurement: the brief training never saw a warm start, "
+        f"and its first warm update overshoots): {trained_iters}")
+    # ---- (b) the default engine, fp32, 32 iterations, with the ctx cache
+    zero_inference_counts()
+    eng_b = ServingEngine(cfg, state, ServeConfig(
+        iters=MAIN_ITERS, sessions=True, session_ctx_cache=True,
+        batch_sizes=(1,), max_batch=1), device="cuda")
+    eng_b.prewarm(MAIN_HW)
+    got_b = [eng_b.infer_session("drift", l_, r_, timeout=120)
+             for l_, r_ in drift]
+    check_chain("default chain (4 grey levels brighter a frame: past the "
+                "ctx gate)", got_b, want_def)
+    results_b = list(got_b)
+    static, snaps = [], []
+    for _ in range(SESSION_DEF_FRAMES):
+        sess = eng_b.sessions.get_or_create("static")[0]
+        snaps.append((None if sess.flow_low is None
+                      else sess.flow_low.copy(), sess.ctx))
+        static.append(eng_b.infer_session("static", left, right,
+                                          timeout=120))
+    results_b += static
+    per_frame[f"default {FAMILY_STATE_CTX}"] = dispatch_counts(
+        eng_b, bucket, 1, None, MAIN_ITERS, FAMILY_STATE_CTX)
+    per_frame[f"default {FAMILY_WARM_CTX}"] = dispatch_counts(
+        eng_b, bucket, 1, None, MAIN_ITERS, FAMILY_WARM_CTX)
+    per_frame[f"default {FAMILY_WARM}"] = dispatch_counts(
+        eng_b, bucket, 1, None, MAIN_ITERS, FAMILY_WARM)
+    hits = eng_b.metrics.ctx_cache_hits.value
+    counts_def = launch_counts()
+    parts = {fam: program_ms(eng_b.program(bucket, 1, None, family=fam),
+                             4 * cfg.n_gru_layers
+                             if fam == FAMILY_WARM_CTX else 0)
+             for fam in (FAMILY_STATE_CTX, FAMILY_WARM, FAMILY_WARM_CTX)}
+    log(f"sessions default engine's programs by part (ms; the context "
+        f"bundle stays on the card): {parts}")
+    log(f"sessions (b) wrapper counts over the default engine's prewarm "
+        f"and frames: {counts_def}")
+    eng_b.close()
+    del eng_b
+    release()
+    r = InferenceRunner(cfg, state, iters=MAIN_ITERS, device="cuda")
+    cold_ref = r.run_stream(left, right, save_ctx=True)
+    same = [np.array_equal(static[0].flow, cold_ref.flow)]
+    bundle_same = all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+                      for a, b in zip(tree_leaves(snaps[1][1]),
+                                      tree_leaves(cold_ref.ctx)))
+    for res, (flow_low, ctx) in zip(static[1:], snaps[1:]):
+        ref = r.run_stream(left, right, prev_flow_low=flow_low,
+                           prev_ctx=ctx)
+        same.append(np.array_equal(res.flow, ref.flow)
+                    and np.array_equal(res.flow_low, ref.flow_low))
+    plain = r.run_stream(left, right, prev_flow_low=snaps[1][0])
+    plain_d = float(np.abs(static[1].flow - plain.flow).max())
+    del r, cold_ref
+    release()
+    ok_ctx = (all(same) and bundle_same and plain_d == 0.0
+              and hits == SESSION_DEF_FRAMES - 1
+              and [x.ctx_cached for x in static]
+              == [False] + [True] * (SESSION_DEF_FRAMES - 1))
+    log(f"sessions ctx cache (default engine, a static scene): hits {hits}"
+        f" (predicted {SESSION_DEF_FRAMES - 1}: every warm frame at delta "
+        f"0); the bundle the cold frame saved bitwise equal to run_stream's"
+        f" save_ctx bundle {bundle_same}; the cold frame bitwise equal to "
+        f"run_stream's and each hit to run_stream with prev_ctx on the "
+        f"saved bundle {same}; the first hit against the plain warm frame "
+        f"from the same state (the context encoder run again) max |d| "
+        f"{plain_d:.3e} px (must be 0): {'ok' if ok_ctx else 'FAILED'}")
+    if not ok_ctx:
+        raise AssertionError("the ctx cache")
+    log(f"sessions seconds per frame (median admission-to-result, median "
+        f"device share, frames) by family: realtime "
+        f"{frame_seconds(results)}, the interactive pair alone by the "
+        f"runner's replay {solo_s:.5f} s; default {frame_seconds(results_b)}"
+        f", the pair alone by the runner's replay {def_s:.5f} s")
+    log(f"sessions launches per frame: {per_frame}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 31 (sessions) took {phase_s:.1f} s")
+    return counts_rt, counts_def, per_frame
 
 
 T_START = time.perf_counter()
@@ -3792,12 +4335,17 @@ def main() -> int:
                                      card)
     phase_stream(cfg, state, exit_runs["default"]["threshold"], MAIN_ITERS,
                  left, right, small, small_r, card)
-    phase_drift(card)
+    trained = phase_drift(card)
 
     # ----------------------------------------------------------- phase 30
     serve_a, serve_b, serve_per_dispatch = phase_serving(
         cfg, state, rt_cfg, rt_state, runner, left, right,
         exit_runs["realtime"]["threshold"])
+
+    # ----------------------------------------------------------- phase 31
+    sess_rt, sess_def, sess_per_frame = phase_sessions(
+        cfg, state, rt_cfg, rt_state, left, right,
+        exit_runs["realtime"]["threshold"], trained)
 
     def row(name_, source, replaces, launched, err, t, design=None):
         """One entry of the kernels line; ``t`` holds graph-replay times."""
@@ -3816,6 +4364,7 @@ def main() -> int:
         if design:
             out["design"] = design
         out["launches_serving"] = serving.get(name_, 0)
+        out["launches_sessions"] = sessions.get(name_, 0)
         return out
 
     # the wrappers' counts over phase 30's engines (set to 0 before each)
@@ -3825,6 +4374,19 @@ def main() -> int:
                "corr_alt": serve_a["alt"],
                "corr_alt_q_int8": serve_a["alt_q"],
                "exit_predicate": serve_a["exit"]}
+    # the wrappers' counts over phase 31's session engines (set to 0
+    # before the realtime ones and before the default one); every kernel
+    # of the session path must have launched
+    sessions = {"corr_lookup": sess_def["lookup"],
+                "gru_gates": sess_def["gates"],
+                "gru_gates_bf16": sess_rt["gates"],
+                "corr_alt": sess_rt["alt"],
+                "corr_alt_q_int8": sess_rt["alt_q"],
+                "exit_predicate": sess_rt["exit"]}
+    idle = [k for k in ("corr_lookup", "gru_gates", "gru_gates_bf16",
+                        "corr_alt", "exit_predicate") if not sessions[k]]
+    if idle:
+        raise AssertionError(f"session path kernels never launched: {idle}")
 
     lookup_t.update(bound=lookup_bound_ms, by="bytes")
     lbwd_t.update(bound=lbwd_bound, by="bytes")
@@ -3877,6 +4439,7 @@ def main() -> int:
         pred_t, "the predicate of a CUDA graph WHILE node: it += 1, "
         "cudaGraphSetConditional"))
     log(f"serving launches per dispatch: {serve_per_dispatch}")
+    log(f"sessions launches per frame: {sess_per_frame}")
     log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

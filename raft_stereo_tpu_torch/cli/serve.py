@@ -10,12 +10,20 @@ the batch-N serving engine on the card (serving/engine.py).
         'http://127.0.0.1:8551/v1/disparity?format=png' > disp.png
     curl -s http://127.0.0.1:8551/metrics
 
+    # a streaming session: POST frames in order, DELETE to close
+    curl -s -X POST --data-binary @frame0.png -H 'Content-Type: image/png' \\
+        'http://127.0.0.1:8551/v1/stream/cam0?format=png' > d0.png
+    curl -s -X DELETE http://127.0.0.1:8551/v1/stream/cam0
+
 The JAX package's ``raft-serve``: every flag of its parser under the same
 name and default.  The flags of the features the port does not run yet
-(sessions and their handoff, the cascade, tiles, the model store, the
-executable cache: ROADMAP §D6b; the xl mesh: §D7) raise
-``NotImplementedError`` when set.  The engine is built from a port
-checkpoint directory or a reference ``.pth`` file, on the card unless
+(the session handoff's ``--handoff_linger_s``, the cascade, tiles, the
+model store, the executable cache: ROADMAP §D6b; the xl mesh: §D7) raise
+``NotImplementedError`` when set.  ``--sessions`` turns on streaming
+sessions (warm start from the previous frame; ``--session_hidden``,
+``--session_ctx_cache`` and the other session flags as in JAX).  The
+engine is built from a port checkpoint directory or a reference ``.pth``
+file, on the card unless
 ``--device cpu``.  The ``turbo`` tier (int8) fails the int8 drift gate in
 both packages (ROADMAP §C7).
 
@@ -37,7 +45,8 @@ from raft_stereo_tpu_torch.cli import common
 
 log = logging.getLogger(__name__)
 
-_D6B = "§D6b serving: sessions, cascade, tiles, model store, executable cache"
+_D6B = ("§D6b serving: session handoff, cascade, tiles, model store, "
+        "executable cache")
 
 
 def _parse_hw(text: str):
@@ -417,19 +426,48 @@ def build_parser() -> argparse.ArgumentParser:
                    help="not ported (ROADMAP.md §D6b); raises")
     # Streaming sessions (warm-start video serving; serving/sessions.py).
     p.add_argument("--sessions", action="store_true",
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="enable streaming stereo sessions: POST "
+                        "/v1/stream/<id> frames warm-start the GRU from "
+                        "the session's previous disparity (with an "
+                        "early-exit tier the convergence gate then stalls "
+                        "in a fraction of the cold iterations); "
+                        "DELETE /v1/stream/<id> closes a session")
     p.add_argument("--session_ttl_s", type=float, default=30.0,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="idle seconds before a session expires (its next "
+                        "frame gets the typed 410; the client must open "
+                        "a fresh session)")
     p.add_argument("--session_capacity", type=int, default=256,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="live-session ceiling; beyond it the least-"
+                        "recently-used session is evicted (410 on its "
+                        "next frame)")
     p.add_argument("--scene_cut_threshold", type=float, default=40.0,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="scene-cut fallback: a frame whose mean "
+                        "|delta-intensity| vs the previous frame exceeds "
+                        "this (0..255) cold-starts instead of warm-"
+                        "starting from a stale disparity; <= 0 disables "
+                        "the check")
     p.add_argument("--session_ctx_cache", action="store_true",
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="per-session CONTEXT-feature cache (needs "
+                        "--sessions): streams whose inter-frame delta "
+                        "stays tiny reuse the session's cnet context "
+                        "bundle instead of re-encoding it every frame "
+                        "(X-Ctx-Cached response header; invalidated by "
+                        "scene cuts and the keyframe guard).  "
+                        "Unsupported with shared_backbone "
+                        "architectures")
     p.add_argument("--ctx_cache_threshold", type=float, default=2.0,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="mean inter-frame |delta-intensity| (0..255) at "
+                        "or below which a warm frame may reuse the "
+                        "cached context — the static-scene gate, far "
+                        "below the scene-cut threshold by design")
     p.add_argument("--session_hidden", action="store_true",
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="hidden-state warm start (needs --sessions): "
+                        "carry the multi-level GRU hidden state frame "
+                        "to frame alongside the disparity, so warm "
+                        "frames resume the GRU's own trajectory — the "
+                        "warm-h executable families; lets the "
+                        "convergence gate chain stably at tighter "
+                        "thresholds than the flow-only warm start")
     p.add_argument("--edf_scheduler", action="store_true",
                    help="deadline-aware EDF pop policy: frames carrying "
                         "a per-frame deadline (X-Deadline-Ms) are "

@@ -212,6 +212,17 @@ def _outputs(out, fetch_dtype, stream: bool):
     return flow_up if len(out) == 2 else (flow_up,) + tuple(out[2:])
 
 
+def ctx_bundle(leaves: Sequence, levels: int) -> Tuple:
+    """The context bundle ``(nets, ((cz, cr, cq) per level))`` from the
+    last ``4 * levels`` flat outputs of a ``ctx="save"`` program: the
+    per-level initial hidden states, then each level's three biases (the
+    tree a ``ctx="reuse"`` program takes)."""
+    leaves = list(leaves)
+    return (tuple(leaves[:levels]),
+            tuple(tuple(leaves[levels + 3 * l:levels + 3 * l + 3])
+                  for l in range(levels)))
+
+
 class ExitStages:
     """The early-exit program ``make_forward`` builds, in the three parts
     ``WhileForward`` captures: ``prologue`` (everything before the loop,
@@ -282,50 +293,74 @@ class PlainForward:
         return [_to_numpy(t) for t in flat]
 
 
+def _dtype(a) -> torch.dtype:
+    """The torch dtype of a numpy array or a tensor."""
+    return a.dtype if isinstance(a, torch.Tensor) else \
+        torch.from_numpy(a[:0]).dtype
+
+
 class _Graphed:
     """What the card's entries share: static device inputs with pinned host
     staging, the captured outputs with pinned host copies, the launch
     counts of the capture, and its seconds.  ``capture(*arrays)`` runs once
-    and returns the first result; ``__call__(*arrays)`` replays."""
+    and returns the first result; ``__call__(*arrays)`` replays.
+
+    An input may be a numpy array (staged through pinned memory) or a
+    tensor already on the card (copied device to device, cast to the
+    static input's dtype).  The last ``keep_last`` outputs are not fetched:
+    each call returns clones of them on the card (state a caller keeps
+    there), after the numpy copies of the others."""
 
     def __init__(self, arrays: Sequence[np.ndarray], spec,
                  device: torch.device, stream: torch.cuda.Stream, pool):
         self.stream = stream
         self.pool = pool
-        self.specs = [(a.shape, a.dtype) for a in arrays]
-        self.inputs = [torch.empty(a.shape, device=device,
-                                   dtype=torch.from_numpy(a[:0]).dtype)
-                       for a in arrays]
+        self.specs = [(tuple(a.shape), _dtype(a)) for a in arrays]
+        self.inputs = [torch.empty(shape, device=device, dtype=dtype)
+                       for shape, dtype in self.specs]
         self.args = tree_unflatten(self.inputs, spec)
-        self.host_in = [torch.empty_like(t, device="cpu", pin_memory=True)
-                        for t in self.inputs]
+        self.host_in: List[Optional[torch.Tensor]] = [None] * len(arrays)
         self.outputs: Optional[List[torch.Tensor]] = None
         self.host_out: List[torch.Tensor] = []
+        self.keep_last = 0
         self.launches: Dict[str, int] = {}
         self.capture_s = 0.0
 
     def _upload(self, arrays: Sequence[np.ndarray]) -> None:
-        specs = [(a.shape, a.dtype) for a in arrays]
-        if specs != self.specs:
+        specs = [(tuple(a.shape), None if isinstance(a, torch.Tensor)
+                  else _dtype(a)) for a in arrays]
+        want = [(shape, dtype if got is not None else None)
+                for (shape, dtype), (_, got) in zip(self.specs, specs)]
+        if specs != want:
             raise ValueError(f"inputs {specs} into a graph captured for "
                              f"{self.specs}")
-        for a, host, dev in zip(arrays, self.host_in, self.inputs):
-            host.numpy()[...] = a
-            dev.copy_(host, non_blocking=True)
+        for i, (a, dev) in enumerate(zip(arrays, self.inputs)):
+            if isinstance(a, torch.Tensor):
+                dev.copy_(a, non_blocking=True)
+                continue
+            if self.host_in[i] is None:
+                with torch.inference_mode(False):
+                    self.host_in[i] = torch.empty_like(dev, device="cpu",
+                                                       pin_memory=True)
+            self.host_in[i].numpy()[...] = a
+            dev.copy_(self.host_in[i], non_blocking=True)
 
     def _set_outputs(self, out) -> None:
         self.outputs, _ = tree_flatten(out)
+        fetched = self.outputs[:len(self.outputs) - self.keep_last]
         # normal (not inference) tensors: they are written on every call
         with torch.inference_mode(False):
             self.host_out = [torch.empty(t.shape, dtype=t.dtype,
                                          pin_memory=True)
-                             for t in self.outputs]
+                             for t in fetched]
 
     def _fetch(self) -> List[np.ndarray]:
         for host, dev in zip(self.host_out, self.outputs):
             host.copy_(dev, non_blocking=True)
+        kept = [t.clone() for t in
+                self.outputs[len(self.outputs) - self.keep_last:]]
         torch.cuda.current_stream().synchronize()
-        return [_to_numpy(t) for t in self.host_out]
+        return [_to_numpy(t) for t in self.host_out] + kept
 
     def _graph(self, fn, *args, keep: bool = False):
         """Capture ``fn(*args)`` on the runner's stream into its pool."""
@@ -512,6 +547,10 @@ class StreamFrame:
     # port's NCHW layout, batch axis stripped): the next frame's
     # ``prev_hidden``; None unless asked for (``carry_hidden``)
     hidden: Optional[Tuple[np.ndarray, ...]] = None
+    # the context bundle (``ctx_bundle``, batch axis stripped) a
+    # ``save_ctx`` frame computed: tensors on the card (clones no replay
+    # writes), host arrays on the CPU; the next frames' ``prev_ctx``
+    ctx: Optional[Tuple] = None
 
     @property
     def disparity(self) -> np.ndarray:
@@ -769,7 +808,8 @@ class InferenceRunner:
     def run_stream(self, image1: np.ndarray, image2: np.ndarray,
                    prev_flow_low: Optional[np.ndarray] = None,
                    prev_hidden: Optional[Sequence[np.ndarray]] = None,
-                   carry_hidden: bool = False) -> StreamFrame:
+                   carry_hidden: bool = False, prev_ctx=None,
+                   save_ctx: bool = False) -> StreamFrame:
         """One frame of a temporally ordered sequence: like ``__call__``,
         but the GRU warm-starts from ``prev_flow_low`` (the previous
         frame's ``StreamFrame.flow_low``) and the frame carries the state
@@ -778,7 +818,11 @@ class InferenceRunner:
         this frame's padded low-resolution grid raises (the stream changed
         resolution).  ``carry_hidden`` returns the final GRU hidden states
         (``StreamFrame.hidden``); passing them back as ``prev_hidden``,
-        with ``prev_flow_low``, resumes the GRU's own trajectory."""
+        with ``prev_flow_low``, resumes the GRU's own trajectory.
+        ``save_ctx`` returns the context bundle (``StreamFrame.ctx``: the
+        ``ctx="save"`` program); passing it back as ``prev_ctx``, with
+        ``prev_flow_low``, skips the context encoder (the ``ctx="reuse"``
+        program, a static scene's warm frame)."""
         if image1.ndim != 3 or image1.shape != image2.shape:
             raise ValueError(f"expected two (H, W, 3) images of one shape, "
                              f"got {image1.shape} and {image2.shape}")
@@ -796,6 +840,11 @@ class InferenceRunner:
                 f"prev_flow_low shape {prev_flow_low.shape} does not match "
                 f"this frame's padded low-res grid {low_hw} — the stream "
                 f"changed resolution; restart with prev_flow_low=None")
+        if prev_ctx is not None and (save_ctx or not warm):
+            raise ValueError("prev_ctx needs prev_flow_low and no save_ctx: "
+                             "a reused bundle is a static scene's warm frame")
+        ctx = ("reuse" if prev_ctx is not None else "save" if save_ctx
+               else None)
         hidden_in = prev_hidden is not None
         hidden_out = carry_hidden or hidden_in
         args = [p1, p2]
@@ -805,26 +854,40 @@ class InferenceRunner:
         if hidden_in:
             args.append(tuple(np.ascontiguousarray(h)[None]
                               for h in prev_hidden))
+        if ctx == "reuse":
+            leaves, spec = tree_flatten(tuple(prev_ctx))
+            args.append(tree_unflatten([x[None] for x in leaves], spec))
         key = ((tuple(p1.shape[1:3]), warm, hidden_in, hidden_out)
-               + self._exit_key())
+               + ((ctx,) if ctx else ()) + self._exit_key())
         entry, arrays = self._entry(
             self._stream_compiled, key, args, warm_start=warm,
             return_state=True, hidden_init=hidden_in,
-            return_hidden=hidden_out)
+            return_hidden=hidden_out, ctx=ctx)
+        levels = self.effective_config.n_gru_layers
+        if ctx == "save" and isinstance(entry, _Graphed):
+            # the bundle stays on the card, as the serving engine keeps it
+            entry.keep_last = 4 * levels
         out = self._run(entry, arrays)
         pos = 2
         iters_used = None
         if self.early_exit:
             iters_used = self._note_iters_used(out[2])
             pos = 3
-        hidden = (tuple(h[0] for h in out[pos:])
-                  if hidden_out else None)
+        hidden = None
+        if hidden_out:
+            hidden = tuple(h[0] for h in out[pos:pos + levels])
+            pos += levels
+        bundle = None
+        if ctx == "save":
+            bundle = ctx_bundle([x[0] for x in out[pos:pos + 4 * levels]],
+                                levels)
         flow = padder.unpad(out[0])[0]
         return StreamFrame(flow=np.ascontiguousarray(flow),
                            flow_low=np.ascontiguousarray(out[1][0],
                                                          dtype=np.float32),
                            seconds=time.perf_counter() - t0,
-                           iters_used=iters_used, warm=warm, hidden=hidden)
+                           iters_used=iters_used, warm=warm, hidden=hidden,
+                           ctx=bundle)
 
     def disparity(self, image1: np.ndarray, image2: np.ndarray) -> np.ndarray:
         """Positive disparity map (-flow)."""

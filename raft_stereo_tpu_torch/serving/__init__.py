@@ -1,14 +1,16 @@
 """Inference serving on the card: the batch-N serving engine over one CUDA
-graph per (bucket, batch, tier) — continuous batching, admission control
-and backpressure, waste-driven bucket selection, request tiers (early
-exit, the int8 ``turbo`` tier, confidence), supervised crash recovery
-(retries, per-device circuit breakers, brownout degradation, chaos
-testing), span traces, metrics, and the HTTP front end (serving/http.py).
+graph per (bucket, batch, tier, family) — continuous batching, admission
+control and backpressure, waste-driven bucket selection, request tiers
+(early exit, the int8 ``turbo`` tier, confidence), streaming stereo
+sessions (warm-start video serving with temporal state,
+serving/sessions.py), supervised crash recovery (retries, per-device
+circuit breakers, brownout degradation, chaos testing), span traces,
+metrics, and the HTTP front end (serving/http.py).
 
-The JAX package's ``serving/`` names, for the modules the port runs.
-Sessions, the cascade, tiles, the model store and the persistent
-executable cache (ROADMAP §D6b), the fleet (§D6c) and the xl mesh (§D7)
-are not ported yet; their ``ServeConfig`` fields raise
+The JAX package's ``serving/`` names, for the modules the port runs.  The
+session handoff across replicas, the cascade, tiles, the model store and
+the persistent executable cache (ROADMAP §D6b), the fleet (§D6c) and the
+xl mesh (§D7) are not ported yet; their ``ServeConfig`` fields raise
 ``NotImplementedError``."""
 
 from raft_stereo_tpu_torch.serving.batcher import (BucketQueue,
@@ -23,11 +25,19 @@ from raft_stereo_tpu_torch.serving.chaos import (ChaosConfig, ChaosInjector,
                                                  InjectedResourceExhausted,
                                                  InjectedWorkerCrash,
                                                  parse_chaos_spec)
-from raft_stereo_tpu_torch.serving.engine import (BucketPolicy,
+from raft_stereo_tpu_torch.serving.engine import (FAMILY_BASE,
+                                                  FAMILY_STATE,
+                                                  FAMILY_STATE_CTX,
+                                                  FAMILY_STATE_CTX_H,
+                                                  FAMILY_STATE_H,
+                                                  FAMILY_WARM,
+                                                  FAMILY_WARM_CTX,
+                                                  FAMILY_WARM_CTX_H,
+                                                  FAMILY_WARM_H,
+                                                  BucketPolicy,
                                                   ModelUnknown,
                                                   ServeConfig, ServeResult,
                                                   ServingEngine,
-                                                  SessionsDisabled,
                                                   StereoService)
 from raft_stereo_tpu_torch.serving.metrics import (MetricsRegistry,
                                                    ServingMetrics)
@@ -38,6 +48,12 @@ from raft_stereo_tpu_torch.serving.resilience import (CIRCUIT_CLOSED,
                                                       CircuitBreaker,
                                                       circuit_state_name,
                                                       cost_ladder)
+from raft_stereo_tpu_torch.serving.sessions import (SessionExpired,
+                                                    SessionsDisabled,
+                                                    SessionStore,
+                                                    StereoSession,
+                                                    frame_delta,
+                                                    frame_thumbnail)
 
 __all__ = ["BucketQueue", "DeadlineExceeded", "Overloaded", "Request",
            "RequestPoisoned", "decompose_batch", "pick_batch_size",
@@ -46,7 +62,11 @@ __all__ = ["BucketQueue", "DeadlineExceeded", "Overloaded", "Request",
            "InjectedWorkerCrash", "parse_chaos_spec", "BucketPolicy",
            "MetricsRegistry", "ServingMetrics", "ServeConfig", "ServeResult",
            "ServingEngine", "StereoService", "ModelUnknown",
-           "SessionsDisabled",
            "CIRCUIT_CLOSED", "CIRCUIT_HALF_OPEN", "CIRCUIT_OPEN",
            "BrownoutController", "CircuitBreaker", "circuit_state_name",
-           "cost_ladder"]
+           "cost_ladder", "FAMILY_BASE", "FAMILY_STATE",
+           "FAMILY_STATE_CTX", "FAMILY_STATE_CTX_H", "FAMILY_STATE_H",
+           "FAMILY_WARM", "FAMILY_WARM_CTX", "FAMILY_WARM_CTX_H",
+           "FAMILY_WARM_H", "SessionExpired", "SessionsDisabled",
+           "SessionStore", "StereoSession", "frame_delta",
+           "frame_thumbnail"]

@@ -1,17 +1,44 @@
 """The batch-N serving engine on the card: program cache, scheduler,
-supervised recovery and cost telemetry in one place.
+streaming sessions, supervised recovery and cost telemetry in one place.
 
-The JAX package's ``serving/engine.py``, its stateless path, on torch:
+The JAX package's ``serving/engine.py`` on torch:
 
-* **One program per (bucket, batch, tier) and worker.**  A miss builds the
-  runner's ``make_forward`` program for the tier's model and wraps it as
-  the runner wraps its own (eval/runner.py): a captured CUDA graph
-  (``GraphForward``), or where the tier exits early one graph whose loop
-  is a CUDA WHILE node (``WhileForward``); on the CPU the plain closure
-  (``PlainForward``).  Each worker keeps its programs in an LRU of
-  ``max_cached_shapes`` entries, with one side stream and one memory pool
-  of its own.  The batch-1 program is the solo ``InferenceRunner``'s, so
-  the batch-1 answer is bit-equal to the runner's.
+* **One program per (bucket, batch, tier, family) and worker.**  A miss
+  builds the runner's ``make_forward`` program for the tier's model with
+  the family's streaming flags and wraps it as the runner wraps its own
+  (eval/runner.py): a captured CUDA graph (``GraphForward``), or where the
+  tier exits early one graph whose loop is a CUDA WHILE node
+  (``WhileForward``); on the CPU the plain closure (``PlainForward``).
+  Each worker keeps its programs in an LRU of ``max_cached_shapes``
+  entries, with one side stream and one memory pool of its own.  The
+  batch-1 program is the solo ``InferenceRunner``'s (``run_stream``'s for
+  a session family), so the batch-1 answer is bit-equal to the runner's.
+* **Program families.**  A stateless engine runs one family, the base
+  program.  With ``sessions`` on, session frames run ``state`` (cold: the
+  program also returns the padded low-resolution flow) and ``warm`` (it
+  also takes the previous frame's flow as ``flow_init``); the context
+  cache (``session_ctx_cache``) swaps them for ``state_ctx`` (also
+  returns the context bundle) and ``warm_ctx`` (takes the bundle, skips
+  the context encoder), and ``session_hidden`` each for its ``_h``
+  variant (returns, and when warm takes, the GRU's hidden state).  A
+  family's extra inputs ride the graph's static inputs like the images:
+  each dispatch copies the batch's stacked states into them before the
+  replay, and copies every state output out of the graph's static
+  outputs (to the host, the context bundle to a clone on the card)
+  before the next.
+* **Streaming sessions** (serving/sessions.py): ``submit_session`` holds
+  the session's ordering lock from admission until the frame's future
+  resolves, picks the family (warm when the same bucket and raw shape
+  have state; a scene cut, measured by the thumbnails' delta, falls back
+  cold), and folds the frame's state back into the session when it
+  completes (the keyframe guard drops the state of a warm frame that ran
+  to the cap on an early-exit tier).  The flow and the hidden state live
+  on the host, as numpy arrays, as in the JAX engine (the store exports
+  them); the context bundle stays on the card, where its host round trip
+  measured costlier than the context encoder it skips (PERF.md), and
+  drops out of an export (the importer re-saves it at its next cold
+  frame).  The frames of different sessions stack their states along the
+  batch axis.
 * **Tiers share the weights.**  Fixed-depth tiers ("quality") run the base
   model and its programs; an early-exit tier runs a model of its own
   config whose parameters are the base model's tensors (not copies); the
@@ -25,9 +52,11 @@ The JAX package's ``serving/engine.py``, its stateless path, on torch:
   depth.
 * **Supervised recovery** (serving/resilience.py, serving/chaos.py): a
   crashed dispatch requeues its requests with backoff, up to
-  ``max_dispatch_attempts``, then fails them with ``RequestPoisoned``; the
-  worker thread restarts; per-worker circuit breakers quarantine a failing
-  device; brownout degrades eligible requests down the tier ladder.
+  ``max_dispatch_attempts``, then fails them with ``RequestPoisoned``; a
+  crashed warm session frame retries cold and drops its session's state;
+  the worker thread restarts; per-worker circuit breakers quarantine a
+  failing device; brownout degrades eligible requests down the tier
+  ladder.
 
 Every upload, capture, replay and fetch of a worker happens on that
 worker's thread (``prewarm`` hands its captures to the workers), and the
@@ -38,10 +67,12 @@ inside ``profiling.graph_capture``, so no profiler window is open during
 one.
 
 The rest of the JAX engine is refused at ``ServeConfig`` construction,
-naming its ROADMAP tag: sessions and their handoff, the cascade, tiles, the
-model store and the persistent executable cache (§D6b), the xl mesh
-(§D7).  The port keeps its own copies of the two typed exceptions its
-requests can meet there (``ModelUnknown``, ``SessionsDisabled``).
+naming its ROADMAP tag: the session handoff across replicas, the cascade,
+tiles, the model store and the persistent executable cache (§D6b), the xl
+mesh (§D7).  Without a handoff store a session's ``handoff_key`` leads to
+the cold start the JAX engine gives without one.  The port keeps its own
+copy of the typed exception its requests can meet at the model store
+(``ModelUnknown``).
 """
 
 from __future__ import annotations
@@ -53,18 +84,19 @@ import logging
 import re
 import threading
 import time
+import weakref
 from concurrent.futures import Future
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_flatten
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from raft_stereo_tpu_torch import profiling
 from raft_stereo_tpu_torch.config import (RaftStereoConfig, RequestTier,
                                           parse_tier)
 from raft_stereo_tpu_torch.eval.runner import (FETCH_DTYPES, ProgramCache,
-                                               _Graphed,
+                                               _Graphed, ctx_bundle,
                                                early_exit_enabled,
                                                effective_inference_config,
                                                full_fp32, make_forward,
@@ -83,6 +115,11 @@ from raft_stereo_tpu_torch.serving.resilience import (CIRCUIT_CLOSED,
                                                       CircuitBreaker,
                                                       circuit_state_name,
                                                       cost_ladder)
+from raft_stereo_tpu_torch.serving.sessions import (SessionsDisabled,
+                                                    SessionStore,
+                                                    StereoSession,
+                                                    frame_delta,
+                                                    frame_thumbnail)
 from raft_stereo_tpu_torch.telemetry.flops import forward_flops
 
 log = logging.getLogger(__name__)
@@ -95,8 +132,45 @@ MODEL_DIVIS = 32
 # handed to it (prewarm).
 _TASK_POLL_S = 0.02
 
-_D6B = "§D6b serving: sessions, cascade, tiles, model store, executable cache"
+_D6B = ("§D6b serving: session handoff, cascade, tiles, model store, "
+        "executable cache")
 _D7 = "§D7 parallel executors"
+
+# The program families (eval/runner.make_forward's streaming flags), the
+# JAX engine's names: the base sessionless program, the state-returning
+# program session cold frames run, and the warm program that also takes a
+# flow_init.  The *_CTX variants (``ServeConfig.session_ctx_cache``): cold
+# frames also return the context bundle, coherent warm frames take it and
+# skip the context encoder.  The ``_h`` variants
+# (``ServeConfig.session_hidden``) also return the per-level GRU hidden
+# state (cold frames) and take it (warm frames).
+FAMILY_BASE = None
+FAMILY_STATE = "state"
+FAMILY_WARM = "warm"
+FAMILY_STATE_CTX = "state_ctx"
+FAMILY_WARM_CTX = "warm_ctx"
+FAMILY_STATE_H = "state_h"
+FAMILY_WARM_H = "warm_h"
+FAMILY_STATE_CTX_H = "state_ctx_h"
+FAMILY_WARM_CTX_H = "warm_ctx_h"
+
+# Families that take a flow_init input.
+_WARM_FAMILIES = (FAMILY_WARM, FAMILY_WARM_CTX, FAMILY_WARM_H,
+                  FAMILY_WARM_CTX_H)
+# _H_IN take the previous frame's hidden tree; _H_OUT return this frame's.
+_H_IN_FAMILIES = (FAMILY_WARM_H, FAMILY_WARM_CTX_H)
+_H_OUT_FAMILIES = (FAMILY_STATE_H, FAMILY_WARM_H, FAMILY_STATE_CTX_H,
+                   FAMILY_WARM_CTX_H)
+# _CTX_SAVE also return the context bundle, _CTX_REUSE take it.
+_CTX_SAVE_FAMILIES = (FAMILY_STATE_CTX, FAMILY_STATE_CTX_H)
+_CTX_REUSE_FAMILIES = (FAMILY_WARM_CTX, FAMILY_WARM_CTX_H)
+
+# The share of a card's memory the sessions' context bundles may hold
+# together (``session_ctx_cache`` keeps each on the card: 80.5 MB at
+# 375x1242 on the default architecture, PERF.md).  Past it the bundles of
+# the sessions used least recently are dropped; each re-saves at its
+# session's next cold frame.
+CTX_CARD_SHARE = 0.25
 
 _TOKEN_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._-]{0,63}$")
 
@@ -116,11 +190,6 @@ class ModelUnknown(KeyError):
 
     def __str__(self) -> str:  # KeyError quotes its arg; keep it readable
         return self.args[0]
-
-
-class SessionsDisabled(RuntimeError):
-    """Streaming was requested but the engine runs without a session
-    store.  The HTTP layer maps this to a typed 400."""
 
 
 def _check_token(kind: str, value: str) -> str:
@@ -457,9 +526,7 @@ class ServeConfig:
 # Fields of the deferred features, each with its ROADMAP tag.
 DEFERRED_FIELDS: Tuple[Tuple[str, str], ...] = tuple(
     (name, _D6B) for name in (
-        "sessions", "session_ttl_s", "session_capacity",
-        "scene_cut_threshold", "session_reseed_on_cap", "session_hidden",
-        "session_ctx_cache", "ctx_cache_threshold", "cascade",
+        "cascade",
         "cascade_draft", "cascade_escalate", "cascade_threshold",
         "tile_threshold_pixels", "tile_rows", "tile_halo", "models",
         "model_store_dir", "default_model", "executable_cache_dir",
@@ -481,7 +548,21 @@ def _unsupported_serving(cfg: ServeConfig) -> List[Tuple[str, str]]:
 class ServeResult:
     """One answered request: the flow plus its latency decomposition.
     The JAX package's fields; those of the deferred features keep their
-    defaults."""
+    defaults.
+
+    A session frame (``submit_session``) also says what happened:
+    ``session_id``, ``frame_index`` (its index in the stream), ``warm``
+    (the GRU started from the previous frame's flow), ``scene_cut`` (the
+    delta check forced a cold start), ``frame_delta`` (the measured mean
+    |delta intensity| against the previous frame, None on a cold frame
+    without one), ``flow_low`` (the padded low-resolution x-flow the
+    session carries forward), ``ctx_cached`` (this frame took the
+    session's context bundle: the context encoder did not run), ``ctx``
+    (the bundle a cold ctx-saving frame computed: numpy on the CPU,
+    tensors on the card, where it stays), ``hidden`` (the
+    frame's final per-level GRU hidden states, batch axis stripped, NCHW)
+    and ``warm_hidden`` (this frame took the previous frame's hidden
+    state)."""
 
     flow: np.ndarray             # (H, W) x-flow (= -disparity), float32
     queue_wait_s: float          # admission -> worker pickup
@@ -527,11 +608,22 @@ class ServeResult:
 
 @dataclasses.dataclass
 class _Payload:
-    """What the engine parks in Request.payload: padded inputs + unpadder."""
+    """What the engine parks in Request.payload: padded inputs + unpadder,
+    plus (session frames only) the warm-start inputs and the state the
+    completion callback folds back into the session."""
 
     left: np.ndarray             # (Hp, Wp, 3) host-padded
     right: np.ndarray
     padder: InputPadder
+    flow_init: Optional[np.ndarray] = None   # (Hp/f, Wp/f) fp32, warm only
+    hidden_init: Optional[object] = None     # warm-h: per-level hidden tree
+    session: Optional[object] = None         # sessions.StereoSession
+    thumb: Optional[np.ndarray] = None       # THIS frame's thumbnail
+    raw_shape: Optional[Tuple[int, int]] = None
+    frame_index: Optional[int] = None
+    scene_cut: bool = False
+    frame_delta: Optional[float] = None
+    ctx_init: Optional[object] = None        # warm_ctx: the cached bundle
 
 
 class BucketPolicy:
@@ -679,6 +771,48 @@ def _share_weights(dst: torch.nn.Module, src: torch.nn.Module) -> None:
             mod._buffers[k] = other._buffers[k]
 
 
+def _row(leaf, i: int):
+    """Member ``i`` of a batched output leaf, a copy that holds that row
+    alone: a host array copied; a tensor on the card (the batch's clone,
+    which no later replay writes) as it is at batch 1, else its row cloned,
+    so a session's bundle never keeps its batch-mates' rows alive."""
+    if not isinstance(leaf, torch.Tensor):
+        return leaf[i].copy()
+    return leaf[i] if leaf.shape[0] == 1 else leaf[i].clone()
+
+
+def _tree_bytes(tree) -> int:
+    """The bytes of a tree's array and tensor leaves."""
+    return sum(x.nbytes if isinstance(x, np.ndarray)
+               else x.numel() * x.element_size()
+               for x in tree_flatten(tree)[0])
+
+
+class _Members:
+    """Batch-axis-free state trees of one structure, one per member,
+    stacked along a new batch axis by ``stack`` when the dispatch runs:
+    host arrays as fp32 numpy, trees on a card by ``torch.stack`` on the
+    dispatching worker's device (a session's earlier frame may have run
+    on another worker), which the dispatch calls under the device gate (a
+    card operation)."""
+
+    def __init__(self, trees):
+        self.trees = trees
+
+    def stack(self, device: torch.device):
+        flat = [tree_flatten(t) for t in self.trees]
+        leaves = []
+        for members in zip(*(f[0] for f in flat)):
+            if isinstance(members[0], torch.Tensor):
+                members = [m.to(device) for m in members]
+                leaves.append(members[0][None] if len(members) == 1
+                              else torch.stack(members))
+            else:
+                leaves.append(np.stack(members).astype(np.float32,
+                                                       copy=False))
+        return tree_unflatten(leaves, flat[0][1])
+
+
 class ServingEngine:
     """The serving engine: one object owning the program cache, the
     continuous-batching scheduler, the worker pool and the cost/waste
@@ -746,6 +880,11 @@ class ServingEngine:
             self.default_tier = serve_cfg.default_tier or (
                 "quality" if "quality" in self.tiers
                 else next(iter(self.tiers)))
+        if serve_cfg.session_ctx_cache and config.shared_backbone:
+            raise ValueError(
+                "session_ctx_cache is unsupported with shared_backbone: "
+                "fnet is computed from the cnet trunk, so the context "
+                "encoder cannot be skipped (models/raft_stereo.py)")
         self.effective_config = self._effective(config)
         self._tier_configs: Dict[Optional[str], RaftStereoConfig] = {
             None: self.effective_config}
@@ -791,9 +930,30 @@ class ServingEngine:
             edf=serve_cfg.edf_scheduler,
             edf_max_slack_s=serve_cfg.edf_max_slack_ms / 1e3,
             latency_fn=self._dispatch_latency_estimate)
-        # The deferred surfaces /healthz reads, as the JAX engine has
-        # them when off: no session store, no default-model pointer.
-        self.sessions = None
+        # The streaming-session store behind submit_session; None keeps
+        # the engine stateless (one program family, today's surface).
+        self.sessions: Optional[SessionStore] = None
+        if serve_cfg.sessions:
+            self.sessions = SessionStore(
+                capacity=serve_cfg.session_capacity,
+                ttl_s=serve_cfg.session_ttl_s,
+                active_gauge=self.metrics.sessions_active,
+                created_counter=self.metrics.sessions_created,
+                expired_counter=self.metrics.sessions_expired,
+                evicted_counter=self.metrics.sessions_evicted)
+        # The card bytes the sessions' context bundles may hold
+        # (``_hold_ctx``); None on the CPU, where they are host arrays as
+        # in the JAX engine.
+        self.ctx_budget_bytes: Optional[int] = None
+        self.ctx_bundles_dropped = 0
+        self._ctx_lock = threading.Lock()
+        self._ctx_held: "collections.OrderedDict[int, weakref.ref]" = (
+            collections.OrderedDict())
+        if serve_cfg.session_ctx_cache and self.devices[0].type == "cuda":
+            self.ctx_budget_bytes = int(CTX_CARD_SHARE * min(
+                torch.cuda.get_device_properties(d).total_memory
+                for d in set(self.devices)))
+        # No registered models: /healthz reads no default-model pointer.
         self.default_model: Optional[str] = None
         # ---- resilience ---------------------------------------------
         self.sink = None
@@ -846,7 +1006,7 @@ class ServingEngine:
         self._pending_retries = 0
         self._retry_timers: set = set()   # (Timer, reqs) pairs
         # Readiness: warmup_shapes x distinct tier programs x batch sizes
-        # x workers; ready once every entry has dispatched once.
+        # x families x workers; ready once every entry has dispatched once.
         self._warm_lock = threading.Lock()
         self._warmed: set = set()
         self._warm_target: set = set()
@@ -855,7 +1015,20 @@ class ServingEngine:
             for widx in range(len(self.devices)):
                 for tier in self._distinct_cache_tiers():
                     for n in self.queue.sizes:
-                        self._warm_target.add((widx, (hp, wp), n, tier))
+                        for family in self._families():
+                            self._warm_target.add(
+                                (widx, (hp, wp), n, tier, family))
+        per_bucket = (len(self._distinct_cache_tiers())
+                      * len(self.queue.sizes) * len(self._families()))
+        if per_bucket > serve_cfg.max_cached_shapes:
+            log.warning(
+                "%d programs per bucket and worker (%d tier program(s) x "
+                "batch sizes %s x families %s) exceed max_cached_shapes=%d:"
+                " prewarm evicts programs it built and live requests "
+                "capture them again; raise max_cached_shapes or cut "
+                "batch_sizes", per_bucket, len(self._distinct_cache_tiers()),
+                self.queue.sizes, self._families(),
+                serve_cfg.max_cached_shapes)
         self._closed = False
         self._shutting_down = False
         self._tasks = [collections.deque() for _ in self.devices]
@@ -983,18 +1156,6 @@ class ServingEngine:
             return None
         return self.quality.status()
 
-    def submit_session(self, session_id: str, left, right, *args, **kw):
-        raise SessionsDisabled(
-            "this engine runs without a session store — construct it "
-            "with ServeConfig(sessions=True) to stream")
-
-    def infer_session(self, session_id: str, left, right, *args, **kw):
-        return self.submit_session(session_id, left, right)
-
-    def close_session(self, session_id: str) -> Dict[str, object]:
-        raise SessionsDisabled("this engine runs without a session "
-                               "store")
-
     # ------------------------------------------------------------ front door
     def bucket_for(self, shape: Tuple[int, int, int]) -> Tuple[int, int]:
         """The padded (Hp, Wp) this image shape dispatches at."""
@@ -1082,26 +1243,41 @@ class ServingEngine:
     def _enqueue(self, left: np.ndarray, right: np.ndarray,
                  deadline_ms: Optional[float], tier: Optional[str],
                  requested_tier: Optional[str], t_admit: float,
+                 family: Optional[str] = FAMILY_BASE,
+                 session=None, session_id: Optional[str] = None,
+                 flow_init: Optional[np.ndarray] = None,
+                 thumb: Optional[np.ndarray] = None,
+                 frame_index: Optional[int] = None,
+                 scene_cut: bool = False,
+                 frame_delta_v: Optional[float] = None,
+                 ctx_init=None, hidden_init=None,
                  trace_context=None) -> Request:
-        """Pad, build, trace, and queue one request."""
+        """Pad, build, trace, and queue one request: a stateless one
+        (base family, no session fields) or a session frame."""
         hp, wp, grid = self.policy.bucket_for(left.shape[0], left.shape[1])
         padder = InputPadder((1, 3) + left.shape[:2], divis_by=grid)
         l, r, t, b = padder.pads
         spec = ((t, b), (l, r), (0, 0))
         payload = _Payload(left=np.pad(left, spec, mode="edge"),
                            right=np.pad(right, spec, mode="edge"),
-                           padder=padder)
+                           padder=padder, flow_init=flow_init,
+                           hidden_init=hidden_init, session=session,
+                           thumb=thumb, raw_shape=tuple(left.shape[:2]),
+                           frame_index=frame_index, scene_cut=scene_cut,
+                           frame_delta=frame_delta_v, ctx_init=ctx_init)
         now = time.monotonic()
         deadline_ms = (deadline_ms if deadline_ms is not None
                        else self.serve_cfg.default_deadline_ms)
         req = Request(bucket=(hp, wp), payload=payload,
                       future=Future(), t_enqueue=now, tier=tier,
-                      requested_tier=requested_tier,
+                      requested_tier=requested_tier, family=family,
+                      session_id=session_id,
                       deadline=(None if deadline_ms is None
                                 else now + deadline_ms / 1e3))
         trace_attrs = dict(
             bucket=str(req.bucket), deadline_ms=deadline_ms,
-            **({"tier": tier} if tier is not None else {}))
+            **({"tier": tier} if tier is not None else {}),
+            **({"session": session_id} if session_id is not None else {}))
         if trace_context is not None:
             trace = self.tracer.adopt_trace(trace_context,
                                             "serve.request",
@@ -1157,12 +1333,203 @@ class ServingEngine:
                            trace_context=trace_context
                            ).result(timeout=timeout)
 
+    # ------------------------------------------------------------- sessions
+    def submit_session(self, session_id: str, left: np.ndarray,
+                       right: np.ndarray,
+                       deadline_ms: Optional[float] = None,
+                       tier: Optional[str] = None,
+                       degradable: bool = True,
+                       handoff_key: Optional[str] = None,
+                       model: Optional[str] = None,
+                       trace_context=None) -> Future:
+        """Admit one frame of a streaming session (the engine behind
+        ``POST /v1/stream/<session>``); returns a Future of
+        ``ServeResult`` whose session fields say what happened.
+
+        The first frame of a new id creates the session and starts cold;
+        a later frame starts warm when the session holds state from a
+        frame of the same bucket and raw shape (and, with
+        ``session_hidden``, its hidden tree), unless the scene-cut gate
+        fires: the mean |delta| of the frames' thumbnails above
+        ``scene_cut_threshold`` falls back cold.  With
+        ``session_ctx_cache`` a cold frame saves the context bundle and a
+        warm frame whose delta is at most ``ctx_cache_threshold`` takes
+        it.  Raises the typed ``SessionExpired`` (HTTP 410) on an expired,
+        evicted or closed id and ``SessionsDisabled`` without a store.
+
+        **Ordering:** the session's ordering lock is held from here until
+        the frame's future resolves, so a session never has two frames in
+        flight; the call blocks while the previous frame of the same
+        session is pending (distinct sessions batch together freely).
+        Every admitted frame's future resolves, with a result or a typed
+        error, so the lock is never held forever.
+
+        ``handoff_key`` names another replica's handoff blob; the port has
+        no handoff store (ROADMAP §D6b), so the frame starts cold, as the
+        JAX engine's does without one.  ``model`` must be None (the
+        implicit model; any name raises ``ModelUnknown``): the session
+        pins None."""
+        if self.sessions is None:
+            raise SessionsDisabled(
+                "this engine runs without a session store — construct it "
+                "with ServeConfig(sessions=True) to stream")
+        t_admit = time.perf_counter()
+        tier, requested_tier = self._admit_tier(tier, degradable)
+        left, right = np.asarray(left), np.asarray(right)
+        if left.ndim != 3 or left.shape != right.shape:
+            raise ValueError(
+                f"need two same-shape (H, W, 3) images, got {left.shape} "
+                f"vs {right.shape}")
+        sess, created = self.sessions.get_or_create(session_id)
+        # One frame per session in the pipeline: block until the previous
+        # frame's future resolved (its done-callback releases the lock).
+        sess.order_lock.acquire()
+        try:
+            if created:
+                sess.model = self.resolve_model(model)
+            else:
+                pinned = sess.model
+                if model is not None and model != pinned:
+                    raise ValueError(
+                        f"session {session_id!r} is pinned to model "
+                        f"{pinned or '(implicit)'} — a mid-stream "
+                        f"switch to {model!r} would mix versions; open "
+                        f"a new session")
+            thumb = frame_thumbnail(left)
+            hp, wp, _grid = self.policy.bucket_for(left.shape[0],
+                                                   left.shape[1])
+            hidden_on = self.serve_cfg.session_hidden
+            warm = (not created and sess.flow_low is not None
+                    and sess.bucket == (hp, wp)
+                    and sess.raw_shape == tuple(left.shape[:2])
+                    # warm-h programs take both state halves: a session
+                    # without its hidden tree (crash demotion) starts cold
+                    and (not hidden_on or sess.hidden is not None))
+            scene_cut = False
+            delta = None
+            if warm:
+                delta = frame_delta(thumb, sess.thumb)
+                if delta is not None:
+                    self.metrics.frame_delta.observe(delta)
+                    if (self.serve_cfg.scene_cut_threshold > 0
+                            and delta > self.serve_cfg.scene_cut_threshold):
+                        # the previous flow belongs to another scene: a
+                        # warm start would anchor the GRU to garbage; the
+                        # state re-seeds from this cold frame
+                        warm, scene_cut = False, True
+                        sess.scene_cuts += 1
+                        self.metrics.scene_cuts.inc()
+            # The ctx cache: cold frames save the bundle, a warm frame
+            # whose delta proves the scene static takes it, a warm frame
+            # past the gate runs plain warm and drops the bundle at
+            # completion (it re-establishes at the next cold frame).
+            ctx_on = self.serve_cfg.session_ctx_cache
+            ctx_init = None
+            if warm:
+                family = FAMILY_WARM_H if hidden_on else FAMILY_WARM
+                if (ctx_on and sess.ctx is not None and delta is not None
+                        and delta <= self.serve_cfg.ctx_cache_threshold):
+                    family = (FAMILY_WARM_CTX_H if hidden_on
+                              else FAMILY_WARM_CTX)
+                    ctx_init = sess.ctx
+            elif ctx_on:
+                family = (FAMILY_STATE_CTX_H if hidden_on
+                          else FAMILY_STATE_CTX)
+            else:
+                family = FAMILY_STATE_H if hidden_on else FAMILY_STATE
+            req = self._enqueue(
+                left, right, deadline_ms, tier, requested_tier, t_admit,
+                family=family, session=sess, session_id=session_id,
+                flow_init=sess.flow_low if warm else None,
+                hidden_init=(sess.hidden if warm and hidden_on
+                             else None),
+                ctx_init=ctx_init, thumb=thumb,
+                frame_index=sess.frame_index, scene_cut=scene_cut,
+                frame_delta_v=delta, trace_context=trace_context)
+        except BaseException:
+            sess.order_lock.release()
+            raise
+        req.future.add_done_callback(
+            lambda f, r=req: self._finish_session_frame(r, f))
+        return req.future
+
+    def infer_session(self, session_id: str, left: np.ndarray,
+                      right: np.ndarray,
+                      deadline_ms: Optional[float] = None,
+                      timeout: Optional[float] = None,
+                      tier: Optional[str] = None,
+                      degradable: bool = True,
+                      handoff_key: Optional[str] = None,
+                      model: Optional[str] = None,
+                      trace_context=None) -> ServeResult:
+        """Blocking convenience: submit_session + wait."""
+        return self.submit_session(
+            session_id, left, right, deadline_ms, tier=tier,
+            degradable=degradable, handoff_key=handoff_key, model=model,
+            trace_context=trace_context).result(timeout=timeout)
+
+    def close_session(self, session_id: str) -> Dict[str, object]:
+        """End one session (``DELETE /v1/stream/<id>``); returns its
+        lifetime stats.  Raises ``SessionsDisabled`` / ``SessionExpired``
+        / ``KeyError`` like the store."""
+        if self.sessions is None:
+            raise SessionsDisabled("this engine runs without a session "
+                                   "store")
+        return self.sessions.close(session_id)
+
+    def _finish_session_frame(self, req: Request, future) -> None:
+        """Completion hook of one session frame: fold the result's state
+        back into the session (the ordering lock is still held, so the
+        next frame, possibly blocked in ``submit_session``, reads a
+        consistent state), then release the lock.  A failed frame leaves
+        the state as it was (a crashed dispatch already dropped it)."""
+        sess = req.payload.session
+        try:
+            if future.exception() is None:
+                res = future.result()
+                flow_low = res.flow_low
+                reseed = False
+                if (self.serve_cfg.session_reseed_on_cap and res.warm
+                        and res.iters_used is not None
+                        and res.iters_used >= self.serve_cfg.iters
+                        and early_exit_enabled(self._tier_configs[
+                            self._cache_tier(req.tier)])):
+                    # Keyframe guard: the exit gate never fired, so this
+                    # warm output is no trusted init; the next frame
+                    # starts cold.
+                    flow_low = None
+                    reseed = True
+                    self.metrics.session_reseeds.inc()
+                if self.serve_cfg.session_ctx_cache:
+                    if res.ctx is not None:
+                        sess.ctx = res.ctx
+                        self._hold_ctx(sess)
+                    elif reseed or (res.warm and not res.ctx_cached):
+                        # the keyframe guard fired, or the scene moved
+                        # past the static gate: the bundle is stale
+                        sess.ctx = None
+                    if res.ctx_cached:
+                        sess.ctx_hits += 1
+                        self.metrics.ctx_cache_hits.inc()
+                sess.note_result(
+                    flow_low=flow_low, thumb=req.payload.thumb,
+                    bucket=req.bucket, raw_shape=req.payload.raw_shape,
+                    warm=res.warm, iters_used=res.iters_used,
+                    hidden=res.hidden, confidence=res.confidence_mean)
+                self.metrics.observe_session_frame(
+                    "warm" if res.warm else "cold")
+        finally:
+            # the dispatch counts as activity: a first-frame capture
+            # longer than the TTL must not expire the stream
+            self.sessions.touch(req.session_id)
+            sess.order_lock.release()
+
     # ------------------------------------------------------------ readiness
     @property
     def ready(self) -> bool:
         """The /readyz gate: every configured (worker, bucket, batch,
-        tier) warm entry has dispatched at least once; False once a
-        graceful shutdown begins, or while chaos holds a slow start."""
+        tier, family) warm entry has dispatched at least once; False once
+        a graceful shutdown begins, or while chaos holds a slow start."""
         if self._shutting_down or self._closed:
             return False
         if self.chaos is not None and self.chaos.ready_blocked():
@@ -1184,9 +1551,50 @@ class ServingEngine:
                 "compiles_warm": self.metrics.compiles_warm.value}
 
     def _note_warm(self, widx: int, bucket: Tuple[int, int], batch: int,
-                   cache_tier: Optional[str]) -> None:
+                   cache_tier: Optional[str],
+                   family: Optional[str] = FAMILY_BASE) -> None:
         with self._warm_lock:
-            self._warmed.add((widx, tuple(bucket), batch, cache_tier))
+            self._warmed.add((widx, tuple(bucket), batch, cache_tier,
+                              family))
+
+    def _families(self) -> Tuple[Optional[str], ...]:
+        """The program families this engine serves: the base program
+        always; the session families only with a session store (a
+        stateless engine's programs, prewarm and readiness are the base
+        family's alone); the ctx-cache families replace state/warm when
+        the context cache is on (a cold frame must save the bundle), and
+        with ``session_hidden`` every session family is its ``_h``
+        variant (one frame without the hidden tree would break the
+        chain)."""
+        if self.sessions is None:
+            return (FAMILY_BASE,)
+        hidden = self.serve_cfg.session_hidden
+        if self.serve_cfg.session_ctx_cache:
+            if hidden:
+                return (FAMILY_BASE, FAMILY_STATE_CTX_H, FAMILY_WARM_H,
+                        FAMILY_WARM_CTX_H)
+            return (FAMILY_BASE, FAMILY_STATE_CTX, FAMILY_WARM,
+                    FAMILY_WARM_CTX)
+        if hidden:
+            return (FAMILY_BASE, FAMILY_STATE_H, FAMILY_WARM_H)
+        return (FAMILY_BASE, FAMILY_STATE, FAMILY_WARM)
+
+    def _state_zeros(self, cfg: RaftStereoConfig, bucket: Tuple[int, int],
+                     batch: int):
+        """Zero host trees of one bucket's state inputs, as the session
+        families take them: ``(flow_init, hidden, ctx)``, fp32 NCHW per
+        level (the per-level GRU hidden states; the context bundle is
+        those initial states and the (cz, cr, cq) biases)."""
+        f = cfg.downsample_factor
+        flow = np.zeros((batch, bucket[0] // f, bucket[1] // f), np.float32)
+        levels = [(batch, cfg.hidden_dims[l], bucket[0] // (f * 2 ** l),
+                   bucket[1] // (f * 2 ** l))
+                  for l in range(cfg.n_gru_layers)]
+        hidden = tuple(np.zeros(sh, np.float32) for sh in levels)
+        ctx = (tuple(np.zeros(sh, np.float32) for sh in levels),
+               tuple(tuple(np.zeros(sh, np.float32) for _ in range(3))
+                     for sh in levels))
+        return flow, hidden, ctx
 
     # --------------------------------------------------------- program cache
     def _cache_tier(self, tier: Optional[str]) -> Optional[str]:
@@ -1210,7 +1618,8 @@ class ServingEngine:
             tier)]
 
     def _cost_key(self, bucket: Tuple[int, int], batch: int,
-                  tier: Optional[str] = None) -> str:
+                  tier: Optional[str] = None,
+                  family: Optional[str] = FAMILY_BASE) -> str:
         """The JAX engine's label of one program in the cost registry."""
         cache_tier = self._cache_tier(tier)
         tail = "" if cache_tier is None else f",tier={tier}"
@@ -1219,31 +1628,36 @@ class ServingEngine:
             tail += f",quant={qmode}"
         if self.serve_cfg.confidence:
             tail += ",conf"
+        if family is not None:
+            tail += f",{family}"
         return f"serving.forward({bucket[0]}x{bucket[1]},b{batch}{tail})"
 
     def compiled_cost(self, bucket: Tuple[int, int], batch: int = 1,
-                      tier: Optional[str] = None):
-        """The cost record of a built (bucket, batch, tier) program, or
-        None (no registry / not built yet)."""
+                      tier: Optional[str] = None,
+                      family: Optional[str] = FAMILY_BASE):
+        """The cost record of a built (bucket, batch, tier, family)
+        program, or None (no registry / not built yet)."""
         if self.costs is None:
             return None
-        return self.costs.get(self._cost_key(bucket, batch, tier))
+        return self.costs.get(self._cost_key(bucket, batch, tier, family))
 
     def cached_programs(self, worker: Optional[int] = None) -> List[Tuple]:
-        """``(worker, bucket, batch, cache_tier)`` of the cached programs,
-        oldest first."""
+        """``(worker, bucket, batch, cache_tier, family)`` of the cached
+        programs, oldest first."""
         with self._cache_lock:
             return [k for i, cache in enumerate(self._compiled)
                     if worker is None or i == worker for k in cache]
 
     def program(self, bucket: Tuple[int, int], batch: int = 1,
-                tier: Optional[str] = None, worker: int = 0):
-        """The cached program of one (bucket, batch, tier) on ``worker``
-        (a ``GraphForward``, ``WhileForward`` or ``PlainForward``), or
-        None."""
+                tier: Optional[str] = None, worker: int = 0,
+                family: Optional[str] = FAMILY_BASE):
+        """The cached program of one (bucket, batch, tier, family) on
+        ``worker`` (a ``GraphForward``, ``WhileForward`` or
+        ``PlainForward``), or None."""
         with self._cache_lock:
             return self._compiled[worker].get(
-                (worker, tuple(bucket), batch, self._cache_tier(tier)))
+                (worker, tuple(bucket), batch, self._cache_tier(tier),
+                 family))
 
     def _cached(self, key: Tuple):
         with self._cache_lock:
@@ -1251,18 +1665,30 @@ class ServingEngine:
 
     def _build(self, key: Tuple, arrays, spec):
         """Build the program of ``key`` (worker, bucket, batch,
-        cache_tier) for inputs of ``arrays``' shapes, evicting the
+        cache_tier, family) for inputs of ``arrays``' shapes, evicting the
         worker's oldest past ``max_cached_shapes``."""
-        widx, bucket, batch, cache_tier = key
+        widx, bucket, batch, cache_tier, family = key
         model = self._tier_models[self.devices[widx]][cache_tier]
-        forward = make_forward(model, self.serve_cfg.iters,
-                               FETCH_DTYPES[self.serve_cfg.fetch_dtype],
-                               return_confidence=self.serve_cfg.confidence)
+        forward = make_forward(
+            model, self.serve_cfg.iters,
+            FETCH_DTYPES[self.serve_cfg.fetch_dtype],
+            warm_start=family in _WARM_FAMILIES,
+            return_state=family is not FAMILY_BASE,
+            ctx=("save" if family in _CTX_SAVE_FAMILIES
+                 else "reuse" if family in _CTX_REUSE_FAMILIES else None),
+            hidden_init=family in _H_IN_FAMILIES,
+            return_hidden=family in _H_OUT_FAMILIES,
+            return_confidence=self.serve_cfg.confidence)
         self.metrics.compiles_cold.inc()
         with self._cache_lock:
             entry = self._programs[widx].add(
                 self._compiled[widx], key, forward, arrays, spec,
                 early_exit_enabled(model.config))
+            if family in _CTX_SAVE_FAMILIES and isinstance(entry, _Graphed):
+                # the bundle's (net, (cz, cr, cq)) per level stays on the
+                # card: its host round trip costs more than the context
+                # encoder it saves (PERF.md)
+                entry.keep_last = 4 * model.config.n_gru_layers
             if self.costs is not None:
                 self.costs.note_runner_cache_size(
                     sum(map(len, self._compiled)))
@@ -1279,14 +1705,17 @@ class ServingEngine:
         call = entry.capture if isinstance(entry, _Graphed) else entry
         if self.costs is None:
             return call(*arrays)
-        widx, bucket, batch, cache_tier = key
+        widx, bucket, batch, cache_tier, family = key
         cfg = self._tier_configs[cache_tier]
         model = self._tier_models[self.devices[widx]][cache_tier]
         iters = (model.exit_bounds(self.serve_cfg.iters)[0]
                  if early_exit_enabled(cfg) else self.serve_cfg.iters)
         return self.costs.measure(
-            call, *arrays, key=self._cost_key(bucket, batch, cache_tier),
-            site="serving", flops=forward_flops(cfg, bucket, batch, iters),
+            call, *arrays,
+            key=self._cost_key(bucket, batch, cache_tier, family),
+            site="serving",
+            flops=forward_flops(cfg, bucket, batch, iters,
+                                context=family not in _CTX_REUSE_FAMILIES),
             device=self.devices[widx])
 
     def _count(self, captures: int = 0, replays: int = 0) -> None:
@@ -1295,17 +1724,26 @@ class ServingEngine:
             self.replays += replays
 
     def _dispatch(self, widx: int, key: Tuple, p1: np.ndarray,
-                  p2: np.ndarray) -> Tuple[List[np.ndarray], float]:
+                  p2: np.ndarray, *extra) -> Tuple[List[np.ndarray], float]:
         """One dispatch of the program of ``key`` on ``worker``'s thread:
-        ``(outputs, t_ready)``.  A miss builds and captures under the
+        ``(outputs, t_ready)``.  ``extra`` are the family's state inputs
+        after the images (``[flow_init][, hidden][, ctx]``: arrays, or
+        ``_Members`` stacked here); a graph copies them into its static
+        inputs with the images.  A miss builds and captures under the
         exclusive gate; a replay uploads, replays and synchronizes under
-        the shared one (``t_ready``), then fetches."""
-        arrays, spec = tree_flatten((p1, p2))
+        the shared one (``t_ready``), then fetches the outputs (a ctx-saving
+        program's bundle stays on the card)."""
+        def flat():
+            return tree_flatten((p1, p2) + tuple(
+                x.stack(self.devices[widx]) if isinstance(x, _Members)
+                else x for x in extra))
+
         entry = self._cached(key)
         cuda = self.devices[widx].type == "cuda"
         if entry is None or (cuda and entry.outputs is None):
             gate = self._gate.exclusive() if cuda else contextlib.nullcontext()
             with gate:
+                arrays, spec = flat()
                 if entry is None:
                     entry = self._build(key, arrays, spec)
                 if cuda:
@@ -1313,11 +1751,11 @@ class ServingEngine:
                 out = self._first_call(entry, key, arrays)
             return out, time.monotonic()
         if not cuda:
-            out = entry(*arrays)
+            out = entry(*flat()[0])
             return out, time.monotonic()
         with self._gate.shared():
             self._count(replays=1)
-            return entry.timed_call(*arrays)
+            return entry.timed_call(*flat()[0])
 
     # ---------------------------------------------------------------- prewarm
     def _run_on_worker(self, widx: int, fn) -> Future:
@@ -1341,11 +1779,13 @@ class ServingEngine:
                 batch_sizes: Optional[Sequence[int]] = None,
                 tiers: Optional[Sequence[Optional[str]]] = None) -> None:
         """Build and warm the whole bucket ladder for one raw shape on
-        every worker: each batch size of each distinct tier program runs
-        once with zero images, on the worker's own thread (on the card:
-        the capture), so the first real requests at this shape replay.
-        Fixed-depth tiers share the base programs, so the ladder is built
-        once per distinct program."""
+        every worker: each batch size of each distinct tier program and
+        each family runs once, zero images and zero states (``flow_init``
+        a constant -1 px, not zero, so the warm-up before a warm
+        program's capture runs a warm start), on the worker's own thread
+        (on the card: the capture), so the first real requests at this
+        shape replay.  Fixed-depth tiers share the base programs, so the
+        ladder is built once per distinct program."""
         h, w = int(raw_hw[0]), int(raw_hw[1])
         hp, wp, _ = self.policy.bucket_for(h, w)
         sizes = tuple(batch_sizes) if batch_sizes else self.queue.sizes
@@ -1354,22 +1794,35 @@ class ServingEngine:
         else:
             cache_tiers = sorted({self._cache_tier(t) for t in tiers},
                                  key=lambda t: (t is not None, t or ""))
+        families = self._families()
 
         def warm(widx):
             for tier in cache_tiers:
+                cfg = self._tier_configs[tier]
                 for n in sizes:
-                    zeros = np.zeros((n, hp, wp, 3), np.uint8)
-                    self._dispatch(widx, (widx, (hp, wp), n, tier), zeros,
-                                   zeros.copy())
-                    self._note_warm(widx, (hp, wp), n, tier)
+                    flow, hidden, ctx = self._state_zeros(cfg, (hp, wp), n)
+                    for family in families:
+                        zeros = np.zeros((n, hp, wp, 3), np.uint8)
+                        extra = []
+                        if family in _WARM_FAMILIES:
+                            extra.append(flow - 1.0)
+                        if family in _H_IN_FAMILIES:
+                            extra.append(hidden)
+                        if family in _CTX_REUSE_FAMILIES:
+                            extra.append(ctx)
+                        self._dispatch(
+                            widx, (widx, (hp, wp), n, tier, family), zeros,
+                            zeros.copy(), *extra)
+                        self._note_warm(widx, (hp, wp), n, tier, family)
 
         futures = [self._run_on_worker(widx, lambda i=widx: warm(i))
                    for widx in range(len(self.devices))]
         for f in futures:
             f.result()
         log.info("prewarmed bucket %dx%d batch sizes %s (%d tier "
-                 "program(s)) on %d worker(s)", hp, wp, sizes,
-                 len(cache_tiers), len(self.devices))
+                 "program(s) x %d program variant(s)) on %d worker(s)",
+                 hp, wp, sizes, len(cache_tiers), len(families),
+                 len(self.devices))
 
     # --------------------------------------------------------------- workers
     def _worker_loop(self, widx: int) -> None:
@@ -1423,6 +1876,8 @@ class ServingEngine:
         now_pc = time.perf_counter()
         for r in pending:
             r.attempts += 1
+            if r.payload.session is not None:
+                self._invalidate_crashed_session_frame(r)
             if r.attempts >= self.serve_cfg.max_dispatch_attempts:
                 self.metrics.poisoned.inc()
                 self.metrics.failed.inc()
@@ -1448,6 +1903,32 @@ class ServingEngine:
                     backoff_ms=round(backoff_s * 1e3, 3),
                     error=type(exc).__name__)
         self._schedule_requeue(retry, backoff_s)
+
+    def _invalidate_crashed_session_frame(self, req: Request) -> None:
+        """A crashed dispatch carried this session frame: the flow it was
+        to produce never existed.  A requeued warm frame is demoted to the
+        cold family (a crash caused by its state, a NaN init or a poisoned
+        buffer, would otherwise burn every attempt), and the session's
+        state is dropped, so no later frame chains across the gap.  Safe
+        to mutate: this frame holds the session's ordering lock until its
+        future resolves (retry success or typed poisoning)."""
+        sess = req.payload.session
+        if req.family in _WARM_FAMILIES:
+            ctx_on = self.serve_cfg.session_ctx_cache
+            if self.serve_cfg.session_hidden:
+                req.family = (FAMILY_STATE_CTX_H if ctx_on
+                              else FAMILY_STATE_H)
+            else:
+                req.family = FAMILY_STATE_CTX if ctx_on else FAMILY_STATE
+            req.payload.flow_init = None
+            req.payload.hidden_init = None
+            req.payload.ctx_init = None
+            log.warning("session %s frame %s: crashed warm dispatch "
+                        "demoted to a cold start for its retry",
+                        req.session_id, req.payload.frame_index)
+        sess.flow_low = None
+        sess.hidden = None
+        sess.ctx = None
 
     def _schedule_requeue(self, reqs: List[Request],
                           delay_s: float) -> None:
@@ -1500,11 +1981,46 @@ class ServingEngine:
             self._run_chunk(widx, batch[i:i + k])
             i += k
 
+    def _hold_ctx(self, sess: StereoSession) -> None:
+        """Note the bundle ``sess`` has just saved; past
+        ``ctx_budget_bytes`` drop the bundles of the other sessions used
+        least recently (each re-saves at its next cold frame: a dropped
+        bundle costs speed, never a result)."""
+        if self.ctx_budget_bytes is None:
+            return
+        with self._ctx_lock:
+            self._ctx_held[id(sess)] = weakref.ref(sess)
+            live = []
+            for key, ref in list(self._ctx_held.items()):
+                s = ref()
+                bundle = None if s is None else s.ctx
+                if bundle is None:
+                    del self._ctx_held[key]
+                else:
+                    live.append((s.last_used_mono, key, s,
+                                 _tree_bytes(bundle)))
+            total = sum(e[3] for e in live)
+            for _, key, s, nbytes in sorted(live, key=lambda e: e[0]):
+                if total <= self.ctx_budget_bytes:
+                    break
+                if s is sess:
+                    continue
+                s.ctx = None
+                del self._ctx_held[key]
+                total -= nbytes
+                self.ctx_bundles_dropped += 1
+                log.info("context bundles past %d bytes: dropped "
+                            "session %s's (it re-saves at its next cold "
+                            "frame)", self.ctx_budget_bytes, s.session_id)
+
     def _run_chunk(self, widx: int, batch: List[Request]) -> None:
         t_pickup = time.monotonic()
         waits = [t_pickup - r.t_enqueue for r in batch]
         bucket = batch[0].bucket
+        # the queue groups by (bucket, tier, family): every member of the
+        # chunk shares all three
         tier = batch[0].tier
+        family = batch[0].family
         cache_tier = self._cache_tier(tier)
         n = len(batch)
         device_label = str(self.devices[widx])
@@ -1517,22 +2033,53 @@ class ServingEngine:
         if self.chaos is not None:
             self.chaos.on_compile(widx)
             self.chaos.on_dispatch(widx)
-        adaptive = early_exit_enabled(self._tier_configs[cache_tier])
+        cfg = self._tier_configs[cache_tier]
+        adaptive = early_exit_enabled(cfg)
         with profiling.annotate("serve.device"):
-            # ONE batch-n dispatch of the (bucket, n, tier) program; n == 1
-            # is the solo runner's program, bit for bit.
+            # ONE batch-n dispatch of the (bucket, n, tier, family)
+            # program; n == 1 is the solo runner's program, bit for bit.
+            # Session frames of different streams stack their states
+            # along the batch axis, leaf by leaf.
             p1 = np.stack([r.payload.left for r in batch])
             p2 = np.stack([r.payload.right for r in batch])
+            extra = []
+            if family in _WARM_FAMILIES:
+                extra.append(np.stack([r.payload.flow_init for r in batch]
+                                      ).astype(np.float32))
+            if family in _H_IN_FAMILIES:
+                extra.append(_Members(
+                    [r.payload.hidden_init for r in batch]))
+            if family in _CTX_REUSE_FAMILIES:
+                extra.append(_Members([r.payload.ctx_init for r in batch]))
             out, t_ready = self._dispatch(
-                widx, (widx, tuple(bucket), n, cache_tier), p1, p2)
+                widx, (widx, tuple(bucket), n, cache_tier, family), p1, p2,
+                *extra)
         p_ready = time.perf_counter() if sampled else 0.0
+        # The flat outputs: flow_up[, flow_low][, iters_used][, conf_low,
+        # conf_up][, hidden per level][, ctx: nets, then (cz, cr, cq) per
+        # level] (eval/runner.make_forward).
         flows_padded = out[0]                      # (n, Hp, Wp)
         pos = 1
+        flow_low_padded = None
+        if family is not FAMILY_BASE:
+            flow_low_padded = out[1]               # (n, Hp/f, Wp/f)
+            pos = 2
         iters_used = self.serve_cfg.iters
         if adaptive:
-            iters_used = int(out[1])
-            pos = 2
-        conf_padded = out[pos + 1] if self.serve_cfg.confidence else None
+            iters_used = int(out[pos])
+            pos += 1
+        conf_padded = None
+        if self.serve_cfg.confidence:
+            conf_padded = out[pos + 1]
+            pos += 2
+        levels = cfg.n_gru_layers
+        hidden_out = None
+        if family in _H_OUT_FAMILIES:
+            hidden_out = out[pos:pos + levels]
+            pos += levels
+        ctx_out = None
+        if family in _CTX_SAVE_FAMILIES:
+            ctx_out = ctx_bundle(out[pos:pos + 4 * levels], levels)
         t_fetched = time.monotonic()
         p_fetched = time.perf_counter() if sampled else 0.0
         for r in sampled:
@@ -1558,12 +2105,13 @@ class ServingEngine:
         self.metrics.observe_padding(bucket, real_px, dispatched_px)
         self.policy.note(bucket, real_px, dispatched_px)
         if self._mfu is not None:
-            rec = self.compiled_cost(bucket, batch=n, tier=tier)
+            rec = self.compiled_cost(bucket, batch=n, tier=tier,
+                                     family=family)
             if rec is not None and rec.flops:
                 self.metrics.dispatched_flops.inc(rec.flops)
                 self._mfu.note(rec.flops)
         self.metrics.note_batch_done()
-        self._note_warm(widx, bucket, n, cache_tier)
+        self._note_warm(widx, bucket, n, cache_tier, family)
         for i, (r, fp, wait) in enumerate(zip(batch, flows_padded, waits)):
             exemplar = r.trace.trace_id if r.trace is not None else None
             p_respond = time.perf_counter() if exemplar is not None else 0.0
@@ -1584,11 +2132,27 @@ class ServingEngine:
                 if self.quality is not None:
                     self.quality.observe(tier or "default", None, conf_mean,
                                          exemplar=exemplar)
+            # batch-axis-free copies the session can stack into any
+            # later dispatch
+            ctx_i = (None if ctx_out is None else tree_unflatten(
+                [_row(x, i) for x in tree_flatten(ctx_out)[0]],
+                tree_flatten(ctx_out)[1]))
+            hidden_i = (None if hidden_out is None else
+                        tuple(h[i].copy() for h in hidden_out))
             r.future.set_result(ServeResult(
                 flow=np.ascontiguousarray(flow), queue_wait_s=wait,
                 device_s=device_s, fetch_s=fetch_s, total_s=total,
                 batch_size=n, iters_used=iters_used, tier=tier,
                 requested_tier=r.requested_tier, attempts=r.attempts + 1,
+                session_id=r.session_id,
+                frame_index=r.payload.frame_index,
+                warm=family in _WARM_FAMILIES,
+                scene_cut=r.payload.scene_cut,
+                frame_delta=r.payload.frame_delta,
+                flow_low=(np.ascontiguousarray(flow_low_padded[i])
+                          if flow_low_padded is not None else None),
+                ctx_cached=family in _CTX_REUSE_FAMILIES, ctx=ctx_i,
+                hidden=hidden_i, warm_hidden=family in _H_IN_FAMILIES,
                 confidence=conf_i, confidence_mean=conf_mean,
                 trace_id=exemplar))
             if exemplar is not None:

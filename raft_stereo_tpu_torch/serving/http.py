@@ -121,11 +121,10 @@ admission control lives in ONE place and the transport just reports it.
 
 The JAX package's ``serving/http.py`` over the port's engine.  The routes
 of the features the port does not run yet answer as the JAX server
-answers with them off: ``/v1/stream…`` as with sessions off (400
-``sessions_disabled``), ``/admin/models`` and ``/admin/handoff`` as
-without a model store or sessions, ``?tier=xl`` and ``?tier=auto`` with
-400.  The handler threads never touch a device tensor: the engine's
-workers upload, replay and fetch.
+answers with them off: ``/admin/models`` and ``/admin/handoff`` as
+without a model store or a published handoff, ``?tier=xl`` and
+``?tier=auto`` with 400 (on a stream too).  The handler threads never
+touch a device tensor: the engine's workers upload, replay and fetch.
 """
 
 from __future__ import annotations
@@ -142,9 +141,10 @@ import numpy as np
 from raft_stereo_tpu_torch.serving.batcher import (DeadlineExceeded,
                                                    Overloaded,
                                                    RequestPoisoned)
-from raft_stereo_tpu_torch.serving.engine import (ModelUnknown,
-                                                  SessionsDisabled)
+from raft_stereo_tpu_torch.serving.engine import ModelUnknown
 from raft_stereo_tpu_torch.serving.service import StereoService
+from raft_stereo_tpu_torch.serving.sessions import (SessionExpired,
+                                                    SessionsDisabled)
 from raft_stereo_tpu_torch.telemetry.flight_recorder import FlightRecorder
 from raft_stereo_tpu_torch.telemetry.http import (handle_debug_get,
                                                   handle_debug_post,
@@ -527,6 +527,15 @@ def make_handler(service: StereoService,
                 self._reply_json(400, {"error": "sessions_disabled",
                                        "detail": str(e)})
                 return
+            except SessionExpired as e:
+                # The typed dead-session contract: 410 Gone — the client
+                # must open a fresh session (a silent cold restart would
+                # hide the stream break).
+                self._reply_json(410, {"error": "session_expired",
+                                       "session_id": e.session_id,
+                                       "reason": e.reason,
+                                       "detail": str(e)})
+                return
             except Overloaded as e:
                 # Typed overload contract: machine-readable body + the
                 # matching Retry-After, so clients back off instead of
@@ -634,10 +643,21 @@ def make_handler(service: StereoService,
                                                 "session id"})
                 return
             try:
-                service.close_session(session_id)   # no sessions: raises
+                stats = service.close_session(session_id)
             except SessionsDisabled as e:
                 self._reply_json(400, {"error": "sessions_disabled",
                                        "detail": str(e)})
+                return
+            except SessionExpired as e:
+                self._reply_json(410, {"error": "session_expired",
+                                       "session_id": e.session_id,
+                                       "reason": e.reason})
+                return
+            except KeyError:
+                self._reply_json(404, {"error": "unknown_session",
+                                       "session_id": session_id})
+                return
+            self._reply_json(200, {"status": "closed", **stats})
 
     return Handler
 

@@ -108,12 +108,14 @@ class _Convs:
         return h, w
 
 
-def _ops(cfg, hw: Tuple[int, int], batch: int, iters: int
-         ) -> Iterator[_Op]:
+def _ops(cfg, hw: Tuple[int, int], batch: int, iters: int,
+         context: bool = True) -> Iterator[_Op]:
     """Every conv and matmul of one forward, with its gradient flag and
-    part of the step."""
+    part of the step.  ``context=False``: the forward of a reused context
+    bundle (``ctx_init``), where cnet and the context convs do not run."""
     ops = []
     enc = _Convs(ops, "encoder")
+    cnet = _Convs(ops if context or cfg.shared_backbone else [], "encoder")
     n, nl, hd = batch, cfg.n_gru_layers, cfg.hidden_dims
     # the trunk(s): the shared backbone runs one trunk over both images
     if cfg.shared_backbone:
@@ -121,25 +123,26 @@ def _ops(cfg, hw: Tuple[int, int], batch: int, iters: int
         enc.residual(2 * n, 128, 128, h0, w0)
         enc.conv(2 * n, 128, cfg.fnet_dim, 3, h0, w0)
     else:
-        h0, w0 = enc.trunk(n, *hw, cfg.n_downsample)
+        h0, w0 = cnet.trunk(n, *hw, cfg.n_downsample)
         enc.trunk(2 * n, *hw, cfg.n_downsample)
         enc.conv(2 * n, 128, cfg.fnet_dim, 1, h0, w0)
     # cnet's heads (hidden and context) per level, then the context convs
     sizes = [(h0, w0)]
     for dims in (cfg.hidden_dims, cfg.context_dims):
-        enc.residual(n, 128, 128, h0, w0)
-        enc.conv(n, 128, dims[0], 3, h0, w0)
+        cnet.residual(n, 128, 128, h0, w0)
+        cnet.conv(n, 128, dims[0], 3, h0, w0)
     h, w = h0, w0
     for level in range(1, nl):
-        h, w = enc.residual(n, 128, 128, h, w, 2)
-        h, w = enc.residual(n, 128, 128, h, w)
+        h, w = cnet.residual(n, 128, 128, h, w, 2)
+        h, w = cnet.residual(n, 128, 128, h, w)
         sizes.append((h, w))
         for dims in (cfg.hidden_dims, cfg.context_dims):
             if level == 1:
-                enc.residual(n, 128, 128, h, w)
-            enc.conv(n, 128, dims[level], 3, h, w)
+                cnet.residual(n, 128, 128, h, w)
+            cnet.conv(n, 128, dims[level], 3, h, w)
     for level in range(nl):
-        enc.conv(n, cfg.context_dims[level], 3 * hd[level], 3, *sizes[level])
+        cnet.conv(n, cfg.context_dims[level], 3 * hd[level], 3,
+                  *sizes[level])
     # the correlation: the all-pairs volume once, or per iteration the
     # volume-free products at each level's pooled width
     d = cfg.fnet_dim
@@ -197,10 +200,12 @@ def _ops(cfg, hw: Tuple[int, int], batch: int, iters: int
         yield from upd.ops
 
 
-def forward_flops(cfg, hw: Tuple[int, int], batch: int, iters: int) -> int:
+def forward_flops(cfg, hw: Tuple[int, int], batch: int, iters: int,
+                  context: bool = True) -> int:
     """FLOPs of one test-mode forward of ``batch`` pairs padded to ``hw``
-    at ``iters`` iterations (the depth cap under early exit)."""
-    return sum(f for f, _, _ in _ops(cfg, hw, batch, iters))
+    at ``iters`` iterations (the depth cap under early exit);
+    ``context=False`` for a forward that reuses a context bundle."""
+    return sum(f for f, _, _ in _ops(cfg, hw, batch, iters, context))
 
 
 def train_step_flops(cfg, hw: Tuple[int, int], batch: int,

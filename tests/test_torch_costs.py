@@ -85,6 +85,26 @@ def test_forward_flops_equal_the_flop_counter(name, hw, batch, iters):
     assert counter.get_total_flops() == forward_flops(cfg, hw, batch, iters)
 
 
+@pytest.mark.parametrize("name", ["default", "default_alt", "one_level",
+                                  "downsample_1"])
+def test_forward_flops_of_a_reused_context_equal_the_flop_counter(name):
+    """A forward that takes a saved context bundle (``ctx_init``, the
+    serving engine's warm_ctx programs) runs no cnet and no context convs:
+    ``context=False`` counts what FlopCounterMode counts."""
+    cfg = CONFIGS[name]
+    torch.manual_seed(0)
+    model = RAFTStereo(cfg).eval()
+    hw = (32, 64) if name == "downsample_1" else (64, 96)
+    pair = _pair(1, hw)
+    with torch.no_grad():
+        bundle = model(*pair, iters=1, test_mode=True, return_ctx=True)[-1]
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), counter:
+        model(*pair, iters=2, test_mode=True, ctx_init=bundle)
+    got = forward_flops(cfg, hw, 1, 2, context=False)
+    assert counter.get_total_flops() == got < forward_flops(cfg, hw, 1, 2)
+
+
 @pytest.mark.parametrize("name", ["default", "realtime", "default_unfused",
                                   "no_lookup_saved", "default_reg",
                                   "default_alt", "realtime_reg",

@@ -1557,6 +1557,116 @@ def test_serving_batch_of_distinct_pairs_bit_equal_to_run_batch(
         assert {r.iters_used for r in rows} == {runner.last_iters_used}
 
 
+@pytest.mark.parametrize("hidden", [False, True])
+def test_session_chain_bit_equal_to_run_stream(rng, cuda_device, hidden):
+    """A session of 4 coherent frames on the interactive tier (the
+    realtime architecture at TINY widths, cap 3; random weights run to the
+    cap, so the keyframe guard makes warm and cold alternate): each
+    frame's replay of the state, warm (and with ``session_hidden`` the _h)
+    graphs equals the runner's ``run_stream`` over the same chain bit for
+    bit; two sessions' warm frames batch together, finite."""
+    from raft_stereo_tpu_torch.serving import ServeConfig, ServingEngine
+
+    cfg = RaftStereoConfig(**{**RaftStereoConfig.realtime().to_dict(),
+                              **TINY})
+    torch.manual_seed(0)
+    state = RAFTStereo(cfg).state_dict()
+    left, right = _serving_pair(rng, hw=(60, 100))
+    frames = [(np.ascontiguousarray(left[:, k:k + 90]),
+               np.ascontiguousarray(right[:, k:k + 90])) for k in range(4)]
+    runner = InferenceRunner(cfg, state, iters=3, exit_threshold_px=0.5,
+                             exit_min_iters=1)
+    want, prev, hid = [], None, None
+    for l, r in frames:
+        f = runner.run_stream(l, r, prev_flow_low=prev, prev_hidden=hid,
+                              carry_hidden=hidden)
+        want.append(f)
+        capped = f.warm and f.iters_used >= 3
+        prev = None if capped else f.flow_low
+        hid = None if capped else f.hidden
+    with ServingEngine(cfg, state, ServeConfig(
+            iters=3, tiers=("quality", "interactive:0.5:1"), sessions=True,
+            session_hidden=hidden, batch_sizes=(1, 2))) as eng:
+        for (l, r), w in zip(frames, want):
+            res = eng.infer_session("s", l, r, tier="interactive",
+                                    timeout=300)
+            assert res.warm == w.warm and res.iters_used == w.iters_used
+            assert np.array_equal(res.flow, w.flow)
+            assert np.array_equal(res.flow_low, w.flow_low)
+            if hidden:
+                assert all(np.array_equal(a, b)
+                           for a, b in zip(res.hidden, w.hidden))
+        # two sessions on the fixed-depth tier (no keyframe guard there):
+        # their second frames, warm, batch together
+        for sid, (l, r) in zip(("u", "v"), frames[:2]):
+            eng.infer_session(sid, l, r, tier="quality", timeout=300)
+        eng.queue.pause()
+        futs = [eng.submit_session(sid, *frames[2], tier="quality")
+                for sid in ("u", "v")]
+        eng.queue.resume()
+        rows = [f.result(timeout=300) for f in futs]
+        assert [x.batch_size for x in rows] == [2, 2]
+        assert all(x.warm and np.isfinite(x.flow).all() for x in rows)
+        assert eng.captures == len(eng.cached_programs())
+
+
+def test_session_ctx_cache_hit_replays_the_reuse_program(rng, cuda_device):
+    """The default architecture at TINY widths with the context cache: the
+    cold frame's bundle stays on the card and is the eager ``ctx="save"``
+    program's, a static scene's warm frames take it (the warm_ctx graph)
+    and give the eager ``ctx="reuse"`` program's answer and the eager
+    plain warm program's (which runs the context encoder again), bit for
+    bit.  Two sessions' cold frames staged together keep each its own
+    row's bundle, in storage of that row alone."""
+    from raft_stereo_tpu_torch.eval.runner import make_forward
+    from raft_stereo_tpu_torch.serving import ServeConfig, ServingEngine
+
+    cfg = RaftStereoConfig(**TINY)
+    torch.manual_seed(0)
+    state = RAFTStereo(cfg).state_dict()
+    left, right = _serving_pair(rng, hw=(64, 96))
+    with ServingEngine(cfg, state, ServeConfig(
+            iters=2, sessions=True, session_ctx_cache=True,
+            batch_sizes=(1, 2))) as eng:
+        cold = eng.infer_session("s", left, right, timeout=300)
+        bundle = eng.sessions.get("s").ctx
+        hits = [eng.infer_session("s", left, right, timeout=300)
+                for _ in range(2)]
+        model = eng.tier_model(None)
+        prev = [cold.flow_low, hits[0].flow_low]
+        eng.queue.pause()
+        futs = [eng.submit_session(sid, left, right) for sid in ("u", "v")]
+        eng.queue.resume()
+        assert [f.result(timeout=300).batch_size for f in futs] == [2, 2]
+        rows = [eng.sessions.get(sid).ctx for sid in ("u", "v")]
+    assert [h.ctx_cached for h in hits] == [True, True]
+    flat = lambda b: [t for level in b for part in level
+                      for t in (part if isinstance(part, tuple) else (part,))]
+    leaves = flat(bundle)
+    assert len(leaves) == 12 and all(t.is_cuda for t in leaves)
+    for row in rows:
+        assert all(t.untyped_storage().nbytes()
+                   == t.numel() * t.element_size() for t in flat(row))
+    dev = lambda t: (t[None] if isinstance(t, torch.Tensor)
+                     else torch.from_numpy(t[None]).cuda()
+                     if isinstance(t, np.ndarray)
+                     else tuple(dev(x) for x in t))
+    save = make_forward(model, 2, return_state=True, ctx="save")
+    reuse = make_forward(model, 2, warm_start=True, return_state=True,
+                         ctx="reuse")
+    plain = make_forward(model, 2, warm_start=True, return_state=True)
+    with torch.inference_mode():
+        up, low, want = save(dev(left), dev(right))
+        assert np.array_equal(cold.flow, up[0].cpu().numpy())
+        assert all(torch.equal(a, b[0]) for a, b in zip(leaves,
+                                                        flat(want)))
+        for h, p in zip(hits, prev):
+            for out in (reuse(dev(left), dev(right), dev(p), dev(bundle)),
+                        plain(dev(left), dev(right), dev(p))):
+                assert np.array_equal(h.flow, out[0][0].cpu().numpy())
+                assert np.array_equal(h.flow_low, out[1][0].cpu().numpy())
+
+
 def test_serving_captures_on_a_worker_thread_while_scraped(rng,
                                                            cuda_device):
     """Prewarm captures every program on the engine's worker thread while

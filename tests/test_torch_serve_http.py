@@ -10,6 +10,7 @@ pseudo-tiers).  Encodings are compared byte for byte on one disparity;
 answers are held to the engine's own (bit-equal: the same program).
 """
 
+import dataclasses
 import io
 import json
 import os
@@ -338,11 +339,6 @@ def test_cli_flags_and_defaults_equal_to_jax():
 
 
 REFUSED_FLAGS = [
-    (["--sessions"], "§D6b"), (["--session_ttl_s", "5"], "§D6b"),
-    (["--session_capacity", "3"], "§D6b"),
-    (["--scene_cut_threshold", "9"], "§D6b"),
-    (["--sessions", "--session_hidden"], "§D6b"), (["--ctx_cache_threshold", "1"],
-                                     "§D6b"),
     (["--handoff_linger_s", "0"], "§D6b"),
     (["--cascade", "--confidence"], "§D6b"),
     (["--cascade_threshold", "0.2"], "§D6b"),
@@ -371,6 +367,62 @@ def test_cli_refuses_deferred_flags(flags, tag, tmp_path):
         + flags)
     with pytest.raises(NotImplementedError, match=tag):
         serve_cli.build_service(args)
+
+
+# The session settings the port refused until it ran streaming sessions:
+# each ServeConfig field set away from its default (with the companions
+# its validation needs), and each CLI flag.  Each is accepted now and
+# builds the ServeConfig the JAX package builds.
+SESSION_SETTINGS = [
+    ("field", dict(sessions=True)),
+    ("field", dict(session_ttl_s=10.0)),
+    ("field", dict(session_capacity=8)),
+    ("field", dict(scene_cut_threshold=10.0)),
+    ("field", dict(session_reseed_on_cap=False)),
+    ("field", dict(sessions=True, session_hidden=True)),
+    ("field", dict(sessions=True, session_ctx_cache=True)),
+    ("field", dict(ctx_cache_threshold=1.0)),
+    ("flag", ["--sessions"]), ("flag", ["--session_ttl_s", "5"]),
+    ("flag", ["--session_capacity", "3"]),
+    ("flag", ["--scene_cut_threshold", "9"]),
+    ("flag", ["--sessions", "--session_hidden"]),
+    ("flag", ["--ctx_cache_threshold", "1"]),
+]
+
+
+def _config_fields(cfg):
+    """A ServeConfig's fields by name; ``chaos`` is each package's own
+    class (None in every case here)."""
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+@pytest.mark.parametrize(
+    "kind,setting", SESSION_SETTINGS,
+    ids=[(" ".join(v) if k == "flag" else ",".join(v))
+         for k, v in SESSION_SETTINGS])
+def test_session_setting_accepted_as_jax(kind, setting, tmp_path,
+                                         monkeypatch):
+    """Each session field and flag is accepted and gives the JAX
+    package's ``ServeConfig``: the field directly, the flag through each
+    CLI (JAX's ``build_service`` with its engine and checkpoint loader
+    stubbed, so only its ``ServeConfig`` is built)."""
+    if kind == "field":
+        got, want = ServeConfig(**setting), JaxServeConfig(**setting)
+    else:
+        argv = ["--restore_ckpt", str(tmp_path / "absent")] + setting
+        got = serve_cli.build_serve_config(
+            serve_cli.build_parser().parse_args(argv + ["--device", "cpu"]))
+        built = {}
+        monkeypatch.setattr(jserve_cli.common, "load_any_checkpoint",
+                            lambda *a, **k: (None, None))
+        monkeypatch.setattr(
+            "raft_stereo_tpu.serving.StereoService",
+            lambda cfg, variables, serve_cfg: built.setdefault(
+                "cfg", serve_cfg))
+        jserve_cli.build_service(jserve_cli.build_parser().parse_args(argv))
+        want = built["cfg"]
+        assert got.sessions == ("--sessions" in setting)
+    assert _config_fields(got) == _config_fields(want)
 
 
 @pytest.fixture(scope="module")

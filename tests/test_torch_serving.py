@@ -456,14 +456,6 @@ def test_serve_config_validation_matches_jax(kw):
 # A valid setting away from its default for every deferred field (with the
 # companions its validation needs).
 DEFERRED_SETTINGS = {
-    "sessions": dict(sessions=True),
-    "session_ttl_s": dict(session_ttl_s=10.0),
-    "session_capacity": dict(session_capacity=8),
-    "scene_cut_threshold": dict(scene_cut_threshold=10.0),
-    "session_reseed_on_cap": dict(session_reseed_on_cap=False),
-    "session_hidden": dict(sessions=True, session_hidden=True),
-    "session_ctx_cache": dict(sessions=True, session_ctx_cache=True),
-    "ctx_cache_threshold": dict(ctx_cache_threshold=1.0),
     "cascade": dict(cascade=True, confidence=True,
                     tiers=("quality", "interactive")),
     "cascade_draft": dict(cascade=True, confidence=True,
