@@ -192,8 +192,8 @@ fails the run when it fails:
    ``cli/evaluate.py --sequence --exit_threshold_px --stream_out`` over a
    written KITTI-shaped sequence of 8 pairs: finite cold and warm EPE, the
    passes' mean ``iters_used`` and FPS, the record with the card's name;
-28. the drift gates: ``tools/quant_drift --full`` (the hermetic
-   architecture trained 300 steps at 320x704, calibrated, the five
+28. the drift gates: ``tools/quant_drift --full --steps 100`` (the
+   hermetic architecture trained 100 steps at 320x704, calibrated, the five
    variants at 384x1248, bands 48/96/192, depths 7 and 32) and the bf16
    drift's trained leg (the realtime architecture at full width trained
    300 steps, three variants), every row printed with the gate, its
@@ -294,6 +294,43 @@ fails the run when it fails:
    before the realtime engines and before the default one; the kernels
    line carries them as ``launches_sessions``, and each kernel of the
    session path must have launched.
+32. selective checkpointing (``remat_save``, models/remat.py), run right
+   after phase 15: the default step at ``TrainConfig()`` under
+   ``("corr_lookup",)``, ``("corr_lookup", "gru_gates")`` and
+   ``("corr_lookup", "gru_gates", "motion_features")``, each one warm-up
+   and two timed steps: 22 lookups and 22 lookup backwards per step, and
+   132 gate calls, or 66 with the gates kept (the recompute launches no
+   gate kernel); finite losses, moved parameters; seconds per step and
+   the allocator's peak printed per policy.  Then at phase 15's 64x128
+   and 2 iterations under cuDNN's deterministic algorithms, each policy's
+   loss, metrics and every gradient leaf bit for bit the default
+   policy's.  The kernels line carries each policy's counts as
+   ``launches_remat``.
+33. the native decoders and the loader, run right after phase 29 on
+   phase 24's tree: the decoders build at first use with ``g++ -lpng``
+   (``raft_stereo_tpu_torch/native``), or the compiler's message is
+   printed; where built, a sample of the tree's PNGs and PFMs decoded
+   natively bitwise equal to the Python readers, then the realtime step
+   over ``StereoLoader``'s thread workers with the native and the Python
+   readers in turns (native, Python, native, Python; the Python readers
+   by ``native.available`` patched to False), where not built the
+   Python readers once: seconds per step and the loop's wait for each
+   batch, 22 alt kernels, 22 alt backwards and 132 gate calls per step,
+   finite losses.  The kernels line carries the last run's counts as
+   ``launches_loader``.
+34. the early-exit sweep as ``python -m
+   raft_stereo_tpu_torch.tools.early_exit_report`` runs it by default
+   (``run``): its brief training of the hermetic architecture (200 steps
+   at 64x96 on warped textured scenes, the scenes' disparity range), then
+   on those weights the four 60x90 benchmark trees, the fixed baseline at
+   16 iterations, the nine thresholds, the chosen point and the tier
+   latencies, every exit loop a WHILE-node graph; finite EPE, every
+   ``iters_used`` at most the cap, the mean ``iters_used`` not rising as
+   the threshold loosens, the gate kernel and the predicate launched and
+   the lookup kernel not (the ``reg`` backend samples with the plain
+   lookup); the record under ``_build/records/`` with the card's name and
+   power limit.  The kernels line carries the run's counts, training
+   included, as ``launches_sweep``.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (times
 by graph replay; a redesigned row names its design under ``design``; an
@@ -468,6 +505,20 @@ SESSION_SIZES = (1, 2, 4)
 SESSION_DEF_FRAMES = 4   # frames of a default-engine chain
 SESSION_TTL_S = 2.0      # the HTTP leg's engine: a 410 after it
 SCENE_CUT_DIM = 0.3      # a cut: the frame darkened to 30%
+# Phase 32: the remat policies of a default step (TrainConfig()), each one
+# warm-up and REMAT_TIMED_STEPS timed steps; gradients bit for bit at
+# phase 15's shape under cuDNN's deterministic algorithms.
+REMAT_POLICIES = (("corr_lookup",), ("corr_lookup", "gru_gates"),
+                  ("corr_lookup", "gru_gates", "motion_features"))
+REMAT_TIMED_STEPS = 2
+# phase 28's quant gate trains this many steps, not --full's 300: the
+# script's budget (its 300 took 217 s of a 1134 s run on a slow host)
+DRIFT_GATE_STEPS = 100
+# Phase 33: decoded files compared per kind, realtime steps per loader run
+# and the turns (native and Python readers alternating in one process).
+DECODE_SAMPLE = 8
+LOADER_STEPS = 5
+LOADER_TURNS = ("native", "python", "native", "python")
 SERVE_FAMILIES = ("serve_requests_admitted_total",
                   "serve_requests_completed_total", "serve_batches_total",
                   "serve_dispatches_total", "serve_queue_wait_seconds",
@@ -1571,7 +1622,7 @@ def phase_drift(card):
     zero_inference_counts()
     t0 = time.perf_counter()
     q = quant_drift.run(quant_drift.build_parser().parse_args(
-        ["--full", "--device", "cuda"]))
+        ["--full", "--steps", str(DRIFT_GATE_STEPS), "--device", "cuda"]))
     q_s = time.perf_counter() - t0
     q_counts = {k: v for k, v in launch_counts().items() if v}
     zero_inference_counts()
@@ -1614,6 +1665,298 @@ def phase_drift(card):
     if not ok:
         raise AssertionError("the drift gates failed their checks")
     return trained
+
+
+def training_counts():
+    """The training kernels' wrapper counts."""
+    from raft_stereo_tpu_torch.kernels.corr_alt import (
+        alt_lookup_bwd_fused, alt_lookup_fused)
+    from raft_stereo_tpu_torch.kernels.corr_lookup import (
+        lookup_pyramid_bwd_fused, lookup_pyramid_fused)
+    from raft_stereo_tpu_torch.kernels.gru_fused import gru_gates_fused
+    return {"lookup": lookup_pyramid_fused.launches,
+            "lookup_bwd": lookup_pyramid_bwd_fused.launches,
+            "gates": gru_gates_fused.launches,
+            "alt": alt_lookup_fused.launches,
+            "alt_bwd": alt_lookup_bwd_fused.launches}
+
+
+def zero_training_counts():
+    from raft_stereo_tpu_torch.kernels.corr_alt import (
+        alt_lookup_bwd_fused, alt_lookup_fused)
+    from raft_stereo_tpu_torch.kernels.corr_lookup import (
+        lookup_pyramid_bwd_fused, lookup_pyramid_fused)
+    from raft_stereo_tpu_torch.kernels.gru_fused import gru_gates_fused
+    for fn in (lookup_pyramid_fused, lookup_pyramid_bwd_fused,
+               gru_gates_fused, alt_lookup_fused, alt_lookup_bwd_fused):
+        fn.launches = 0
+
+
+def drive_training(model_cfg, what, timed_steps=TIMED_STEPS, dev="cuda"):
+    """``train()`` on the card: a warm-up step, then ``timed_steps``
+    steps with the launch counts zeroed before them; seconds per step
+    from a synchronised host clock at the end of every step
+    (``on_step``: the loop's prefetcher pulls batches ahead of the
+    step).  Returns (launches, median seconds per step, peak GiB)."""
+    from raft_stereo_tpu_torch.config import TrainConfig
+    from raft_stereo_tpu_torch.data.synthetic import SyntheticStereoLoader
+    from raft_stereo_tpu_torch.training.state import create_train_state
+    from raft_stereo_tpu_torch.training.train_loop import train
+
+    train_cfg = dataclasses.replace(
+        TrainConfig(), batch_size=TRAIN_B, image_size=TRAIN_HW,
+        train_iters=TRAIN_ITERS)
+    src = SyntheticStereoLoader(train_cfg.batch_size,
+                                train_cfg.image_size, seed=SEED)
+    batches = [src.batch(i) for i in range(1 + timed_steps)]
+    marks = [time.perf_counter()]
+    seen = []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        seen.append({k_: float(v) for k_, v in metrics.items()})
+        if step == 1:
+            zero_training_counts()
+            torch.cuda.reset_peak_memory_stats()
+
+    state = train(model_cfg, train_cfg, loader=batches, device=dev,
+                  checkpoint_dir=None, log_dir=None, on_step=on_step)
+    torch.cuda.synchronize()
+    launched = training_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = [marks[i + 1] - marks[i] for i in range(1, 1 + timed_steps)]
+    start = create_train_state(model_cfg, train_cfg, "cpu",
+                               seed=train_cfg.seed).model.state_dict()
+    moved = max(float((p.detach().cpu() - start[n]).abs().max())
+                for n, p in state.model.named_parameters())
+    log(f"{what} training step, batch {train_cfg.batch_size}, "
+        f"{train_cfg.image_size[0]}x{train_cfg.image_size[1]}, iters "
+        f"{train_cfg.train_iters}: seconds per step median "
+        f"{statistics.median(steps):.4f} (steps {[round(t, 4) for t in steps]}"
+        f"; warm-up {marks[1] - marks[0]:.3f}), peak memory {peak:.2f} "
+        f"GiB, launches over {timed_steps} steps {launched}; losses "
+        f"{[round(m['loss'], 4) for m in seen]}, grad_norms "
+        f"{[round(m['grad_norm'], 3) for m in seen]}; largest "
+        f"parameter move {moved:.3e}")
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in seen) or len(seen) != 1 + timed_steps:
+        raise AssertionError(f"{what}: bad metrics {seen}")
+    if not moved > 0:
+        raise AssertionError(f"{what}: the parameters did not move")
+    return launched, statistics.median(steps), peak
+
+
+def phase_remat(small_tc, small_batch, card):
+    """Phase 32 (module docstring).  Returns each policy's launches over
+    its timed steps, keyed by the policy's names joined with '+'."""
+    from raft_stereo_tpu_torch.config import RaftStereoConfig
+    from raft_stereo_tpu_torch.training.state import create_train_state
+    from raft_stereo_tpu_torch.training.step import train_step
+
+    t_phase = time.perf_counter()
+    launches, readings = {}, []
+    for saves in REMAT_POLICIES:
+        release()
+        launched, step_s, peak = drive_training(
+            RaftStereoConfig(remat_save=saves),
+            f"default, remat_save={saves},", REMAT_TIMED_STEPS)
+        gates = (3 if "gru_gates" in saves else 6) * TRAIN_ITERS
+        want = {"lookup": TRAIN_ITERS, "lookup_bwd": TRAIN_ITERS,
+                "gates": gates, "alt": 0, "alt_bwd": 0}
+        if launched != {k: REMAT_TIMED_STEPS * v for k, v in want.items()}:
+            raise AssertionError(f"remat_save={saves}: launches {launched}, "
+                                 f"want {want} per step")
+        launches["+".join(saves)] = launched
+        readings.append((saves, step_s, peak))
+    release()
+    weights = create_train_state(RaftStereoConfig(), small_tc, "cpu",
+                                 seed=SEED).model.state_dict()
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    steps = {}
+    try:
+        for saves in REMAT_POLICIES:
+            st = create_train_state(RaftStereoConfig(remat_save=saves),
+                                    small_tc, "cuda", state_dict=weights)
+            zero_training_counts()
+            st, m = train_step(st, small_batch, iters=2, loss_gamma=0.9,
+                               max_flow=700.0)
+            steps[saves] = ({k: float(v) for k, v in m.items()},
+                            {n: p.grad.detach().clone()
+                             for n, p in st.model.named_parameters()},
+                            training_counts()["gates"])
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    base_m, base_g, _ = steps[REMAT_POLICIES[0]]
+    unequal = {"+".join(saves): [n for n in base_g
+                                 if not torch.equal(g[n], base_g[n])]
+               for saves, (m, g, _) in steps.items()}
+    ok = (all(not v for v in unequal.values())
+          and all(m == base_m for m, _, _ in steps.values())
+          and [c for _, _, c in steps.values()] == [12, 6, 6])
+    for saves, step_s, peak in readings:
+        log(f"remat_save={saves}: default step (batch {TRAIN_B}, "
+            f"{TRAIN_HW[0]}x{TRAIN_HW[1]}, {TRAIN_ITERS} iterations) "
+            f"{step_s:.4f} s median of {REMAT_TIMED_STEPS}, allocator peak "
+            f"{peak:.2f} GiB on {card}")
+    log(f"remat policies at 64x128, 2 iterations, cuDNN deterministic: "
+        f"gate calls per step {[c for _, _, c in steps.values()]} (12, 6, "
+        f"6 wanted); every gradient leaf bit for bit equal to "
+        f"remat_save={REMAT_POLICIES[0]}'s: "
+        f"{ {k: not v for k, v in unequal.items()} } (unequal leaves "
+        f"{ {k: v[:3] for k, v in unequal.items() if v} }); phase 32 took "
+        f"{time.perf_counter() - t_phase:.1f} s: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("the remat policies failed their checks")
+    return launches
+
+
+def phase_loader(tree, make_loader, rt_run, rt_tc, counts, zero_counts,
+                 card):
+    """Phase 33 (module docstring).  Returns the wrappers' counts over the
+    last run's steps and the medians per way."""
+    import glob
+
+    from raft_stereo_tpu_torch import native
+    from raft_stereo_tpu_torch.data import frame_utils as fu
+
+    t_phase = time.perf_counter()
+    built = native.available()
+    things = os.path.join(tree, "FlyingThings3D")
+    if built:
+        pngs = sorted(glob.glob(os.path.join(
+            things, "frames_cleanpass", "TRAIN", "A", "*", "*",
+            "0006.png")))[:DECODE_SAMPLE]
+        pfms = sorted(glob.glob(os.path.join(
+            things, "disparity", "TRAIN", "A", "*", "left",
+            "0006.pfm")))[:DECODE_SAMPLE]
+        got = ([native.read_png_rgb8(f) for f in pngs]
+               + [native.read_pfm(f) for f in pfms])
+        real_available = native.available
+        native.available = lambda: False
+        try:
+            want = ([fu.read_image(f) for f in pngs]
+                    + [fu.read_pfm(f) for f in pfms])
+        finally:
+            native.available = real_available
+        same = [a.dtype == b.dtype and np.array_equal(a, b)
+                for a, b in zip(got, want)]
+        log(f"native decoders ({native.library_path().name}): "
+            f"{len(pngs)} PNGs and {len(pfms)} PFMs of the tree bitwise "
+            f"equal to the Python readers: {sum(same)} of {len(same)}")
+        if not (pngs and pfms and all(same)):
+            raise AssertionError("the native decoders differ from the "
+                                 "Python readers")
+        turns = LOADER_TURNS
+    else:
+        log(f"native decoders unavailable on this host, so the loader "
+            f"runs on the Python readers alone: "
+            f"{native.unavailable_reason()}")
+        turns = ("python",)
+    tc = dataclasses.replace(rt_tc, num_steps=LOADER_STEPS)
+    per_step = {"lookup": 0, "lookup_bwd": 0, "gates": 6 * TRAIN_ITERS,
+                "alt": TRAIN_ITERS, "alt_bwd": TRAIN_ITERS}
+    runs = {"native": [], "python": []}
+    real_available = native.available
+    for way in turns:
+        marks, waits, losses = [], [], []
+        if way == "python":
+            native.available = lambda: False
+        release()
+        zero_counts()
+        try:
+            rt_run(tc, make_loader(tc), None, losses=losses,
+                   step_marks=marks, waits=waits)
+        finally:
+            native.available = real_available
+        torch.cuda.synchronize()
+        launched = counts()
+        steps_s = [b - a for a, b in zip(marks, marks[1:])]
+        runs[way].append((steps_s, waits))
+        log(f"realtime step over StereoLoader (4 thread workers, batch "
+            f"{TRAIN_B}, {TRAIN_HW[0]}x{TRAIN_HW[1]}, {TRAIN_ITERS} "
+            f"iterations), {way} readers: seconds per step past the first "
+            f"{[round(t, 4) for t in steps_s]} (median "
+            f"{statistics.median(steps_s):.4f}), the loop's wait for each "
+            f"step's batch {[round(w, 4) for w in waits]} s, launches "
+            f"{launched}")
+        if not (launched == {k: LOADER_STEPS * v for k, v in per_step.items()}
+                and len(losses) == LOADER_STEPS
+                and all(math.isfinite(m["loss"]) for m in losses)):
+            raise AssertionError(f"the loader's realtime run ({way}) failed "
+                                 f"its checks: launches {launched}, losses "
+                                 f"{losses}")
+    medians = {way: statistics.median(t for steps_s, _ in r for t in steps_s)
+               for way, r in runs.items() if r}
+    waits = {way: statistics.median(w for _, ws in r for w in ws[1:])
+             for way, r in runs.items() if r}
+    log(f"loader, native against Python readers in turns {turns}: median "
+        f"seconds per step {medians}, median wait per step past the first "
+        f"{waits} on {card}; phase 33 took "
+        f"{time.perf_counter() - t_phase:.1f} s: ok")
+    return launched, medians
+
+
+def phase_sweep(card):
+    """Phase 34 (module docstring).  Returns the wrappers' counts over the
+    tool's run."""
+    from raft_stereo_tpu_torch.eval import runner as runner_mod
+    from raft_stereo_tpu_torch.eval.runner import launch_counts
+    from raft_stereo_tpu_torch.telemetry.events import default_path
+    from raft_stereo_tpu_torch.tools import early_exit_report as ee
+
+    release()
+    t_phase = time.perf_counter()
+    args = ee.build_parser().parse_args(["--device", "cuda"])
+    seen = []
+    real_note = runner_mod.InferenceRunner._note_iters_used
+
+    def note(self, iters_used):
+        used = real_note(self, iters_used)
+        seen.append((self.iters, used))
+        return used
+
+    runner_mod.InferenceRunner._note_iters_used = note
+    zero_inference_counts()
+    try:
+        rec = ee.run(args)
+    finally:
+        runner_mod.InferenceRunner._note_iters_used = real_note
+    launched = {k: v for k, v in launch_counts().items() if v}
+    rows = rec["sweep"]
+    means = [r["mean_iters_used"] for r in rows]
+    epes = list(rec["fixed_baseline_epe"].values()) + [
+        v for r in rows for v in r["epe"].values()]
+    ok = (len(rows) == len(args.thresholds.split(","))
+          and all(math.isfinite(e) for e in epes)
+          and bool(seen) and all(u <= it for it, u in seen)
+          and all(a <= b for a, b in zip(means, means[1:]))
+          and launched.get("gates", 0) > 0 and launched.get("exit", 0) > 0
+          and "lookup" not in launched)
+    for r in rows:
+        log(f"early-exit sweep row: {json.dumps(r)}")
+    for r in rec["tier_latency"]:
+        log(f"early-exit tier latency: {json.dumps(r)}")
+    log(f"early-exit sweep (the tool's {rec['train_steps']} training steps "
+        f"at {args.train_hw} in {rec['train_seconds']} s, cap {args.iters}, "
+        f"min_iters {args.min_iters}, {args.images} images per validator "
+        f"at {args.hw}): fixed baseline EPE {rec['fixed_baseline_epe']}; "
+        f"mean iters_used loosest first {means}; chosen "
+        f"{json.dumps(rec['chosen'])}; meets the 60% bar "
+        f"{rec['meets_60pct_bar']}; calibrated interactive p50 speed-up "
+        f"{rec['interactive_calibrated_p50_speedup_vs_fixed']}; "
+        f"{len(seen)} exit-loop calls, the deepest "
+        f"{max((u for _, u in seen), default=None)}; the wrappers' counts "
+        f"{launched}; record {rec['card']!r} -> "
+        f"{default_path(f'EARLY_EXIT_{args.tag}.json')}; phase 34 took "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}: "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("the early-exit sweep failed its checks")
+    return launched
 
 
 def post(url: str, body: bytes, ctype: str = "application/x-npz",
@@ -2586,6 +2929,11 @@ def phase_sessions(cfg, state, rt_cfg, rt_state, left, right, exit_thr,
 T_START = time.perf_counter()
 
 
+def mark(what: str) -> None:
+    """Log the script's elapsed seconds where ``what`` starts."""
+    log(f"{what} starts at {time.perf_counter() - T_START:.1f} s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "raft_stereo_tpu_torch")):
         print("chip_smoke.py needs the raft_stereo_tpu_torch package beside "
@@ -2611,7 +2959,8 @@ def main() -> int:
     from raft_stereo_tpu_torch.kernels.corr_lookup import (
         lookup_pyramid_bwd_fused, lookup_pyramid_bwd_xla,
         lookup_pyramid_fused, lookup_pyramid_xla)
-    from raft_stereo_tpu_torch.kernels.gru_fused import (TILES,
+    from raft_stereo_tpu_torch.kernels.gru_fused import (TILES, _launch,
+                                                         _gates_vjp,
                                                          _gates_reference,
                                                          _gates_twin, blocks,
                                                          gru_gates_fused,
@@ -2634,6 +2983,7 @@ def main() -> int:
     from raft_stereo_tpu_torch.training.train_loop import train
 
     # ------------------------------------------------------------ phase 1
+    mark("phase 1")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2726,6 +3076,7 @@ def main() -> int:
         return tot
 
     # ------------------------------------------------------------ phase 2
+    mark("phase 2")
     vol = torch.randn((1, ROWS, W1, W1), generator=gen).to(dev)
     pyramid = build_corr_pyramid(vol, LEVELS)
     w2s = [v.shape[-1] for v in pyramid]
@@ -2748,6 +3099,7 @@ def main() -> int:
         raise AssertionError(f"lookup kernel disagrees: {lookup_err}")
 
     # ------------------------------------------------------------ phase 3
+    mark("phase 3")
     gate_cases = {}
     gates_err = 0.0
     for name_, *shape, calls in GATE_ROWS_FP32 + tuple(
@@ -2782,6 +3134,7 @@ def main() -> int:
         raise AssertionError(f"gate kernel disagrees: {gates_err}")
 
     # ------------------------------------------------------------ phase 4
+    mark("phase 4")
     k = 2 * RADIUS + 1
     taps = torch.arange(-RADIUS, RADIUS + 1, device=dev, dtype=torch.float32)
     grids, sources = [], []
@@ -2819,6 +3172,34 @@ def main() -> int:
     log(f"lookup fp32 wrapper, host time per call: {bound_once:.1f} us with "
         f"its C entry bound once, {bound_per_call:.1f} us binding the entry "
         f"on every call (the earlier wrappers)")
+    class FunctionGates(torch.autograd.Function):
+        """The kernel behind a bare ``autograd.Function``, the port's gate
+        wrapper before ``raft_stereo::gru_gates``: its host cost beside
+        the operator's."""
+
+        @staticmethod
+        def forward(ctx, *inputs):
+            ctx.save_for_backward(*inputs)
+            return _launch(*inputs)
+
+        @staticmethod
+        def backward(ctx, *grads):
+            return _gates_vjp(ctx.saved_tensors, grads, ctx.needs_input_grad)
+
+    g_label, (g_args, _) = next(iter(gate_cases.items()))
+    g_grad = [t.detach().requires_grad_(True) for t in g_args]
+    with torch.no_grad():
+        op_us = host_us(lambda: gru_gates_fused(*g_args))
+        fn_us = host_us(lambda: FunctionGates.apply(*g_args))
+        bare_us = host_us(lambda: _launch(*g_args))
+    op_grad_us = host_us(lambda: gru_gates_fused(*g_grad))
+    fn_grad_us = host_us(lambda: FunctionGates.apply(*g_grad))
+    log(f"gate wrapper ({g_label}), host time per call: {op_us:.1f} us "
+        f"through the raft_stereo::gru_gates operator ({op_grad_us:.1f} us "
+        f"recording its autograd node), {fn_us:.1f} us through a bare "
+        f"autograd.Function ({fn_grad_us:.1f} us recording), {bare_us:.1f} "
+        f"us for the ctypes launch alone (packing cached in all)")
+    del g_grad
     tiny = torch.zeros(1, device=dev)
     floor_ms = graph_ms(tiny.zero_, tiny)
     log(f"graph replay of one one-element kernel: {floor_ms:.4f} ms (the "
@@ -2844,6 +3225,7 @@ def main() -> int:
     del gate_cases
 
     # ------------------------------------------------------------ phase 5
+    mark("phase 5")
     cfg = RaftStereoConfig()
     torch.manual_seed(SEED)
     model = RAFTStereo(cfg)
@@ -2877,6 +3259,7 @@ def main() -> int:
         f"[{flow.min():.2f}, {flow.max():.2f}]")
 
     # ------------------------------------------------------------ phase 6
+    mark("phase 6")
     small = rs.integers(0, 256, (128, 256, 3), dtype=np.uint8)
     small_r = np.roll(small, -4, axis=1)
     on_card = InferenceRunner(cfg, state, iters=2, device="cuda")(
@@ -2891,6 +3274,7 @@ def main() -> int:
         raise AssertionError(f"card and CPU disagree by {diff}")
 
     # ------------------------------------------------------------ phase 7
+    mark("phase 7")
     def alt_case(dtype):
         def feats(w):
             return torch.randn((1, RT_ROWS, w, RT_D), generator=gen).to(
@@ -2965,6 +3349,7 @@ def main() -> int:
         raise AssertionError(f"bf16 lookup kernel disagrees: {lookup16_err}")
 
     # ------------------------------------------------------------ phase 8
+    mark("phase 8")
     def alt_bound(f1, pyr, c, out_item, quantized):
         """(bound ms, what bounds it, bytes, operations) of one alt call:
         the features, centers and output moved once; the window dots
@@ -3070,6 +3455,7 @@ def main() -> int:
           l16_bound)
 
     # ------------------------------------------------------------ phase 9
+    mark("phase 9")
     rt_cfg = RaftStereoConfig.realtime()
     torch.manual_seed(SEED)
     rt_model = RAFTStereo(rt_cfg)
@@ -3122,6 +3508,7 @@ def main() -> int:
         raise AssertionError(f"deep realtime launches {deep_per_pair}")
 
     # ----------------------------------------------------------- phase 10
+    mark("phase 10")
     on_card = InferenceRunner(rt_cfg, rt_state, iters=2, device="cuda")(
         small, small_r)[0]
     card_fp32_corr = InferenceRunner(
@@ -3142,6 +3529,7 @@ def main() -> int:
         raise AssertionError("realtime card and CPU disagree")
 
     # ----------------------------------------------------------- phase 11
+    mark("phase 11")
     k = 2 * RADIUS + 1
     tb, th, tw = TRAIN_B, TRAIN_HW[0] // 4, TRAIN_HW[1] // 4
     tw2s = [tw // 2 ** i for i in range(LEVELS)]
@@ -3257,6 +3645,7 @@ def main() -> int:
     del gargs, gouts, ggrads, got, want
 
     # ----------------------------------------------------------- phase 12
+    mark("phase 12")
     # The library backwards are captured on the stream their forwards ran
     # on (graph_ms).
     lib_stream = torch.cuda.Stream()
@@ -3337,65 +3726,8 @@ def main() -> int:
         del lib_out
 
     # ------------------------------------------------------ phases 13, 14
-    def counts():
-        return {"lookup": lookup_pyramid_fused.launches,
-                "lookup_bwd": lookup_pyramid_bwd_fused.launches,
-                "gates": gru_gates_fused.launches,
-                "alt": alt_lookup_fused.launches,
-                "alt_bwd": alt_lookup_bwd_fused.launches}
-
-    def zero_counts():
-        for fn in (lookup_pyramid_fused, lookup_pyramid_bwd_fused,
-                   gru_gates_fused, alt_lookup_fused, alt_lookup_bwd_fused):
-            fn.launches = 0
-
-    def drive_training(model_cfg, what):
-        """``train()`` on the card: a warm-up step, then TIMED_STEPS steps
-        with the launch counts zeroed before them; seconds per step from
-        a synchronised host clock at the end of every step (``on_step``:
-        the loop's prefetcher pulls batches ahead of the step)."""
-        train_cfg = dataclasses.replace(
-            TrainConfig(), batch_size=TRAIN_B, image_size=TRAIN_HW,
-            train_iters=TRAIN_ITERS)
-        src = SyntheticStereoLoader(train_cfg.batch_size,
-                                    train_cfg.image_size, seed=SEED)
-        batches = [src.batch(i) for i in range(1 + TIMED_STEPS)]
-        marks = [time.perf_counter()]
-        seen = []
-
-        def on_step(step, metrics):
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-            seen.append({k_: float(v) for k_, v in metrics.items()})
-            if step == 1:
-                zero_counts()
-                torch.cuda.reset_peak_memory_stats()
-
-        state = train(model_cfg, train_cfg, loader=batches, device=dev,
-                      checkpoint_dir=None, log_dir=None, on_step=on_step)
-        torch.cuda.synchronize()
-        launched = counts()
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        steps = [marks[i + 1] - marks[i] for i in range(1, 1 + TIMED_STEPS)]
-        start = create_train_state(model_cfg, train_cfg, "cpu",
-                                   seed=train_cfg.seed).model.state_dict()
-        moved = max(float((p.detach().cpu() - start[n]).abs().max())
-                    for n, p in state.model.named_parameters())
-        log(f"{what} training step, batch {train_cfg.batch_size}, "
-            f"{train_cfg.image_size[0]}x{train_cfg.image_size[1]}, iters "
-            f"{train_cfg.train_iters}: seconds per step median "
-            f"{statistics.median(steps):.4f} (steps {[round(t, 4) for t in steps]}"
-            f"; warm-up {marks[1] - marks[0]:.3f}), peak memory {peak:.2f} "
-            f"GiB, launches over {TIMED_STEPS} steps {launched}; losses "
-            f"{[round(m['loss'], 4) for m in seen]}, grad_norms "
-            f"{[round(m['grad_norm'], 3) for m in seen]}; largest "
-            f"parameter move {moved:.3e}")
-        if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
-                   for m in seen) or len(seen) != 1 + TIMED_STEPS:
-            raise AssertionError(f"{what}: bad metrics {seen}")
-        if not moved > 0:
-            raise AssertionError(f"{what}: the parameters did not move")
-        return launched, statistics.median(steps), peak
+    mark("phases 13, 14")
+    counts, zero_counts = training_counts, zero_training_counts
 
     iters_t = TRAIN_ITERS
     train_launches, train_s, train_peak = drive_training(
@@ -3420,6 +3752,7 @@ def main() -> int:
         f"%")
 
     # ----------------------------------------------------------- phase 15
+    mark("phase 15")
     small_tc = TrainConfig(batch_size=1, train_iters=2, image_size=(64, 128))
     small_batch = SyntheticStereoLoader(1, (64, 128), seed=SEED).batch(0)
     step_launches = {}
@@ -3480,7 +3813,12 @@ def main() -> int:
         raise AssertionError("the realtime fp32 step must launch the fp32 "
                              "alt backward twice")
 
+    # ----------------------------------------------------------- phase 32
+    mark("phase 32")
+    remat_launches = phase_remat(small_tc, small_batch, card)
+
     # ----------------------------------------------------------- phase 16
+    mark("phase 16")
     def q_codes(x, q_dtype):
         """Per-tensor dynamic quantization in x's dtype, as the model does:
         (codes, scale)."""
@@ -3604,6 +3942,7 @@ def main() -> int:
             raise AssertionError(f"int8 GEMM conv disagrees ({what})")
 
     # ----------------------------------------------------------- phase 17
+    mark("phase 17")
     lq_time = {}
     for tag, levels_q in lq_cases.items():
         lsrc = [v.reshape(-1, 1, 1, v.shape[-1]) for v in levels_q]
@@ -3653,6 +3992,7 @@ def main() -> int:
             f1_q, pq, fields, 4, quantized=True)
 
     # ------------------------------------------------------ phases 18, 19
+    mark("phases 18, 19")
     def drive_quant(what, cfg_, state_, iters, quant, want, **kw):
         """The runner on the 375x1242 pair: the first pair with the counts
         zeroed before it and read after it (warm-up and capture; the
@@ -3738,6 +4078,7 @@ def main() -> int:
         "int8", want_def)
 
     # ----------------------------------------------------------- phase 20
+    mark("phase 20")
     captured = []
     real_make_corr_fn = raft_module.make_corr_fn
 
@@ -3792,6 +4133,7 @@ def main() -> int:
         raft_module.make_corr_fn = real_make_corr_fn
 
     # ----------------------------------------------------------- phase 21
+    mark("phase 21")
     for what, r_, cfg_, state_, secs_, eager_ in (
             ("default", runner, cfg, state, secs, eager_secs),
             ("realtime", rt_runner, rt_cfg, rt_state, rt_secs,
@@ -3830,6 +4172,7 @@ def main() -> int:
         f"{rt_peak_gib:.3f} GiB")
 
     # ----------------------------------------------------------- phase 22
+    mark("phase 22")
     captures = runner.captures
     for hw in KITTI_SHAPES:
         l_ = rs.integers(0, 256, hw + (3,), dtype=np.uint8)
@@ -3905,6 +4248,7 @@ def main() -> int:
         f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
 
     # ----------------------------------------------------------- phase 23
+    mark("phase 23")
     from raft_stereo_tpu_torch.cli import evaluate
     from raft_stereo_tpu_torch.eval.runner import launch_counts
     from raft_stereo_tpu_torch.eval.validate import WARMUP_IMAGES
@@ -3944,6 +4288,7 @@ def main() -> int:
         raise AssertionError("the evaluate path failed its checks")
 
     # ------------------------------------------------------- phases 24, 25
+    mark("phases 24, 25")
     import signal
 
     from raft_stereo_tpu_torch.cli import train as train_cli
@@ -3984,6 +4329,7 @@ def main() -> int:
             f"in {time.perf_counter() - t0:.1f} s")
 
         # ---------------------------------------------------- phase 24
+        mark("phase 24")
         snaps, marks, seen, val_runs, runners = [], [], [], [], []
 
         def on_step(step, metrics):
@@ -4095,6 +4441,7 @@ def main() -> int:
         p24_step_s = statistics.median(clean)
 
         # ---------------------------------------------------- phase 25
+        mark("phase 25")
         rt_cfg = RaftStereoConfig.realtime()
         rt_tc = dataclasses.replace(
             TrainConfig(), batch_size=TRAIN_B, image_size=TRAIN_HW,
@@ -4316,8 +4663,17 @@ def main() -> int:
             raise AssertionError("the device jitter failed its checks")
 
         # ---------------------------------------------------- phase 29
+        mark("phase 29")
         phase_telemetry(tree, p24_step_s, want_step, counts, zero_counts,
                         cfg, state, left, right, card)
+
+        # ---------------------------------------------------- phase 33
+        mark("phase 33")
+        loader_launches, _ = phase_loader(
+            tree, lambda tc: StereoLoader(build_training_mixture(tc, tree),
+                                          batch_size=tc.batch_size,
+                                          seed=tc.seed),
+            rt_run, rt_tc, counts, zero_counts, card)
     finally:
         loop_mod.train = real_train
         validate_mod.make_validation_fn = real_make_val
@@ -4326,6 +4682,7 @@ def main() -> int:
         shutil.rmtree(tree, ignore_errors=True)
 
     # ------------------------------------------------- phases 26, 27, 28
+    mark("phases 26, 27, 28")
     pred_t = predicate_row(card)
     exit_runs = {}
     for what, cfg_, state_, cap in (("default", cfg, state, MAIN_ITERS),
@@ -4338,14 +4695,20 @@ def main() -> int:
     trained = phase_drift(card)
 
     # ----------------------------------------------------------- phase 30
+    mark("phase 30")
     serve_a, serve_b, serve_per_dispatch = phase_serving(
         cfg, state, rt_cfg, rt_state, runner, left, right,
         exit_runs["realtime"]["threshold"])
 
     # ----------------------------------------------------------- phase 31
+    mark("phase 31")
     sess_rt, sess_def, sess_per_frame = phase_sessions(
         cfg, state, rt_cfg, rt_state, left, right,
         exit_runs["realtime"]["threshold"], trained)
+
+    # ----------------------------------------------------------- phase 34
+    mark("phase 34")
+    sweep_launches = phase_sweep(card)
 
     def row(name_, source, replaces, launched, err, t, design=None):
         """One entry of the kernels line; ``t`` holds graph-replay times."""
@@ -4365,6 +4728,9 @@ def main() -> int:
             out["design"] = design
         out["launches_serving"] = serving.get(name_, 0)
         out["launches_sessions"] = sessions.get(name_, 0)
+        out["launches_remat"] = remat.get(name_, {})
+        out["launches_loader"] = loader.get(name_, 0)
+        out["launches_sweep"] = sweep.get(name_, 0)
         return out
 
     # the wrappers' counts over phase 30's engines (set to 0 before each)
@@ -4387,6 +4753,19 @@ def main() -> int:
                         "corr_alt", "exit_predicate") if not sessions[k]]
     if idle:
         raise AssertionError(f"session path kernels never launched: {idle}")
+    # phase 32: each policy's counts over its timed default steps; phase
+    # 33: the last realtime run over the loader; phase 34: the sweep tool's
+    # run, its training included (the hermetic reg backend samples with the
+    # plain lookup, so #1 is not among them)
+    remat = {kernel: {policy: c[key] for policy, c in remat_launches.items()}
+             for kernel, key in (("corr_lookup", "lookup"),
+                                 ("corr_lookup_bwd", "lookup_bwd"),
+                                 ("gru_gates", "gates"))}
+    loader = {"corr_alt": loader_launches["alt"],
+              "corr_alt_bwd": loader_launches["alt_bwd"],
+              "gru_gates_bf16": loader_launches["gates"]}
+    sweep = {"gru_gates": sweep_launches.get("gates", 0),
+             "exit_predicate": sweep_launches.get("exit", 0)}
 
     lookup_t.update(bound=lookup_bound_ms, by="bytes")
     lbwd_t.update(bound=lbwd_bound, by="bytes")

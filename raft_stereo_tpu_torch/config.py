@@ -7,7 +7,8 @@ The port runs inference (at fixed depth or with the early exit of
 training of the default and the realtime architectures: every
 correlation backend, the shared backbone,
 the slow-fast GRU schedule, fp32 or bf16 (``mixed_precision``) with
-``corr_fp32``, ``remat_gru`` with the lookup saved or recomputed, and the
+``corr_fp32``, ``remat_gru`` with any ``remat_save`` the JAX package
+accepts (models/remat.py), and the
 quantized inference tier (``quant`` "int8" or "int8_mxu", the 1-byte
 correlation of ``quant_corr``, calibrated ``quant_corr_scales``).
 ``quant_corr_fp8`` stores the correlation as float8_e4m3fn on every
@@ -65,8 +66,13 @@ class RaftStereoConfig:
     # a CPU tensor); "off": the plain conv path.
     fused_gru: str = "auto"
     # Training-only knobs: inference never reads them.  ``remat_gru``
-    # recomputes each GRU iteration in the backward; ``remat_save`` may
-    # be ("corr_lookup",) (the lookup output is kept) or ().
+    # recomputes each GRU iteration in the backward; ``remat_save`` names
+    # what it keeps instead: any of "corr_lookup" (the lookup output),
+    # "gru_gates" (every ConvGRU level's pre-activations) and
+    # "motion_features" (the motion encoder's output), models/remat.py.
+    # "motion_features" also keeps the lookup and the encoder's inputs
+    # (the encoder runs outside the checkpoint): +5.2-5.8 GiB at
+    # TrainConfig() on an H100, where JAX keeps the output alone (~1.3 GB).
     remat_gru: bool = True
     remat_save: Tuple[str, ...] = ("corr_lookup",)
     banded_encoder: bool = False
@@ -206,9 +212,6 @@ def _unsupported(cfg: RaftStereoConfig):
         ("rows_gru", "§D7 parallel executors", cfg.rows_gru),
         ("corr_w2_shards > 1", "§D7 parallel executors",
          cfg.corr_w2_shards > 1),
-        ("remat_save other than ('corr_lookup',) or ()",
-         "§D2 training (selective checkpointing)",
-         cfg.remat_save not in (("corr_lookup",), ())),
     )
     return [(field, item) for field, item, on in checks if on]
 

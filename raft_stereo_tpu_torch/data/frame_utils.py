@@ -1,11 +1,16 @@
 """Stereo file-format readers and writers (host side, numpy).
 
-The JAX package's ``data/frame_utils.py``, Python readers only (its
-optional ``native`` decoders are not ported; ROADMAP §D4): PFM,
-Middlebury ``.flo``, the KITTI 16-bit PNG disparity, the Sintel packed
-3-channel disparity with its occlusion masks, FallingThings depth with
-the camera JSON, TartanAir ``.npy`` depth, and the Middlebury GT with its
-non-occluded mask.
+The JAX package's ``data/frame_utils.py``: PFM, Middlebury ``.flo``, the
+KITTI 16-bit PNG disparity, the Sintel packed 3-channel disparity with
+its occlusion masks, FallingThings depth with the camera JSON, TartanAir
+``.npy`` depth, and the Middlebury GT with its non-occluded mask.
+
+``read_image`` (PNGs), ``read_pfm`` and ``read_disp_kitti`` go through the
+port's native decoders (``raft_stereo_tpu_torch/native``, GIL-free in the
+loader's threads) when they are built, exactly where the JAX package's do;
+a file the native decoder refuses (a ``ValueError``: an odd sub-format)
+takes the Python path, which is also the path of every read when the
+decoders are unavailable, and the semantics' reference.
 
 Readers return a plain ``(H, W)`` / ``(H, W, C)`` array (dense GT) or a
 ``(disparity, valid)`` tuple (formats with a validity channel), float32
@@ -22,6 +27,8 @@ from typing import Tuple, Union
 import numpy as np
 from PIL import Image
 
+from raft_stereo_tpu_torch import native
+
 try:
     import cv2
     cv2.setNumThreads(0)  # loader threads must not oversubscribe
@@ -34,7 +41,14 @@ FLO_MAGIC = 202021.25
 
 # ------------------------------------------------------------------ images
 def read_image(path: str) -> np.ndarray:
-    """Read an image as (H, W, 3) uint8; grayscale is replicated to 3ch."""
+    """Read an image as (H, W, 3) uint8; grayscale is replicated to 3ch.
+    PNGs go through the native decoder when it is built; other formats,
+    and PNGs it refuses, through PIL."""
+    if native.available() and path.lower().endswith(".png"):
+        try:
+            return native.read_png_rgb8(path)
+        except ValueError:
+            pass  # an odd sub-format: PIL reads it
     img = np.asarray(Image.open(path))
     if img.dtype != np.uint8 and np.issubdtype(img.dtype, np.integer):
         # 16-bit sources keep the high byte.
@@ -47,7 +61,17 @@ def read_image(path: str) -> np.ndarray:
 # --------------------------------------------------------------------- PFM
 def read_pfm(path: str) -> np.ndarray:
     """Portable Float Map: 'Pf' (1ch) / 'PF' (3ch), rows stored bottom-up,
-    the scale's sign gives the byte order."""
+    the scale's sign gives the byte order.  The native decoder when it is
+    built; ``_read_pfm_py`` for what it refuses and without it."""
+    if native.available():
+        try:
+            return native.read_pfm(path)
+        except ValueError:
+            pass
+    return _read_pfm_py(path)
+
+
+def _read_pfm_py(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         header = f.readline().rstrip()
         if header == b"PF":
@@ -103,6 +127,12 @@ def write_flo(path: str, flow: np.ndarray) -> None:
 # ------------------------------------------------------------------- KITTI
 def read_disp_kitti(path: str) -> Tuple[np.ndarray, np.ndarray]:
     """KITTI 16-bit PNG: disparity*256, 0 = invalid."""
+    if native.available():
+        try:
+            disp = native.read_png_gray16(path).astype(np.float32) / 256.0
+            return disp, disp > 0.0
+        except ValueError:
+            pass
     if cv2 is not None:
         raw = cv2.imread(path, cv2.IMREAD_ANYDEPTH)
     else:  # pragma: no cover

@@ -178,6 +178,27 @@ def _process_make_batch(args):
     return batch, events
 
 
+_readers_logged = False
+
+
+def _log_readers() -> None:
+    """Say once per process, at WARNING, which readers decode the
+    samples: the native decoders (built on this first call) or the Python
+    readers, with the reason the native ones are unavailable."""
+    global _readers_logged
+    if _readers_logged:
+        return
+    _readers_logged = True
+    from raft_stereo_tpu_torch import native
+    if native.available():
+        log.warning("StereoLoader decodes PNG and PFM with the native "
+                    "decoders (%s)", native.library_path().name)
+    else:
+        log.warning("StereoLoader decodes with the Python readers: native "
+                    "decoders unavailable: %s",
+                    native.unavailable_reason())
+
+
 class StereoLoader:
     """Iterate device-ready batches forever (training) or one epoch (eval).
 
@@ -414,6 +435,7 @@ class StereoLoader:
             self._write_quarantine(snapshot)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        _log_readers()
         if self.num_workers <= 0:
             yield from self._iter_sync()
         elif self.worker_type == "process":

@@ -1,18 +1,28 @@
-"""Synthetic stereo scenes: the port's copy of the JAX package's test
-generators (``tests/golden_data.py``), for the drift gates.
+"""Synthetic stereo scenes and benchmark trees: the port's copy of the JAX
+package's test generators (``tests/golden_data.py``), for the drift gates
+and the early-exit sweep (tools/early_exit_report.py).
 
 ``textured_image`` (multi-octave smooth noise), ``disparity_field`` (a
 smooth ramp plus foreground rectangles, ~12 px), ``layered_scene``
 (geometrically exact layered stereo with true occlusions, in the
 benchmark disparity regime) and ``warp_right`` (the right view as a
-per-row warp of the left).  On one ``np.random.Generator`` state they give
-the originals' arrays bit for bit (tests/test_torch_drift.py).
+per-row warp of the left).  ``make_eth3d``, ``make_kitti``,
+``make_things`` and ``make_middlebury`` write
+miniature ETH3D / KITTI / FlyingThings3D / Middlebury trees in the layouts
+``data/datasets.py`` reads, each benchmark with its own invalid-pixel
+encoding (inf PFM values, zero KITTI PNG, the nocc mask).  On one
+``np.random.Generator`` state they give the originals' arrays and files bit
+for bit (tests/test_torch_drift.py, tests/test_torch_early_exit_report.py).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 from PIL import Image
+
+from raft_stereo_tpu_torch.data import frame_utils
 
 
 def textured_image(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
@@ -216,3 +226,98 @@ def warp_right(left: np.ndarray, disp: np.ndarray) -> np.ndarray:
         for c in range(3):
             out[yy, :, c] = np.interp(src, xs, left[yy, :, c].astype(np.float32))
     return out.astype(np.uint8)
+
+
+# ----------------------------------------------------- benchmark trees
+def _pair(rng, h, w):
+    left = textured_image(rng, h, w)
+    disp = disparity_field(rng, h, w)
+    right = warp_right(left, disp)
+    return left, right, disp
+
+
+def make_eth3d(root: str, rng, n: int = 2, hw=(60, 90)) -> None:
+    """two_view_training/<scene>/im{0,1}.png + two_view_training_gt/<scene>/
+    disp0GT.pfm; invalid pixels are +inf (reference: stereo_datasets.py:185-195,
+    valid = disp < 512 via the non-tuple reader path)."""
+    h, w = hw
+    for i in range(n):
+        scene = os.path.join(root, "two_view_training", f"scene_{i}")
+        gt = os.path.join(root, "two_view_training_gt", f"scene_{i}")
+        os.makedirs(scene), os.makedirs(gt)
+        left, right, disp = _pair(rng, h, w)
+        disp = disp.copy()
+        Image.fromarray(left).save(os.path.join(scene, "im0.png"))
+        Image.fromarray(right).save(os.path.join(scene, "im1.png"))
+        disp[rng.random((h, w)) < 0.05] = np.inf  # ETH3D invalid encoding
+        frame_utils.write_pfm(os.path.join(gt, "disp0GT.pfm"), disp)
+
+
+def make_kitti(root: str, rng, n: int = 2, hw=(60, 90)) -> None:
+    """training/{image_2,image_3,disp_occ_0}/<id>_10.png; sparse 16-bit
+    disparity/256, zero = invalid (reference: stereo_datasets.py:246-257,
+    frame_utils.py:124-127)."""
+    h, w = hw
+    for sub in ("image_2", "image_3", "disp_occ_0"):
+        os.makedirs(os.path.join(root, "training", sub))
+    for i in range(n):
+        left, right, disp = _pair(rng, h, w)
+        Image.fromarray(left).save(
+            os.path.join(root, "training", "image_2", f"{i:06d}_10.png"))
+        Image.fromarray(right).save(
+            os.path.join(root, "training", "image_3", f"{i:06d}_10.png"))
+        disp = disp.copy()
+        disp[rng.random((h, w)) < 0.4] = 0.0  # sparse: ~60% coverage
+        frame_utils.write_disp_kitti(
+            os.path.join(root, "training", "disp_occ_0", f"{i:06d}_10.png"),
+            disp)
+
+
+def make_things(root: str, rng, n: int = 2, hw=(60, 90),
+                dstype: str = "frames_finalpass") -> None:
+    """FlyingThings3D/<dstype>/TEST/A/<seq>/left|right/0006.png +
+    disparity pfm.  With fewer than 400 files the seed-1000 validation
+    subset selects ALL of them in both frameworks
+    (reference: stereo_datasets.py:145-149)."""
+    h, w = hw
+    for i in range(n):
+        seq = os.path.join(root, "FlyingThings3D", dstype, "TEST", "A",
+                           f"{i:04d}")
+        dseq = os.path.join(root, "FlyingThings3D", "disparity", "TEST", "A",
+                            f"{i:04d}", "left")
+        os.makedirs(os.path.join(seq, "left"))
+        os.makedirs(os.path.join(seq, "right"))
+        os.makedirs(dseq)
+        left, right, disp = _pair(rng, h, w)
+        Image.fromarray(left).save(os.path.join(seq, "left", "0006.png"))
+        Image.fromarray(right).save(os.path.join(seq, "right", "0006.png"))
+        frame_utils.write_pfm(os.path.join(dseq, "0006.pfm"), disp)
+
+
+def make_middlebury(root: str, rng, n: int = 2, hw=(60, 90),
+                    split: str = "H") -> None:
+    """MiddEval3/training<split>/<scene>/{im0,im1,disp0GT.pfm,mask0nocc.png}
+    + the trainingF listing and official_train.txt filter the reference
+    applies (reference: stereo_datasets.py:260-274); unknown GT is +inf,
+    nocc mask 255 = non-occluded, 128 = occluded."""
+    h, w = hw
+    names = []
+    for i in range(n):
+        name = f"Scene{i}"
+        names.append(name)
+        scene = os.path.join(root, "MiddEval3", f"training{split}", name)
+        os.makedirs(scene)
+        # the reference enumerates trainingF to list scene names
+        os.makedirs(os.path.join(root, "MiddEval3", "trainingF", name),
+                    exist_ok=True)
+        left, right, disp = _pair(rng, h, w)
+        mask = np.where(rng.random((h, w)) < 0.2, 128, 255).astype(np.uint8)
+        Image.fromarray(left).save(os.path.join(scene, "im0.png"))
+        Image.fromarray(right).save(os.path.join(scene, "im1.png"))
+        disp = disp.copy()
+        disp[rng.random((h, w)) < 0.04] = np.inf  # unknown GT
+        frame_utils.write_pfm(os.path.join(scene, "disp0GT.pfm"), disp)
+        Image.fromarray(mask).save(os.path.join(scene, "mask0nocc.png"))
+    with open(os.path.join(root, "MiddEval3", "official_train.txt"),
+              "w") as f:
+        f.write("\n".join(names) + "\n")

@@ -16,10 +16,12 @@ low planes), once per weight tensor and version (``_packed``), and the
 biases ride fp32, as the JAX op casts them.  The sigmoid/tanh/blend tail
 stays with the caller (models/update.py).
 
-The op is differentiable (``_Gates``, an ``autograd.Function``), as the
-JAX op's custom VJP is: the forward saves only its inputs, and the
-backward recomputes ``_gates_twin`` under ``torch.enable_grad()`` and
-returns its VJP.  The twin is the JAX ``_gates_reference`` (weights and
+The op is the dispatcher operator ``raft_stereo::gru_gates`` with its
+autograd registered, as the JAX op's custom VJP is: the forward saves only
+its inputs, and the backward recomputes ``_gates_twin`` under
+``torch.enable_grad()`` and returns its VJP.  As an operator it is a
+boundary a selective-checkpoint policy can name: ``remat_save``
+"gru_gates" keeps its outputs (models/remat.py).  The twin is the JAX ``_gates_reference`` (weights and
 biases cast to the activation dtype, conv and bias add in that dtype), not
 the kernel's rounding mirror ``_gates_reference`` of this module: in fp32
 the two are one function, in bf16 the JAX gradients are the twin's.  The
@@ -35,6 +37,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 from torch.utils.weak import WeakIdKeyDictionary
 
 from raft_stereo_tpu_torch.kernels import _build
@@ -223,21 +226,38 @@ def _launch(h, x, cr, wzr, bzr, wq, bq):
     return zr, qpre
 
 
-class _Gates(torch.autograd.Function):
-    """The gate op with the JAX op's VJP: saves its inputs only; the
-    backward is ``_gates_vjp``, on the CPU and on the card alike."""
+@torch.library.custom_op("raft_stereo::gru_gates", mutates_args=())
+def _gates_op(h: torch.Tensor, x: torch.Tensor, cr: torch.Tensor,
+              wzr: torch.Tensor, bzr: torch.Tensor, wq: torch.Tensor,
+              bq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    if h.device.type == "cpu":
+        return _gates_reference(h, x, cr, wzr, bzr, wq, bq)
+    return _launch(h, x, cr, wzr, bzr, wq, bq)
 
-    @staticmethod
-    def forward(ctx, h, x, cr, wzr, bzr, wq, bq):
-        ctx.save_for_backward(h, x, cr, wzr, bzr, wq, bq)
-        if h.device.type == "cpu":
-            return _gates_reference(h, x, cr, wzr, bzr, wq, bq)
-        return _launch(h, x, cr, wzr, bzr, wq, bq)
 
-    @staticmethod
-    def backward(ctx, gzr, gqpre):
-        return _gates_vjp(ctx.saved_tensors, (gzr, gqpre),
-                          ctx.needs_input_grad)
+@_gates_op.register_fake
+def _gates_op_fake(h, x, cr, wzr, bzr, wq, bq):
+    b, hh, ww, ch = h.shape
+    return (h.new_empty((b, hh, ww, 2 * ch)), h.new_empty((b, hh, ww, ch)))
+
+
+def _gates_op_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _gates_op_backward(ctx, gzr, gqpre):
+    return _gates_vjp(ctx.saved_tensors, (gzr, gqpre), ctx.needs_input_grad)
+
+
+_gates_op.register_autograd(_gates_op_backward, setup_context=_gates_op_setup)
+
+
+@register_flop_formula(torch.ops.raft_stereo.gru_gates)
+def _gates_op_flops(h, x, cr, wzr, *args, out_shape=None, **kwargs) -> int:
+    """The two gate convolutions' 2 x MACs (FlopCounterMode's count of the
+    plain version)."""
+    b, hh, ww, ch = h
+    return 2 * b * hh * ww * 9 * wzr[2] * 3 * ch
 
 
 def gru_gates_fused(h: torch.Tensor, x: torch.Tensor, cr: torch.Tensor,
@@ -254,10 +274,11 @@ def gru_gates_fused(h: torch.Tensor, x: torch.Tensor, cr: torch.Tensor,
     Returns (zr (B,H,W,2Ch), qpre (B,H,W,Ch)) in the activation dtype,
     differentiable in every input.  Counts its calls that launch the
     kernel in ``gru_gates_fused.launches``; a recompute under
-    ``torch.utils.checkpoint`` launches, and counts, again."""
+    ``torch.utils.checkpoint`` launches, and counts, again, unless the
+    checkpoint's policy keeps this operator's outputs."""
     if h.device.type != "cpu":
         _check(h, x, cr, wzr, bzr, wq, bq)
-    return _Gates.apply(h, x, cr, wzr, bzr, wq, bq)
+    return torch.ops.raft_stereo.gru_gates(h, x, cr, wzr, bzr, wq, bq)
 
 
 gru_gates_fused.launches = 0

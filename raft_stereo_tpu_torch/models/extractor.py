@@ -73,9 +73,11 @@ class Conv2d(nn.Conv2d):
         return y + self.bias.to(x.dtype)[:, None, None]
 
 
-def conv(cin: int, cout: int, kernel: int, stride: int = 1) -> Conv2d:
-    """Conv with kaiming-normal(fan_out) weights and zero bias."""
-    c = Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2)
+def conv(cin: int, cout: int, kernel: int, stride: int = 1,
+         cls: type = Conv2d) -> Conv2d:
+    """Conv (``cls``, a ``Conv2d``) with kaiming-normal(fan_out) weights
+    and zero bias."""
+    c = cls(cin, cout, kernel, stride=stride, padding=kernel // 2)
     nn.init.kaiming_normal_(c.weight, mode="fan_out", nonlinearity="relu")
     nn.init.zeros_(c.bias)
     return c

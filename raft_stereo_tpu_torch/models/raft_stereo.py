@@ -24,7 +24,9 @@ iteration.  With ``remat_gru`` the iteration after the lookup runs under
 ``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes it;
 the lookup runs outside the checkpointed region and its output is saved,
 as the JAX ``remat_save=("corr_lookup",)`` policy saves it
-(``remat_save=()`` puts the lookup inside and recomputes it too).
+(``remat_save=()`` puts the lookup inside and recomputes it too);
+``"gru_gates"`` and ``"motion_features"`` keep the gate pre-activations
+and the motion encoder's output as well (models/remat.py).
 
 Under ``mixed_precision`` the images are cast to bf16 after normalization
 and the network runs in bf16, at the JAX package's cast points: the
@@ -56,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from raft_stereo_tpu_torch.config import RaftStereoConfig
 from raft_stereo_tpu_torch.kernels.graph_loop import exit_continues, f32
+from raft_stereo_tpu_torch.models import remat
 from raft_stereo_tpu_torch.models.corr import make_corr_fn
 from raft_stereo_tpu_torch.models.extractor import (BasicEncoder, Conv2d,
                                                     MultiBasicEncoder,
@@ -312,29 +315,40 @@ class RAFTStereo(nn.Module):
         def lookup(disp):
             return corr_fn(grid_x + disp).to(dtype).permute(0, 3, 1, 2)
 
-        def update(net, disp, corr):
-            """One iteration after the lookup: (net, disp, mask)."""
+        def flow2(disp):
+            """The motion encoder's 2-channel flow input (y zero)."""
+            return torch.stack([disp, torch.zeros_like(disp)],
+                               dim=1).to(dtype)
+
+        def update(net, disp, corr, motion=None):
+            """One iteration after the lookup (and the motion encoder,
+            where ``motion`` is given): (net, disp, mask)."""
             n = cfg.n_gru_layers
-            flow2 = torch.stack([disp, torch.zeros_like(disp)],
-                                dim=1).to(dtype)
             if n == 3 and cfg.slow_fast_gru:
                 net = self.update_block(net, context, iter_fine=False,
                                         iter_mid=False, update=False)
             if n >= 2 and cfg.slow_fast_gru:
                 net = self.update_block(net, context, iter_fine=False,
                                         iter_coarse=(n == 3), update=False)
+            flow = None if motion is not None else flow2(disp)
             net, mask, delta = self.update_block(
-                net, context, corr, flow2, iter_mid=(n >= 2),
-                iter_coarse=(n == 3))
+                net, context, corr, flow, iter_mid=(n >= 2),
+                iter_coarse=(n == 3), motion=motion)
             # epipolar projection: only the x component updates
             return net, disp + delta[:, 0].float(), mask
 
-        def step(net, disp, corr=None):
+        def step(net, disp, corr=None, motion=None):
             with annotate("gru_iter"):
-                return update(list(net), disp,
-                              lookup(disp) if corr is None else corr)
+                if motion is None and corr is None:
+                    corr = lookup(disp)
+                return update(list(net), disp, corr, motion)
+
+        def motion_features(disp, corr):
+            """The motion encoder's output for this iteration's lookup."""
+            return self.update_block.encoder(flow2(disp), corr)
 
         step.lookup = lookup
+        step.motion = motion_features
         return step, net, disp, ctx_out
 
     def exit_bounds(self, iters: int):
@@ -378,26 +392,34 @@ class RAFTStereo(nn.Module):
         return (out[0], out[1], int(out[2])) + out[3:] + tail(carry["net"])
 
     def _train_loop(self, step, net, disp, iters):
+        """Every iteration's upsampled flow; under ``remat_gru`` each
+        iteration after its lookup (and its motion encoder, where kept) is
+        checkpointed with the policy of ``remat_save`` (models/remat.py)."""
         cfg = self.config
-        save_lookup = "corr_lookup" in cfg.remat_save
+        save_motion = "motion_features" in cfg.remat_save
+        save_lookup = "corr_lookup" in cfg.remat_save or save_motion
+        policy = remat.context_fn(cfg.remat_save)
 
-        def train_iteration(disp, corr, *net):
+        def train_iteration(disp, corr, motion, *net):
             # named in profiler traces, where the remat recompute shows as
             # this range inside the backward
             with record_function("raft::gru_iteration"):
-                net, disp, mask = step(net, disp, corr)
+                net, disp, mask = step(net, disp, corr, motion)
                 return (*net, disp, self._upsample(disp, mask))
 
         flow_ups = []
         for _ in range(iters):
             disp = disp.detach()
             corr = step.lookup(disp) if save_lookup else None
+            motion = step.motion(disp, corr) if save_motion else None
             if cfg.remat_gru and torch.is_grad_enabled():
+                kwargs = {} if policy is None else {"context_fn": policy}
                 *net, disp, flow_up = checkpoint(
-                    train_iteration, disp, corr, *net, use_reentrant=False,
-                    preserve_rng_state=False)
+                    train_iteration, disp, corr, motion, *net,
+                    use_reentrant=False, preserve_rng_state=False, **kwargs)
             else:
-                *net, disp, flow_up = train_iteration(disp, corr, *net)
+                *net, disp, flow_up = train_iteration(disp, corr, motion,
+                                                      *net)
             flow_ups.append(flow_up)
         return torch.stack(flow_ups)
 

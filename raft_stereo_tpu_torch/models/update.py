@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from raft_stereo_tpu_torch.config import RaftStereoConfig
 from raft_stereo_tpu_torch.kernels.gru_fused import gru_gates_fused
 from raft_stereo_tpu_torch.models.extractor import conv
+from raft_stereo_tpu_torch.models.remat import GateConv2d
 from raft_stereo_tpu_torch.ops.pooling import pool2x
 from raft_stereo_tpu_torch.ops.resize import interp_like
 
@@ -50,14 +51,19 @@ class ConvGRU(nn.Module):
     ``convzr`` is one conv producing z|r.  With ``fused`` "auto" or "on"
     the gate pre-activations come from kernels/gru_fused.py (the CUDA
     kernel on a CUDA tensor, its plain version on a CPU tensor) and only
-    the sigmoid/tanh/blend tail runs here; "off" runs the plain convs."""
+    the sigmoid/tanh/blend tail runs here; "off" runs the plain convs.
+    Either way the pre-activations come from dispatcher operators that a
+    checkpoint policy can keep (``remat_save`` "gru_gates",
+    models/remat.py)."""
 
     def __init__(self, hidden_dim: int, input_dim: int, fused: str = "off"):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.fused = fused
-        self.convzr = conv(hidden_dim + input_dim, 2 * hidden_dim, 3)
-        self.convq = conv(hidden_dim + input_dim, hidden_dim, 3)
+        self.convzr = conv(hidden_dim + input_dim, 2 * hidden_dim, 3,
+                           cls=GateConv2d)
+        self.convq = conv(hidden_dim + input_dim, hidden_dim, 3,
+                          cls=GateConv2d)
 
     def forward(self, h: torch.Tensor, context: Sequence[torch.Tensor],
                 *x_list: torch.Tensor) -> torch.Tensor:
@@ -120,11 +126,14 @@ class BasicMultiUpdateBlock(nn.Module):
                 corr: Optional[torch.Tensor] = None,
                 flow: Optional[torch.Tensor] = None,
                 iter_fine: bool = True, iter_mid: bool = True,
-                iter_coarse: bool = True, update: bool = True):
+                iter_coarse: bool = True, update: bool = True,
+                motion: Optional[torch.Tensor] = None):
         """One update, coarse to fine (gru32 -> gru16 -> gru08), of the
         levels whose flag is set; ``iter_fine`` needs ``corr`` and
-        ``flow``.  Returns (net, mask, delta_flow), or only net when
-        ``update`` is False (the slow-fast schedule's coarse-only steps)."""
+        ``flow``, or the motion encoder's output ``motion`` computed
+        before (``remat_save`` "motion_features").  Returns (net, mask,
+        delta_flow), or only net when ``update`` is False (the slow-fast
+        schedule's coarse-only steps)."""
         n = self.n
         net = list(net)
         if iter_coarse and n == 3:
@@ -133,7 +142,8 @@ class BasicMultiUpdateBlock(nn.Module):
             extra = [interp_like(net[2], net[1])] if n > 2 else []
             net[1] = self.gru16(net[1], context[1], pool2x(net[0]), *extra)
         if iter_fine:
-            motion = self.encoder(flow, corr)
+            if motion is None:
+                motion = self.encoder(flow, corr)
             extra = [interp_like(net[1], net[0])] if n > 1 else []
             net[0] = self.gru08(net[0], context[0], motion, *extra)
         if not update:

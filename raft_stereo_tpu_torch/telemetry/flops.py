@@ -32,8 +32,10 @@ A training step counts the forward over every iteration, the backward
 its input gradient where the input needs one, the images and the
 detached flow do not), the ConvGRU gates' backward (the gate op re-runs
 its plain twin before differentiating it), and, under ``remat_gru``, the
-recompute of every iteration (after its lookup where ``remat_save``
-keeps the lookup).
+recompute of every iteration less what ``remat_save`` keeps: the lookup
+(``corr_lookup``, and ``motion_features``, which runs the lookup and the
+motion encoder before the checkpointed region), the gate convs
+(``gru_gates``), the motion encoder (``motion_features``).
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ from typing import Iterator, Tuple
 
 # (flops of the op, the multiple of them its backward does, part of the
 # step) where the part is "encoder" (once per pair), "lookup" (per
-# iteration, before the checkpointed update) or "update" (the rest of an
+# iteration, before the checkpointed update), "gates" (the ConvGRU gate
+# convs), "motion" (the motion encoder) or "update" (the rest of an
 # iteration)
 _Op = Tuple[int, int, str]
 
@@ -154,12 +157,14 @@ def _ops(cfg, hw: Tuple[int, int], batch: int, iters: int,
             w2 //= 2
     else:
         ops.append((matmul_flops(n * h0, w0, d, w0), 2, "encoder"))
-    # one iteration of the update block
+    # one iteration of the update block: the gate convs ("gates") and the
+    # motion encoder ("motion") apart, since remat_save may keep them
     upd = _Convs([], "update")
     # the gate op's backward re-runs its plain twin, then takes both
     # gradients of each conv
-    gates = _Convs(upd.ops, "update",
+    gates = _Convs(upd.ops, "gates",
                    2 if cfg.fused_gru == "off" else 3)
+    motion = _Convs(upd.ops, "motion")
 
     def gru(level, cin_x):
         cin = hd[level] + cin_x
@@ -182,11 +187,11 @@ def _ops(cfg, hw: Tuple[int, int], batch: int, iters: int,
             gru16()
     gru32()
     gru16()
-    upd.conv(n, cfg.corr_channels, 64, 1, h0, w0)
-    upd.conv(n, 64, 64, 3, h0, w0)
-    upd.conv(n, 2, 64, 7, h0, w0, grad_input=False)   # the detached flow
-    upd.conv(n, 64, 64, 3, h0, w0)
-    upd.conv(n, 128, 126, 3, h0, w0)
+    motion.conv(n, cfg.corr_channels, 64, 1, h0, w0)
+    motion.conv(n, 64, 64, 3, h0, w0)
+    motion.conv(n, 2, 64, 7, h0, w0, grad_input=False)   # the detached flow
+    motion.conv(n, 64, 64, 3, h0, w0)
+    motion.conv(n, 128, 126, 3, h0, w0)
     if nl > 1:
         upd.resize(n, hd[1], sizes[1], sizes[0])
     gru(0, 128 + (hd[1] if nl > 1 else 0))
@@ -211,8 +216,15 @@ def forward_flops(cfg, hw: Tuple[int, int], batch: int, iters: int,
 def train_step_flops(cfg, hw: Tuple[int, int], batch: int,
                      iters: int) -> int:
     """FLOPs of one training step (module docstring) at crop ``hw``."""
-    remat = {"update"} if cfg.remat_gru else set()
-    if cfg.remat_gru and "corr_lookup" not in cfg.remat_save:
-        remat.add("lookup")
+    remat = set()
+    if cfg.remat_gru:
+        saves = set(cfg.remat_save)
+        remat.add("update")
+        if "gru_gates" not in saves:
+            remat.add("gates")
+        if "motion_features" not in saves:
+            remat.add("motion")
+            if "corr_lookup" not in saves:
+                remat.add("lookup")
     return sum(f * (1 + backward + (part in remat))
                for f, backward, part in _ops(cfg, hw, batch, iters))

@@ -26,7 +26,8 @@ QUANT_DRIFT_torch.json`` (git-ignored), and the scales beside it; the JAX
 package's ``QUANT_DRIFT_r22.json`` and ``QUANT_SCALES_r22.json`` are never
 written.  The defaults are CPU-sized (tiny architecture, 80x256, two
 bands); ``--full`` is the KITTI-class geometry (384x1248, bands
-48/96/192, depths 7 and 32, 300 training steps at 320x704).  Runs on the
+48/96/192, depths 7 and 32, 300 training steps at 320x704; ``--steps``
+sets another count).  Runs on the
 card unless ``--device cpu``.
 """
 
@@ -48,9 +49,10 @@ DEFAULT_SCALES = "QUANT_SCALES_torch.json"
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--steps", type=int, default=180,
-                    help="brief-training steps (0 = seeded init only: not "
-                         "a meaningful drift setting, for tests)")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="brief-training steps (default 180, 300 under "
+                         "--full; 0 = seeded init only: not a meaningful "
+                         "drift setting, for tests)")
     ap.add_argument("--train_hw", default="40x112")
     ap.add_argument("--train_iters", type=int, default=4)
     ap.add_argument("--train_disp_scale", type=float, default=4.0,
@@ -119,7 +121,9 @@ def run(args) -> dict:
     if args.full:
         args.hw, args.bands, args.iters = "384x1248", "48,96,192", "7,32"
         args.train_hw, args.train_iters = "320x704", 12
-        args.steps, args.train_disp_scale = 300, 6.0
+        args.train_disp_scale = 6.0
+    if args.steps is None:
+        args.steps = 300 if args.full else 180
     device = resolve_device(args.device)
     hw = tuple(int(x) for x in args.hw.split("x"))
     train_hw = tuple(int(x) for x in args.train_hw.split("x"))

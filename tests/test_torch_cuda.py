@@ -1719,3 +1719,119 @@ def test_serving_captures_on_a_worker_thread_while_scraped(rng,
         stop.set()
         server.shutdown()
         eng.close()
+
+
+# ------------------------------------------------------- remat policies
+@pytest.mark.parametrize("saves", [("corr_lookup", "gru_gates"),
+                                   ("gru_gates",),
+                                   ("corr_lookup", "motion_features"),
+                                   ("corr_lookup", "gru_gates",
+                                    "motion_features")])
+@pytest.mark.parametrize("arch", ["default", "realtime"])
+def test_remat_policy_launches_and_gradients_on_card(cuda_device, saves,
+                                                     arch):
+    """A TINY step under each new ``remat_save`` on the card, under cuDNN's
+    deterministic algorithms: the gate kernel launches 3 per iteration
+    (6 without "gru_gates": the recompute), the lookup or alt kernel once
+    per iteration where it runs before the region (twice where the region
+    recomputes it) and its backward once, and every gradient leaf, the
+    loss and grad_norm bit for bit the default policy's."""
+    import dataclasses
+
+    base = (dataclasses.replace(RaftStereoConfig.realtime(), **TINY)
+            if arch == "realtime" else RaftStereoConfig(**TINY))
+    torch.manual_seed(0)
+    weights = RAFTStereo(base).state_dict()
+    tc = TrainConfig(batch_size=1, train_iters=2, image_size=(64, 96),
+                     num_steps=1000)
+    batch = SyntheticStereoLoader(1, (64, 96), seed=2).batch(0)
+    wrappers = (gru_gates_fused, lookup_pyramid_fused,
+                lookup_pyramid_bwd_fused, alt_lookup_fused,
+                alt_lookup_bwd_fused)
+
+    def step(cfg):
+        state = create_train_state(cfg, tc, "cuda", state_dict=weights)
+        before = [w.launches for w in wrappers]
+        state, metrics = train_step(state, batch, iters=2, loss_gamma=0.9,
+                                    max_flow=700.0)
+        torch.cuda.synchronize()
+        return ({k: float(v) for k, v in metrics.items()},
+                {n: p.grad.cpu() for n, p in state.model.named_parameters()},
+                [w.launches - b for w, b in zip(wrappers, before)])
+
+    with torch.backends.cudnn.flags(deterministic=True, benchmark=False):
+        want_m, want_g, want_n = step(base)
+        got_m, got_g, got_n = step(dataclasses.replace(base,
+                                                       remat_save=saves))
+    def lookups(kept):
+        fwd = 2 if kept else 4          # recomputed inside the region
+        return (0, 0, fwd, 2) if arch == "realtime" else (fwd, 2, 0, 0)
+
+    assert want_n == [12, *lookups(True)]
+    assert got_n == [6 if "gru_gates" in saves else 12,
+                     *lookups("corr_lookup" in saves
+                              or "motion_features" in saves)]
+    assert got_m == want_m
+    assert [n for n in want_g if not torch.equal(got_g[n], want_g[n])] == []
+
+
+# ------------------------------------------------------ native decoders
+def test_native_decoders_in_a_thread_beside_a_card_step(cuda_device,
+                                                        tmp_path):
+    """The port's native decoders on a loader-like thread while a TINY
+    training step runs on the card: every decode bitwise the Python
+    readers', the step's loss finite.  Skips where the host cannot build
+    them (no libpng), with the compiler's reason."""
+    import threading
+
+    from PIL import Image
+
+    from raft_stereo_tpu_torch import native
+    from raft_stereo_tpu_torch.data import frame_utils as fu
+
+    if not native.available():
+        pytest.skip(f"native decoders unavailable on this host: "
+                    f"{native.unavailable_reason()}")
+    rng = np.random.default_rng(0)
+    files = []
+    for i in range(6):
+        png = str(tmp_path / f"{i}.png")
+        Image.fromarray(rng.integers(0, 256, (120, 200, 3),
+                                     dtype=np.uint8)).save(png)
+        pfm = str(tmp_path / f"{i}.pfm")
+        fu.write_pfm(pfm, rng.normal(size=(120, 200)).astype(np.float32))
+        files += [png, pfm]
+    decoded, errors, stop = [], [], threading.Event()
+
+    def decode():
+        try:
+            while not stop.is_set():
+                for f in files:
+                    decoded.append((f, native.read_pfm(f)
+                                    if f.endswith(".pfm")
+                                    else native.read_png_rgb8(f)))
+        except Exception as e:  # noqa: BLE001
+            errors.append(repr(e))
+
+    torch.manual_seed(0)
+    cfg = RaftStereoConfig(**TINY)
+    tc = TrainConfig(batch_size=1, train_iters=2, image_size=(64, 96),
+                     num_steps=1000)
+    state = create_train_state(cfg, tc, "cuda",
+                               state_dict=RAFTStereo(cfg).state_dict())
+    batch = SyntheticStereoLoader(1, (64, 96), seed=2).batch(0)
+    t = threading.Thread(target=decode, daemon=True)
+    t.start()
+    try:
+        state, metrics = train_step(state, batch, iters=2, loss_gamma=0.9,
+                                    max_flow=700.0)
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert errors == [] and decoded
+    assert np.isfinite(float(metrics["loss"]))
+    want = {f: (fu._read_pfm_py(f) if f.endswith(".pfm")
+                else np.asarray(Image.open(f))) for f in files}
+    for f, got in decoded:
+        assert got.dtype == want[f].dtype and np.array_equal(got, want[f])

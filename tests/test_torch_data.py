@@ -5,8 +5,9 @@ augmentors under the same ``np.random.Generator`` seeds, every dataset
 class on mini-trees (same files in the same order, the same samples with
 ``epoch``-seeded augmentation), and ``build_training_mixture``.  Everything
 here is host-side numpy in both packages, so every comparison is bit for
-bit.  The JAX package reads PFM and PNG through its ``native`` decoders
-where ``libstereo_native.so`` is built; the port has Python readers only.
+bit.  Both packages read PFM and PNG through their ``native`` decoders
+where those are built (the port's: ``raft_stereo_tpu_torch/native``,
+tests/test_torch_native.py), and through their Python readers otherwise.
 """
 
 import json

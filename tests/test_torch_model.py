@@ -152,6 +152,15 @@ def test_config_fields_match_jax():
     ("rows_gru", True), ("banded_encoder", True), ("rows_shards", 2),
     ("corr_w2_shards", 2), ("remat_save", ("gru_gates",))])
 def test_unported_options_raise(field, value):
+    """The options still refused raise, naming their ROADMAP item;
+    ``remat_save=("gru_gates",)``, refused before, is ported
+    (models/remat.py): it constructs and round-trips with the JAX
+    package's ``to_dict()``."""
+    if field == "remat_save":
+        cfg = RaftStereoConfig(**{field: value})
+        assert cfg.to_dict() == JaxConfig(**{field: value}).to_dict()
+        assert RaftStereoConfig.from_json(cfg.to_json()) == cfg
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         RaftStereoConfig(**{field: value})
 

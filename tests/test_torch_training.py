@@ -201,8 +201,14 @@ def test_ported_training_options_round_trip(field, value):
 @pytest.mark.parametrize("saves", [("gru_gates",),
                                    ("corr_lookup", "motion_features")])
 def test_unported_remat_saves_raise(saves):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        RaftStereoConfig(remat_save=saves)
+    """Once refused, these ``remat_save`` values are ported now
+    (models/remat.py): they construct and round-trip with the JAX
+    package's ``RaftStereoConfig.to_dict()``."""
+    cfg = RaftStereoConfig(remat_save=saves)
+    jcfg = JaxConfig(remat_save=saves)
+    assert cfg.remat_save == saves
+    assert cfg.to_dict() == jcfg.to_dict()
+    assert RaftStereoConfig.from_dict(jcfg.to_dict()) == cfg
 
 
 # ------------------------------------------------- loss, schedule, update
@@ -294,15 +300,19 @@ def jax_train_forward(variables):
     return get
 
 
-@pytest.mark.parametrize("remat,saves", [(True, ("corr_lookup",)),
-                                         (True, ()),
-                                         (False, ("corr_lookup",))])
+@pytest.mark.parametrize("remat,saves", [
+    (True, ("corr_lookup",)), (True, ()), (False, ("corr_lookup",)),
+    (True, ("gru_gates",)), (True, ("corr_lookup", "gru_gates")),
+    (True, ("motion_features",)),
+    (True, ("corr_lookup", "gru_gates", "motion_features"))])
 @pytest.mark.parametrize("name", ["default", "realtime"])
 def test_train_forward_matches_jax(variables, jax_train_forward, name,
                                    remat, saves):
     """Train mode returns every iteration's full-resolution flow; with
     remat the iteration runs under ``torch.utils.checkpoint`` (grad on),
-    the lookup outside it (saved) or, with ``remat_save=()``, inside."""
+    the lookup outside it (saved) or, with ``remat_save=()``, inside; the
+    gate pre-activations and the motion features kept by the policy of
+    ``remat_save`` (models/remat.py)."""
     left, right, want = jax_train_forward(name)
     jcfg = _jax_cfg(name, mixed_precision=False, remat_gru=remat,
                     remat_save=saves)

@@ -72,7 +72,7 @@ SHARES = (
     ("cuDNN convolution backward",
      lambda k, up: any("convolution_backward" in u for u in up)),
     ("gates' backward: the twin's forward",
-     lambda k, up: any("_GatesBackward" in u for u in up)),
+     lambda k, up: any("raft_stereo_gru_gates" in u for u in up)),
     ("rest of the backward", lambda k, up: True),
 )
 # Inference shares of the quantized tier, by the port's ranges.
