@@ -80,7 +80,7 @@ fails the run when it fails:
    backward a ``torch.zeros`` of its dV bytes, the write floor;
 13. the default training step: ``train()`` with ``RaftStereoConfig()``
    fp32 and ``TrainConfig()`` (batch 8, 320x720, 22 iterations) on a
-   seeded synthetic loader, one warm-up step and 3 timed steps (timed at
+   seeded synthetic loader, one warm-up step and 2 timed steps (timed at
    each step's end, ``on_step``, as the loop's prefetcher pulls batches
    ahead of the step); checks
    22 lookups, 22 lookup backwards and 132 gate calls per step (66
@@ -153,14 +153,14 @@ fails the run when it fails:
    checkpoint loaded by ``InferenceRunner``; seconds per step past the
    first, the loop's wait for each step's batch, the validation seconds,
    peak memory;
-25. on the same tree with ``RaftStereoConfig.realtime()``: a run of 6
+25. on the same tree with ``RaftStereoConfig.realtime()``: a run of 5
    steps against a run stopped by SIGTERM at step 3 and resumed with
    ``restore="latest"`` (the SHA-256 of every batch the loops consumed
    equal; the final parameters bit-equal, or within 3x the card's spread
    between two uninterrupted runs), the uninterrupted run's seconds and
    loader wait per step with the loader's thread workers, again with
    its process workers (the same batches), and over the same batches
-   decoded before the run; the anomaly policy over 8 steps with
+   decoded before the run; the anomaly policy over 7 steps with
    NaN flow in the batches of steps 4-6 (the three updates skipped with
    every leaf bit-equal to the step-3 state, one rewind at step 6 to the
    step-4 checkpoint, the rest of the epoch reshuffled, the run finished;
@@ -192,8 +192,8 @@ fails the run when it fails:
    ``cli/evaluate.py --sequence --exit_threshold_px --stream_out`` over a
    written KITTI-shaped sequence of 8 pairs: finite cold and warm EPE, the
    passes' mean ``iters_used`` and FPS, the record with the card's name;
-28. the drift gates: ``tools/quant_drift --full --steps 100`` (the
-   hermetic architecture trained 100 steps at 320x704, calibrated, the five
+28. the drift gates: ``tools/quant_drift --full --steps 30`` (the
+   hermetic architecture trained 30 steps at 320x704, calibrated, the five
    variants at 384x1248, bands 48/96/192, depths 7 and 32) and the bf16
    drift's trained leg (the realtime architecture at full width trained
    300 steps, three variants), every row printed with the gate, its
@@ -298,7 +298,7 @@ fails the run when it fails:
    after phase 15: the default step at ``TrainConfig()`` under
    ``("corr_lookup",)``, ``("corr_lookup", "gru_gates")`` and
    ``("corr_lookup", "gru_gates", "motion_features")``, each one warm-up
-   and two timed steps: 22 lookups and 22 lookup backwards per step, and
+   and one timed step: 22 lookups and 22 lookup backwards per step, and
    132 gate calls, or 66 with the gates kept (the recompute launches no
    gate kernel); finite losses, moved parameters; seconds per step and
    the allocator's peak printed per policy.  Then at phase 15's 64x128
@@ -319,9 +319,10 @@ fails the run when it fails:
    finite losses.  The kernels line carries the last run's counts as
    ``launches_loader``.
 34. the early-exit sweep as ``python -m
-   raft_stereo_tpu_torch.tools.early_exit_report`` runs it by default
-   (``run``): its brief training of the hermetic architecture (200 steps
-   at 64x96 on warped textured scenes, the scenes' disparity range), then
+   raft_stereo_tpu_torch.tools.early_exit_report --steps 100`` runs it
+   (``run``; the tool's default trains 200 steps): its brief training of
+   the hermetic architecture (100 steps at 64x96 on warped textured
+   scenes, the scenes' disparity range), then
    on those weights the four 60x90 benchmark trees, the fixed baseline at
    16 iterations, the nine thresholds, the chosen point and the tier
    latencies, every exit loop a WHILE-node graph; finite EPE, every
@@ -331,6 +332,41 @@ fails the run when it fails:
    lookup); the record under ``_build/records/`` with the card's name and
    power limit.  The kernels line carries the run's counts, training
    included, as ``launches_sweep``.
+35. the rest of serving's second slice, on the realtime preset (bf16,
+   cap 7) and phase 26's settled weights unless stated.  (a) Tiles: a
+   1988x2880 pair (Middlebury 2014 full-resolution scale) past
+   ``tile_threshold_pixels`` 2,000,000 runs as four 640-row tiles (512
+   owned, halo 64) in ONE batch-4 dispatch of the 640x2880 bucket; each
+   tile row bitwise equal to the runner's ``run_batch`` of the four
+   slices, the stitched flow to ``tiles.stitch`` of those rows; printed:
+   the seam EPE, seconds per tiled request (5 requests), launches per
+   dispatch (7 #6, 21 #5 bf16).  (b) The cascade: ``tier=auto`` with
+   confidence, draft interactive (phase 26's threshold), escalate
+   quality, the threshold at the widest gap between the contrast pairs'
+   draft confidences: each draft bitwise equal to the exit runner's
+   replay, each escalation to the quality runner's, both kinds occurring,
+   the counters adding up to the requests; one tiled cascade request.
+   Then ``tools/confidence_report`` on phase 34's trained weights (no
+   second training): AUROC, Spearman, the cascade's cost and dEPE
+   printed as measurements.  (c) The model store: two versions of other
+   weights published and registered over ``POST /admin/models``, served
+   by ``?model=`` and ``X-Model``, each answer bitwise equal to a runner
+   on its weights; the default set, the other version retired under 4
+   clients' load: every request 200 with the default's answer, the
+   retired model's programs gone (404 after), the allocator's reserved
+   bytes under load down by at least what its captures reserved.
+   (d) The artifact store: ``tools/compile_farm`` fills a store; a
+   ``cli/serve.py`` process from a copy of the package without
+   ``_build/`` and the store read-only reaches ``/readyz`` with every
+   library it loads fetched and no ``nvcc`` run, its answer bitwise equal
+   to this process's; boot to ready printed beside a cold boot that runs
+   ``nvcc``.  (e) Handoff: engine A serves 4 sessions (``session_hidden``:
+   state_h, warm_h) 3 frames each, then each session's next frame from a
+   copy of its state, drains and publishes; engine B adopts each session
+   through ``X-Handoff-Artifact``, its next frame bitwise equal to A's
+   from the same state; an engine at another depth refuses the blob as
+   ``config_mismatch``.  The kernels line carries the realtime engines'
+   counts and the report's as ``launches_serving_b``.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (times
 by graph replay; a redesigned row names its design under ``design``; an
@@ -422,14 +458,14 @@ KITTI_PAIRS = 60        # > the validator's 50-image warm-up
 SF_HW = (540, 960)
 SF_TRAIN_PAIRS, SF_TEST_PAIRS = 48, 8
 CLI_STEPS, CLI_VAL_EVERY = 6, 3
-RESUME_STEPS = 6
+RESUME_STEPS = 5
 RESUME_SPREAD_FACTOR = 3.0
-ANOMALY_STEPS, ANOMALY_POISON = 8, (4, 5, 6)
+ANOMALY_STEPS, ANOMALY_POISON = 7, (4, 5, 6)
 JITTER_ATOL = 1e-4 * 255
 # Training (phases 11-15): TrainConfig()'s batch and crop; feature maps at
 # 1/4 (default) and 1/8 (realtime).
 TRAIN_B, TRAIN_HW, TRAIN_ITERS = 8, (320, 720), 22
-TIMED_STEPS = 3
+TIMED_STEPS = 2
 LOOKUP_BWD_ATOL = 1e-6   # the same taps and products, at most 2 per bin
 ALT_BWD_RTOL = 1e-5      # fp32: of each gradient's scale (sum order)
 ALT_BWD_BF16_RTOL = 1e-5  # bf16: one ulp + this share of the scale
@@ -510,15 +546,24 @@ SCENE_CUT_DIM = 0.3      # a cut: the frame darkened to 30%
 # phase 15's shape under cuDNN's deterministic algorithms.
 REMAT_POLICIES = (("corr_lookup",), ("corr_lookup", "gru_gates"),
                   ("corr_lookup", "gru_gates", "motion_features"))
-REMAT_TIMED_STEPS = 2
+REMAT_TIMED_STEPS = 1
 # phase 28's quant gate trains this many steps, not --full's 300: the
 # script's budget (its 300 took 217 s of a 1134 s run on a slow host)
-DRIFT_GATE_STEPS = 100
+DRIFT_GATE_STEPS = 30
+SWEEP_TRAIN_STEPS = 100  # phase 34's training (the tool's default: 200)
 # Phase 33: decoded files compared per kind, realtime steps per loader run
 # and the turns (native and Python readers alternating in one process).
 DECODE_SAMPLE = 8
 LOADER_STEPS = 5
 LOADER_TURNS = ("native", "python", "native", "python")
+TILE_HW = (1988, 2880)   # phase 35: Middlebury 2014 full-resolution scale
+TILE_THRESHOLD = 2_000_000
+TILE_ROWS = 512
+TILE_HALO = 64
+TILE_REPS = 5            # timed tiled requests
+MODEL_LOAD_CLIENTS = 4   # clients sending while a model retires
+HANDOFF_SESSIONS = 4
+HANDOFF_FRAMES = 3       # frames before the drain
 SERVE_FAMILIES = ("serve_requests_admitted_total",
                   "serve_requests_completed_total", "serve_batches_total",
                   "serve_dispatches_total", "serve_queue_wait_seconds",
@@ -1902,7 +1947,8 @@ def phase_loader(tree, make_loader, rt_run, rt_tc, counts, zero_counts,
 
 def phase_sweep(card):
     """Phase 34 (module docstring).  Returns the wrappers' counts over the
-    tool's run."""
+    tool's run and its trained ``(config, state, seconds)``, which phase
+    35's confidence report measures."""
     from raft_stereo_tpu_torch.eval import runner as runner_mod
     from raft_stereo_tpu_torch.eval.runner import launch_counts
     from raft_stereo_tpu_torch.telemetry.events import default_path
@@ -1910,7 +1956,8 @@ def phase_sweep(card):
 
     release()
     t_phase = time.perf_counter()
-    args = ee.build_parser().parse_args(["--device", "cuda"])
+    args = ee.build_parser().parse_args(
+        ["--device", "cuda", "--steps", str(SWEEP_TRAIN_STEPS)])
     seen = []
     real_note = runner_mod.InferenceRunner._note_iters_used
 
@@ -1922,7 +1969,8 @@ def phase_sweep(card):
     runner_mod.InferenceRunner._note_iters_used = note
     zero_inference_counts()
     try:
-        rec = ee.run(args)
+        trained = ee.trained_state(args)
+        rec = ee.run(args, trained)
     finally:
         runner_mod.InferenceRunner._note_iters_used = real_note
     launched = {k: v for k, v in launch_counts().items() if v}
@@ -1956,7 +2004,7 @@ def phase_sweep(card):
         f"{'ok' if ok else 'FAILED'}")
     if not ok:
         raise AssertionError("the early-exit sweep failed its checks")
-    return launched
+    return launched, trained
 
 
 def post(url: str, body: bytes, ctype: str = "application/x-npz",
@@ -2927,6 +2975,551 @@ def phase_sessions(cfg, state, rt_cfg, rt_state, left, right, exit_thr,
 
 
 T_START = time.perf_counter()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def boot_to_ready(pkg_root, ckpt, store=None, timeout=600.0):
+    """Start ``cli/serve.py`` from the package copy at ``pkg_root`` (no
+    ``_build/``) on the realtime checkpoint ``ckpt``, with the artifact
+    store ``store`` read-only where given; ``(process, url, seconds from
+    the start to /readyz 200)``."""
+    port = free_port()
+    cmd = [sys.executable, "-m", "raft_stereo_tpu_torch.cli.serve",
+           "--restore_ckpt", ckpt, "--host", "127.0.0.1",
+           "--port", str(port), "--valid_iters", str(RT_ITERS),
+           "--tiers", "quality", "--batch_sizes", "1", "--max_batch", "1",
+           "--warmup_shape", f"{MAIN_HW[0]}x{MAIN_HW[1]}"]
+    if store is not None:
+        cmd += ["--executable_cache_dir", store,
+                "--executable_cache_read_only"]
+    env = dict(os.environ, PYTHONPATH=pkg_root)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=pkg_root, env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    url = f"http://127.0.0.1:{port}"
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"serve exited {proc.returncode}: "
+                                 f"{proc.stderr.read()[-3000:]}")
+        try:
+            code, _ = get(url + "/readyz", timeout=5)
+        except OSError:
+            code = None
+        if code == 200:
+            return proc, url, time.perf_counter() - t0
+        if time.perf_counter() - t0 > timeout:
+            proc.kill()
+            raise AssertionError(f"serve not ready in {timeout} s")
+        time.sleep(0.25)
+
+
+def stop_server(proc) -> int:
+    """SIGTERM (the CLI's graceful drain), then wait; kill past 60 s."""
+    import signal as signal_mod
+    proc.send_signal(signal_mod.SIGTERM)
+    try:
+        return proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        return proc.wait()
+
+
+def npy_of(body: bytes) -> np.ndarray:
+    import io
+    return np.load(io.BytesIO(body), allow_pickle=False)
+
+
+def phase_serving_b(rt_cfg, rt_state, left, right, exit_thr, sweep_trained,
+                    card):
+    """Phase 35 (module docstring).  Returns the wrappers' counts over
+    the realtime engines and over the confidence report, and the printed
+    measurements."""
+    import tempfile
+    import threading
+
+    from raft_stereo_tpu_torch.eval.runner import (InferenceRunner,
+                                                   launch_counts)
+    from raft_stereo_tpu_torch.io.jax_weights import save_checkpoint
+    from raft_stereo_tpu_torch.kernels import _build
+    from raft_stereo_tpu_torch.serving import ServeConfig, ServingEngine
+    from raft_stereo_tpu_torch.serving import tiles
+    from raft_stereo_tpu_torch.serving.http import StereoHTTPServer
+    import urllib.request
+    from raft_stereo_tpu_torch.serving.models import ModelStore
+    from raft_stereo_tpu_torch.tools import compile_farm
+    from raft_stereo_tpu_torch.tools import confidence_report as cr
+
+    t_phase = time.perf_counter()
+    rt_counts, report_counts = {}, {}
+
+    def take(into):
+        for k_, v_ in launch_counts().items():
+            into[k_] = into.get(k_, 0) + v_
+        zero_inference_counts()
+
+    settled = settle_state(rt_state)
+    work = tempfile.mkdtemp(prefix="phase35-")
+    out = {}
+    try:
+        # ---- (a) halo row tiles ------------------------------------------
+        t_a = time.perf_counter()
+        rs = np.random.default_rng(SEED + 35)
+        big_l = rs.integers(0, 256, TILE_HW + (3,), dtype=np.uint8)
+        big_r = np.roll(big_l, -4, axis=1)
+        specs = tiles.plan_tiles(TILE_HW[0], TILE_ROWS, TILE_HALO)
+        tile_hw = (specs[0].height, TILE_HW[1])
+        sl = [np.ascontiguousarray(big_l[s_.src0:s_.src1]) for s_ in specs]
+        sr = [np.ascontiguousarray(big_r[s_.src0:s_.src1]) for s_ in specs]
+        ref = InferenceRunner(rt_cfg, settled, iters=RT_ITERS, device="cuda")
+        rows, _ = ref.run_batch(sl, sr)
+        rows = [np.asarray(r_) for r_ in rows]
+        del ref
+        release()
+        tiling = dict(tile_threshold_pixels=TILE_THRESHOLD,
+                      tile_rows=TILE_ROWS, tile_halo=TILE_HALO)
+        zero_inference_counts()
+        eng = ServingEngine(rt_cfg, settled, ServeConfig(
+            iters=RT_ITERS, tiers=("quality",), batch_sizes=(1, 2, 4),
+            max_batch=4, prewarm_on_init=False, **tiling), device="cuda")
+        eng.prewarm(tile_hw, batch_sizes=(4,))
+        b0 = eng.metrics.batches.value
+        eng.queue.pause()
+        fut = eng.submit(big_l, big_r)
+        eng.queue.resume()
+        res = fut.result(timeout=300)
+        one_dispatch = eng.metrics.batches.value - b0 == 1
+        eng.queue.pause()
+        futs = [eng.submit(l_, r_) for l_, r_ in zip(sl, sr)]
+        eng.queue.resume()
+        tile_res = [f_.result(timeout=300) for f_ in futs]
+        secs = []
+        for _ in range(TILE_REPS):
+            eng.queue.pause()
+            fut = eng.submit(big_l, big_r)
+            eng.queue.resume()
+            secs.append(fut.result(timeout=300).total_s)
+        per_dispatch = dispatch_counts(eng, tile_hw, 4, "quality",
+                                       RT_ITERS)
+        tier_dispatch_counts(per_dispatch, "quality", RT_ITERS)
+        eng.close()
+        del eng
+        take(rt_counts)
+        release()
+        ok = (len(specs) == 4 and tile_hw == (640, 2880) and one_dispatch
+              and res.tiles == 4 and res.batch_size == 4
+              and all(t_.batch_size == 4 for t_ in tile_res)
+              and all(np.array_equal(t_.flow, r_)
+                      for t_, r_ in zip(tile_res, rows))
+              and np.array_equal(res.flow, tiles.stitch(rows, specs))
+              and res.seam_epe == tiles.seam_epe(rows, specs)
+              and res.flow.shape == TILE_HW)
+        out["tiles"] = {"seam_epe": res.seam_epe,
+                        "seconds_per_request": secs,
+                        "launches_per_dispatch": per_dispatch}
+        log(f"tiles: a {TILE_HW[0]}x{TILE_HW[1]} pair past "
+            f"{TILE_THRESHOLD} pixels as {len(specs)} tiles of "
+            f"{tile_hw[0]} rows (owned {[s_.y1 - s_.y0 for s_ in specs]}, "
+            f"halo {TILE_HALO}) in one batch-{res.batch_size} dispatch: "
+            f"{one_dispatch}; each tile row bitwise equal to the runner's "
+            f"run_batch of the four slices, the stitched flow to "
+            f"tiles.stitch of those rows; seam EPE {res.seam_epe!r} px; "
+            f"seconds per tiled request (admission to stitched, "
+            f"{TILE_REPS} requests) {[round(x_, 5) for x_ in secs]}, "
+            f"median {statistics.median(secs):.5f}; launches per dispatch "
+            f"{per_dispatch}; (a) took {time.perf_counter() - t_a:.1f} s on "
+            f"{card}: {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError("tiles failed their checks")
+
+        # ---- (b) the confidence-gated cascade ----------------------------
+        t_b = time.perf_counter()
+        exit_tier = f"interactive:{float(exit_thr)!r}:{EXIT_MIN_ITERS}"
+        pairs = serve_pairs(left, right, SERVE_CONTRASTS)
+        draft_r = InferenceRunner(rt_cfg, settled, iters=RT_ITERS,
+                                  device="cuda", exit_threshold_px=exit_thr,
+                                  exit_min_iters=EXIT_MIN_ITERS)
+        drafts = [draft_r(l_, r_)[0] for l_, r_ in pairs]
+        del draft_r
+        release()
+        quality_r = InferenceRunner(rt_cfg, settled, iters=RT_ITERS,
+                                    device="cuda")
+        quals = [quality_r(l_, r_)[0] for l_, r_ in pairs]
+        del quality_r
+        release()
+        zero_inference_counts()
+        base = dict(iters=RT_ITERS, tiers=("quality", exit_tier),
+                    confidence=True, prewarm_on_init=False)
+        probe = ServingEngine(rt_cfg, settled, ServeConfig(
+            batch_sizes=(1,), max_batch=1, **base), device="cuda")
+        confs = [probe.infer(l_, r_, tier="interactive",
+                             timeout=120).confidence_mean
+                 for l_, r_ in pairs]
+        probe.close()
+        del probe
+        take(rt_counts)
+        release()
+        ordered = sorted(confs)
+        gap = int(np.argmax(np.diff(ordered)))
+        threshold = (ordered[gap] + ordered[gap + 1]) / 2
+        eng = ServingEngine(rt_cfg, settled, ServeConfig(
+            batch_sizes=(1, 2, 4), max_batch=4, cascade=True,
+            cascade_threshold=threshold, **tiling, **base), device="cuda")
+        got = [eng.infer(l_, r_, tier="auto", timeout=120)
+               for l_, r_ in pairs]
+        want_esc = [c_ < threshold for c_ in confs]
+        ok = (eng._cascade_draft, eng._cascade_escalate) == (
+            "interactive", "quality")
+        for g_, d_, q_, e_ in zip(got, drafts, quals, want_esc):
+            ok = (ok and g_.escalated == e_
+                  and g_.draft_tier == "interactive"
+                  and g_.tier == ("quality" if e_ else "interactive")
+                  and np.array_equal(g_.flow, q_ if e_ else d_))
+        big = eng.infer(big_l, big_r, tier="auto", timeout=300)
+        n_draft = eng._cascade_drafts.value
+        n_esc = eng._cascade_escalations.value
+        ok = (ok and 0 < sum(want_esc) < len(pairs)
+              and n_draft + n_esc == len(pairs) + len(specs)
+              and big.tiles == len(specs) and big.flow.shape == TILE_HW
+              and bool(np.isfinite(big.flow).all())
+              and big.draft_tier == "interactive")
+        eng.close()
+        del eng
+        take(rt_counts)
+        release()
+        log(f"cascade (tier=auto, draft interactive at {float(exit_thr):.6g}"
+            f" px, escalate quality): draft confidences per contrast "
+            f"{dict(zip(SERVE_CONTRASTS, [round(c_, 5) for c_ in confs]))},"
+            f" threshold {threshold:.5f}; escalated "
+            f"{[g_.escalated for g_ in got]}; drafts bitwise equal to the "
+            f"exit runner's replay, escalations to the quality runner's; "
+            f"the tiled request {big.tiles} tiles, escalated {big.escalated},"
+            f" worst draft confidence {big.draft_confidence:.5f}; counters "
+            f"draft {n_draft} + escalated {n_esc} = {n_draft + n_esc} "
+            f"requests and tiles: {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError("the cascade failed its checks")
+        t_r = time.perf_counter()
+        rep_args = cr.build_parser().parse_args(
+            ["--device", "cuda", "--out",
+             os.path.join(work, "CONFIDENCE_torch.json")])
+        rec = cr.run(rep_args, trained=sweep_trained)
+        take(report_counts)
+        release()
+        cal, cas = rec["calibration"], rec["cascade"]
+        aurocs = [v_["auroc"] for v_ in cal.values()
+                  if v_["auroc"] is not None]
+        ok = (set(cal) == set(cr.VALIDATORS) and bool(aurocs)
+              and all(0.0 <= a_ <= 1.0 for a_ in aurocs)
+              and math.isfinite(cas["mean_epe_auto"])
+              and cas["requests"] == 4 * rep_args.images)
+        out["report"] = {"auroc": {k_: v_["auroc"] for k_, v_ in
+                                   cal.items()},
+                         "spearman": {k_: v_["spearman_conf_vs_err"]
+                                      for k_, v_ in cal.items()},
+                         "cascade": cas}
+        log(f"confidence report on phase 34's weights (no second training;"
+            f" {rep_args.images} images per validator at {rep_args.hw}, "
+            f"static depth {rep_args.iters}, draft {rep_args.draft}): AUROC "
+            f"{out['report']['auroc']}; Spearman "
+            f"{out['report']['spearman']}; cascade cost "
+            f"{cas['mean_cost_iters_auto']} against "
+            f"{cas['mean_cost_iters_static']} iterations per request "
+            f"(ratio {cas['cost_ratio_auto_vs_static']}), dEPE "
+            f"{cas['depe_auto_vs_static']} px, escalated "
+            f"{cas['escalated']} of {cas['requests']} (measurements); "
+            f"{time.perf_counter() - t_r:.1f} s: "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError("the confidence report failed its checks")
+        log(f"(b) took {time.perf_counter() - t_b:.1f} s")
+
+        # ---- (c) the model store ----------------------------------------
+        t_c = time.perf_counter()
+        store = ModelStore(os.path.join(work, "store"))
+        store.publish("rt-a", "v1", rt_cfg, rt_state)
+        store.publish("rt-b", "v2", rt_cfg, settled)
+        want = {}
+        for name_, sd in (("rt-a", rt_state), ("rt-b", settled),
+                          (None, rt_state)):
+            r_ = InferenceRunner(rt_cfg, sd, iters=RT_ITERS, device="cuda")
+            want[name_] = r_(left, right)[0]
+            del r_
+            release()
+        zero_inference_counts()
+        # batch 1 alone: every answer under load is the runner's program
+        eng = ServingEngine(rt_cfg, rt_state, ServeConfig(
+            iters=RT_ITERS, tiers=("quality",), batch_sizes=(1,),
+            max_batch=1, model_store_dir=store.root,
+            warmup_shapes=(MAIN_HW,), prewarm_on_init=False),
+            device="cuda")
+        eng.prewarm(MAIN_HW)
+        server = StereoHTTPServer(eng, port=0).start()
+        body = npz_body(left, right)
+
+        def admin(payload):
+            code_, _, raw_ = post(server.url + "/admin/models",
+                                  json.dumps(payload).encode(),
+                                  ctype="application/json")
+            return code_, json.loads(raw_)
+
+        codes = [admin({"action": "register", "model": "rt-b@v2"})[0]]
+        release()
+        r_weights0 = torch.cuda.memory_reserved()
+        codes.append(admin({"action": "register", "model": "rt-a@v1",
+                            "prewarm": False})[0])
+        release()
+        r_weights = torch.cuda.memory_reserved()
+        eng.prewarm(MAIN_HW, models=["rt-a"])
+        release()
+        r_captured = torch.cuda.memory_reserved()
+        cap_bytes = r_captured - r_weights
+        answers = {}
+        for how, url_, hdr in (
+                ("?model=rt-a", "/v1/disparity?model=rt-a&format=npy", {}),
+                ("X-Model: rt-b", "/v1/disparity?format=npy",
+                 {"X-Model": "rt-b"}),
+                ("unnamed", "/v1/disparity?format=npy", {})):
+            req = urllib.request.Request(
+                server.url + url_, data=body, method="POST",
+                headers={"Content-Type": "application/x-npz", **hdr})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                answers[how] = (resp.status, dict(resp.headers),
+                                npy_of(resp.read()))
+        ok = (codes == [200, 200]
+              and np.array_equal(-answers["?model=rt-a"][2], want["rt-a"])
+              and answers["?model=rt-a"][1].get("X-Model-Version") == "v1"
+              and np.array_equal(-answers["X-Model: rt-b"][2], want["rt-b"])
+              and answers["X-Model: rt-b"][1].get("X-Model-Version") == "v2"
+              and np.array_equal(-answers["unnamed"][2], want[None])
+              and "X-Model" not in answers["unnamed"][1])
+        main_flow = eng.infer(left, right, timeout=120).flow
+        codes.append(admin({"action": "set_default", "model": "rt-b"})[0])
+        load = {"codes": [], "equal": True, "stop": False}
+
+        def client():
+            while not load["stop"]:
+                code_, _, raw_ = post(server.url + "/v1/disparity"
+                                      "?format=npy", body)
+                load["codes"].append(code_)
+                if code_ == 200:
+                    load["equal"] &= bool(np.array_equal(
+                        -npy_of(raw_), want["rt-b"]))
+
+        clients = [threading.Thread(target=client, daemon=True)
+                   for _ in range(MODEL_LOAD_CLIENTS)]
+        for c_ in clients:
+            c_.start()
+        time.sleep(1.0)
+        # reserved under load, just before the retirement (what the load
+        # itself reserved stays; the retirement must return at least what
+        # rt-a's captures took)
+        r_loaded = torch.cuda.memory_reserved()
+        t_ret = time.perf_counter()
+        code_ret, ret = admin({"action": "retire", "model": "rt-a"})
+        retire_s = time.perf_counter() - t_ret
+        time.sleep(1.0)
+        load["stop"] = True
+        for c_ in clients:
+            c_.join(timeout=120)
+        gone = "rt-a" not in eng._models
+        after_404 = post(server.url + "/v1/disparity?model=rt-a&format=npy",
+                         body)[0]
+        release()
+        r_after = torch.cuda.memory_reserved()
+        server.shutdown()
+        eng.close()
+        ok = (ok and codes[2] == 200 and code_ret == 200 and gone
+              and after_404 == 404 and len(load["codes"]) > 0
+              and set(load["codes"]) == {200} and load["equal"]
+              and r_loaded - r_after >= cap_bytes)
+        del eng
+        take(rt_counts)
+        release()
+        out["models"] = {"capture_bytes": cap_bytes,
+                         "freed_bytes": r_loaded - r_after,
+                         "retire_s": retire_s}
+        log(f"model store: rt-a@v1 and rt-b@v2 published, registered over "
+            f"POST /admin/models {codes[:2]}; ?model=rt-a, X-Model: rt-b and "
+            f"the implicit model each bitwise equal to a runner on its "
+            f"weights (X-Model-Version v1 / v2); default -> rt-b; rt-a "
+            f"retired in {retire_s:.3f} s under {MODEL_LOAD_CLIENTS} "
+            f"clients' load ({len(load['codes'])} requests, statuses "
+            f"{sorted(set(load['codes']))}, answers rt-b's: "
+            f"{load['equal']}), its programs gone: {gone}, then 404; "
+            f"reserved {r_weights0 / 2 ** 30:.3f} GiB before rt-a, "
+            f"{r_weights / 2 ** 30:.3f} with its weights, "
+            f"{r_captured / 2 ** 30:.3f} with its captures "
+            f"(+{cap_bytes / 2 ** 20:.1f} MiB), {r_loaded / 2 ** 30:.3f} "
+            f"under load before the retirement, {r_after / 2 ** 30:.3f} "
+            f"after it (freed {(r_loaded - r_after) / 2 ** 20:.1f} MiB): "
+            f"{'ok' if ok else 'FAILED'}; (c) took "
+            f"{time.perf_counter() - t_c:.1f} s")
+        if not ok:
+            raise AssertionError("the model store failed its checks")
+
+        # ---- (d) the artifact store --------------------------------------
+        t_d = time.perf_counter()
+        farm_dir = os.path.join(work, "artifacts")
+        farm_manifest = os.path.join(work, "farm.json")
+        if compile_farm.main(["--out", farm_dir, "--manifest",
+                              farm_manifest]) != 0:
+            raise AssertionError("compile_farm failed")
+        with open(farm_manifest) as f_:
+            farm = json.load(f_)
+        ckpt = os.path.join(work, "rt_ckpt")
+        save_checkpoint(ckpt, rt_cfg, rt_state)
+        boots = {}
+        for how in ("store", "cold"):
+            root = os.path.join(work, f"copy_{how}")
+            shutil.copytree(
+                os.path.join(HERE, "raft_stereo_tpu_torch"),
+                os.path.join(root, "raft_stereo_tpu_torch"),
+                ignore=shutil.ignore_patterns("_build", "__pycache__"))
+            proc, url, boot_s = boot_to_ready(
+                root, ckpt, farm_dir if how == "store" else None)
+            try:
+                code, ready = get(url + "/readyz")
+                status, _, raw = post(url + "/v1/disparity?format=npy",
+                                      npz_body(left, right))
+            finally:
+                rc = stop_server(proc)
+            built = os.path.join(root, "raft_stereo_tpu_torch", "_build")
+            names = os.listdir(built) if os.path.isdir(built) else []
+            boots[how] = {
+                "boot_s": boot_s, "rc": rc, "status": status,
+                "equal": status == 200 and np.array_equal(-npy_of(raw),
+                                                          main_flow),
+                "libraries": sum(n_.endswith(".so") and "-" in n_
+                                 and not n_.startswith("stereo_native")
+                                 for n_ in names),
+                "nvcc_logs": sum(n_.endswith(".log") for n_ in names),
+                "cache": json.loads(ready).get("executable_cache")}
+        n_src = len(_build.sources())
+        st, cold = boots["store"], boots["cold"]
+        # a process builds (or fetches) the libraries its path loads: the
+        # realtime quality path's alt and gate kernels
+        ok = (len(farm["libraries"]) == n_src and farm["stored"] == n_src
+              and st["equal"] and cold["equal"]
+              and st["libraries"] >= 2 and st["nvcc_logs"] == 0
+              and st["cache"] is not None
+              and st["cache"]["loads"] == st["libraries"]
+              and st["cache"]["misses"] == 0 and st["cache"]["stores"] == 0
+              and cold["nvcc_logs"] == cold["libraries"] >= 2
+              and st["rc"] == 0 and cold["rc"] == 0)
+        out["store"] = {"boot_store_s": st["boot_s"],
+                        "boot_cold_s": cold["boot_s"]}
+        log(f"artifact store: compile_farm stored {farm['stored']} of "
+            f"{len(farm['libraries'])} libraries ({farm['nvcc_runs']} nvcc "
+            f"runs: _build/ already held them; {farm['store_bytes']} bytes, "
+            f"toolkit {farm['toolkit']}); cli/serve.py from a copy of the "
+            f"package without _build/, the store read-only: /readyz 200 "
+            f"(boot to ready, the realtime quality ladder at "
+            f"{MAIN_HW[0]}x{MAIN_HW[1]}) "
+            f"after {st['boot_s']:.2f} s, {st['libraries']} libraries "
+            f"fetched, {st['nvcc_logs']} nvcc runs, store stats "
+            f"{st['cache']}, its answer bitwise equal to this process's: "
+            f"{st['equal']}; a cold boot (no store, nvcc) {cold['boot_s']:.2f}"
+            f" s, {cold['nvcc_logs']} nvcc runs, answer equal: "
+            f"{cold['equal']}; exits {st['rc']} / {cold['rc']}: "
+            f"{'ok' if ok else 'FAILED'}; (d) took "
+            f"{time.perf_counter() - t_d:.1f} s")
+        if not ok:
+            raise AssertionError("the artifact store failed its checks")
+
+        # ---- (e) session handoff -----------------------------------------
+        t_e = time.perf_counter()
+        hdir = os.path.join(work, "handoff")
+        kw = dict(iters=RT_ITERS, tiers=("quality",), sessions=True,
+                  session_hidden=True, batch_sizes=(1,), max_batch=1,
+                  executable_cache_dir=hdir, prewarm_on_init=False)
+        sids = [f"cam{k}" for k in range(HANDOFF_SESSIONS)]
+        chains = {sid: session_frames(l_, r_, HANDOFF_FRAMES + 1)
+                  for sid, (l_, r_) in zip(sids, serve_pairs(left, right))}
+        zero_inference_counts()
+        eng_a = ServingEngine(rt_cfg, settled, ServeConfig(**kw),
+                              device="cuda")
+        for k in range(HANDOFF_FRAMES):
+            for sid in sids:
+                eng_a.infer_session(sid, *chains[sid][k], timeout=120)
+        nexts = {}
+        for sid in sids:
+            meta, arrays = eng_a.sessions.get(sid).to_record()
+            copy_id = f"copy-{sid}"
+            sess, _ = eng_a.sessions.get_or_create(copy_id)
+            with sess.order_lock:
+                eng_a.sessions.adopt(sess, dict(meta), {
+                    k_: (None if v_ is None else
+                         tuple(x_.copy() for x_ in v_)
+                         if isinstance(v_, tuple) else v_.copy())
+                    for k_, v_ in arrays.items() if k_ != "ctx"})
+            nexts[sid] = eng_a.infer_session(
+                copy_id, *chains[sid][HANDOFF_FRAMES], timeout=120)
+            eng_a.close_session(copy_id)
+        eng_a.begin_shutdown()
+        manifest = eng_a.publish_handoff()
+        drained = eng_a.drain(timeout=60)
+        del eng_a
+        eng_b = ServingEngine(rt_cfg, settled, ServeConfig(**kw),
+                              device="cuda")
+        server = StereoHTTPServer(eng_b, port=0).start()
+        adopted = {}
+        for sid in sids:
+            req = urllib.request.Request(
+                server.url + f"/v1/stream/{sid}?format=npy",
+                data=npz_body(*chains[sid][HANDOFF_FRAMES]), method="POST",
+                headers={"Content-Type": "application/x-npz",
+                         "X-Handoff-Artifact": manifest["artifact"]})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                adopted[sid] = (dict(resp.headers), npy_of(resp.read()))
+        server.shutdown()
+        n_adopted = eng_b.metrics.sessions_adopted.value
+        eng_b.close()
+        del eng_b
+        eng_c = ServingEngine(rt_cfg, settled, ServeConfig(
+            **dict(kw, iters=RT_ITERS + 1)), device="cuda")
+        other = eng_c.infer_session(sids[0], *chains[sids[0]][
+            HANDOFF_FRAMES], handoff_key=manifest["artifact"], timeout=120)
+        mismatch = eng_c.metrics.handoff_skips("config_mismatch")
+        eng_c.close()
+        del eng_c
+        take(rt_counts)
+        release()
+        ok = (drained and sorted(manifest["sessions"]) == sorted(sids)
+              and manifest["count"] == len(sids)
+              and n_adopted == len(sids)
+              and not other.warm and mismatch == len(sids))
+        for sid in sids:
+            hdr, disp = adopted[sid]
+            ok = (ok and hdr.get("X-Warm") == "1"
+                  and hdr.get("X-Frame-Index") == str(HANDOFF_FRAMES)
+                  and nexts[sid].warm and nexts[sid].warm_hidden
+                  and np.array_equal(-disp, nexts[sid].flow))
+        log(f"handoff: engine A served {len(sids)} sessions (state_h, "
+            f"warm_h) {HANDOFF_FRAMES} frames each, drained ({drained}) and"
+            f" published {manifest['count']} sessions under "
+            f"{manifest['config_fingerprint'][:12]}; engine B adopted each "
+            f"through X-Handoff-Artifact ({n_adopted}), its frame "
+            f"{HANDOFF_FRAMES} warm and bitwise equal to A's next frame "
+            f"from a copy of the same state; an engine at "
+            f"{RT_ITERS + 1} iterations refused the blob as config_mismatch"
+            f" ({mismatch} sessions) and started cold: "
+            f"{'ok' if ok else 'FAILED'}; (e) took "
+            f"{time.perf_counter() - t_e:.1f} s")
+        if not ok:
+            raise AssertionError("the session handoff failed its checks")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 35 wrapper counts: realtime engines {rt_counts}, the "
+        f"confidence report {report_counts}; phase 35 took "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    return rt_counts, report_counts, out
 
 
 def mark(what: str) -> None:
@@ -4708,7 +5301,13 @@ def main() -> int:
 
     # ----------------------------------------------------------- phase 34
     mark("phase 34")
-    sweep_launches = phase_sweep(card)
+    sweep_launches, sweep_trained = phase_sweep(card)
+
+    # ----------------------------------------------------------- phase 35
+    mark("phase 35")
+    serve_b_rt, serve_b_report, serve_b_out = phase_serving_b(
+        rt_cfg, rt_state, left, right, exit_runs["realtime"]["threshold"],
+        sweep_trained, card)
 
     def row(name_, source, replaces, launched, err, t, design=None):
         """One entry of the kernels line; ``t`` holds graph-replay times."""
@@ -4731,6 +5330,7 @@ def main() -> int:
         out["launches_remat"] = remat.get(name_, {})
         out["launches_loader"] = loader.get(name_, 0)
         out["launches_sweep"] = sweep.get(name_, 0)
+        out["launches_serving_b"] = serving_b.get(name_, 0)
         return out
 
     # the wrappers' counts over phase 30's engines (set to 0 before each)
@@ -4766,6 +5366,18 @@ def main() -> int:
               "gru_gates_bf16": loader_launches["gates"]}
     sweep = {"gru_gates": sweep_launches.get("gates", 0),
              "exit_predicate": sweep_launches.get("exit", 0)}
+    # phase 35: the realtime engines (bf16: #6 and the gates; the cascade's
+    # exit tier the predicate) and the confidence report's hermetic engines
+    # (fp32 gates at hidden 32, the predicate; reg: no #1)
+    serving_b = {"corr_alt": serve_b_rt.get("alt", 0),
+                 "gru_gates_bf16": serve_b_rt.get("gates", 0),
+                 "gru_gates": serve_b_report.get("gates", 0),
+                 "exit_predicate": (serve_b_rt.get("exit", 0)
+                                    + serve_b_report.get("exit", 0))}
+    idle = [k for k in ("corr_alt", "gru_gates_bf16", "gru_gates",
+                        "exit_predicate") if not serving_b[k]]
+    if idle:
+        raise AssertionError(f"phase 35 kernels never launched: {idle}")
 
     lookup_t.update(bound=lookup_bound_ms, by="bytes")
     lbwd_t.update(bound=lbwd_bound, by="bytes")
@@ -4819,6 +5431,7 @@ def main() -> int:
         "cudaGraphSetConditional"))
     log(f"serving launches per dispatch: {serve_per_dispatch}")
     log(f"sessions launches per frame: {sess_per_frame}")
+    log(f"phase 35 measurements: {json.dumps(serve_b_out)}")
     log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

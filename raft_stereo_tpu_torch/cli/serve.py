@@ -16,9 +16,7 @@ the batch-N serving engine on the card (serving/engine.py).
     curl -s -X DELETE http://127.0.0.1:8551/v1/stream/cam0
 
 The JAX package's ``raft-serve``: every flag of its parser under the same
-name and default.  The flags of the features the port does not run yet
-(the session handoff's ``--handoff_linger_s``, the cascade, tiles, the
-model store, the executable cache: ROADMAP §D6b; the xl mesh: §D7) raise
+name and default.  The xl mesh's flags (ROADMAP §D7) raise
 ``NotImplementedError`` when set.  ``--sessions`` turns on streaming
 sessions (warm start from the previous frame; ``--session_hidden``,
 ``--session_ctx_cache`` and the other session flags as in JAX).  The
@@ -28,9 +26,12 @@ file, on the card unless
 both packages (ROADMAP §C7).
 
 SIGTERM/SIGINT drain gracefully: /readyz flips to 503 first, new requests
-shed typed while the HTTP server stays up, queued + in-flight +
-retry-backoff work finishes via engine.drain(), and only then does the
-listener close and the process exit.  A second signal force-quits.
+shed typed while the HTTP server stays up, the live sessions are published
+as a handoff blob (with ``--sessions`` and ``--executable_cache_dir``),
+queued + in-flight + retry-backoff work finishes via engine.drain(), the
+listener lingers up to ``--handoff_linger_s`` for a router to fetch
+``/admin/handoff``, and only then does it close and the process exit.  A
+second signal force-quits.
 """
 
 from __future__ import annotations
@@ -44,9 +45,6 @@ import time
 from raft_stereo_tpu_torch.cli import common
 
 log = logging.getLogger(__name__)
-
-_D6B = ("§D6b serving: session handoff, cascade, tiles, model store, "
-        "executable cache")
 
 
 def _parse_hw(text: str):
@@ -62,10 +60,6 @@ def build_serve_config(args):
     """The ``ServeConfig`` of the flags (raises for a refused one)."""
     from raft_stereo_tpu_torch.serving import ServeConfig, parse_chaos_spec
 
-    if args.handoff_linger_s != 5.0:
-        raise NotImplementedError(
-            f"--handoff_linger_s is not ported to the PyTorch package yet "
-            f"(ROADMAP.md {_D6B})")
     tiers = tuple(t.strip() for t in (args.tiers or "").split(",")
                   if t.strip())
     exempt = tuple(t.strip() for t in (args.brownout_exempt or "").split(",")
@@ -205,6 +199,15 @@ def run_serve(args) -> int:
                     "+ backoff request(s) drain before exit (send again to "
                     "force-quit)", signum, service.queue.depth)
         service.begin_shutdown()
+        # Hand the live streams off: the export waits on each session's
+        # ordering lock (in-flight frames fold their state in first),
+        # publishes the blob into the shared artifact store, and
+        # /admin/handoff starts answering the manifest.  On a thread: the
+        # signal handler must return so the drain below can progress.
+        if (service.sessions is not None
+                and service.handoff_store is not None):
+            threading.Thread(target=service.publish_handoff, daemon=True,
+                             name="session-handoff").start()
         stop.set()
 
     if threading.current_thread() is threading.main_thread():
@@ -212,12 +215,15 @@ def run_serve(args) -> int:
             signal.signal(sig, _graceful)
 
     log.info("serving on %s (batch sizes %s, queue<=%d, %d device "
-             "worker(s), %s buckets, tiers %s)", server.url,
+             "worker(s), %s buckets, tiers %s, sessions %s)", server.url,
              service.queue.sizes, service.serve_cfg.max_queue,
              len(service.devices),
              "adaptive" if service.policy.adaptive else "static",
              (f"{sorted(service.tiers)} default={service.default_tier}"
-              if service.tiers else "off"))
+              if service.tiers else "off"),
+             (f"on (ttl {service.serve_cfg.session_ttl_s:.0f}s, "
+              f"capacity {service.serve_cfg.session_capacity})"
+              if service.sessions is not None else "off"))
     try:
         while not stop.is_set() and server._thread.is_alive():
             server._thread.join(timeout=0.5)
@@ -236,6 +242,25 @@ def run_serve(args) -> int:
                      "complete" if drained else
                      f"timed out after {args.drain_timeout_s:.0f}s",
                      service.metrics.render_text())
+            # With a handoff published, keep the listener up until a
+            # router fetched the manifest (bounded by --handoff_linger_s):
+            # an instant exit would read as a crash to a router polling
+            # for it.
+            if (service.sessions is not None
+                    and service.handoff_store is not None
+                    and args.handoff_linger_s > 0):
+                t_end = time.monotonic() + args.handoff_linger_s
+                while (service.handoff_manifest is None
+                       and time.monotonic() < t_end):
+                    time.sleep(0.05)
+                manifest = service.handoff_manifest
+                if manifest is not None and manifest.get("count", 0):
+                    fetched = service.wait_handoff_fetched(
+                        args.handoff_linger_s)
+                    log.info("handoff manifest %s by a router (lingered "
+                             "<= %.1fs)",
+                             "fetched" if fetched else "NEVER fetched",
+                             args.handoff_linger_s)
         # Only now does the listener go away: every drained response has
         # been written.
         server.shutdown()
@@ -312,7 +337,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--drain_timeout_s", type=float, default=30.0,
                    help="max seconds to finish queued work on SIGTERM")
     p.add_argument("--handoff_linger_s", type=float, default=5.0,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="after a graceful drain published a session "
+                        "handoff, keep the listener up to this many "
+                        "seconds for a router to fetch /admin/handoff "
+                        "(an instant drain must not close the port "
+                        "before the router's next health poll); 0 "
+                        "disables the linger")
     p.add_argument("--fetch_dtype", default=None,
                    choices=["fp16", "bf16"],
                    help="half-precision device->host disparity fetch "
@@ -344,20 +374,48 @@ def build_parser() -> argparse.ArgumentParser:
                    help="debug-bundle directory for the flight recorder "
                         "(span ring, /metrics snapshot, stack dump, "
                         "device memory)")
-    # Resilience layer (docs/architecture.md §Resilience).
     p.add_argument("--executable_cache_dir", default=None,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="persistent artifact store directory: the CUDA "
+                        "kernel libraries nvcc builds are kept here keyed "
+                        "by (source hash, flags, toolkit version, arch, "
+                        "torch/CUDA/driver/device fingerprint), so a "
+                        "restarted server builds no kernel (its CUDA "
+                        "graphs are captured again: they cannot be "
+                        "serialized).  May be a SHARED artifact store "
+                        "(tools/compile_farm.py populates it once; every "
+                        "replica boots from it); also holds the session "
+                        "handoff's sessions/ namespace")
     p.add_argument("--executable_cache_max_bytes", type=int, default=None,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="bound the artifact store: beyond this many "
+                        "bytes the least-recently-used entries are "
+                        "evicted (atime LRU) so toolkit / source churn "
+                        "ages out instead of growing without bound; the "
+                        "serve_persist_cache_bytes gauge tracks the total")
     p.add_argument("--executable_cache_read_only", action="store_true",
-                   help="not ported (ROADMAP.md §D6b); raises")
-    # Multi-model registry (round 21; serving/models.py).
+                   help="treat the executable cache as a read-only "
+                        "shared artifact store: fetch warm executables "
+                        "but never write (replicas against a fleet "
+                        "store populated by tools/compile_farm.py)")
+    # Multi-model registry (serving/models.py).
     p.add_argument("--models", default=None,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="comma-separated registered model specs to load "
+                        "at boot from the model store, each "
+                        "name[@version] (bare name = latest published "
+                        "version); requests pick one via ?model= / "
+                        "X-Model, and POST /admin/models hot-swaps "
+                        "more at runtime.  Unset: exactly today's "
+                        "single-model server, byte-identical")
     p.add_argument("--model_store_dir", default=None,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="model store root (the models/<name>/<version> "
+                        "namespace; tools/publish_model.py populates "
+                        "it).  Defaults to --executable_cache_dir — "
+                        "weights and executables share one artifact "
+                        "store")
     p.add_argument("--default_model", default=None,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="registered model name that serves requests "
+                        "naming NO model (must be in --models); unset: "
+                        "the checkpoint from --restore_ckpt stays the "
+                        "default")
     p.add_argument("--max_dispatch_attempts", type=int, default=2,
                    help="dispatch attempts per request before the typed "
                         "RequestPoisoned failure (crashed dispatches "
@@ -417,13 +475,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "program); 0 keeps the unconditional ladder; "
                         "needs --confidence")
     p.add_argument("--cascade", action="store_true",
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="enable the ?tier=auto confidence-gated "
+                        "cascade: requests draft on the cheapest tier "
+                        "and re-run on the expensive one only when the "
+                        "draft's mean confidence is below "
+                        "--cascade_threshold (X-Escalated/X-Draft-Tier "
+                        "provenance); needs --confidence and >= 2 tiers")
     p.add_argument("--cascade_draft", default=None,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="cascade draft tier (default: the cheapest "
+                        "rung of the cost ladder, e.g. turbo)")
     p.add_argument("--cascade_escalate", default=None,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="cascade escalation tier (default: the most "
+                        "expensive rung, e.g. quality)")
     p.add_argument("--cascade_threshold", type=float, default=0.5,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="draft mean confidence below which the cascade "
+                        "escalates")
     # Streaming sessions (warm-start video serving; serving/sessions.py).
     p.add_argument("--sessions", action="store_true",
                    help="enable streaming stereo sessions: POST "
@@ -494,11 +560,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--xl_batch_sizes", default="1",
                    help="not ported (ROADMAP.md §D7); raises")
     p.add_argument("--tile_threshold_pixels", type=int, default=None,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="padded-bucket pixel count above which requests "
+                        "that did not take the xl route are answered by "
+                        "halo-overlap row tiling through the ordinary "
+                        "batcher (tiles of one image batch together; "
+                        "responses carry X-Tiles and the measured "
+                        "X-Seam-EPE).  Unset: never tile")
     p.add_argument("--tile_rows", type=int, default=512,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="owned rows per tile (each tile adds "
+                        "2*--tile_halo context rows)")
     p.add_argument("--tile_halo", type=int, default=64,
-                   help="not ported (ROADMAP.md §D6b); raises")
+                   help="overlap rows on each side of a tile — vertical "
+                        "context for the encoders/GRU; the residual "
+                        "tile disagreement is measured per request as "
+                        "seam EPE (serve_tile_seam_epe)")
     p.add_argument("--quant_scales", default=None,
                    help="checkpoint-adjacent int8 calibration scale file "
                         "(quant/calibrate.py): int8 tiers (e.g. "

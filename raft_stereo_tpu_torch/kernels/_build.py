@@ -9,12 +9,22 @@ shared-memory report (``-Xptxas -v``) is kept beside each library as
 ``<name>-<hash>.log``.
 
 Nothing here runs at import time: the kernels build on first use.
+
+With an artifact store attached (``set_artifact_store``: the serving
+engine's ``executable_cache_dir``, serving/persist.py), a library missing
+from ``_build/`` is looked up in the store first, under a key over the
+source's hash, the flags, the toolkit's version and the architecture; a
+library built here is stored there unless the store is read-only.
+``nvcc_runs`` counts the compiler's runs in this process, ``fetched`` the
+libraries the store supplied.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -33,6 +43,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[Tuple[str, str], object] = {}
+_store = None            # serving.persist.ExecutableDiskCache, or None
+nvcc_runs = 0
+fetched = 0
 
 
 def sources() -> Dict[str, Path]:
@@ -57,15 +70,72 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
+def set_artifact_store(store) -> None:
+    """Attach (or, with None, detach) the artifact store that a
+    ``_build/`` miss reads before it runs ``nvcc``."""
+    global _store
+    _store = store
+
+
+@functools.lru_cache(maxsize=None)
+def toolkit_version() -> str:
+    """The CUDA toolkit's version from its ``version.json`` beside
+    ``bin/nvcc`` (no compiler run), else the SHA-256 of the ``nvcc``
+    binary."""
+    nvcc = _nvcc()
+    root = os.path.dirname(os.path.dirname(os.path.realpath(nvcc)))
+    try:
+        with open(os.path.join(root, "version.json")) as f:
+            info = json.load(f)
+        return str((info.get("cuda_nvcc") or info["cuda"])["version"])
+    except (OSError, ValueError, KeyError, TypeError):
+        with open(nvcc, "rb") as f:
+            return "sha256:" + hashlib.sha256(f.read()).hexdigest()
+
+
+def artifact_coords(name: str) -> Dict[str, str]:
+    """What selects one library in the artifact store."""
+    arch = next(f.split("code=")[1] for f in NVCC_FLAGS if "code=" in f)
+    return {"kind": "kernel_library", "name": name,
+            "source_sha256": hashlib.sha256(
+                sources()[name].read_bytes()).hexdigest(),
+            "flags": " ".join(NVCC_FLAGS), "toolkit": toolkit_version(),
+            "arch": arch}
+
+
+def artifact_key(name: str) -> str:
+    from raft_stereo_tpu_torch.serving.persist import executable_cache_key
+    return executable_cache_key(**artifact_coords(name))
+
+
+def _fetch(name: str, lib: Path) -> bool:
+    """Install the store's library for ``name`` at ``lib``; False on a
+    miss."""
+    global fetched
+    blob = _store.load(artifact_key(name))
+    if blob is None:
+        return False
+    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    tmp.write_bytes(blob)
+    os.replace(tmp, lib)
+    fetched += 1
+    return True
+
+
 def build(name: str) -> float:
-    """Compile one source if its library is missing; returns seconds and
-    reports a compile to ``profiling.note_build``."""
+    """Compile one source if its library is missing (from ``_build/``
+    and from the artifact store); returns seconds and reports a compile
+    to ``profiling.note_build``."""
+    global nvcc_runs
     lib = library_path(name)
     if lib.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if _store is not None and _fetch(name, lib):
+        return 0.0
     tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
+    nvcc_runs += 1
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(sources()[name])],
         capture_output=True, text=True)
@@ -76,6 +146,9 @@ def build(name: str) -> float:
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     seconds = time.perf_counter() - t0
+    if _store is not None and not _store.read_only:
+        _store.store(artifact_key(name), lib.read_bytes(),
+                     meta=artifact_coords(name))
     from raft_stereo_tpu_torch.profiling import note_build
     note_build(f"kernel_build:{name}", seconds)
     return seconds

@@ -1,17 +1,18 @@
 """Inference serving on the card: the batch-N serving engine over one CUDA
-graph per (bucket, batch, tier, family) — continuous batching, admission
-control and backpressure, waste-driven bucket selection, request tiers
-(early exit, the int8 ``turbo`` tier, confidence), streaming stereo
-sessions (warm-start video serving with temporal state,
-serving/sessions.py), supervised crash recovery (retries, per-device
-circuit breakers, brownout degradation, chaos testing), span traces,
-metrics, and the HTTP front end (serving/http.py).
+graph per (bucket, batch, tier, family, model) — continuous batching,
+admission control and backpressure, waste-driven bucket selection, request
+tiers (early exit, the int8 ``turbo`` tier, confidence, the
+confidence-gated ``auto`` cascade), halo row tiles for pairs larger than
+a bucket (serving/tiles.py), streaming stereo sessions with their handoff
+across replicas (serving/sessions.py), the model store and registry
+(serving/models.py), the shared artifact store (serving/persist.py),
+supervised crash recovery (retries, per-device circuit breakers, brownout
+degradation, chaos testing), span traces, metrics, and the HTTP front end
+(serving/http.py).
 
 The JAX package's ``serving/`` names, for the modules the port runs.  The
-session handoff across replicas, the cascade, tiles, the model store and
-the persistent executable cache (ROADMAP §D6b), the fleet (§D6c) and the
-xl mesh (§D7) are not ported yet; their ``ServeConfig`` fields raise
-``NotImplementedError``."""
+fleet (ROADMAP §D6c) and the xl mesh (§D7) are not ported yet; the xl
+fields of ``ServeConfig`` raise ``NotImplementedError``."""
 
 from raft_stereo_tpu_torch.serving.batcher import (BucketQueue,
                                                    DeadlineExceeded,
@@ -41,6 +42,13 @@ from raft_stereo_tpu_torch.serving.engine import (FAMILY_BASE,
                                                   StereoService)
 from raft_stereo_tpu_torch.serving.metrics import (MetricsRegistry,
                                                    ServingMetrics)
+from raft_stereo_tpu_torch.serving.models import (ModelStore,
+                                                  ModelStoreError,
+                                                  ModelVersionExists,
+                                                  RegisteredModel,
+                                                  parse_model_spec)
+from raft_stereo_tpu_torch.serving.persist import (ExecutableDiskCache,
+                                                   SessionHandoffStore)
 from raft_stereo_tpu_torch.serving.resilience import (CIRCUIT_CLOSED,
                                                       CIRCUIT_HALF_OPEN,
                                                       CIRCUIT_OPEN,
@@ -62,6 +70,9 @@ __all__ = ["BucketQueue", "DeadlineExceeded", "Overloaded", "Request",
            "InjectedWorkerCrash", "parse_chaos_spec", "BucketPolicy",
            "MetricsRegistry", "ServingMetrics", "ServeConfig", "ServeResult",
            "ServingEngine", "StereoService", "ModelUnknown",
+           "ModelStore", "ModelStoreError", "ModelVersionExists",
+           "RegisteredModel", "parse_model_spec", "ExecutableDiskCache",
+           "SessionHandoffStore",
            "CIRCUIT_CLOSED", "CIRCUIT_HALF_OPEN", "CIRCUIT_OPEN",
            "BrownoutController", "CircuitBreaker", "circuit_state_name",
            "cost_ladder", "FAMILY_BASE", "FAMILY_STATE",

@@ -66,13 +66,32 @@ engine's device gate exclusively, a replay holds it shared.  Captures run
 inside ``profiling.graph_capture``, so no profiler window is open during
 one.
 
-The rest of the JAX engine is refused at ``ServeConfig`` construction,
-naming its ROADMAP tag: the session handoff across replicas, the cascade,
-tiles, the model store and the persistent executable cache (§D6b), the xl
-mesh (§D7).  Without a handoff store a session's ``handoff_key`` leads to
-the cold start the JAX engine gives without one.  The port keeps its own
-copy of the typed exception its requests can meet at the model store
-(``ModelUnknown``).
+* **Tiles** (serving/tiles.py): a pair whose bucket exceeds
+  ``tile_threshold_pixels`` runs as equal-height halo row tiles at one
+  bucket, tier and family, so the batcher puts one image's tiles into one
+  batch-N dispatch; the result is stitched and its seam measured.
+* **The cascade** (``tier="auto"``): the draft tier (the cheapest rung of
+  the cost ladder) answers first; a draft whose mean confidence is below
+  ``cascade_threshold`` runs again on the escalation tier (the dearest
+  rung), per tile past the tiling threshold.
+* **The model registry** (serving/models.py): the implicit constructor
+  model and every registered ``name@version`` keep their own models per
+  device and their own ``ProgramCache`` per worker (so their own CUDA
+  graphs and graph pool); the model joins every program key, requests of
+  different models never share a dispatch, and ``retire_model`` drains a
+  model's admissions before it drops its graphs and weights.
+* **The artifact store** (serving/persist.py, ``executable_cache_dir``):
+  the kernel libraries ``nvcc`` builds, shared between processes
+  (kernels/_build.py reads it before it compiles), and the ``sessions/``
+  namespace a draining engine publishes its sessions into.
+* **Session handoff**: ``publish_handoff`` exports every live session in
+  the JAX package's blob layout (hidden states NHWC per level, the
+  context bundle dropped) under ``exec_config_fingerprint``, and a frame
+  with a ``handoff_key`` adopts its session from such a blob (either
+  package's), or counts the typed reason it cannot.
+
+The xl mesh (§D7) is refused at ``ServeConfig`` construction, naming its
+ROADMAP tag.
 """
 
 from __future__ import annotations
@@ -80,8 +99,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import hashlib
+import json
 import logging
-import re
 import threading
 import time
 import weakref
@@ -110,6 +130,9 @@ from raft_stereo_tpu_torch.serving.batcher import (BucketQueue, Overloaded,
 from raft_stereo_tpu_torch.serving.chaos import ChaosConfig, ChaosInjector
 from raft_stereo_tpu_torch.serving.metrics import (MetricsRegistry,
                                                    ServingMetrics)
+from raft_stereo_tpu_torch.serving.models import (ModelStore, ModelUnknown,
+                                                  model_coord,
+                                                  parse_model_spec)
 from raft_stereo_tpu_torch.serving.resilience import (CIRCUIT_CLOSED,
                                                       BrownoutController,
                                                       CircuitBreaker,
@@ -119,7 +142,10 @@ from raft_stereo_tpu_torch.serving.sessions import (SessionsDisabled,
                                                     SessionStore,
                                                     StereoSession,
                                                     frame_delta,
-                                                    frame_thumbnail)
+                                                    frame_thumbnail,
+                                                    handoff_fingerprint,
+                                                    handoff_session_ids,
+                                                    parse_handoff_blob)
 from raft_stereo_tpu_torch.telemetry.flops import forward_flops
 
 log = logging.getLogger(__name__)
@@ -132,8 +158,6 @@ MODEL_DIVIS = 32
 # handed to it (prewarm).
 _TASK_POLL_S = 0.02
 
-_D6B = ("§D6b serving: session handoff, cascade, tiles, model store, "
-        "executable cache")
 _D7 = "§D7 parallel executors"
 
 # The program families (eval/runner.make_forward's streaming flags), the
@@ -172,44 +196,6 @@ _CTX_REUSE_FAMILIES = (FAMILY_WARM_CTX, FAMILY_WARM_CTX_H)
 # session's next cold frame.
 CTX_CARD_SHARE = 0.25
 
-_TOKEN_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._-]{0,63}$")
-
-
-# ------------------------------------------------------- typed exceptions
-class ModelUnknown(KeyError):
-    """A request named a model this engine does not serve (HTTP 404,
-    ``{"error": "model_unknown"}``).  The port serves the implicit
-    constructor model only, so every name is unknown."""
-
-    def __init__(self, model: str, known: List[str]):
-        super().__init__(
-            f"unknown model {model!r}: this engine serves "
-            f"{sorted(known) or '(no registered models)'}")
-        self.model = model
-        self.known = sorted(known)
-
-    def __str__(self) -> str:  # KeyError quotes its arg; keep it readable
-        return self.args[0]
-
-
-def _check_token(kind: str, value: str) -> str:
-    if not isinstance(value, str) or not _TOKEN_RE.match(value):
-        raise ValueError(
-            f"model {kind} {value!r} must match {_TOKEN_RE.pattern} "
-            f"(path-safe token; the store builds paths from it)")
-    return value
-
-
-def parse_model_spec(spec: str) -> Tuple[str, Optional[str]]:
-    """``"name@version"`` -> (name, version); bare ``"name"`` -> (name,
-    None).  ``ServeConfig`` validates ``models`` with it before refusing
-    the field."""
-    if "@" in spec:
-        name, _, version = spec.partition("@")
-        return _check_token("name", name), _check_token("version", version)
-    return _check_token("name", spec), None
-
-
 def parse_mesh_spec(spec: str) -> Dict[str, int]:
     """``"rows=4"`` / ``"rows=2,corr=2"`` -> ``{"rows": 4, "corr": 2}``,
     with the JAX package's errors.  ``ServeConfig`` validates ``xl_mesh``
@@ -247,8 +233,8 @@ class ServeConfig:
     """Serving knobs (model architecture stays in RaftStereoConfig), the
     JAX package's ``ServeConfig`` field for field.
 
-    Fields of the features the port does not run yet keep their names and
-    defaults and raise ``NotImplementedError`` when set away from them
+    The xl mesh's fields (§D7) keep their names and defaults and raise
+    ``NotImplementedError`` when set away from them
     (``_unsupported_serving``).  ``donate_buffers`` is accepted and does
     nothing: a graph's static inputs already take each upload in place.
     ``max_wait_ms`` is retired in both packages (continuous batching has
@@ -523,15 +509,8 @@ class ServeConfig:
         return tuple(parse_tier(s) for s in self.tiers)
 
 
-# Fields of the deferred features, each with its ROADMAP tag.
-DEFERRED_FIELDS: Tuple[Tuple[str, str], ...] = tuple(
-    (name, _D6B) for name in (
-        "cascade",
-        "cascade_draft", "cascade_escalate", "cascade_threshold",
-        "tile_threshold_pixels", "tile_rows", "tile_halo", "models",
-        "model_store_dir", "default_model", "executable_cache_dir",
-        "executable_cache_max_bytes", "executable_cache_read_only")
-) + tuple((name, _D7) for name in (
+# Fields of the deferred feature, each with its ROADMAP tag.
+DEFERRED_FIELDS: Tuple[Tuple[str, str], ...] = tuple((name, _D7) for name in (
     "xl_mesh", "xl_workers", "xl_threshold_pixels", "xl_max_pixels",
     "xl_batch_sizes"))
 
@@ -547,8 +526,10 @@ def _unsupported_serving(cfg: ServeConfig) -> List[Tuple[str, str]]:
 @dataclasses.dataclass
 class ServeResult:
     """One answered request: the flow plus its latency decomposition.
-    The JAX package's fields; those of the deferred features keep their
-    defaults.
+    The JAX package's fields (``mesh`` stays None: no xl tier, §D7).
+    A tiled answer carries ``tiles`` and ``seam_epe``, a named model's
+    ``model`` and ``model_version``, a cascade answer ``escalated``,
+    ``draft_tier`` and ``draft_confidence``.
 
     A session frame (``submit_session``) also says what happened:
     ``session_id``, ``frame_index`` (its index in the stream), ``warm``
@@ -624,6 +605,62 @@ class _Payload:
     scene_cut: bool = False
     frame_delta: Optional[float] = None
     ctx_init: Optional[object] = None        # warm_ctx: the cached bundle
+
+
+@dataclasses.dataclass
+class _EngineModel:
+    """One served model's engine-side state: the identity coordinate plus
+    everything the dispatch path reads per model — the effective config
+    and each tier's, the models per device and tier (fixed-depth tiers
+    share the base model), the lazily quantized state, and one
+    ``ProgramCache`` per worker (so the model's CUDA graphs and their
+    memory pool are its own and go with it).  The implicit constructor
+    model is the ``name=None`` bundle."""
+
+    name: Optional[str]          # None = the implicit constructor model
+    version: Optional[str]
+    config: RaftStereoConfig
+    effective_config: RaftStereoConfig
+    tier_configs: Dict[Optional[str], RaftStereoConfig]
+    tier_models: Dict[torch.device, Dict[Optional[str], RAFTStereo]]
+    programs: List[ProgramCache]
+    compiled: List[Dict[Tuple, object]]
+    qstate: Optional[Mapping[str, torch.Tensor]] = None
+    # Retirement latch: resolve_model refuses a retiring model (typed
+    # 404) while its in-flight dispatches drain.
+    retiring: bool = False
+
+    @property
+    def coord(self) -> Optional[str]:
+        """``name@version``, or None for the implicit model — the tag
+        cost keys and metric labels carry."""
+        if self.name is None:
+            return None
+        return model_coord(self.name, self.version or "0")
+
+
+def _to_wire(meta: Dict[str, object], arrays: Dict[str, object]):
+    """A session record in the JAX package's blob layout: the hidden
+    states NHWC per level (the port's are NCHW), the context bundle
+    dropped (on the card it is a tree of tensors; the importer's next
+    cold frame saves a new one)."""
+    hidden = arrays.get("hidden")
+    if hidden is not None:
+        hidden = tuple(np.ascontiguousarray(np.transpose(h, (1, 2, 0)))
+                       for h in hidden)
+    return meta, dict(arrays, ctx=None, hidden=hidden)
+
+
+def _from_wire(arrays: Dict[str, object]) -> Dict[str, object]:
+    """A blob's arrays in the port's layout (``_to_wire`` undone): the
+    hidden states NCHW per level; a context bundle (a JAX exporter keeps
+    its NHWC host bundle) dropped, to be saved anew at the next cold
+    frame."""
+    hidden = arrays.get("hidden")
+    if hidden is not None:
+        hidden = tuple(np.ascontiguousarray(np.transpose(h, (2, 0, 1)))
+                       for h in hidden)
+    return dict(arrays, ctx=None, hidden=hidden)
 
 
 class BucketPolicy:
@@ -885,20 +922,37 @@ class ServingEngine:
                 "session_ctx_cache is unsupported with shared_backbone: "
                 "fnet is computed from the cnet trunk, so the context "
                 "encoder cannot be skipped (models/raft_stereo.py)")
-        self.effective_config = self._effective(config)
-        self._tier_configs: Dict[Optional[str], RaftStereoConfig] = {
-            None: self.effective_config}
-        for tname, tier in self.tiers.items():
-            self._tier_configs[tname] = self._effective(tier.apply(config))
         state = (variables.state_dict() if isinstance(variables, RAFTStereo)
                  else variables)
-        self._qstate = None
-        # per device: tier -> model (the device's base model under None)
-        self._tier_models: Dict[torch.device, Dict[Optional[str],
-                                                   RAFTStereo]] = {}
-        for dev in dict.fromkeys(self.devices):
-            self._tier_models[dev] = self._build_models(state, dev)
-        self.model = self._tier_models[self.devices[0]][None]
+        # One side stream per worker, shared by every model's programs:
+        # cuBLAS keeps a workspace per stream for the process's life, so a
+        # stream per model would leave one behind at each retirement.
+        self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                         for d in self.devices]
+        # The model registry (serving/models.py): the implicit constructor
+        # model under None, each registered "name@version" under its name.
+        self._models_lock = threading.Lock()
+        self._pending_lock = threading.Lock()
+        self._model_pending: Dict[Optional[str], int] = {}
+        base_bundle = self._build_bundle(None, None, config, state)
+        self._models: Dict[Optional[str], _EngineModel] = {
+            None: base_bundle}
+        # the implicit model's effective config and first-device model
+        self.effective_config = base_bundle.effective_config
+        self.model = base_bundle.tier_models[self.devices[0]][None]
+        self.model_store: Optional[ModelStore] = None
+        store_dir = (serve_cfg.model_store_dir
+                     or serve_cfg.executable_cache_dir)
+        if store_dir and (serve_cfg.models or serve_cfg.model_store_dir):
+            self.model_store = ModelStore(store_dir)
+        self.default_model: Optional[str] = None
+        for spec in serve_cfg.models:
+            reg = self.model_store.resolve(spec)   # deep-verified load
+            self._models[reg.name] = self._build_bundle(
+                reg.name, reg.version, reg.config, reg.variables)
+            log.info("model %s registered at boot", reg.coord)
+        if serve_cfg.default_model is not None:
+            self.default_model = serve_cfg.default_model
         self.costs = None
         self._mfu = None
         if serve_cfg.cost_telemetry:
@@ -913,11 +967,6 @@ class ServingEngine:
                 self.metrics.mfu, self.costs.peak_flops,
                 achieved_gauge=self.metrics.achieved_flops_per_s)
         self._cache_lock = threading.Lock()
-        # one ProgramCache per worker: its LRU, side stream and graph pool
-        self._programs = [ProgramCache(dev, serve_cfg.max_cached_shapes,
-                                       on_evict=self._evicted)
-                          for dev in self.devices]
-        self._compiled = [p.lru() for p in self._programs]
         self._gate = _DeviceGate()
         self.captures = 0
         self.replays = 0
@@ -953,8 +1002,34 @@ class ServingEngine:
             self.ctx_budget_bytes = int(CTX_CARD_SHARE * min(
                 torch.cuda.get_device_properties(d).total_memory
                 for d in set(self.devices)))
-        # No registered models: /healthz reads no default-model pointer.
-        self.default_model: Optional[str] = None
+        # The artifact store (serving/persist.py): the kernel libraries
+        # kernels/_build.py reads before it runs nvcc, and the sessions/
+        # namespace of the handoff.
+        self.disk_cache = None
+        if serve_cfg.executable_cache_dir:
+            from raft_stereo_tpu_torch.kernels import _build
+            from raft_stereo_tpu_torch.serving.persist import (
+                ExecutableDiskCache)
+            self.disk_cache = ExecutableDiskCache(
+                serve_cfg.executable_cache_dir,
+                max_bytes=serve_cfg.executable_cache_max_bytes,
+                read_only=serve_cfg.executable_cache_read_only,
+                bytes_gauge=self.metrics.persist_cache_bytes)
+            _build.set_artifact_store(self.disk_cache)
+        # Session handoff: needs the session store and the shared
+        # artifact directory; absent either, a drain loses its sessions
+        # typed.
+        self.handoff_store = None
+        self._handoff_manifest: Optional[Dict[str, object]] = None
+        self._handoff_fetched = threading.Event()
+        self._handoff_lock = threading.Lock()
+        self._handoff_blobs: Dict[str, Dict] = {}
+        if serve_cfg.sessions and serve_cfg.executable_cache_dir:
+            from raft_stereo_tpu_torch.serving.persist import (
+                SessionHandoffStore)
+            self.handoff_store = SessionHandoffStore(
+                serve_cfg.executable_cache_dir,
+                ttl_s=max(serve_cfg.session_ttl_s, 60.0) * 4)
         # ---- resilience ---------------------------------------------
         self.sink = None
         self.chaos: Optional[ChaosInjector] = None
@@ -1002,6 +1077,31 @@ class ServingEngine:
                 drift_reference_size=serve_cfg.quality_drift_reference,
                 drift_window=serve_cfg.quality_drift_window,
                 slo=quality_slo)
+        # Cascade tier resolution ("auto"): draft on the cheapest rung of
+        # the cost ladder, escalate to the dearest, unless the config
+        # names either.
+        self._cascade_draft: Optional[str] = None
+        self._cascade_escalate: Optional[str] = None
+        self._cascade_drafts = None
+        self._cascade_escalations = None
+        if serve_cfg.cascade:
+            ladder = cost_ladder(serve_cfg.parsed_tiers())
+            self._cascade_draft = serve_cfg.cascade_draft or ladder[0]
+            self._cascade_escalate = (serve_cfg.cascade_escalate
+                                      or ladder[-1])
+            if self._cascade_draft == self._cascade_escalate:
+                raise ValueError(
+                    f"cascade draft and escalation tiers both resolve "
+                    f"to {self._cascade_draft!r} — configure "
+                    f"cascade_draft/cascade_escalate explicitly")
+            self._cascade_drafts = self.metrics.registry.counter(
+                "serve_cascade_draft_total",
+                "Cascade (tier=auto) requests answered by the draft "
+                "tier alone")
+            self._cascade_escalations = self.metrics.registry.counter(
+                "serve_cascade_escalated_total",
+                "Cascade (tier=auto) requests escalated to the "
+                "expensive tier on low draft confidence")
         self._retry_lock = threading.Lock()
         self._pending_retries = 0
         self._retry_timers: set = set()   # (Timer, reqs) pairs
@@ -1010,14 +1110,8 @@ class ServingEngine:
         self._warm_lock = threading.Lock()
         self._warmed: set = set()
         self._warm_target: set = set()
-        for hw in serve_cfg.warmup_shapes:
-            hp, wp, _ = self.policy.bucket_for(int(hw[0]), int(hw[1]))
-            for widx in range(len(self.devices)):
-                for tier in self._distinct_cache_tiers():
-                    for n in self.queue.sizes:
-                        for family in self._families():
-                            self._warm_target.add(
-                                (widx, (hp, wp), n, tier, family))
+        for mname in self._registered_names():
+            self._extend_warm_target(mname)
         per_bucket = (len(self._distinct_cache_tiers())
                       * len(self.queue.sizes) * len(self._families()))
         if per_bucket > serve_cfg.max_cached_shapes:
@@ -1055,22 +1149,51 @@ class ServingEngine:
                 eff, quant_corr_scales=self._quant_corr_scales)
         return eff
 
-    def _build_models(self, state: Mapping[str, torch.Tensor],
+    def _build_bundle(self, name: Optional[str], version: Optional[str],
+                      config: RaftStereoConfig,
+                      state: Mapping[str, torch.Tensor]) -> _EngineModel:
+        """One model's engine-side state: its effective config and each
+        tier's, its models on every device, and one ``ProgramCache`` per
+        worker.  The same construction for the implicit model and every
+        registered one."""
+        eff = self._effective(config)
+        tier_configs: Dict[Optional[str], RaftStereoConfig] = {None: eff}
+        for tname, tier in self.tiers.items():
+            tier_configs[tname] = self._effective(tier.apply(config))
+        # one ProgramCache per worker: its LRU and graph pool (the
+        # worker's side stream)
+        programs = [ProgramCache(dev, self.serve_cfg.max_cached_shapes,
+                                 on_evict=self._evicted)
+                    for dev in self.devices]
+        for p, stream in zip(programs, self._streams):
+            p.stream = stream
+        bundle = _EngineModel(name=name, version=version, config=config,
+                              effective_config=eff,
+                              tier_configs=tier_configs, tier_models={},
+                              programs=programs,
+                              compiled=[p.lru() for p in programs])
+        for dev in dict.fromkeys(self.devices):
+            bundle.tier_models[dev] = self._build_models(bundle, state, dev)
+        return bundle
+
+    def _build_models(self, bundle: _EngineModel,
+                      state: Mapping[str, torch.Tensor],
                       dev: torch.device) -> Dict[Optional[str], RAFTStereo]:
-        """One device's models: the base model of the fp32 state, a model
-        per distinct tier config sharing its tensors, and the quantized
-        tiers' models over the state quantized once per engine."""
+        """One device's models of one bundle: the base model of the fp32
+        state, a model per distinct tier config sharing its tensors, and
+        the quantized tiers' models over the state quantized once per
+        bundle."""
         def load(cfg, sd):
             m = RAFTStereo(cfg)
             m.load_state_dict(sd, strict=True)
             return m.to(dev).eval().cast_weights_()
 
-        base = load(self.effective_config, state)
+        base_cfg = bundle.effective_config
+        base = load(base_cfg, state)
         models: Dict[Optional[str], RAFTStereo] = {None: base}
-        by_config: Dict[RaftStereoConfig, RAFTStereo] = {
-            self.effective_config: base}
+        by_config: Dict[RaftStereoConfig, RAFTStereo] = {base_cfg: base}
         by_quant: Dict[str, RAFTStereo] = {}
-        for tname, teff in self._tier_configs.items():
+        for tname, teff in bundle.tier_configs.items():
             if tname is None:
                 continue
             if teff in by_config:
@@ -1083,19 +1206,20 @@ class ServingEngine:
                 m = RAFTStereo(teff)
                 _share_weights(m, by_quant[teff.quant])
             else:
-                m = load(teff, self._quantized_state(state))
+                m = load(teff, self._quantized_state(bundle, state))
                 by_quant[teff.quant] = m
             models[tname] = by_config[teff] = m.to(dev).eval()
         return models
 
-    def _quantized_state(self, state: Mapping[str, torch.Tensor]
+    def _quantized_state(self, bundle: _EngineModel,
+                         state: Mapping[str, torch.Tensor]
                          ) -> Mapping[str, torch.Tensor]:
         if is_quantized(state):
             return state
-        if self._qstate is None:
-            self._qstate = quantize_state_dict(
+        if bundle.qstate is None:
+            bundle.qstate = quantize_state_dict(
                 state, act_scales=self._quant_act_scales)
-        return self._qstate
+        return bundle.qstate
 
     def _make_circuit_callback(self, widx: int):
         """Breaker transition hook for one device: gauge + anomaly event."""
@@ -1117,37 +1241,199 @@ class ServingEngine:
         transitions emit anomaly run events + flight-recorder bundles."""
         self.sink = sink
 
-    # ------------------------------------------------ deferred surfaces
+    # ------------------------------------------------------------- xl tier
     def xl_status(self) -> Optional[Dict[str, object]]:
         """None: the port serves without an xl tier (§D7)."""
         return None
 
+    # -------------------------------------------------------- model registry
+    def _registered_names(self, include_implicit: bool = True
+                          ) -> List[Optional[str]]:
+        """Model names this engine serves, implicit first — what the
+        warm target and prewarm iterate."""
+        with self._models_lock:
+            names = sorted(n for n in self._models if n is not None)
+        return ([None] + names) if include_implicit else names
+
     def resolve_model(self, model: Optional[str]) -> Optional[str]:
-        """None (the implicit constructor model); any name raises the
-        typed ``ModelUnknown`` (HTTP 404), as the JAX engine does without
-        registered models."""
+        """The model a request actually runs: the named one (validated
+        against the registry), or the default-model pointer, or None
+        (the implicit constructor model).  Raises the typed
+        ``ModelUnknown`` (HTTP 404 ``model_unknown``) on an
+        unregistered or retiring name."""
+        if model is None:
+            model = self.default_model
         if model is None:
             return None
-        raise ModelUnknown(model, [])
+        bundle = self._models.get(model)
+        if bundle is None or bundle.retiring:
+            with self._models_lock:
+                known = [n for n, b in self._models.items()
+                         if n is not None and not b.retiring]
+            raise ModelUnknown(model, known)
+        return model
 
-    def models_status(self) -> Dict[str, object]:
-        return {"default": None, "registered": [], "pending": {}}
+    def _note_pending(self, model: Optional[str], delta: int) -> None:
+        """Per-model in-flight admission count — ``retire_model``'s
+        drain signal (a model with pending admissions must not lose its
+        graphs and weights under a dispatch that will still read them)."""
+        with self._pending_lock:
+            self._model_pending[model] = (
+                self._model_pending.get(model, 0) + delta)
+
+    def _model_pending_count(self, model: Optional[str]) -> int:
+        with self._pending_lock:
+            return self._model_pending.get(model, 0)
+
+    def _extend_warm_target(self, name: Optional[str]) -> None:
+        """Grow the /readyz warm surface by one model's ladder: ``ready``
+        turns False until the new model's prewarm completes."""
+        with self._warm_lock:
+            for hw in self.serve_cfg.warmup_shapes:
+                hp, wp, _ = self.policy.bucket_for(int(hw[0]), int(hw[1]))
+                for widx in range(len(self.devices)):
+                    for tier in self._distinct_cache_tiers(name):
+                        for n in self.queue.sizes:
+                            for family in self._families():
+                                self._warm_target.add(
+                                    (widx, (hp, wp), n, tier, family,
+                                     name))
+
+    def _purge_model_cache(self, bundle: _EngineModel,
+                           drop_target: bool = False) -> None:
+        """Drop one model's programs (its CUDA graphs: their pool goes
+        with the last of them) and warm entries (same-name version
+        replace / retirement)."""
+        with self._cache_lock:
+            for cache in bundle.compiled:
+                cache.clear()
+        with self._warm_lock:
+            self._warmed = {e for e in self._warmed
+                            if e[5] != bundle.name}
+            if drop_target:
+                self._warm_target = {e for e in self._warm_target
+                                     if e[5] != bundle.name}
 
     def register_model(self, spec: str, set_default: bool = False,
                        prewarm: bool = True) -> Dict[str, object]:
-        raise RuntimeError(
-            "no model store: construct the engine with "
-            "ServeConfig.model_store_dir (or executable_cache_dir) to "
-            "register models")
+        """Hot-register a model version on this LIVE engine (``POST
+        /admin/models``): deep-verified store load, bundle build (models
+        on every device, a ProgramCache per worker), warm-target
+        extension, prewarm of the declared ladder and — only then, when
+        asked — the atomic default-pointer flip.  Re-registering the
+        SAME name@version is idempotent; a new version under a live name
+        replaces it (the old version's programs are dropped)."""
+        if self.model_store is None:
+            store_dir = (self.serve_cfg.model_store_dir
+                         or self.serve_cfg.executable_cache_dir)
+            if not store_dir:
+                raise RuntimeError(
+                    "no model store: construct the engine with "
+                    "ServeConfig.model_store_dir (or "
+                    "executable_cache_dir) to register models")
+            self.model_store = ModelStore(store_dir)
+        reg = self.model_store.resolve(spec)   # deep SHA-256 verify
+        with self._models_lock:
+            existing = self._models.get(reg.name)
+            fresh = not (existing is not None
+                         and existing.version == reg.version
+                         and not existing.retiring)
+        if fresh:
+            bundle = self._build_bundle(reg.name, reg.version,
+                                        reg.config, reg.variables)
+            if existing is not None:
+                # Same-name version replace: the old version's programs
+                # must never answer the new version's requests.
+                self._purge_model_cache(existing)
+            with self._models_lock:
+                self._models[reg.name] = bundle
+            self._extend_warm_target(reg.name)
+            log.info("model %s registered%s", reg.coord,
+                     " (replacing a live version)" if existing else "")
+            if prewarm:
+                for hw in self.serve_cfg.warmup_shapes:
+                    self.prewarm(hw, models=[reg.name])
+        if set_default:
+            self.set_default_model(reg.name)
+        return {"model": reg.name, "version": reg.version,
+                "registered": bool(fresh),
+                "default": self.default_model,
+                "ready": self.ready}
 
     def set_default_model(self, name: Optional[str]) -> Optional[str]:
-        if name is not None:
-            raise ModelUnknown(name, [])
-        return None
+        """Atomically flip the default-model pointer (what unnamed
+        requests run); None restores the implicit constructor model.
+        The flip is the LAST step of a rollout — ``register_model``
+        prewarms before it, so the first request after it replays warm
+        programs."""
+        with self._models_lock:
+            if name is not None:
+                b = self._models.get(name)
+                if b is None or b.retiring:
+                    raise ModelUnknown(
+                        name, [n for n, bb in self._models.items()
+                               if n is not None and not bb.retiring])
+            previous, self.default_model = self.default_model, name
+        log.info("default model: %s -> %s", previous, name)
+        return name
 
     def retire_model(self, name: str, timeout: float = 30.0
                      ) -> Dict[str, object]:
-        raise ModelUnknown(name, [])
+        """Retire a registered model from this live engine: latch it
+        retiring (new requests get the typed 404), DRAIN its in-flight
+        admissions, then drop its programs (CUDA graphs and their pool)
+        and its models.  Refuses the current default (RuntimeError —
+        flip the pointer first; HTTP 409) and raises ``TimeoutError``
+        (retiring latch released) if in-flight work does not drain in
+        ``timeout``."""
+        with self._models_lock:
+            bundle = self._models.get(name) if name is not None else None
+            if bundle is None:
+                raise ModelUnknown(
+                    name, [n for n in self._models if n is not None])
+            if self.default_model == name:
+                raise RuntimeError(
+                    f"model {name!r} is the default — set_default_model "
+                    f"to another version before retiring it")
+            bundle.retiring = True
+        deadline = time.monotonic() + max(0.0, timeout)
+        while self._model_pending_count(name) > 0:
+            if time.monotonic() > deadline:
+                with self._models_lock:
+                    bundle.retiring = False
+                raise TimeoutError(
+                    f"model {name!r}: {self._model_pending_count(name)} "
+                    f"admission(s) still in flight after {timeout}s — "
+                    f"retirement rolled back")
+            time.sleep(0.005)
+        with self._models_lock:
+            self._models.pop(name, None)
+        self._purge_model_cache(bundle, drop_target=True)
+        bundle.tier_models.clear()
+        bundle.qstate = None
+        with self._pending_lock:
+            self._model_pending.pop(name, None)
+        log.info("model %s retired (drained, programs and weights "
+                 "dropped)", bundle.coord)
+        return {"model": name, "version": bundle.version,
+                "retired": True}
+
+    def models_status(self) -> Dict[str, object]:
+        """The registry's JSON line (/healthz, /admin/models GET):
+        registered versions, the default pointer, per-model in-flight
+        admissions."""
+        with self._models_lock:
+            registered = [
+                {"name": b.name, "version": b.version,
+                 "coord": b.coord, "retiring": b.retiring}
+                for n, b in sorted(self._models.items(),
+                                   key=lambda kv: kv[0] or "")
+                if n is not None]
+        with self._pending_lock:
+            pending = {(k if k is not None else "(implicit)"): v
+                       for k, v in self._model_pending.items() if v > 0}
+        return {"default": self.default_model,
+                "registered": registered, "pending": pending}
 
     def quality_status(self) -> Optional[Dict[str, object]]:
         """Online quality posture (``GET /quality``); None with confidence
@@ -1202,7 +1488,18 @@ class ServingEngine:
         eligible request is rerouted down the tier ladder
         (``degradable=False`` opts out).  ``trace_context`` (a decoded
         ``traceparent``) makes the request's span tree a child of the
-        caller's trace."""
+        caller's trace.
+
+        Past ``tile_threshold_pixels`` the request is answered by halo row
+        tiles through the ordinary batcher; the stitched result carries
+        ``tiles`` and ``seam_epe``.  ``model`` selects a registered model
+        version (None: the default-model pointer); an unknown or retiring
+        name raises ``ModelUnknown`` (HTTP 404), and requests of
+        different models never share a dispatch.  ``tier="auto"`` is the
+        confidence-gated cascade (``ServeConfig.cascade``): the draft
+        tier answers first and the escalation tier runs only when the
+        draft's mean confidence is below ``cascade_threshold``, per tile
+        past the tiling threshold."""
         t_admit = time.perf_counter()
         model = self.resolve_model(model)
         left, right = np.asarray(left), np.asarray(right)
@@ -1210,19 +1507,30 @@ class ServingEngine:
             raise ValueError(
                 f"need two same-shape (H, W, 3) images, got {left.shape} "
                 f"vs {right.shape}")
+        bucket = self.policy.bucket_for(left.shape[0], left.shape[1])[:2]
         if tier == "auto":
-            raise ValueError(
-                "tier 'auto' requested but this engine has no "
-                "cascade (configure ServeConfig.cascade / --cascade "
-                "with confidence telemetry on)")
+            # A pseudo-tier, resolved here, never a queue coordinate.
+            if self._cascade_draft is None:
+                raise ValueError(
+                    "tier 'auto' requested but this engine has no "
+                    "cascade (configure ServeConfig.cascade / --cascade "
+                    "with confidence telemetry on)")
+            return self._submit_cascade(left, right, deadline_ms,
+                                        degradable, t_admit, model,
+                                        trace_context=trace_context)
         if tier == "xl":
             raise ValueError(
                 "tier 'xl' requested but this engine has no xl tier "
                 "(configure ServeConfig.xl_mesh / --xl_mesh, and enough "
                 "devices for the mesh)")
         tier, requested_tier = self._admit_tier(tier, degradable)
+        tt = self.serve_cfg.tile_threshold_pixels
+        if tt is not None and bucket[0] * bucket[1] > tt:
+            return self._submit_tiled(left, right, deadline_ms, tier,
+                                      requested_tier, t_admit, model,
+                                      trace_context=trace_context)
         return self._enqueue(left, right, deadline_ms, tier,
-                             requested_tier, t_admit,
+                             requested_tier, t_admit, model=model,
                              trace_context=trace_context).future
 
     def _admit_tier(self, tier: Optional[str], degradable: bool
@@ -1251,9 +1559,12 @@ class ServingEngine:
                  scene_cut: bool = False,
                  frame_delta_v: Optional[float] = None,
                  ctx_init=None, hidden_init=None,
+                 model: Optional[str] = None,
                  trace_context=None) -> Request:
         """Pad, build, trace, and queue one request: a stateless one
-        (base family, no session fields) or a session frame."""
+        (base family, no session fields) or a session frame.  ``model``
+        is the RESOLVED registered-model name (None = implicit); it joins
+        the queue's group key, so models never share a dispatch."""
         hp, wp, grid = self.policy.bucket_for(left.shape[0], left.shape[1])
         padder = InputPadder((1, 3) + left.shape[:2], divis_by=grid)
         l, r, t, b = padder.pads
@@ -1271,9 +1582,16 @@ class ServingEngine:
         req = Request(bucket=(hp, wp), payload=payload,
                       future=Future(), t_enqueue=now, tier=tier,
                       requested_tier=requested_tier, family=family,
-                      session_id=session_id,
+                      session_id=session_id, model=model,
                       deadline=(None if deadline_ms is None
                                 else now + deadline_ms / 1e3))
+        # Per-model in-flight accounting (retire_model's drain signal):
+        # up before the queue sees the request, down when its future
+        # resolves (a refused request's future never resolves: the
+        # Overloaded path below takes it down itself).
+        self._note_pending(model, +1)
+        req.future.add_done_callback(
+            lambda f, m=model: self._note_pending(m, -1))
         trace_attrs = dict(
             bucket=str(req.bucket), deadline_ms=deadline_ms,
             **({"tier": tier} if tier is not None else {}),
@@ -1296,6 +1614,7 @@ class ServingEngine:
         try:
             self.queue.submit(req)     # raises Overloaded at the door
         except Overloaded:
+            self._note_pending(model, -1)
             if trace is not None and trace.root is not None:
                 trace.root.set_attr("status", "overloaded")
                 self._finish_request_trace(req, None)
@@ -1333,6 +1652,222 @@ class ServingEngine:
                            trace_context=trace_context
                            ).result(timeout=timeout)
 
+    # ------------------------------------------------------------- tiles
+    def _when_all(self, futures: Sequence[Future], finish) -> Future:
+        """A Future that resolves once every one of ``futures`` did, with
+        ``finish()``'s result; the first failure fails it with that
+        future's typed error, and later ones are no-ops."""
+        agg: Future = Future()
+        state = {"remaining": len(futures), "done": False}
+        lock = threading.Lock()
+
+        def on_done(future):
+            # one-shot resolution decided inside the lock
+            action = None
+            with lock:
+                if state["done"]:
+                    return
+                if future.exception() is not None:
+                    state["done"], action = True, "fail"
+                else:
+                    state["remaining"] -= 1
+                    if state["remaining"] == 0:
+                        state["done"], action = True, "finish"
+            if action == "fail":
+                agg.set_exception(future.exception())
+            elif action == "finish":
+                try:
+                    agg.set_result(finish())
+                except BaseException as e:  # noqa: BLE001 — to the caller
+                    agg.set_exception(e)
+
+        for fut in futures:
+            fut.add_done_callback(on_done)
+        return agg
+
+    def _submit_tiled(self, left: np.ndarray, right: np.ndarray,
+                      deadline_ms: Optional[float], tier: Optional[str],
+                      requested_tier: Optional[str], t_admit: float,
+                      model: Optional[str] = None,
+                      trace_context=None) -> Future:
+        """Answer one beyond-threshold pair as N halo row tiles through
+        the ORDINARY bucket path (serving/tiles.py): every tile is an
+        equal-height ``_enqueue`` at the same bucket, tier and family, so
+        the continuous batcher coalesces them into batch-N dispatches.
+        The returned Future resolves once every tile did, with the
+        stitched disparity and the measured seam error; a tile failing
+        fails the whole request with that tile's typed error.  An
+        ``Overloaded`` mid-tiling propagates to the caller; tiles
+        admitted before it still run and are discarded."""
+        from raft_stereo_tpu_torch.serving import tiles as tiles_mod
+
+        specs = tiles_mod.plan_tiles(left.shape[0],
+                                     self.serve_cfg.tile_rows,
+                                     self.serve_cfg.tile_halo)
+        if len(specs) < 2:
+            # shorter than one tile extent: nothing to split
+            return self._enqueue(left, right, deadline_ms, tier,
+                                 requested_tier, t_admit, model=model,
+                                 trace_context=trace_context).future
+        reqs = [self._enqueue(
+                    np.ascontiguousarray(left[s.src0:s.src1]),
+                    np.ascontiguousarray(right[s.src0:s.src1]),
+                    deadline_ms, tier, requested_tier, t_admit,
+                    model=model, trace_context=trace_context)
+                for s in specs]
+        return self._when_all(
+            [r.future for r in reqs],
+            lambda: self._finish_tiled([r.future.result() for r in reqs],
+                                       specs, t_admit, tier=tier,
+                                       requested_tier=requested_tier))
+
+    def _finish_tiled(self, results: List[ServeResult], specs,
+                      t_admit: float, **provenance) -> ServeResult:
+        """All tiles answered: stitch the disparity and the confidence,
+        measure the seam.  Latency legs report the worst tile (the tiles
+        ran concurrently); ``total_s`` is admission -> stitched.
+        ``provenance`` sets the tier fields (and a cascade's)."""
+        from raft_stereo_tpu_torch.serving import tiles as tiles_mod
+
+        flows = [res.flow for res in results]
+        flow = tiles_mod.stitch(flows, specs)
+        seam = tiles_mod.seam_epe(flows, specs)
+        self.metrics.tiled_requests.inc()
+        if seam is not None:
+            self.metrics.tile_seam_epe.observe(seam)
+        iters = [res.iters_used for res in results
+                 if res.iters_used is not None]
+        conf_map, conf_mean = None, None
+        if all(res.confidence is not None for res in results):
+            conf_map = np.ascontiguousarray(tiles_mod.stitch(
+                [res.confidence for res in results], specs))
+            conf_mean = float(conf_map.mean())
+        return ServeResult(
+            flow=np.ascontiguousarray(flow),
+            queue_wait_s=max(res.queue_wait_s for res in results),
+            device_s=max(res.device_s for res in results),
+            fetch_s=max(res.fetch_s for res in results),
+            total_s=time.perf_counter() - t_admit,
+            batch_size=max(res.batch_size for res in results),
+            iters_used=max(iters) if iters else None,
+            attempts=max(res.attempts for res in results),
+            tiles=len(results), seam_epe=seam,
+            model=results[0].model,
+            model_version=results[0].model_version,
+            confidence=conf_map, confidence_mean=conf_mean,
+            trace_id=results[0].trace_id, **provenance)
+
+    # ------------------------------------------- confidence-gated cascade
+    def _submit_cascade(self, left: np.ndarray, right: np.ndarray,
+                        deadline_ms: Optional[float], degradable: bool,
+                        t_admit: float, model: Optional[str] = None,
+                        trace_context=None) -> Future:
+        """The ``auto`` pseudo-tier: answer on the cheap draft tier first
+        and escalate to the dearest tier ONLY when the draft's own
+        confidence says the answer is doubtful.  Beyond the tiling
+        threshold the gate is per tile: only the doubtful rows of a large
+        frame run again.  The draft runs at the ADMITTED draft tier
+        (brownout may degrade it further); escalation re-admits at
+        escalation time."""
+        tt = self.serve_cfg.tile_threshold_pixels
+        bucket = self.policy.bucket_for(left.shape[0], left.shape[1])[:2]
+        if tt is not None and bucket[0] * bucket[1] > tt:
+            from raft_stereo_tpu_torch.serving import tiles as tiles_mod
+
+            specs = tiles_mod.plan_tiles(left.shape[0],
+                                         self.serve_cfg.tile_rows,
+                                         self.serve_cfg.tile_halo)
+            if len(specs) >= 2:
+                futs = [self._cascade_one(
+                            np.ascontiguousarray(left[s.src0:s.src1]),
+                            np.ascontiguousarray(right[s.src0:s.src1]),
+                            deadline_ms, degradable, t_admit, model,
+                            trace_context=trace_context)
+                        for s in specs]
+                return self._when_all(
+                    futs, lambda: self._finish_cascade_tiled(
+                        [f.result() for f in futs], specs, t_admit))
+        return self._cascade_one(left, right, deadline_ms, degradable,
+                                 t_admit, model,
+                                 trace_context=trace_context)
+
+    def _cascade_one(self, left: np.ndarray, right: np.ndarray,
+                     deadline_ms: Optional[float], degradable: bool,
+                     t_admit: float, model: Optional[str] = None,
+                     trace_context=None) -> Future:
+        """One draft -> (maybe) escalate chain for a single pair; the
+        returned Future resolves with whichever answer survived, with its
+        provenance (``draft_tier``, ``draft_confidence``,
+        ``escalated``)."""
+        threshold = self.serve_cfg.cascade_threshold
+        agg: Future = Future()
+        draft_tier, draft_requested = self._admit_tier(self._cascade_draft,
+                                                       degradable)
+        dreq = self._enqueue(left, right, deadline_ms, draft_tier,
+                             draft_requested, t_admit, model=model,
+                             trace_context=trace_context)
+
+        def on_draft(future):
+            exc = future.exception()
+            if exc is not None:
+                agg.set_exception(exc)
+                return
+            res = future.result()
+            conf = res.confidence_mean
+            if conf is None or conf >= threshold:
+                # confident (or no confidence: fail open to the draft
+                # rather than double every request's cost)
+                res.draft_tier = draft_tier
+                res.draft_confidence = conf
+                res.total_s = time.perf_counter() - t_admit
+                self._cascade_drafts.inc()
+                agg.set_result(res)
+                return
+            self._cascade_escalations.inc()
+            try:
+                esc_tier, esc_requested = self._admit_tier(
+                    self._cascade_escalate, degradable)
+                ereq = self._enqueue(left, right, deadline_ms, esc_tier,
+                                     esc_requested, t_admit, model=model,
+                                     trace_context=trace_context)
+            except BaseException as e:  # noqa: BLE001 — typed to caller
+                agg.set_exception(e)
+                return
+
+            def on_escalated(f2):
+                exc2 = f2.exception()
+                if exc2 is not None:
+                    agg.set_exception(exc2)
+                    return
+                res2 = f2.result()
+                res2.escalated = True
+                res2.draft_tier = draft_tier
+                res2.draft_confidence = conf
+                res2.total_s = time.perf_counter() - t_admit
+                agg.set_result(res2)
+
+            ereq.future.add_done_callback(on_escalated)
+
+        dreq.future.add_done_callback(on_draft)
+        return agg
+
+    def _finish_cascade_tiled(self, results: List[ServeResult], specs,
+                              t_admit: float) -> ServeResult:
+        """All per-tile cascades answered: stitched as ``_finish_tiled``,
+        reporting the ESCALATED tier when any tile escalated (the cost
+        actually paid) and the worst tile's draft confidence (the gate
+        that mattered)."""
+        final = next((res for res in results if res.escalated),
+                     results[0])
+        draft_confs = [res.draft_confidence for res in results
+                       if res.draft_confidence is not None]
+        return self._finish_tiled(
+            results, specs, t_admit, tier=final.tier,
+            requested_tier=final.requested_tier,
+            escalated=any(res.escalated for res in results),
+            draft_tier=results[0].draft_tier,
+            draft_confidence=min(draft_confs) if draft_confs else None)
+
     # ------------------------------------------------------------- sessions
     def submit_session(self, session_id: str, left: np.ndarray,
                        right: np.ndarray,
@@ -1364,11 +1899,17 @@ class ServingEngine:
         Every admitted frame's future resolves, with a result or a typed
         error, so the lock is never held forever.
 
-        ``handoff_key`` names another replica's handoff blob; the port has
-        no handoff store (ROADMAP §D6b), so the frame starts cold, as the
-        JAX engine's does without one.  ``model`` must be None (the
-        implicit model; any name raises ``ModelUnknown``): the session
-        pins None."""
+        ``handoff_key`` names another replica's published handoff blob
+        (``X-Handoff-Artifact``): a new session adopts its state from it
+        (``_adopt_handoff``) and may start warm; any failure leaves it
+        cold, the baseline without a handoff.
+
+        **Model pinning:** a session pins the model its first frame
+        resolved (the explicit ``model`` or the then-current default);
+        later frames run that model even if the default moves.  A later
+        frame naming another model raises ``ValueError`` (HTTP 400); a
+        frame whose pinned model was retired raises ``ModelUnknown``
+        (404)."""
         if self.sessions is None:
             raise SessionsDisabled(
                 "this engine runs without a session store — construct it "
@@ -1385,7 +1926,16 @@ class ServingEngine:
         # frame's future resolved (its done-callback releases the lock).
         sess.order_lock.acquire()
         try:
+            if created and handoff_key is not None:
+                # Lazy handoff adoption: import THIS session's state from
+                # the draining replica's blob, so the frame may start
+                # warm where the old replica left off; any failure leaves
+                # ``created`` true (a cold start).
+                created = not self._adopt_handoff(sess, session_id,
+                                                  handoff_key)
             if created:
+                # pin the model at session birth: the explicit name or
+                # the current default
                 sess.model = self.resolve_model(model)
             else:
                 pinned = sess.model
@@ -1395,6 +1945,9 @@ class ServingEngine:
                         f"{pinned or '(implicit)'} — a mid-stream "
                         f"switch to {model!r} would mix versions; open "
                         f"a new session")
+                if pinned is not None:
+                    # retired mid-stream -> typed 404 on the next frame
+                    self.resolve_model(pinned)
             thumb = frame_thumbnail(left)
             hp, wp, _grid = self.policy.bucket_for(left.shape[0],
                                                    left.shape[1])
@@ -1445,7 +1998,8 @@ class ServingEngine:
                              else None),
                 ctx_init=ctx_init, thumb=thumb,
                 frame_index=sess.frame_index, scene_cut=scene_cut,
-                frame_delta_v=delta, trace_context=trace_context)
+                frame_delta_v=delta, model=sess.model,
+                trace_context=trace_context)
         except BaseException:
             sess.order_lock.release()
             raise
@@ -1467,6 +2021,144 @@ class ServingEngine:
             session_id, left, right, deadline_ms, tier=tier,
             degradable=degradable, handoff_key=handoff_key, model=model,
             trace_context=trace_context).result(timeout=timeout)
+
+    # ------------------------------------------------------------- handoff
+    def exec_config_fingerprint(self) -> str:
+        """SHA-256 identity of the programs a handed-off session would
+        re-enter here: the effective model config (array geometry and
+        dtypes of every state tree), the serving knobs that pick the
+        session families, the GRU depth cap and the fetch dtype (and the
+        default model's coordinate when a registered model holds the
+        pointer).  Byte-equal to the JAX engine's for the same
+        configuration, so blobs cross packages; an importer whose
+        fingerprint differs refuses the blob typed (``config_mismatch``):
+        any drift costs one cold start per stream."""
+        payload = {
+            "model": self.effective_config.to_json(),
+            "session_hidden": self.serve_cfg.session_hidden,
+            "session_ctx_cache": self.serve_cfg.session_ctx_cache,
+            "iters": self.serve_cfg.iters,
+            "fetch_dtype": self.serve_cfg.fetch_dtype,
+        }
+        if self.default_model is not None:
+            payload["default_model"] = self._models[
+                self.default_model].coord
+        return hashlib.sha256(
+            json.dumps(payload, sort_keys=True).encode()).hexdigest()
+
+    def _handoff_records(self, key: str) -> Dict:
+        """Parsed ``{sid: (meta, arrays)}`` of one published handoff
+        blob, fetched and decoded at most once per key.  A blob stamped
+        with another exec-config fingerprint is refused wholesale: every
+        session it carries counts into
+        ``serve_handoff_import_skipped_total{reason="config_mismatch"}``
+        and starts cold."""
+        with self._handoff_lock:
+            cached = self._handoff_blobs.get(key)
+        if cached is not None:
+            return cached
+        records: Dict = {}
+        if self.handoff_store is not None:
+            blob = self.handoff_store.fetch(key)
+            if blob is not None:
+                stamped = handoff_fingerprint(blob)
+                mine = self.exec_config_fingerprint()
+                if stamped is not None and stamped != mine:
+                    n = len(handoff_session_ids(blob))
+                    self.metrics.observe_handoff_skip("config_mismatch",
+                                                      n)
+                    log.warning(
+                        "handoff artifact %s was exported under exec-"
+                        "config %.12s but this engine runs %.12s; "
+                        "refusing %d session(s) — they cold-start "
+                        "(config_mismatch)", key[:12], stamped, mine, n)
+                else:
+                    records, skipped = parse_handoff_blob(blob)
+                    if skipped:
+                        self.metrics.observe_handoff_skip("corrupt",
+                                                          skipped)
+            else:
+                log.warning("handoff artifact %s not in the store; its "
+                            "sessions cold-start", key)
+        with self._handoff_lock:
+            self._handoff_blobs[key] = records
+            # a replica inherits from a handful of drains at a time
+            while len(self._handoff_blobs) > 8:
+                self._handoff_blobs.pop(next(iter(self._handoff_blobs)))
+        return records
+
+    def _adopt_handoff(self, sess, sid: str, key: str) -> bool:
+        """Install the handed-off state for ``sid`` from blob ``key`` into
+        the freshly created session, in the port's layout (``_from_wire``);
+        True when adopted (the frame may start warm).  A session pinned to
+        a model this engine does not serve is refused typed
+        (``model_unknown``): it starts cold on this engine's default."""
+        rec = self._handoff_records(key).get(sid)
+        if rec is None:
+            return False
+        meta, arrays = rec
+        pinned = meta.get("model") if isinstance(meta, dict) else None
+        if pinned is not None:
+            bundle = self._models.get(pinned)
+            if bundle is None or bundle.retiring:
+                self.metrics.observe_handoff_skip("model_unknown", 1)
+                log.warning(
+                    "session %s was pinned to model %r which this "
+                    "engine does not serve — refusing its handed-off "
+                    "state (cold start)", sid, pinned)
+                return False
+        self.sessions.adopt(sess, meta, _from_wire(arrays))
+        sess.model = pinned
+        self.metrics.sessions_adopted.inc()
+        log.info("session %s adopted from handoff %s at frame %s",
+                 sid, key[:12], sess.frame_index)
+        return True
+
+    def publish_handoff(self) -> Optional[Dict[str, object]]:
+        """Serialize every live session (the JAX package's blob layout,
+        ``_to_wire``) into the artifact store's ``sessions/`` namespace
+        and remember the manifest ``GET /admin/handoff`` serves
+        (cli/serve.py calls this at SIGTERM, after ``begin_shutdown``).
+        Returns the manifest, with ``artifact=None`` when there was
+        nothing to export; None only when this engine cannot hand off
+        (no session store, or no shared artifact directory)."""
+        if self.sessions is None or self.handoff_store is None:
+            return None
+        fingerprint = self.exec_config_fingerprint()
+        blob = self.sessions.export(config_fingerprint=fingerprint,
+                                    record_fn=_to_wire)
+        sids = handoff_session_ids(blob)
+        key = None
+        if sids:
+            key = self.handoff_store.publish(blob)
+            if key is None:
+                log.warning("session handoff publish failed; %d "
+                            "session(s) will fail typed on exit instead",
+                            len(sids))
+                sids = []
+            else:
+                self.metrics.sessions_exported.inc(len(sids))
+        manifest = {"artifact": key, "sessions": sids,
+                    "count": len(sids), "published_unix": time.time(),
+                    "config_fingerprint": fingerprint}
+        self._handoff_manifest = manifest
+        log.info("session handoff published: %d session(s) -> %s",
+                 len(sids), key and key[:12])
+        return manifest
+
+    @property
+    def handoff_manifest(self) -> Optional[Dict[str, object]]:
+        """The drain handoff manifest (None until ``publish_handoff``
+        ran): what ``GET /admin/handoff`` serves."""
+        return self._handoff_manifest
+
+    def note_handoff_fetched(self) -> None:
+        """The HTTP layer records that a router fetched the manifest:
+        the CLI's post-drain linger can stop waiting."""
+        self._handoff_fetched.set()
+
+    def wait_handoff_fetched(self, timeout: float) -> bool:
+        return self._handoff_fetched.wait(timeout)
 
     def close_session(self, session_id: str) -> Dict[str, object]:
         """End one session (``DELETE /v1/stream/<id>``); returns its
@@ -1492,8 +2184,9 @@ class ServingEngine:
                 if (self.serve_cfg.session_reseed_on_cap and res.warm
                         and res.iters_used is not None
                         and res.iters_used >= self.serve_cfg.iters
-                        and early_exit_enabled(self._tier_configs[
-                            self._cache_tier(req.tier)])):
+                        and early_exit_enabled(
+                            self._models[req.model].tier_configs[
+                                self._cache_tier(req.tier, req.model)])):
                     # Keyframe guard: the exit gate never fired, so this
                     # warm output is no trusted init; the next frame
                     # starts cold.
@@ -1543,19 +2236,25 @@ class ServingEngine:
             done = len(self._warm_target & self._warmed)
             total = len(self._warm_target)
             ready = self._warm_target <= self._warmed
-        return {"ready": ready and self.ready,
-                "warm_done": done,
-                "warm_target": total,
-                "draining": self._shutting_down,
-                "compiles_cold": self.metrics.compiles_cold.value,
-                "compiles_warm": self.metrics.compiles_warm.value}
+        out: Dict[str, object] = {
+            "ready": ready and self.ready, "warm_done": done,
+            "warm_target": total, "draining": self._shutting_down,
+            "compiles_cold": self.metrics.compiles_cold.value,
+            "compiles_warm": self.metrics.compiles_warm.value}
+        if self.disk_cache is not None:
+            out["executable_cache"] = self.disk_cache.stats()
+        # the registry joins only when named models exist
+        if len(self._models) > 1 or self.default_model is not None:
+            out["models"] = self.models_status()
+        return out
 
     def _note_warm(self, widx: int, bucket: Tuple[int, int], batch: int,
                    cache_tier: Optional[str],
-                   family: Optional[str] = FAMILY_BASE) -> None:
+                   family: Optional[str] = FAMILY_BASE,
+                   model: Optional[str] = None) -> None:
         with self._warm_lock:
             self._warmed.add((widx, tuple(bucket), batch, cache_tier,
-                              family))
+                              family, model))
 
     def _families(self) -> Tuple[Optional[str], ...]:
         """The program families this engine serves: the base program
@@ -1597,78 +2296,96 @@ class ServingEngine:
         return flow, hidden, ctx
 
     # --------------------------------------------------------- program cache
-    def _cache_tier(self, tier: Optional[str]) -> Optional[str]:
+    def _cache_tier(self, tier: Optional[str],
+                    model: Optional[str] = None) -> Optional[str]:
         """The cache key a tier's programs live under: None where the
-        tier's config is the base one (fixed-depth tiers share the base
-        programs)."""
-        if tier is None or self._tier_configs[tier] == self.effective_config:
+        tier's config is the model's base one (fixed-depth tiers share
+        the base programs)."""
+        bundle = self._models[model]
+        if tier is None or (bundle.tier_configs[tier]
+                            == bundle.effective_config):
             return None
         return tier
 
-    def _distinct_cache_tiers(self) -> List[Optional[str]]:
+    def _distinct_cache_tiers(self, model: Optional[str] = None
+                              ) -> List[Optional[str]]:
         """The distinct programs the configured tiers run ("quality" and
-        the base path are one)."""
+        the base path are one), per model."""
         tiers = tuple(self.tiers) if self.tiers else (None,)
-        return sorted({self._cache_tier(t) for t in tiers},
+        return sorted({self._cache_tier(t, model) for t in tiers},
                       key=lambda t: (t is not None, t or ""))
 
-    def tier_model(self, tier: Optional[str], worker: int = 0) -> RAFTStereo:
+    def tier_model(self, tier: Optional[str], worker: int = 0,
+                   model: Optional[str] = None) -> RAFTStereo:
         """The model a tier's requests run on ``worker``'s device."""
-        return self._tier_models[self.devices[worker]][self._cache_tier(
-            tier)]
+        return self._models[model].tier_models[self.devices[worker]][
+            self._cache_tier(tier, model)]
 
     def _cost_key(self, bucket: Tuple[int, int], batch: int,
                   tier: Optional[str] = None,
-                  family: Optional[str] = FAMILY_BASE) -> str:
-        """The JAX engine's label of one program in the cost registry."""
-        cache_tier = self._cache_tier(tier)
+                  family: Optional[str] = FAMILY_BASE,
+                  model: Optional[str] = None) -> str:
+        """The JAX engine's label of one program in the cost registry; a
+        registered model's coordinate joins last."""
+        bundle = self._models[model]
+        cache_tier = self._cache_tier(tier, model)
         tail = "" if cache_tier is None else f",tier={tier}"
-        qmode = self._tier_configs[cache_tier].quant
+        qmode = bundle.tier_configs[cache_tier].quant
         if qmode != "off":
             tail += f",quant={qmode}"
         if self.serve_cfg.confidence:
             tail += ",conf"
         if family is not None:
             tail += f",{family}"
+        if bundle.name is not None:
+            tail += f",model={bundle.coord}"
         return f"serving.forward({bucket[0]}x{bucket[1]},b{batch}{tail})"
 
     def compiled_cost(self, bucket: Tuple[int, int], batch: int = 1,
                       tier: Optional[str] = None,
-                      family: Optional[str] = FAMILY_BASE):
-        """The cost record of a built (bucket, batch, tier, family)
-        program, or None (no registry / not built yet)."""
+                      family: Optional[str] = FAMILY_BASE,
+                      model: Optional[str] = None):
+        """The cost record of a built (bucket, batch, tier, family,
+        model) program, or None (no registry / not built yet)."""
         if self.costs is None:
             return None
-        return self.costs.get(self._cost_key(bucket, batch, tier, family))
+        return self.costs.get(self._cost_key(bucket, batch, tier, family,
+                                             model))
 
-    def cached_programs(self, worker: Optional[int] = None) -> List[Tuple]:
-        """``(worker, bucket, batch, cache_tier, family)`` of the cached
-        programs, oldest first."""
+    def cached_programs(self, worker: Optional[int] = None,
+                        model: Optional[str] = None) -> List[Tuple]:
+        """``(worker, bucket, batch, cache_tier, family)`` of one model's
+        cached programs (None: the implicit model's), oldest first."""
         with self._cache_lock:
-            return [k for i, cache in enumerate(self._compiled)
+            return [k[:5] for i, cache in enumerate(
+                        self._models[model].compiled)
                     if worker is None or i == worker for k in cache]
 
     def program(self, bucket: Tuple[int, int], batch: int = 1,
                 tier: Optional[str] = None, worker: int = 0,
-                family: Optional[str] = FAMILY_BASE):
-        """The cached program of one (bucket, batch, tier, family) on
-        ``worker`` (a ``GraphForward``, ``WhileForward`` or
+                family: Optional[str] = FAMILY_BASE,
+                model: Optional[str] = None):
+        """The cached program of one (bucket, batch, tier, family, model)
+        on ``worker`` (a ``GraphForward``, ``WhileForward`` or
         ``PlainForward``), or None."""
         with self._cache_lock:
-            return self._compiled[worker].get(
-                (worker, tuple(bucket), batch, self._cache_tier(tier),
-                 family))
+            return self._models[model].compiled[worker].get(
+                (worker, tuple(bucket), batch,
+                 self._cache_tier(tier, model), family, model))
 
     def _cached(self, key: Tuple):
         with self._cache_lock:
-            return ProgramCache.get(self._compiled[key[0]], key)
+            return ProgramCache.get(self._models[key[5]].compiled[key[0]],
+                                    key)
 
     def _build(self, key: Tuple, arrays, spec):
         """Build the program of ``key`` (worker, bucket, batch,
-        cache_tier, family) for inputs of ``arrays``' shapes, evicting the
-        worker's oldest past ``max_cached_shapes``."""
-        widx, bucket, batch, cache_tier, family = key
-        model = self._tier_models[self.devices[widx]][cache_tier]
+        cache_tier, family, model) for inputs of ``arrays``' shapes, in
+        the model's own ProgramCache, evicting the worker's oldest past
+        ``max_cached_shapes``."""
+        widx, bucket, batch, cache_tier, family, mname = key
+        bundle = self._models[mname]
+        model = bundle.tier_models[self.devices[widx]][cache_tier]
         forward = make_forward(
             model, self.serve_cfg.iters,
             FETCH_DTYPES[self.serve_cfg.fetch_dtype],
@@ -1681,8 +2398,8 @@ class ServingEngine:
             return_confidence=self.serve_cfg.confidence)
         self.metrics.compiles_cold.inc()
         with self._cache_lock:
-            entry = self._programs[widx].add(
-                self._compiled[widx], key, forward, arrays, spec,
+            entry = bundle.programs[widx].add(
+                bundle.compiled[widx], key, forward, arrays, spec,
                 early_exit_enabled(model.config))
             if family in _CTX_SAVE_FAMILIES and isinstance(entry, _Graphed):
                 # the bundle's (net, (cz, cr, cq)) per level stays on the
@@ -1691,7 +2408,8 @@ class ServingEngine:
                 entry.keep_last = 4 * model.config.n_gru_layers
             if self.costs is not None:
                 self.costs.note_runner_cache_size(
-                    sum(map(len, self._compiled)))
+                    sum(len(c) for b in self._models.values()
+                        for c in b.compiled))
         return entry
 
     def _evicted(self, cache: Dict, key: Tuple) -> None:
@@ -1705,14 +2423,15 @@ class ServingEngine:
         call = entry.capture if isinstance(entry, _Graphed) else entry
         if self.costs is None:
             return call(*arrays)
-        widx, bucket, batch, cache_tier, family = key
-        cfg = self._tier_configs[cache_tier]
-        model = self._tier_models[self.devices[widx]][cache_tier]
+        widx, bucket, batch, cache_tier, family, mname = key
+        bundle = self._models[mname]
+        cfg = bundle.tier_configs[cache_tier]
+        model = bundle.tier_models[self.devices[widx]][cache_tier]
         iters = (model.exit_bounds(self.serve_cfg.iters)[0]
                  if early_exit_enabled(cfg) else self.serve_cfg.iters)
         return self.costs.measure(
             call, *arrays,
-            key=self._cost_key(bucket, batch, cache_tier, family),
+            key=self._cost_key(bucket, batch, cache_tier, family, mname),
             site="serving",
             flops=forward_flops(cfg, bucket, batch, iters,
                                 context=family not in _CTX_REUSE_FAMILIES),
@@ -1777,7 +2496,8 @@ class ServingEngine:
 
     def prewarm(self, raw_hw: Tuple[int, int],
                 batch_sizes: Optional[Sequence[int]] = None,
-                tiers: Optional[Sequence[Optional[str]]] = None) -> None:
+                tiers: Optional[Sequence[Optional[str]]] = None,
+                models: Optional[Sequence[Optional[str]]] = None) -> None:
         """Build and warm the whole bucket ladder for one raw shape on
         every worker: each batch size of each distinct tier program and
         each family runs once, zero images and zero states (``flow_init``
@@ -1785,20 +2505,27 @@ class ServingEngine:
         program's capture runs a warm start), on the worker's own thread
         (on the card: the capture), so the first real requests at this
         shape replay.  Fixed-depth tiers share the base programs, so the
-        ladder is built once per distinct program."""
+        ladder is built once per distinct program, for each model of
+        ``models`` (None: every served model, the implicit one first)."""
         h, w = int(raw_hw[0]), int(raw_hw[1])
         hp, wp, _ = self.policy.bucket_for(h, w)
         sizes = tuple(batch_sizes) if batch_sizes else self.queue.sizes
-        if tiers is None:
-            cache_tiers = self._distinct_cache_tiers()
-        else:
-            cache_tiers = sorted({self._cache_tier(t) for t in tiers},
-                                 key=lambda t: (t is not None, t or ""))
+        names = (self._registered_names() if models is None
+                 else list(models))
+        ladders = []
+        for mname in names:
+            if tiers is None:
+                cache_tiers = self._distinct_cache_tiers(mname)
+            else:
+                cache_tiers = sorted(
+                    {self._cache_tier(t, mname) for t in tiers},
+                    key=lambda t: (t is not None, t or ""))
+            ladders += [(mname, t) for t in cache_tiers]
         families = self._families()
 
         def warm(widx):
-            for tier in cache_tiers:
-                cfg = self._tier_configs[tier]
+            for mname, tier in ladders:
+                cfg = self._models[mname].tier_configs[tier]
                 for n in sizes:
                     flow, hidden, ctx = self._state_zeros(cfg, (hp, wp), n)
                     for family in families:
@@ -1811,17 +2538,18 @@ class ServingEngine:
                         if family in _CTX_REUSE_FAMILIES:
                             extra.append(ctx)
                         self._dispatch(
-                            widx, (widx, (hp, wp), n, tier, family), zeros,
-                            zeros.copy(), *extra)
-                        self._note_warm(widx, (hp, wp), n, tier, family)
+                            widx, (widx, (hp, wp), n, tier, family, mname),
+                            zeros, zeros.copy(), *extra)
+                        self._note_warm(widx, (hp, wp), n, tier, family,
+                                        mname)
 
         futures = [self._run_on_worker(widx, lambda i=widx: warm(i))
                    for widx in range(len(self.devices))]
         for f in futures:
             f.result()
-        log.info("prewarmed bucket %dx%d batch sizes %s (%d tier "
+        log.info("prewarmed bucket %dx%d batch sizes %s (%d model/tier "
                  "program(s) x %d program variant(s)) on %d worker(s)",
-                 hp, wp, sizes, len(cache_tiers), len(families),
+                 hp, wp, sizes, len(ladders), len(families),
                  len(self.devices))
 
     # --------------------------------------------------------------- workers
@@ -2021,7 +2749,9 @@ class ServingEngine:
         # chunk shares all three
         tier = batch[0].tier
         family = batch[0].family
-        cache_tier = self._cache_tier(tier)
+        mname = batch[0].model
+        bundle = self._models[mname]
+        cache_tier = self._cache_tier(tier, mname)
         n = len(batch)
         device_label = str(self.devices[widx])
         sampled = [r for r in batch if r.trace is not None]
@@ -2033,7 +2763,7 @@ class ServingEngine:
         if self.chaos is not None:
             self.chaos.on_compile(widx)
             self.chaos.on_dispatch(widx)
-        cfg = self._tier_configs[cache_tier]
+        cfg = bundle.tier_configs[cache_tier]
         adaptive = early_exit_enabled(cfg)
         with profiling.annotate("serve.device"):
             # ONE batch-n dispatch of the (bucket, n, tier, family)
@@ -2052,8 +2782,8 @@ class ServingEngine:
             if family in _CTX_REUSE_FAMILIES:
                 extra.append(_Members([r.payload.ctx_init for r in batch]))
             out, t_ready = self._dispatch(
-                widx, (widx, tuple(bucket), n, cache_tier, family), p1, p2,
-                *extra)
+                widx, (widx, tuple(bucket), n, cache_tier, family, mname),
+                p1, p2, *extra)
         p_ready = time.perf_counter() if sampled else 0.0
         # The flat outputs: flow_up[, flow_low][, iters_used][, conf_low,
         # conf_up][, hidden per level][, ctx: nets, then (cz, cr, cq) per
@@ -2106,12 +2836,12 @@ class ServingEngine:
         self.policy.note(bucket, real_px, dispatched_px)
         if self._mfu is not None:
             rec = self.compiled_cost(bucket, batch=n, tier=tier,
-                                     family=family)
+                                     family=family, model=mname)
             if rec is not None and rec.flops:
                 self.metrics.dispatched_flops.inc(rec.flops)
                 self._mfu.note(rec.flops)
         self.metrics.note_batch_done()
-        self._note_warm(widx, bucket, n, cache_tier, family)
+        self._note_warm(widx, bucket, n, cache_tier, family, mname)
         for i, (r, fp, wait) in enumerate(zip(batch, flows_padded, waits)):
             exemplar = r.trace.trace_id if r.trace is not None else None
             p_respond = time.perf_counter() if exemplar is not None else 0.0
@@ -2130,8 +2860,8 @@ class ServingEngine:
                     dtype=np.float32)
                 conf_mean = float(conf_i.mean())
                 if self.quality is not None:
-                    self.quality.observe(tier or "default", None, conf_mean,
-                                         exemplar=exemplar)
+                    self.quality.observe(tier or "default", bundle.coord,
+                                         conf_mean, exemplar=exemplar)
             # batch-axis-free copies the session can stack into any
             # later dispatch
             ctx_i = (None if ctx_out is None else tree_unflatten(
@@ -2153,6 +2883,7 @@ class ServingEngine:
                           if flow_low_padded is not None else None),
                 ctx_cached=family in _CTX_REUSE_FAMILIES, ctx=ctx_i,
                 hidden=hidden_i, warm_hidden=family in _H_IN_FAMILIES,
+                model=bundle.name, model_version=bundle.version,
                 confidence=conf_i, confidence_mean=conf_mean,
                 trace_id=exemplar))
             if exemplar is not None:
@@ -2219,8 +2950,13 @@ class ServingEngine:
                 tasks.popleft()[1].set_exception(
                     RuntimeError("engine closed"))
         with self._cache_lock:
-            for cache in self._compiled:
-                cache.clear()
+            for bundle in self._models.values():
+                for cache in bundle.compiled:
+                    cache.clear()
+        if self.disk_cache is not None:
+            from raft_stereo_tpu_torch.kernels import _build
+            if _build._store is self.disk_cache:
+                _build.set_artifact_store(None)
 
     def __enter__(self):
         return self

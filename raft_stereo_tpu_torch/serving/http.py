@@ -119,12 +119,10 @@ Endpoints:
 concurrency limit is the service's bounded queue, which is the point —
 admission control lives in ONE place and the transport just reports it.
 
-The JAX package's ``serving/http.py`` over the port's engine.  The routes
-of the features the port does not run yet answer as the JAX server
-answers with them off: ``/admin/models`` and ``/admin/handoff`` as
-without a model store or a published handoff, ``?tier=xl`` and
-``?tier=auto`` with 400 (on a stream too).  The handler threads never
-touch a device tensor: the engine's workers upload, replay and fetch.
+The JAX package's ``serving/http.py`` over the port's engine.  ``?tier=xl``
+answers 400 as the JAX server does without an xl tier (the port has
+none, §D7).  The handler threads never touch a device tensor: the
+engine's workers upload, replay and fetch.
 """
 
 from __future__ import annotations
@@ -141,7 +139,8 @@ import numpy as np
 from raft_stereo_tpu_torch.serving.batcher import (DeadlineExceeded,
                                                    Overloaded,
                                                    RequestPoisoned)
-from raft_stereo_tpu_torch.serving.engine import ModelUnknown
+from raft_stereo_tpu_torch.serving.models import (ModelStoreError,
+                                                  ModelUnknown)
 from raft_stereo_tpu_torch.serving.service import StereoService
 from raft_stereo_tpu_torch.serving.sessions import (SessionExpired,
                                                     SessionsDisabled)
@@ -319,7 +318,8 @@ def make_handler(service: StereoService,
                     # (a single-model replica's /healthz body is pinned
                     # byte-identical to pre-registry builds).
                     **({"models": service.models_status()}
-                       if service.default_model is not None else {})})
+                       if (service.default_model is not None
+                           or len(service._models) > 1) else {})})
             elif path == "/readyz":
                 status = service.warm_status()
                 status["status"] = ("ready" if status["ready"]
@@ -331,9 +331,16 @@ def make_handler(service: StereoService,
                 # in-flight count (serving/engine.py models_status).
                 self._reply_json(200, service.models_status())
             elif path == "/admin/handoff":
-                # No session handoff in the port yet (ROADMAP §D6b): the
-                # JAX server's answer before any drain published one.
-                self._reply_json(404, {"error": "no_handoff"})
+                # The drain handoff manifest: after a graceful SIGTERM
+                # published the session blob, a router reads WHICH ids
+                # moved and which artifact key carries their state; 404
+                # until then.
+                manifest = getattr(service, "handoff_manifest", None)
+                if manifest is None:
+                    self._reply_json(404, {"error": "no_handoff"})
+                else:
+                    service.note_handoff_fetched()
+                    self._reply_json(200, manifest)
             elif handle_debug_get(path, url.query, service.tracer, recorder,
                                   service.metrics.registry,
                                   self._reply, self._reply_json,
@@ -419,6 +426,10 @@ def make_handler(service: StereoService,
                                        "model": e.model, "known": e.known,
                                        "detail": str(e)})
                 return
+            except ModelStoreError as e:
+                self._reply_json(409, {"error": "model_store",
+                                       "detail": str(e)})
+                return
             except TimeoutError as e:
                 self._reply_json(504, {"error": "retire_timeout",
                                        "detail": str(e)})
@@ -478,11 +489,21 @@ def make_handler(service: StereoService,
                         "tier 'xl': this server has no xl mesh "
                         "tier (start raft-serve with --xl_mesh)")
                 elif tier == "auto":
-                    # No confidence cascade in the port yet (§D6b).
-                    raise ValueError(
-                        "tier 'auto': this server has no confidence "
-                        "cascade (start raft-serve with --confidence "
-                        "--cascade)")
+                    # The confidence-gated cascade pseudo-tier: valid only
+                    # on an engine with a cascade configured; the engine
+                    # raises ValueError (-> 400) at submit too, this check
+                    # answers with the actionable message first.
+                    if getattr(service, "_cascade_draft", None) is None:
+                        raise ValueError(
+                            "tier 'auto': this server has no confidence "
+                            "cascade (start raft-serve with --confidence "
+                            "--cascade)")
+                    if session_id is not None:
+                        raise ValueError(
+                            "tier 'auto': streaming sessions pin one "
+                            "compiled family per stream — the cascade's "
+                            "draft/escalate re-run does not compose "
+                            "with warm session state")
                 elif tier is not None:
                     service.resolve_tier(tier)  # 400 on unknown tiers
                 # ``?model=`` / ``X-Model`` picks a REGISTERED model

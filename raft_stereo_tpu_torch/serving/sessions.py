@@ -49,7 +49,8 @@ Design points:
   that ONE session to a cold start (skipped, counted), never crashes the
   importer, and never installs a torn disparity field as a warm init.
   The port's hidden and context trees are NCHW per level (the JAX
-  package's are NHWC).
+  package's are NHWC); the engine's export writes the JAX layout
+  (serving/engine.py ``_to_wire``), so a blob crosses packages.
 
 Host code only: no tensor operation and no device here, so every policy
 is testable in milliseconds (tests/test_torch_sessions.py).
@@ -615,7 +616,8 @@ class SessionStore:
         return sess.stats()
 
     # -------------------------------------------------------------- handoff
-    def export(self, config_fingerprint: Optional[str] = None) -> bytes:
+    def export(self, config_fingerprint: Optional[str] = None,
+               record_fn=None) -> bytes:
         """Serialize every live session into one versioned, checksummed
         handoff blob (the graceful-drain path).
         Acquires each session's ordering lock, so a frame still in
@@ -623,14 +625,19 @@ class SessionStore:
         is captured; with admission already stopped (begin_shutdown)
         every lock wait is bounded by one frame's latency.
         ``config_fingerprint`` stamps the blob with the exporter's
-        exec-config identity (the mismatch-typed import)."""
+        exec-config identity (the mismatch-typed import).  ``record_fn``
+        (the port's addition) maps each ``(meta, arrays)`` record before
+        it is packed: the engine's layout rule (serving/engine.py
+        ``_to_wire``)."""
         with self._lock:
             self._sweep_locked(self._clock())
             sessions = list(self._sessions.values())
         records = []
         for sess in sessions:
             with sess.order_lock:
-                records.append(sess.to_record())
+                record = sess.to_record()
+            records.append(record if record_fn is None
+                           else record_fn(*record))
         return export_sessions_blob(records,
                                     config_fingerprint=config_fingerprint)
 

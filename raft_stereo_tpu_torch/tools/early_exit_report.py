@@ -322,9 +322,11 @@ def sweep(cfg, state, args, train_steps: int = 0,
     }
 
 
-def run(args) -> dict:
-    """Train (or take the seeded init at ``--steps 0``), sweep, write the
-    record; returns it."""
+def trained_state(args) -> tuple:
+    """``(config, state dict, seconds)``: the hermetic architecture
+    trained ``--steps`` steps (the seeded init at ``--steps 0``), the
+    weights the sweep measures and ``tools/confidence_report.py`` can
+    take from its caller."""
     from raft_stereo_tpu_torch.eval.runner import resolve_device
 
     device = resolve_device(args.device)
@@ -337,8 +339,18 @@ def run(args) -> dict:
                                   device=device)
     else:
         state = drift.init_state(cfg)
+    return cfg, state, time.perf_counter() - t0
+
+
+def run(args, trained: Optional[tuple] = None) -> dict:
+    """Train (or take ``trained``, ``trained_state``'s triple), sweep,
+    write the record; returns it."""
+    from raft_stereo_tpu_torch.eval.runner import resolve_device
+
+    device = resolve_device(args.device)
+    cfg, state, train_s = trained or trained_state(args)
     rec = sweep(cfg, state, args, train_steps=args.steps,
-                train_seconds=time.perf_counter() - t0)
+                train_seconds=train_s)
     out = args.out or default_path(f"EARLY_EXIT_{args.tag}.json")
     rec = write_record(out, rec, indent=1, device=device)
     print(json.dumps({"metric": "early_exit_threshold_sweep", "out": out,

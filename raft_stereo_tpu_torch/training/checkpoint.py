@@ -173,11 +173,14 @@ def save_train_checkpoint(directory: str, state: TrainState,
 
 
 def save_weights(path: str, model_cfg: RaftStereoConfig,
-                 state_dict: Mapping[str, torch.Tensor]) -> None:
+                 state_dict: Mapping[str, torch.Tensor],
+                 runtime_state: Optional[Dict[str, Any]] = None) -> None:
     """Inference export: weights and config only, sealed like a training
-    checkpoint."""
+    checkpoint (``runtime_state``: a JSON sidecar, the model store's
+    metadata)."""
     _save_atomic(path, lambda tmp: save_checkpoint(tmp, model_cfg,
-                                                   state_dict), None, None)
+                                                   state_dict), None,
+                 runtime_state)
 
 
 def load_weights(path: str

@@ -1835,3 +1835,194 @@ def test_native_decoders_in_a_thread_beside_a_card_step(cuda_device,
                 else np.asarray(Image.open(f))) for f in files}
     for f, got in decoded:
         assert got.dtype == want[f].dtype and np.array_equal(got, want[f])
+
+
+def _realtime_tiny(seed=0):
+    cfg = RaftStereoConfig(**{**RaftStereoConfig.realtime().to_dict(),
+                              **TINY})
+    torch.manual_seed(seed)
+    return cfg, RAFTStereo(cfg).state_dict()
+
+
+def test_tiled_request_bit_equal_to_run_batch(rng, cuda_device):
+    """A 100-row pair past the tiling threshold: four 48-row tiles in one
+    batch-4 dispatch, each row the runner's ``run_batch`` of the four
+    slices bit for bit, the stitched flow ``tiles.stitch`` of those rows
+    bit for bit."""
+    from raft_stereo_tpu_torch.serving import ServeConfig, ServingEngine
+    from raft_stereo_tpu_torch.serving import tiles
+
+    cfg, state = _realtime_tiny()
+    left, right = _serving_pair(rng, hw=(100, 90))
+    specs = tiles.plan_tiles(100, 32, 8)
+    runner = InferenceRunner(cfg, state, iters=3)
+    rows, _ = runner.run_batch(
+        [np.ascontiguousarray(left[s.src0:s.src1]) for s in specs],
+        [np.ascontiguousarray(right[s.src0:s.src1]) for s in specs])
+    with ServingEngine(cfg, state, ServeConfig(
+            iters=3, batch_sizes=(1, 2, 4), tile_threshold_pixels=4000,
+            tile_rows=32, tile_halo=8)) as eng:
+        eng.queue.pause()
+        fut = eng.submit(left, right)
+        eng.queue.resume()
+        res = fut.result(timeout=300)
+        assert res.tiles == 4 and res.batch_size == 4
+        assert eng.metrics.batches.value == 1
+    assert np.array_equal(res.flow, tiles.stitch(list(rows), specs))
+    assert res.seam_epe == tiles.seam_epe(list(rows), specs)
+
+
+def test_cascade_answers_bit_equal_to_runner_replays(rng, cuda_device):
+    """``tier="auto"``: each draft answer is the exit runner's replay, each
+    escalated answer the fixed-depth runner's, bit for bit; the threshold
+    sits between two draft confidences, so both kinds occur."""
+    from raft_stereo_tpu_torch.serving import ServeConfig, ServingEngine
+
+    cfg, state = _realtime_tiny()
+    base, _ = _serving_pair(rng)
+    pairs = []
+    for c in (1.0, 0.25, 0.5, 0.1):
+        l = (128 + (base.astype(np.float32) - 128) * c).astype(np.uint8)
+        pairs.append((l, np.roll(l, -3, axis=1)))
+    draft = InferenceRunner(cfg, state, iters=3, exit_threshold_px=0.5,
+                            exit_min_iters=1)
+    quality = InferenceRunner(cfg, state, iters=3)
+    drafts = [draft(l, r) for l, r in pairs]
+    tiers = ("quality", "interactive:0.5:1")
+    with ServingEngine(cfg, state, ServeConfig(
+            iters=3, tiers=tiers, confidence=True,
+            batch_sizes=(1,))) as probe:
+        confs = [probe.infer(l, r, tier="interactive",
+                             timeout=300).confidence_mean for l, r in pairs]
+    ordered = sorted(confs)
+    i = int(np.argmax(np.diff(ordered)))
+    thr = (ordered[i] + ordered[i + 1]) / 2
+    with ServingEngine(cfg, state, ServeConfig(
+            iters=3, tiers=tiers,
+            confidence=True, cascade=True, cascade_threshold=thr,
+            batch_sizes=(1,))) as eng:
+        for (l, r), (dflow, _), conf in zip(pairs, drafts, confs):
+            res = eng.infer(l, r, tier="auto", timeout=300)
+            assert res.draft_tier == "interactive"
+            assert res.escalated == (conf < thr)
+            want = quality(l, r)[0] if res.escalated else dflow
+            assert np.array_equal(res.flow, want)
+        n = len(pairs)
+        assert (eng._cascade_drafts.value
+                + eng._cascade_escalations.value) == n
+        assert 0 < eng._cascade_escalations.value < n
+
+
+def test_named_models_bit_equal_and_retire_frees_memory(rng, cuda_device,
+                                                         tmp_path):
+    """Two published versions of other weights, registered: each answers
+    as a runner on its weights, bit for bit; retiring one drops its
+    graphs, and the allocator's reserved bytes fall by at least what its
+    captures reserved."""
+    import gc
+
+    from raft_stereo_tpu_torch.serving import ServeConfig, ServingEngine
+    from raft_stereo_tpu_torch.serving.models import ModelStore
+
+    cfg, state = _realtime_tiny()
+    store = ModelStore(str(tmp_path))
+    versions = {}
+    for v, seed in (("v1", 1), ("v2", 2)):
+        _, sd = _realtime_tiny(seed)
+        store.publish("m", v, cfg, sd)
+        store.publish("n" + v, "1", cfg, sd)
+        versions[v] = sd
+    left, right = _serving_pair(rng)
+    wants = {v: InferenceRunner(cfg, sd, iters=3)(left, right)[0]
+             for v, sd in versions.items()}
+    with ServingEngine(cfg, state, ServeConfig(
+            iters=3, batch_sizes=(1,), model_store_dir=str(tmp_path),
+            models=("m@v1", "nv2@1"))) as eng:
+        assert np.array_equal(eng.infer(left, right, model="m",
+                                        timeout=300).flow, wants["v1"])
+        assert np.array_equal(eng.infer(left, right, model="nv2",
+                                        timeout=300).flow, wants["v2"])
+        eng.set_default_model("nv2")
+        res = eng.infer(left, right, timeout=300)
+        assert (res.model, res.model_version) == ("nv2", "1")
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        eng.retire_model("m")
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        assert torch.cuda.memory_reserved() < before
+        assert eng.infer(left, right, timeout=300).model == "nv2"
+
+
+def test_store_fed_build_runs_no_nvcc(cuda_device, tmp_path):
+    """The compile farm fills a store; a process whose ``_build/`` is
+    empty, with the store read-only, gets every library from it and runs
+    no ``nvcc``; its libraries are the farm's bytes."""
+    import subprocess
+    import sys
+
+    from raft_stereo_tpu_torch.kernels import _build
+    from raft_stereo_tpu_torch.tools import compile_farm
+
+    store = tmp_path / "store"
+    assert compile_farm.main(["--out", str(store)]) == 0
+    code = (
+        "import json, pathlib, sys\n"
+        "from raft_stereo_tpu_torch.kernels import _build\n"
+        "from raft_stereo_tpu_torch.serving.persist import "
+        "ExecutableDiskCache\n"
+        f"_build.BUILD_DIR = pathlib.Path({str(tmp_path / 'empty')!r})\n"
+        f"_build.set_artifact_store(ExecutableDiskCache({str(store)!r}, "
+        "read_only=True))\n"
+        "_build.build_all()\n"
+        "print(json.dumps({'nvcc_runs': _build.nvcc_runs, "
+        "'fetched': _build.fetched, 'libs': {n: _build.library_path(n)"
+        ".read_bytes().hex()[:64] for n in _build.sources()}}))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    import json
+    got = json.loads(out[-1])
+    assert got["nvcc_runs"] == 0
+    assert got["fetched"] == len(_build.sources())
+    assert got["libs"] == {n: _build.library_path(n).read_bytes().hex()[:64]
+                           for n in _build.sources()}
+
+
+def test_handoff_frame_bit_equal_to_run_stream(rng, cuda_device, tmp_path):
+    """Engine A serves a session two frames (``session_hidden``) and
+    publishes; engine B adopts it through the handoff key: B's next frame
+    is the runner's ``run_stream`` from A's state, bit for bit.  A blob
+    under another fingerprint is refused as ``config_mismatch``."""
+    from raft_stereo_tpu_torch.serving import ServeConfig, ServingEngine
+
+    cfg, state = _realtime_tiny()
+    left, right = _serving_pair(rng, hw=(60, 100))
+    frames = [(np.ascontiguousarray(left[:, k:k + 90]),
+               np.ascontiguousarray(right[:, k:k + 90])) for k in range(3)]
+    kw = dict(iters=3, sessions=True, session_hidden=True,
+              batch_sizes=(1,), executable_cache_dir=str(tmp_path))
+    with ServingEngine(cfg, state, ServeConfig(**kw)) as a:
+        for l, r in frames[:2]:
+            a.infer_session("s", l, r, timeout=300)
+        sess = a.sessions.get("s")
+        prev, hid = sess.flow_low.copy(), tuple(h.copy() for h in sess.hidden)
+        manifest = a.publish_handoff()
+    assert manifest["sessions"] == ["s"]
+    runner = InferenceRunner(cfg, state, iters=3)
+    want = runner.run_stream(*frames[2], prev_flow_low=prev,
+                             prev_hidden=hid, carry_hidden=True)
+    with ServingEngine(cfg, state, ServeConfig(**kw)) as b:
+        res = b.infer_session("s", *frames[2],
+                              handoff_key=manifest["artifact"], timeout=300)
+        assert res.warm and res.warm_hidden and res.frame_index == 2
+        assert np.array_equal(res.flow, want.flow)
+        assert all(np.array_equal(x, y)
+                   for x, y in zip(res.hidden, want.hidden))
+    with ServingEngine(cfg, state, ServeConfig(**dict(kw, iters=4))) as c:
+        res = c.infer_session("s", *frames[2],
+                              handoff_key=manifest["artifact"], timeout=300)
+        assert not res.warm
+        assert c.metrics.handoff_skips("config_mismatch") == 1

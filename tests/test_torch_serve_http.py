@@ -339,17 +339,6 @@ def test_cli_flags_and_defaults_equal_to_jax():
 
 
 REFUSED_FLAGS = [
-    (["--handoff_linger_s", "0"], "§D6b"),
-    (["--cascade", "--confidence"], "§D6b"),
-    (["--cascade_threshold", "0.2"], "§D6b"),
-    (["--tile_threshold_pixels", "9"], "§D6b"), (["--tile_rows", "64"],
-                                                 "§D6b"),
-    (["--tile_halo", "8"], "§D6b"),
-    (["--models", "m@1", "--model_store_dir", "/s"], "§D6b"),
-    (["--model_store_dir", "/s"], "§D6b"),
-    (["--executable_cache_dir", "/c"], "§D6b"),
-    (["--executable_cache_max_bytes", "9"], "§D6b"),
-    (["--executable_cache_read_only"], "§D6b"),
     (["--xl_mesh", "rows=2"], "§D7"), (["--xl_workers", "2"], "§D7"),
     (["--xl_threshold_pixels", "9"], "§D7"),
     (["--xl_max_pixels", "3000000"], "§D7"),
@@ -369,10 +358,26 @@ def test_cli_refuses_deferred_flags(flags, tag, tmp_path):
         serve_cli.build_service(args)
 
 
-# The session settings the port refused until it ran streaming sessions:
-# each ServeConfig field set away from its default (with the companions
-# its validation needs), and each CLI flag.  Each is accepted now and
-# builds the ServeConfig the JAX package builds.
+# The settings the port refused until it ran streaming sessions, and the
+# §D6b flags it refused until it ran the handoff, the cascade, tiles, the
+# model store and the artifact store: each ServeConfig field set away from
+# its default (with the companions its validation needs), and each CLI
+# flag.  Each is accepted now and builds the ServeConfig the JAX package
+# builds.
+D6B_FLAGS = [
+    ("flag", ["--handoff_linger_s", "0"]),
+    ("flag", ["--cascade", "--confidence", "--tiers",
+              "quality,interactive"]),
+    ("flag", ["--cascade_threshold", "0.2"]),
+    ("flag", ["--tile_threshold_pixels", "9"]),
+    ("flag", ["--tile_rows", "64"]),
+    ("flag", ["--tile_halo", "8"]),
+    ("flag", ["--models", "m@1", "--model_store_dir", "/s"]),
+    ("flag", ["--model_store_dir", "/s"]),
+    ("flag", ["--executable_cache_dir", "/c"]),
+    ("flag", ["--executable_cache_max_bytes", "9"]),
+    ("flag", ["--executable_cache_read_only"]),
+]
 SESSION_SETTINGS = [
     ("field", dict(sessions=True)),
     ("field", dict(session_ttl_s=10.0)),
@@ -397,15 +402,16 @@ def _config_fields(cfg):
 
 
 @pytest.mark.parametrize(
-    "kind,setting", SESSION_SETTINGS,
+    "kind,setting", SESSION_SETTINGS + D6B_FLAGS,
     ids=[(" ".join(v) if k == "flag" else ",".join(v))
-         for k, v in SESSION_SETTINGS])
+         for k, v in SESSION_SETTINGS + D6B_FLAGS])
 def test_session_setting_accepted_as_jax(kind, setting, tmp_path,
                                          monkeypatch):
-    """Each session field and flag is accepted and gives the JAX
-    package's ``ServeConfig``: the field directly, the flag through each
-    CLI (JAX's ``build_service`` with its engine and checkpoint loader
-    stubbed, so only its ``ServeConfig`` is built)."""
+    """Each session field and flag, and each §D6b flag, is accepted and
+    gives the JAX package's ``ServeConfig``: the field directly, the flag
+    through each CLI (JAX's ``build_service`` with its engine, checkpoint
+    loader and persistent-compilation-cache switch stubbed, so only its
+    ``ServeConfig`` is built)."""
     if kind == "field":
         got, want = ServeConfig(**setting), JaxServeConfig(**setting)
     else:
@@ -415,6 +421,9 @@ def test_session_setting_accepted_as_jax(kind, setting, tmp_path,
         built = {}
         monkeypatch.setattr(jserve_cli.common, "load_any_checkpoint",
                             lambda *a, **k: (None, None))
+        monkeypatch.setattr(
+            "raft_stereo_tpu.serving.enable_persistent_compilation_cache",
+            lambda cache_dir: True)
         monkeypatch.setattr(
             "raft_stereo_tpu.serving.StereoService",
             lambda cfg, variables, serve_cfg: built.setdefault(
