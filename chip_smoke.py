@@ -153,7 +153,7 @@ fails the run when it fails:
    checkpoint loaded by ``InferenceRunner``; seconds per step past the
    first, the loop's wait for each step's batch, the validation seconds,
    peak memory;
-25. on the same tree with ``RaftStereoConfig.realtime()``: a run of 5
+25. on the same tree with ``RaftStereoConfig.realtime()``: a run of 4
    steps against a run stopped by SIGTERM at step 3 and resumed with
    ``restore="latest"`` (the SHA-256 of every batch the loops consumed
    equal; the final parameters bit-equal, or within 3x the card's spread
@@ -192,8 +192,8 @@ fails the run when it fails:
    ``cli/evaluate.py --sequence --exit_threshold_px --stream_out`` over a
    written KITTI-shaped sequence of 8 pairs: finite cold and warm EPE, the
    passes' mean ``iters_used`` and FPS, the record with the card's name;
-28. the drift gates: ``tools/quant_drift --full --steps 30`` (the
-   hermetic architecture trained 30 steps at 320x704, calibrated, the five
+28. the drift gates: ``tools/quant_drift --full --steps 10`` (the
+   hermetic architecture trained 10 steps at 320x704, calibrated, the five
    variants at 384x1248, bands 48/96/192, depths 7 and 32) and the bf16
    drift's trained leg (the realtime architecture at full width trained
    300 steps, three variants), every row printed with the gate, its
@@ -244,8 +244,9 @@ fails the run when it fails:
    dispatch, a batch of two distinct pairs bitwise equal to a runner's
    ``run_batch``; phase 22's eviction check on an engine with
    ``max_cached_shapes=2`` (the reserved memory bounded, a replay and a
-   recapture bitwise equal); (c) the HTTP front end: 16 client threads
-   posting the pair as npz for about 10 s on the quality tier (requests
+   recapture bitwise equal); (c) the HTTP front end: 16 client threads,
+   each over a kept-alive connection (``closed_loop``), posting the pair
+   as npz for about 10 s on the quality tier (requests
    per second, p50/p99 latency, the mean batch size, which must exceed
    1), a side-by-side PNG round trip (the 16-bit PNG of the batch-1
    answer, byte for byte), a burst past ``max_queue=4`` on the default
@@ -319,9 +320,9 @@ fails the run when it fails:
    finite losses.  The kernels line carries the last run's counts as
    ``launches_loader``.
 34. the early-exit sweep as ``python -m
-   raft_stereo_tpu_torch.tools.early_exit_report --steps 100`` runs it
+   raft_stereo_tpu_torch.tools.early_exit_report --steps 50`` runs it
    (``run``; the tool's default trains 200 steps): its brief training of
-   the hermetic architecture (100 steps at 64x96 on warped textured
+   the hermetic architecture (50 steps at 64x96 on warped textured
    scenes, the scenes' disparity range), then
    on those weights the four 60x90 benchmark trees, the fixed baseline at
    16 iterations, the nine thresholds, the chosen point and the tier
@@ -367,6 +368,51 @@ fails the run when it fails:
    from the same state; an engine at another depth refuses the blob as
    ``config_mismatch``.  The kernels line carries the realtime engines'
    counts and the report's as ``launches_serving_b``.
+36. the fleet (``serving/fleet/``, ``cli/route.py``) over replicas on the
+   card, each the port's ``cli/serve.py`` as its own process (launched by
+   the fleet's ``LocalProcessLauncher`` from ``serve_argv_template``, from
+   a copy of the package without ``_build/``) on phase 26's settled
+   realtime weights: tiers quality and interactive at phase 26's
+   threshold, batch 1/2, sessions, a shared writable artifact store that
+   ``tools/compile_farm`` filled.  First the reference: an in-process
+   engine of the replicas' own flags answers the pair on the quality tier
+   (7 #6 and 21 #5 bf16 per dispatch, counted) and 4 session chains of 8
+   frames shifted 1 px a frame on the exit tier.  (a) Two replicas boot
+   in parallel to ``/readyz`` with every kernel library fetched from the
+   store and no ``nvcc`` run; a primary router (``--ha_dir``) and a
+   traced standby come up over them.  (b) The pair through the router
+   byte-identical to the replica that served it directly, both bitwise
+   equal to the reference (the replicas' bytes equal to a counted kernel
+   run show that their kernels ran).  (f) A sampled request through the
+   traced standby: its trace id in the router's ring and the replica's,
+   the replica's ``serve.request`` a child of ``route.forward`` in the
+   federated ``/debug/spans``, ``/metrics/fleet`` with both replicas'
+   ``serve_*`` series under ``replica=`` and one HELP/TYPE per family.
+   (h) Measurements: routed against direct latency (p50, p99) of 12
+   sequential batch-1 requests, requests per second of 16 clients (each
+   over a kept-alive connection) for 3 s through the router over two
+   replicas beside one replica directly,
+   the replicas' card memory (``nvidia-smi`` memory.used over this
+   process's own); no router process opens the card (no ``/dev/nvidia*``
+   file: no CUDA context) while the replicas do.
+   (c) The 4 sessions through the router; the replica holding the most
+   gets SIGTERM before frame 4: every frame 200 (zero 410s), the frame
+   index continuous, each frame, the adopted ones included, bitwise equal
+   to the reference chain; the drained replica exits 0.  (d) It restarts
+   at its address and rejoins; under 4 closed-loop clients the replica
+   holding the most of 6 new sessions gets kill -9: every stateless
+   request 200, the degraded window (kill to marked dead) printed, each
+   lost session 410 ``session_lost`` once and then a cold 200 on the
+   survivor, one left owed.  (e) A second standby over the ledger; kill
+   -9 of the primary under clients failing over: every request 200, the
+   standby takes the lease (takeover seconds printed), the fired losses
+   answer 200 (none fires twice) and the owed one 410 once.  (g) A router
+   with ``--autoscale_cmd`` (the same serve template) over the survivor:
+   16 clients past the engage watermark make it launch a replica, which
+   boots from the store and joins rotation; when the load stops the
+   scale-down drains it by handoff: zero typed losses, the sessions on it
+   warm on the survivor.  Every process started is stopped.  The kernels
+   line carries the reference engine's counts as ``launches_fleet``.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (times
 by graph replay; a redesigned row names its design under ``design``; an
@@ -458,7 +504,7 @@ KITTI_PAIRS = 60        # > the validator's 50-image warm-up
 SF_HW = (540, 960)
 SF_TRAIN_PAIRS, SF_TEST_PAIRS = 48, 8
 CLI_STEPS, CLI_VAL_EVERY = 6, 3
-RESUME_STEPS = 5
+RESUME_STEPS = 4
 RESUME_SPREAD_FACTOR = 3.0
 ANOMALY_STEPS, ANOMALY_POISON = 7, (4, 5, 6)
 JITTER_ATOL = 1e-4 * 255
@@ -549,8 +595,8 @@ REMAT_POLICIES = (("corr_lookup",), ("corr_lookup", "gru_gates"),
 REMAT_TIMED_STEPS = 1
 # phase 28's quant gate trains this many steps, not --full's 300: the
 # script's budget (its 300 took 217 s of a 1134 s run on a slow host)
-DRIFT_GATE_STEPS = 30
-SWEEP_TRAIN_STEPS = 100  # phase 34's training (the tool's default: 200)
+DRIFT_GATE_STEPS = 10
+SWEEP_TRAIN_STEPS = 50   # phase 34's training (the tool's default: 200)
 # Phase 33: decoded files compared per kind, realtime steps per loader run
 # and the turns (native and Python readers alternating in one process).
 DECODE_SAMPLE = 8
@@ -564,6 +610,13 @@ TILE_REPS = 5            # timed tiled requests
 MODEL_LOAD_CLIENTS = 4   # clients sending while a model retires
 HANDOFF_SESSIONS = 4
 HANDOFF_FRAMES = 3       # frames before the drain
+FLEET_SESSIONS = 4       # phase 36 (c): sessions through the router
+FLEET_FRAMES = 8         # frames a session, shifted 1 px a frame
+FLEET_DRAIN_AT = 4       # frames before the SIGTERM
+FLEET_KILL_SESSIONS = 6  # (d): sessions open when a replica is killed
+FLEET_CLIENTS = 16       # (h): closed-loop clients
+FLEET_LOAD_S = 3.0       # (h): seconds of each closed loop
+FLEET_LATENCY_REPS = 12  # (h): sequential requests, routed and direct
 SERVE_FAMILIES = ("serve_requests_admitted_total",
                   "serve_requests_completed_total", "serve_batches_total",
                   "serve_dispatches_total", "serve_queue_wait_seconds",
@@ -2389,29 +2442,15 @@ def phase_serving(cfg, state, rt_cfg, rt_state, runner, left, right,
     cache_check(cfg, state)
     # ---- (c) HTTP: closed loop, PNG, burst past max_queue, drain
     body = npz_body(left, right)
-    latencies, statuses = [], []
-    lock = threading.Lock()
     m = eng.metrics
     done0, batches0 = m.completed.value, m.batches.value
-    t_end = time.perf_counter() + SERVE_LOAD_S
-
-    def client():
-        while time.perf_counter() < t_end:
-            t = time.perf_counter()
-            code, hdr, raw = post(server.url + "/v1/disparity?tier=quality",
-                                  body)
-            with lock:
-                latencies.append(time.perf_counter() - t)
-                statuses.append(code)
-
     t0 = time.perf_counter()
-    clients = [threading.Thread(target=client, daemon=True)
-               for _ in range(SERVE_CLIENTS)]
-    for c in clients:
-        c.start()
-    for c in clients:
-        c.join(timeout=SERVE_LOAD_S + 120)
+    got = closed_loop([server.url], body, SERVE_CLIENTS, SERVE_LOAD_S,
+                      path="/v1/disparity?tier=quality")
     load_s = time.perf_counter() - t0
+    latencies = [s_ for _, s_, _ in got]
+    statuses = [c_ for c_, *_ in got]
+    lock = threading.Lock()
     done, batches = m.completed.value - done0, m.batches.value - batches0
     mean_batch = done / max(batches, 1)
     lat = np.array(latencies) * 1e3
@@ -3520,6 +3559,854 @@ def phase_serving_b(rt_cfg, rt_state, left, right, exit_thr, sweep_trained,
         f"confidence report {report_counts}; phase 35 took "
         f"{time.perf_counter() - t_phase:.1f} s on {card}")
     return rt_counts, report_counts, out
+
+
+def fleet_copy(work: str, name: str) -> str:
+    """A copy of the package without ``_build/`` under ``work``: a process
+    started from it fetches every kernel library from the artifact store,
+    or builds it (an ``nvcc`` run leaves a ``.log`` beside the library)."""
+    root = os.path.join(work, f"pkg-{name}")
+    shutil.copytree(os.path.join(HERE, "raft_stereo_tpu_torch"),
+                    os.path.join(root, "raft_stereo_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    return root
+
+
+def built_in(root: str):
+    """(kernel libraries, ``nvcc`` logs) in a package copy's ``_build/``."""
+    built = os.path.join(root, "raft_stereo_tpu_torch", "_build")
+    names = os.listdir(built) if os.path.isdir(built) else []
+    return (sum(n_.endswith(".so") and "-" in n_
+                and not n_.startswith("stereo_native") for n_ in names),
+            sum(n_.endswith(".log") for n_ in names))
+
+
+def log_tail(path: str, n: int = 3000) -> str:
+    try:
+        with open(path, errors="replace") as f_:
+            return f_.read()[-n:]
+    except OSError:
+        return ""
+
+
+def wait_until(cond, what: str, timeout: float, alive=None, log_path=None,
+               every: float = 0.05):
+    """Poll ``cond()`` until it is true; seconds waited.  Fails past
+    ``timeout`` or when ``alive()`` says the process under test exited."""
+    t0 = time.perf_counter()
+    while True:
+        if alive is not None and not alive():
+            raise AssertionError(f"{what}: the process exited; "
+                                 f"{log_tail(log_path or '')}")
+        try:
+            if cond():
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not within {timeout} s; "
+                                 f"{log_tail(log_path or '')}")
+        time.sleep(every)
+
+
+def json_get(url: str):
+    code, raw = get(url, timeout=10)
+    return code, (json.loads(raw) if raw[:1] in (b"{", b"[") else raw)
+
+
+def metric(text: str, name: str) -> float:
+    hits = re.findall(rf"^{name}(?:{{[^}}]*}})?\s+([0-9.eE+-]+)$", text,
+                      re.M)
+    return sum(float(h_) for h_ in hits)
+
+
+def start_router(work, name, replicas, extra=(), root=HERE):
+    """``python -m raft_stereo_tpu_torch.cli.route`` from the package at
+    ``root`` over ``replicas`` (name -> URL); ``(process, url, log)``."""
+    port = free_port()
+    log_path = os.path.join(work, f"{name}.log")
+    # probes every 0.1 s, each allowed 3 s: a replica whose handler
+    # threads decode 2.8 MB bodies under load can take longer than the
+    # default 1 s to answer /healthz, and two late answers in a row would
+    # read as a death (seen on one H100: a session typed lost that way)
+    argv = [sys.executable, "-P", "-m", "raft_stereo_tpu_torch.cli.route",
+            "--host", "127.0.0.1", "--port", str(port), "--name", name,
+            "--health_poll_s", "0.1", "--health_timeout_s", "3",
+            "--fail_after", "2",
+            "--request_timeout_s", "120", "--no-fleet_brownout",
+            "--lease_ttl_s", "2.0", "--federation_poll_s", "0.5"]
+    for rname, url in replicas.items():
+        argv += ["--replica", f"{rname}={url}"]
+    with open(log_path, "w") as fh:
+        proc = subprocess.Popen(argv + list(extra), cwd=root,
+                                env=dict(os.environ, PYTHONPATH=root),
+                                stdout=fh, stderr=subprocess.STDOUT)
+    return proc, f"http://127.0.0.1:{port}", log_path
+
+
+def closed_loop(urls, body, clients: int, seconds: float, stop=None,
+                path: str = "/v1/disparity?format=npy"):
+    """``clients`` threads posting ``body`` as npz until ``seconds`` pass
+    (or ``stop`` is set), each over one kept-alive connection per URL;
+    each request tries ``urls`` in order from the one that last answered,
+    the next one only on a transport failure (a client's failover).  Returns ``[(status, seconds,
+    attempts)]``, ``attempts`` a ``(url index, status or error, seconds)``
+    per URL tried.  Kept-alive: a connection per request that the server
+    closes leaves the server's end in TIME_WAIT, and a new connection
+    from the same port meets it (measured on one H100: single requests
+    waited 63 s, the SYN retries' sum)."""
+    import http.client
+    import threading
+
+    done, t_end = [], time.perf_counter() + seconds
+    lock = threading.Lock()
+
+    def client():
+        conns = {}
+
+        def send(url):
+            conn = conns.get(url)
+            if conn is None:
+                host, port = url.rsplit("/", 1)[1].split(":")
+                conn = conns[url] = http.client.HTTPConnection(
+                    host, int(port), timeout=120)
+            try:
+                conn.request("POST", path, body,
+                             {"Content-Type": "application/x-npz"})
+                resp = conn.getresponse()
+                resp.read()
+                return resp.status
+            except BaseException:
+                conns.pop(url).close()
+                raise
+
+        first = 0               # a client stays with the URL that answered
+        while time.perf_counter() < t_end and not (stop and stop.is_set()):
+            t0 = time.perf_counter()
+            status, attempts = None, []
+            for i_ in range(first, len(urls)):
+                t1 = time.perf_counter()
+                try:
+                    status = send(urls[i_])
+                    attempts.append((i_, status, time.perf_counter() - t1))
+                    first = i_
+                    break
+                except (OSError, http.client.HTTPException) as e:
+                    # refused, reset or cut short: the next URL
+                    attempts.append((i_, type(e).__name__,
+                                     time.perf_counter() - t1))
+            with lock:
+                done.append((status, time.perf_counter() - t0, attempts))
+        for conn in conns.values():
+            conn.close()
+
+    threads = [threading.Thread(target=client, daemon=True)
+               for _ in range(clients)]
+    for t_ in threads:
+        t_.start()
+    for t_ in threads:
+        t_.join(timeout=seconds + 300)
+    return done
+
+
+def listen_drops() -> int:
+    """The host's TCP ListenOverflows + ListenDrops (``/proc/net/netstat``):
+    connections a full accept backlog turned away (the client's SYN is
+    retried 1, 3, 7... s later)."""
+    try:
+        with open("/proc/net/netstat") as f_:
+            rows = [ln.split() for ln in f_ if ln.startswith("TcpExt:")]
+        head, vals = rows[0], rows[1]
+        return sum(int(vals[head.index(k_)])
+                   for k_ in ("ListenOverflows", "ListenDrops"))
+    except (OSError, IndexError, ValueError):
+        return -1
+
+
+def loop_stats(got) -> str:
+    secs = [s_ for _, s_, _ in got]
+    slow = [[(i_, o_, round(t_, 3)) for i_, o_, t_ in a_]
+            for _, s_, a_ in got if s_ > 1.0]
+    return (f"{len(got)} requests, statuses "
+            f"{sorted({c_ for c_, *_ in got}, key=str)}, slowest "
+            f"{max(secs, default=0.0):.3f} s, {len(slow)} over 1 s "
+            f"(attempts: url, answer, s: {slow[:3]})")
+
+
+def pcts(xs):
+    xs = sorted(xs)
+    return (xs[len(xs) // 2],
+            xs[min(len(xs) - 1, int(math.ceil(0.99 * len(xs))) - 1)])
+
+
+def gpu_apps():
+    """``{pid: MiB}`` of the card's compute processes, or None where
+    ``nvidia-smi`` lists none (a PID namespace can hide them)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    apps = {}
+    for line in out.stdout.splitlines():
+        parts = [p_.strip() for p_ in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps[int(parts[0])] = parts[1]
+    return apps or None
+
+
+def opens_card(pid: int) -> bool:
+    """Whether the process holds a ``/dev/nvidia*`` file open: initializing
+    CUDA opens them, importing torch does not."""
+    fds = f"/proc/{pid}/fd"
+    for fd in os.listdir(fds):
+        try:
+            if os.readlink(os.path.join(fds, fd)).startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def card_used_mib() -> int:
+    """The card's memory in use (``nvidia-smi``), MiB, every process."""
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
+def kill_stragglers(work: str) -> int:
+    """SIGKILL every process whose command line names ``work`` (a replica
+    a router's autoscaler launched and a killed router left behind)."""
+    import signal as signal_mod
+    n = 0
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f_:
+                cmd = f_.read()
+        except OSError:
+            continue
+        if work.encode() in cmd:
+            try:
+                os.kill(int(pid), signal_mod.SIGKILL)
+                n += 1
+            except OSError:
+                pass
+    return n
+
+
+def transitions(url: str, name: str):
+    """A router's audit trail of one replica (``/fleet`` transitions)."""
+    return [{k_: v_ for k_, v_ in t_.items() if k_ not in ("t", "replica")}
+            for t_ in json_get(url + "/fleet")[1]["transitions"]
+            if t_.get("replica") == name]
+
+
+def phase_fleet(rt_cfg, rt_state, left, right, exit_thr, card,
+                device="cuda"):
+    """Phase 36 (module docstring).  Returns the wrappers' counts over the
+    in-process reference engine and the printed measurements."""
+    import signal as signal_mod
+    import tempfile
+    import threading
+
+    from raft_stereo_tpu_torch.cli import serve as serve_cli
+    from raft_stereo_tpu_torch.eval.runner import launch_counts
+    from raft_stereo_tpu_torch.io.jax_weights import save_checkpoint
+    from raft_stereo_tpu_torch.kernels import _build
+    from raft_stereo_tpu_torch.serving import ServingEngine
+    from raft_stereo_tpu_torch.serving.engine import FAMILY_WARM
+    from raft_stereo_tpu_torch.serving.fleet import (HashRing,
+                                                     LocalProcessLauncher,
+                                                     serve_argv_template)
+    from raft_stereo_tpu_torch.tools import compile_farm
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    if on_card:
+        release()
+    settled = settle_state(rt_state)
+    work = tempfile.mkdtemp(prefix="phase36-")
+    logs = os.path.join(work, "logs")
+    store = os.path.join(work, "store")
+    ckpt = os.path.join(work, "rt_ckpt")
+    save_checkpoint(ckpt, rt_cfg, settled)
+    exit_tier = f"interactive:{float(exit_thr)!r}:{EXIT_MIN_ITERS}"
+    serve_args = [
+        "--restore_ckpt", ckpt, "--device", device, "--host", "127.0.0.1",
+        "--valid_iters", str(RT_ITERS), "--tiers", f"quality,{exit_tier}",
+        "--default_tier", "quality", "--batch_sizes", "1,2",
+        "--max_batch", "2", "--max_queue", "16", "--sessions",
+        "--session_ttl_s", "600",
+        "--warmup_shape", f"{MAIN_HW[0]}x{MAIN_HW[1]}",
+        "--executable_cache_dir", store, "--handoff_linger_s", "30",
+        "--drain_timeout_s", "60"]
+    # every replica, and every one a router's autoscaler launches: the
+    # port's serve CLI from the package copy on PYTHONPATH (-P: not from
+    # the working directory)
+    template = ("python -P -m raft_stereo_tpu_torch.cli.serve --port {port} "
+                + " ".join(serve_args))
+    out = {}
+    counts = {}
+    reps = {}
+    routers = {}
+
+    def launch(name, port=None):
+        """One replica from a fresh package copy through the port's
+        ``LocalProcessLauncher``; ``port`` restarts a replica at its old
+        address (the launcher's own fresh port is then not used)."""
+        root = fleet_copy(work, name if port is None else f"{name}-restart")
+        argv_for = serve_argv_template(template)
+        if port is not None:
+            base = argv_for
+            argv_for = (lambda n_, _p: base(n_, port))  # noqa: E731
+        launcher = LocalProcessLauncher(
+            argv_for, env=dict(os.environ, PYTHONPATH=root), log_dir=logs)
+        url = launcher.launch(name)
+        if port is not None:
+            url = f"http://127.0.0.1:{port}"
+        reps[name] = {"launcher": launcher, "url": url, "root": root,
+                      "t0": time.perf_counter(),
+                      "log": os.path.join(logs, f"{name}.log"),
+                      "pid": launcher._procs[name].pid}
+
+    def rep_alive(name):
+        return reps[name]["launcher"].poll(name) is None
+
+    def ready(name):
+        code, _ = get(reps[name]["url"] + "/readyz", timeout=5)
+        return code == 200
+
+    def router_ready(name, n):
+        code, h_ = json_get(routers[name][1] + "/healthz")
+        return code == 200 and h_.get("ready_replicas") == n
+
+    def stream(url, sid, pair):
+        """One session frame on the exit tier (on settled weights a warm
+        frame exits below the cap, so the keyframe guard stays off)."""
+        return post(f"{url}/v1/stream/{sid}?format=npy&tier=interactive",
+                    npz_body(*pair))
+
+    try:
+        # ---- the reference: an in-process engine of the replicas' flags
+        t_ref = time.perf_counter()
+        ref_args = serve_cli.build_parser().parse_args(["--port", "0"]
+                                                       + serve_args)
+        ref_cfg = dataclasses.replace(serve_cli.build_serve_config(ref_args),
+                                      executable_cache_dir=None)
+        pairs = serve_pairs(left, right, (1.0, 0.8, 0.6, 0.4))
+        sids = [f"fleet-cam{k}" for k in range(FLEET_SESSIONS)]
+        chains = {sid: session_frames(l_, r_, FLEET_FRAMES)
+                  for sid, (l_, r_) in zip(sids, pairs)}
+        zero_inference_counts()
+        eng = ServingEngine(rt_cfg, settled, ref_cfg, device=device)
+        ref_flow = eng.infer(left, right, tier="quality", timeout=300).flow
+        per_dispatch = {}
+        if on_card:
+            per_dispatch["quality"] = dispatch_counts(
+                eng, PADDED_HW, 1, "quality", RT_ITERS)
+            tier_dispatch_counts(per_dispatch["quality"], "quality",
+                                 RT_ITERS)
+        ref_chain = {sid: [] for sid in sids}
+        for k in range(FLEET_FRAMES):
+            for sid in sids:
+                res = eng.infer_session(sid, *chains[sid][k],
+                                        tier="interactive", timeout=300)
+                ref_chain[sid].append((res.flow, res.warm))
+        if on_card:
+            depth = res.iters_used
+            per_dispatch["interactive warm"] = dispatch_counts(
+                eng, PADDED_HW, 1, "interactive", depth, FAMILY_WARM)
+            tier_dispatch_counts(per_dispatch["interactive warm"],
+                                 exit_tier, depth)
+        eng.close()
+        del eng
+        for k_, v_ in launch_counts().items():
+            counts[k_] = counts.get(k_, 0) + v_
+        zero_inference_counts()
+        if on_card:
+            release()
+        # the adopted frames must be warm: the point of the handoff
+        ok = (all(ref_chain[sid][FLEET_DRAIN_AT][1] for sid in sids)
+              and not any(ref_chain[sid][0][1] for sid in sids))
+        log(f"fleet reference: an in-process engine of the replicas' flags "
+            f"(tiers quality and {exit_tier}, batch 1/2, sessions): the "
+            f"pair on the quality tier and {FLEET_SESSIONS} chains of "
+            f"{FLEET_FRAMES} frames on the exit tier (warm "
+            f"{[[w_ for _, w_ in ref_chain[sid]] for sid in sids]}); "
+            f"launches per dispatch "
+            f"{per_dispatch}; wrappers' counts {counts}; "
+            f"{time.perf_counter() - t_ref:.1f} s: "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError("the reference chains are not warm at "
+                                 "the drain")
+
+        # ---- (a) warm boot ----------------------------------------------
+        t_a = time.perf_counter()
+        farm = {"stored": 0, "libraries": {}}
+        if on_card:
+            farm_manifest = os.path.join(work, "farm.json")
+            if compile_farm.main(["--out", store, "--manifest",
+                                  farm_manifest]) != 0:
+                raise AssertionError("compile_farm failed")
+            with open(farm_manifest) as f_:
+                farm = json.load(f_)
+        used0 = card_used_mib() if on_card else 0
+        for name in ("r0", "r1"):
+            launch(name)
+        ha_dir = os.path.join(store, "fleet")
+        routers["rt-a"] = start_router(
+            work, "rt-a", {n_: reps[n_]["url"] for n_ in ("r0", "r1")},
+            ["--ha_dir", ha_dir])
+        wait_until(lambda: get(routers["rt-a"][1] + "/healthz")[0] == 200,
+                   "rt-a up", 120, lambda: routers["rt-a"][0].poll() is None,
+                   routers["rt-a"][2])
+        # the traced standby of (f): passive, it serves traffic all along
+        routers["rt-b"] = start_router(
+            work, "rt-b", {n_: reps[n_]["url"] for n_ in ("r0", "r1")},
+            ["--ha_dir", ha_dir, "--standby", "--peer", routers["rt-a"][1],
+             "--trace_sample_rate", "1.0"])
+        boot = {}
+        for name in ("r0", "r1"):
+            wait_until(lambda: ready(name), f"replica {name} /readyz", 600,
+                       lambda: rep_alive(name), reps[name]["log"], 0.25)
+            boot[name] = time.perf_counter() - reps[name]["t0"]
+        for rt in ("rt-a", "rt-b"):
+            wait_until(lambda: router_ready(rt, 2), f"{rt} over 2 replicas",
+                       60, lambda: routers[rt][0].poll() is None,
+                       routers[rt][2])
+        used_boot = card_used_mib() - used0 if on_card else 0
+        stats = {}
+        for name in ("r0", "r1"):
+            code, st_ = json_get(reps[name]["url"] + "/readyz")
+            stats[name] = (built_in(reps[name]["root"]),
+                           st_.get("executable_cache"))
+        _, fleet = json_get(routers["rt-a"][1] + "/fleet")
+        _, fleet_b = json_get(routers["rt-b"][1] + "/fleet")
+        ok = (fleet["role"] == "primary" and fleet_b["role"] == "standby"
+              and sorted(fleet["in_rotation"]) == ["r0", "r1"])
+        if on_card:
+            n_src = len(_build.sources())
+            ok = (ok and len(farm["libraries"]) == n_src
+                  and farm["stored"] == n_src)
+            for (libs, nvcc), cache in stats.values():
+                ok = (ok and libs >= 2 and nvcc == 0 and cache is not None
+                      and cache["loads"] == libs and cache["misses"] == 0)
+        out["boot_s"] = boot
+        log(f"(a) warm boot: two replicas (the port's serve CLI from copies "
+            f"of the package without _build/, launched by "
+            f"LocalProcessLauncher; tiers quality and {exit_tier}, batch "
+            f"1/2, sessions, the ladder at {MAIN_HW[0]}x{MAIN_HW[1]}) "
+            f"/readyz after {[round(boot[n_], 2) for n_ in ('r0', 'r1')]} s "
+            f"in parallel; (libraries, nvcc runs) and store stats "
+            f"{stats}; compile_farm stored {farm['stored']} of "
+            f"{len(farm['libraries'])}; rt-a {fleet['role']}, rt-b "
+            f"{fleet_b['role']} (traced), both over {fleet['in_rotation']}: "
+            f"{'ok' if ok else 'FAILED'}; (a) took "
+            f"{time.perf_counter() - t_a:.1f} s")
+        if not ok:
+            raise AssertionError("the fleet's warm boot failed its checks")
+
+        # ---- (b) pass-through parity -------------------------------------
+        body = npz_body(left, right)
+        rt_a = routers["rt-a"][1]
+        before = json_get(rt_a + "/fleet")[1]["replicas"]
+        st_r, h_r, routed = post(rt_a + "/v1/disparity?format=npy", body)
+        after = json_get(rt_a + "/fleet")[1]["replicas"]
+        served = [n_ for n_ in after if after[n_]["requests_forwarded"]
+                  > before[n_]["requests_forwarded"]]
+        direct = {n_: post(reps[n_]["url"] + "/v1/disparity?format=npy",
+                           body)[2] for n_ in ("r0", "r1")}
+        ok = (st_r == 200 and len(served) == 1
+              and routed == direct[served[0]] == direct["r0"] == direct["r1"]
+              and np.array_equal(-npy_of(routed), ref_flow))
+        log(f"(b) pass-through: the {MAIN_HW[0]}x{MAIN_HW[1]} pair through "
+            f"rt-a (served by {served}) byte-identical to the replica "
+            f"directly ({len(routed)} bytes), both replicas alike, and "
+            f"bitwise equal to the in-process engine's quality dispatch "
+            f"(7 #6 and 21 #5 bf16 counted there): "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError("router pass-through parity failed")
+
+        # ---- (f) observability (the traced standby, both replicas) -------
+        rt_b = routers["rt-b"][1]
+        st_t, h_t, traced_body = post(rt_b + "/v1/disparity?format=npy",
+                                      body)
+        tid = h_t.get("X-Trace-Id")
+
+        def merged():
+            code_, view_ = json_get(f"{rt_b}/debug/spans?trace={tid}")
+            names_ = {(s_["process"], s_["name"]) for s_ in view_["spans"]}
+            return (("router", "route.request") in names_
+                    and any(p_ != "router" and n_ == "serve.request"
+                            for p_, n_ in names_)) and view_
+
+        wait_until(merged, "the federated trace", 10)
+        view = merged()
+        fwd = [s_ for s_ in view["spans"] if s_["process"] == "router"
+               and s_["name"] == "route.forward"]
+        serve_spans = [s_ for s_ in view["spans"]
+                       if s_["name"] == "serve.request"]
+        owner_t = serve_spans[0]["process"]
+        _, own = json_get(f"{reps[owner_t]['url']}/debug/spans?trace={tid}")
+
+        def federated():
+            text_ = get(rt_b + "/metrics/fleet")[1].decode()
+            return all(f'fleet_federation_up{{replica="{n_}"}} 1' in text_
+                       and f'serve_requests_admitted_total{{replica="{n_}"'
+                       in text_ for n_ in ("r0", "r1")) and text_
+
+        wait_until(federated, "/metrics/fleet over both replicas", 15)
+        text = federated()
+        helps = [ln for ln in text.splitlines() if ln.startswith("# HELP ")]
+        ok = (st_t == 200 and bool(tid) and traced_body == routed
+              and len(fwd) == 1 and len(serve_spans) == 1
+              and serve_spans[0]["parent_id"] == fwd[0]["span_id"]
+              and serve_spans[0]["trace_id"] == tid
+              and any(s_["name"] == "serve.request" for s_ in own["spans"])
+              and len(helps) == len(set(helps))
+              and text.count("# HELP serve_requests_admitted_total ") == 1)
+        log(f"(f) observability: a sampled request through rt-b, trace "
+            f"{tid}: the replica {owner_t}'s serve.request a child of the "
+            f"router's route.forward in the federated /debug/spans "
+            f"({len(view['spans'])} spans from {sorted(view['sources'])}), "
+            f"and in {owner_t}'s own ring; the traced answer's bytes equal "
+            f"the untraced one's; /metrics/fleet re-exposes both replicas' "
+            f"serve_* series under replica= with one HELP/TYPE per family "
+            f"({len(helps)} families): {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError("fleet observability failed its checks")
+        routers["rt-b"][0].send_signal(signal_mod.SIGTERM)
+        routers["rt-b"][0].wait(timeout=60)
+
+        # ---- (h) measurements over two replicas ---------------------------
+        t_h = time.perf_counter()
+        lat = {"routed": [], "direct": []}
+        for _ in range(FLEET_LATENCY_REPS):
+            for how, url in (("routed", rt_a), ("direct",
+                                                reps["r0"]["url"])):
+                t0 = time.perf_counter()
+                code = post(url + "/v1/disparity?format=npy", body)[0]
+                lat[how].append(time.perf_counter() - t0)
+                if code != 200:
+                    raise AssertionError(f"{how} request answered {code}")
+        loops, loop_info = {}, {}
+        for how, url in (("routed", rt_a), ("direct", reps["r0"]["url"])):
+            drops0 = listen_drops()
+            t0 = time.perf_counter()
+            got = closed_loop([url], body, FLEET_CLIENTS, FLEET_LOAD_S)
+            wall = time.perf_counter() - t0
+            codes = sorted({c_ for c_, *_ in got}, key=str)
+            if codes != [200]:
+                raise AssertionError(f"{how} closed loop answered {codes}")
+            loops[how] = len(got) / FLEET_LOAD_S
+            loop_info[how] = (f"{loop_stats(got)}, {wall:.1f} s to the "
+                              f"last answer, {listen_drops() - drops0} "
+                              f"connections turned away by a full backlog")
+        apps = gpu_apps() if on_card else None
+        used_load = card_used_mib() - used0 if on_card else 0
+        router_pids = {n_: r_[0].pid for n_, r_ in routers.items()
+                       if r_[0].poll() is None}
+        rep_pids = {n_: reps[n_]["pid"] for n_ in ("r0", "r1")}
+        # the check is the routers' (no card device open); the replicas
+        # opening theirs on the card shows that the probe sees it
+        ok = (not any(opens_card(p_) for p_ in router_pids.values())
+              and (all(opens_card(p_) for p_ in rep_pids.values())
+                   or not on_card))
+        out["latency_s"] = {k_: pcts(v_) for k_, v_ in lat.items()}
+        out["requests_per_s"] = loops
+        out["replicas_mib"] = {"after_boot": used_boot,
+                               "after_load": used_load}
+        log(f"(h) measurements: latency (p50, p99) over "
+            f"{FLEET_LATENCY_REPS} sequential requests, batch 1, quality: "
+            f"routed {[round(x_, 5) for x_ in out['latency_s']['routed']]} s,"
+            f" direct {[round(x_, 5) for x_ in out['latency_s']['direct']]}"
+            f" s; {FLEET_CLIENTS} clients for {FLEET_LOAD_S} s: through "
+            f"rt-a over two replicas {loops['routed']:.2f} requests/s, one "
+            f"replica directly {loops['direct']:.2f} ({loop_info}); the two "
+            f"replicas' "
+            f"card memory (nvidia-smi memory.used over this process's) "
+            f"{used_boot} MiB after boot, {used_load} MiB after the loops "
+            f"(--query-compute-apps lists {apps}); the router processes "
+            f"{router_pids} open no /dev/nvidia* (no CUDA context), the "
+            f"replicas {rep_pids} do: {'ok' if ok else 'FAILED'}; (h) took "
+            f"{time.perf_counter() - t_h:.1f} s")
+        if not ok:
+            raise AssertionError("a router process holds a CUDA context")
+
+        # ---- (c) sessions and a drain -------------------------------------
+        t_c = time.perf_counter()
+        ring = HashRing(["r0", "r1"])
+        owner = {sid: ring.lookup(sid) for sid in sids}
+        victim = max(("r0", "r1"),
+                     key=lambda n_: sum(o_ == n_ for o_ in owner.values()))
+        survivor = "r1" if victim == "r0" else "r0"
+        moved = [sid for sid in sids if owner[sid] == victim]
+        answers = {sid: [] for sid in sids}
+        for k in range(FLEET_FRAMES):
+            if k == FLEET_DRAIN_AT:
+                reps[victim]["launcher"].drain(victim)
+            for sid in sids:
+                code, h_, raw = stream(rt_a, sid, chains[sid][k])
+                answers[sid].append((code, h_.get("X-Warm"),
+                                     h_.get("X-Frame-Index"),
+                                     npy_of(raw) if code == 200 else raw))
+        wait_until(lambda: not rep_alive(victim), "the drained replica's "
+                   "exit", 120)
+        rc = reps[victim]["launcher"].poll(victim)
+        _, metrics_a = get(rt_a + "/metrics")
+        metrics_a = metrics_a.decode()
+        trail = transitions(rt_a, victim)
+        ok = rc == 0 and bool(moved)
+        bad = []
+        for sid in sids:
+            for k, (code, warm, idx, disp) in enumerate(answers[sid]):
+                want_warm = "1" if ref_chain[sid][k][1] else "0"
+                if not (code == 200 and warm == want_warm and idx == str(k)
+                        and np.array_equal(-disp, ref_chain[sid][k][0])):
+                    bad.append((sid, k, code, warm, idx))
+        ok = (ok and not bad
+              and metric(metrics_a, "fleet_sessions_lost_total") == 0
+              # a frame that races the drain can apply the manifest a
+              # second time (JAX's router; ROADMAP §C): counted twice
+              and metric(metrics_a, "fleet_handoff_sessions_total")
+              >= len(moved)
+              and metric(metrics_a, "fleet_handoff_manifests_total") >= 1)
+        log(f"(c) sessions: {FLEET_SESSIONS} sessions of {FLEET_FRAMES} "
+            f"frames through rt-a, owners {owner}; SIGTERM to {victim} "
+            f"before frame {FLEET_DRAIN_AT}: every frame 200 (zero 410s), "
+            f"X-Frame-Index continuous, X-Warm the chain's, each frame "
+            f"(the adopted ones on {survivor} too) bitwise equal to the "
+            f"in-process chain; handed off {sorted(moved)} "
+            f"(fleet_handoff_sessions_total "
+            f"{metric(metrics_a, 'fleet_handoff_sessions_total'):g}, lost "
+            f"{metric(metrics_a, 'fleet_sessions_lost_total'):g}; rt-a's "
+            f"trail of {victim} {trail}); {victim} "
+            f"exited {rc}; bad frames {bad}: {'ok' if ok else 'FAILED'}; "
+            f"(c) took {time.perf_counter() - t_c:.1f} s")
+        if not ok:
+            raise AssertionError("the drain handoff failed its checks")
+
+        # ---- (d) a replacement, then kill -9 under load -------------------
+        t_d = time.perf_counter()
+        port = int(reps[victim]["url"].rsplit(":", 1)[1])
+        launch(victim, port=port)
+        wait_until(lambda: ready(victim), "the replacement's /readyz", 600,
+                   lambda: rep_alive(victim), reps[victim]["log"], 0.25)
+        boot["replacement"] = time.perf_counter() - reps[victim]["t0"]
+        wait_until(lambda: router_ready("rt-a", 2), "rt-a over 2 again", 30)
+        dsids = [f"d-cam{k}" for k in range(FLEET_KILL_SESSIONS)]
+        downer = {sid: ring.lookup(sid) for sid in dsids}
+        target = max(("r0", "r1"),
+                     key=lambda n_: sum(o_ == n_ for o_ in downer.values()))
+        lost = [sid for sid in dsids if downer[sid] == target]
+        kept = [sid for sid in dsids if downer[sid] != target]
+        dframes = {sid: session_frames(*pairs[k % len(pairs)], 4)
+                   for k, sid in enumerate(dsids)}
+        for k in range(2):
+            for sid in dsids:
+                if stream(rt_a, sid, dframes[sid][k])[0] != 200:
+                    raise AssertionError(f"{sid} frame {k} failed")
+        stop = threading.Event()
+        load = {}
+        loader = threading.Thread(target=lambda: load.setdefault(
+            "got", closed_loop([rt_a], body, 4, 60.0, stop)), daemon=True)
+        loader.start()
+        time.sleep(1.0)
+        reps[target]["launcher"].destroy(target)      # SIGKILL
+        degraded = wait_until(
+            lambda: not json_get(rt_a + "/fleet")[1]["replicas"][target][
+                "alive"], "rt-a marks the killed replica dead", 30,
+            every=0.01)
+        time.sleep(1.0)
+        stop.set()
+        loader.join(timeout=120)
+        got = load.get("got", [])
+        fired = []
+        for sid in lost[:-1]:       # the last one stays owed for (e)
+            code, _, raw = stream(rt_a, sid, dframes[sid][2])
+            code2, h2, _ = stream(rt_a, sid, dframes[sid][3])
+            fired.append((code, json.loads(raw).get("error")
+                           if code == 410 else None, code2,
+                           h2.get("X-Warm")))
+        kept_ok = [stream(rt_a, sid, dframes[sid][2]) for sid in kept]
+        ok = (len(lost) >= 2 and got and all(c_ == 200 for c_, *_ in got)
+              and built_in(reps[victim]["root"])[1] == 0
+              and all(f_ == (410, "session_lost", 200, "0") for f_ in fired)
+              and all(c_ == 200 and h_.get("X-Warm") == "1"
+                      for c_, h_, _ in kept_ok))
+        out["degraded_s"] = degraded
+        out["boot_s"] = boot
+        log(f"(d) failover: {victim} restarted at its address, /readyz "
+            f"after {boot['replacement']:.2f} s, back in rotation; "
+            f"{FLEET_KILL_SESSIONS} sessions opened, kill -9 of {target} "
+            f"(holding {lost}) under 4 closed-loop clients: "
+            f"{loop_stats(got)}; degraded window "
+            f"(kill to marked dead) {degraded:.3f} s; each lost session "
+            f"(410 error, next frame, X-Warm) {fired}, {lost[-1]} left owed;"
+            f" the survivor's sessions warm: {'ok' if ok else 'FAILED'}; "
+            f"(d) took {time.perf_counter() - t_d:.1f} s")
+        if not ok:
+            raise AssertionError("failover failed its checks")
+
+        # ---- (e) the HA pair -----------------------------------------------
+        t_e = time.perf_counter()
+        routers["rt-b2"] = start_router(
+            work, "rt-b2", {n_: reps[n_]["url"] for n_ in ("r0", "r1")},
+            ["--ha_dir", ha_dir, "--standby", "--peer", rt_a])
+        rt_b2 = routers["rt-b2"][1]
+        wait_until(lambda: router_ready("rt-b2", 1), "rt-b2 up", 120,
+                   lambda: routers["rt-b2"][0].poll() is None,
+                   routers["rt-b2"][2])
+        role0 = json_get(rt_b2 + "/fleet")[1]["role"]
+        stop = threading.Event()
+        load = {}
+        loader = threading.Thread(target=lambda: load.setdefault(
+            "got", closed_loop([rt_a, rt_b2], body, 4, 60.0, stop)),
+            daemon=True)
+        loader.start()
+        time.sleep(1.0)
+        routers["rt-a"][0].kill()
+        routers["rt-a"][0].wait(timeout=30)
+        takeover = wait_until(
+            lambda: json_get(rt_b2 + "/fleet")[1]["role"] == "primary",
+            "rt-b2 takes the lease", 30, every=0.02)
+        # the sessions at once: an owed loss expires after the router's
+        # session_lost_ttl_s (60 s)
+        again = [stream(rt_b2, sid, dframes[sid][3])[0] for sid in lost[:-1]]
+        code, _, raw = stream(rt_b2, lost[-1], dframes[lost[-1]][2])
+        owed = (code, json.loads(raw).get("error") if code == 410 else None)
+        code2 = stream(rt_b2, lost[-1], dframes[lost[-1]][3])[0]
+        time.sleep(1.0)
+        stop.set()
+        t_join = time.perf_counter()
+        loader.join(timeout=300)
+        t_join = time.perf_counter() - t_join
+        got = load.get("got", [])
+        _, fleet = json_get(rt_b2 + "/fleet")
+        metrics_b = get(rt_b2 + "/metrics")[1].decode()
+        ok = (role0 == "standby" and got and all(c_ == 200 for c_, *_ in got)
+              and fleet["role"] == "primary" and fleet["epoch"] == 2
+              and all(c_ == 200 for c_ in again)
+              and owed == (410, "session_lost") and code2 == 200
+              and metric(metrics_b, "fleet_router_takeovers_total") == 1)
+        out["takeover_s"] = takeover
+        log(f"(e) HA pair: rt-b2 started {role0} over --ha_dir; kill -9 of "
+            f"the primary rt-a under 4 clients failing over to rt-b2: "
+            f"{loop_stats(got)} ({t_join:.1f} s to stop); rt-b2 "
+            f"{fleet['role']} at epoch {fleet['epoch']} after "
+            f"{takeover:.3f} s (kill to lease); the sessions rt-a fired "
+            f"answer {again} (no second 410); the owed {lost[-1]} {owed} "
+            f"once, then {code2}: {'ok' if ok else 'FAILED'}; (e) took "
+            f"{time.perf_counter() - t_e:.1f} s")
+        if not ok:
+            raise AssertionError("the HA pair failed its checks")
+        routers["rt-b2"][0].send_signal(signal_mod.SIGTERM)
+        routers["rt-b2"][0].wait(timeout=60)
+
+        # ---- (g) the autoscaler ---------------------------------------------
+        t_g = time.perf_counter()
+        live = "r1" if target == "r0" else "r0"
+        g_root = fleet_copy(work, "autoscaled")
+        routers["rt-c"] = start_router(
+            work, "rt-c", {live: reps[live]["url"]},
+            ["--autoscale_cmd", template, "--autoscale_min", "1",
+             "--autoscale_max", "2", "--autoscale_engage_fraction", "0.25",
+             "--autoscale_engage_s", "1.0",
+             "--autoscale_restore_fraction", "0.05",
+             "--autoscale_restore_s", "3.0", "--autoscale_cooldown_s", "1.0",
+             "--autoscale_log_dir", logs], root=g_root)
+        rt_c = routers["rt-c"][1]
+        wait_until(lambda: router_ready("rt-c", 1), "rt-c up", 120,
+                   lambda: routers["rt-c"][0].poll() is None,
+                   routers["rt-c"][2])
+        stop = threading.Event()
+        load = {}
+        loader = threading.Thread(target=lambda: load.setdefault(
+            "got", closed_loop([rt_c], body, FLEET_CLIENTS, 600.0, stop)),
+            daemon=True)
+        loader.start()
+        joined = wait_until(
+            lambda: "auto1" in json_get(rt_c + "/fleet")[1]["in_rotation"],
+            "the autoscaled replica joins rotation", 240,
+            lambda: routers["rt-c"][0].poll() is None, routers["rt-c"][2],
+            0.25)
+        gsids = [f"g-cam{k}" for k in range(FLEET_SESSIONS)]
+        gring = HashRing([live, "auto1"])
+        gmoved = [sid for sid in gsids if gring.lookup(sid) == "auto1"]
+        gframes = {sid: session_frames(*pairs[k], 3)
+                   for k, sid in enumerate(gsids)}
+        g_first = [stream(rt_c, sid, gframes[sid][0])[0] for sid in gsids]
+        stop.set()
+        loader.join(timeout=300)
+        got = load.get("got", [])
+        gone = wait_until(
+            lambda: "auto1" not in json_get(rt_c + "/fleet")[1]["replicas"],
+            "the scale-down drains and deregisters auto1", 180,
+            lambda: routers["rt-c"][0].poll() is None, routers["rt-c"][2],
+            0.1)
+        g_next = [stream(rt_c, sid, gframes[sid][1]) for sid in gsids]
+        metrics_c = get(rt_c + "/metrics")[1].decode()
+        trail = transitions(rt_c, "auto1")
+        libs, nvcc = built_in(g_root)
+        ok = (bool(gmoved) and all(c_ == 200 for c_, *_ in got)
+              and g_first == [200] * len(gsids)
+              and all(c_ == 200 and h_.get("X-Warm") == "1"
+                      for c_, h_, _ in g_next)
+              and metric(metrics_c, "fleet_autoscale_up_total") == 1
+              and metric(metrics_c, "fleet_autoscale_down_total") == 1
+              and metric(metrics_c, "fleet_sessions_lost_total") == 0
+              and metric(metrics_c, "fleet_handoff_sessions_total")
+              >= len(gmoved))
+        if on_card:
+            ok = ok and libs >= 2 and nvcc == 0
+        out["autoscale"] = {"join_s": joined, "drain_s": gone}
+        log(f"(g) autoscale: rt-c (the route CLI with --autoscale_cmd, the "
+            f"port's serve template) over {live}; {FLEET_CLIENTS} clients "
+            f"past the engage watermark: auto1 launched and in rotation "
+            f"{joined:.1f} s after the load began (its package copy: "
+            f"{libs} libraries fetched, {nvcc} nvcc runs); under load "
+            f"{loop_stats(got)}; {len(gsids)} "
+            f"sessions ({gmoved} on auto1); load stopped: auto1 drained by "
+            f"handoff and deregistered after {gone:.1f} s, the sessions' "
+            f"next frames {[(c_, h_.get('X-Warm')) for c_, h_, _ in g_next]}"
+            f"; up {metric(metrics_c, 'fleet_autoscale_up_total'):g}, down "
+            f"{metric(metrics_c, 'fleet_autoscale_down_total'):g}, lost "
+            f"{metric(metrics_c, 'fleet_sessions_lost_total'):g}, handed "
+            f"off {metric(metrics_c, 'fleet_handoff_sessions_total'):g}; "
+            f"rt-c's trail of auto1 {trail}: {'ok' if ok else 'FAILED'}; "
+            f"(g) took "
+            f"{time.perf_counter() - t_g:.1f} s")
+        if not ok:
+            raise AssertionError("the autoscaler failed its checks")
+        routers["rt-c"][0].send_signal(signal_mod.SIGTERM)
+        routers["rt-c"][0].wait(timeout=60)
+    except BaseException:
+        for name_ in sorted(os.listdir(logs) if os.path.isdir(logs) else ()):
+            log(f"---- {name_} ----\n{log_tail(os.path.join(logs, name_))}")
+        for name_, r_ in routers.items():
+            log(f"---- {name_} ----\n{log_tail(r_[2])}")
+        raise
+    finally:
+        for r_ in routers.values():
+            if r_[0].poll() is None:
+                r_[0].send_signal(signal_mod.SIGTERM)
+                try:
+                    r_[0].wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    r_[0].kill()
+                    r_[0].wait()
+        for rep in reps.values():
+            rep["launcher"].stop_all()
+        stragglers = kill_stragglers(work)
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 36 wrapper counts (the in-process reference engine): "
+        f"{counts}; stragglers killed {stragglers}; phase 36 took "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    return counts, out
 
 
 def mark(what: str) -> None:
@@ -5309,6 +6196,12 @@ def main() -> int:
         rt_cfg, rt_state, left, right, exit_runs["realtime"]["threshold"],
         sweep_trained, card)
 
+    # ----------------------------------------------------------- phase 36
+    mark("phase 36")
+    fleet_counts, fleet_out = phase_fleet(
+        rt_cfg, rt_state, left, right, exit_runs["realtime"]["threshold"],
+        card)
+
     def row(name_, source, replaces, launched, err, t, design=None):
         """One entry of the kernels line; ``t`` holds graph-replay times."""
         out = {"name": name_, "route": "cuda",
@@ -5331,6 +6224,7 @@ def main() -> int:
         out["launches_loader"] = loader.get(name_, 0)
         out["launches_sweep"] = sweep.get(name_, 0)
         out["launches_serving_b"] = serving_b.get(name_, 0)
+        out["launches_fleet"] = fleet.get(name_, 0)
         return out
 
     # the wrappers' counts over phase 30's engines (set to 0 before each)
@@ -5378,6 +6272,16 @@ def main() -> int:
                         "exit_predicate") if not serving_b[k]]
     if idle:
         raise AssertionError(f"phase 35 kernels never launched: {idle}")
+
+    # phase 36: the in-process engine of the replicas' flags whose answers
+    # the replicas' bytes equal bit for bit (#6 and the bf16 gates on both
+    # tiers, the predicate on the exit tier's session frames)
+    fleet = {"corr_alt": fleet_counts.get("alt", 0),
+             "gru_gates_bf16": fleet_counts.get("gates", 0),
+             "exit_predicate": fleet_counts.get("exit", 0)}
+    idle = [k for k, v in fleet.items() if not v]
+    if idle:
+        raise AssertionError(f"phase 36 kernels never launched: {idle}")
 
     lookup_t.update(bound=lookup_bound_ms, by="bytes")
     lbwd_t.update(bound=lbwd_bound, by="bytes")
@@ -5432,6 +6336,7 @@ def main() -> int:
     log(f"serving launches per dispatch: {serve_per_dispatch}")
     log(f"sessions launches per frame: {sess_per_frame}")
     log(f"phase 35 measurements: {json.dumps(serve_b_out)}")
+    log(f"phase 36 measurements: {json.dumps(fleet_out)}")
     log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

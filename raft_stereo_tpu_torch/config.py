@@ -298,9 +298,10 @@ class TrainConfig:
 
     The port's training loop (training/train_loop.py) reads every field;
     the augmentation and dataset fields build the loader's mixture
-    (data/datasets.py ``build_training_mixture``).  Options whose
-    machinery is not ported (data parallelism, span tracing) raise
-    ``NotImplementedError`` at construction."""
+    (data/datasets.py ``build_training_mixture``).  One option's
+    machinery is not ported: ``data_parallel > 1`` (the parallel
+    executors) raises ``NotImplementedError`` at construction.  Span
+    tracing (``trace_sample_rate``) runs."""
 
     batch_size: int = 8
     train_iters: int = 22

@@ -11,8 +11,10 @@ degradation, chaos testing), span traces, metrics, and the HTTP front end
 (serving/http.py).
 
 The JAX package's ``serving/`` names, for the modules the port runs.  The
-fleet (ROADMAP §D6c) and the xl mesh (§D7) are not ported yet; the xl
-fields of ``ServeConfig`` raise ``NotImplementedError``."""
+fleet above N replicas — router, replica clients, the HA ledger, rollout,
+metrics federation and the autoscaler — is ``serving/fleet/``
+(``raft-route-torch``).  The xl mesh (ROADMAP §D7) is not ported yet; the
+xl fields of ``ServeConfig`` raise ``NotImplementedError``."""
 
 from raft_stereo_tpu_torch.serving.batcher import (BucketQueue,
                                                    DeadlineExceeded,

@@ -683,6 +683,17 @@ def make_handler(service: StereoService,
     return Handler
 
 
+class _ReplicaHTTPServer(ThreadingHTTPServer):
+    """A thread per connection, as the standard server, over a deep
+    accept backlog.  The standard backlog of 5 turns connections away
+    whenever more than 5 arrive between two accepts (the handler threads
+    decoding request bodies hold the interpreter): a router relaying 16
+    clients does that, and each turned-away client waits out its SYN
+    retry, 1, 3, 7 ... seconds (measured on an H100 host: PERF.md)."""
+
+    request_queue_size = 1024
+
+
 class StereoHTTPServer:
     """Owns the ThreadingHTTPServer; ``port=0`` binds an ephemeral port
     (tests).  ``serve_forever`` blocks (the CLI's mode); ``start`` runs it
@@ -694,7 +705,7 @@ class StereoHTTPServer:
         self.service = service
         self.trace = TraceCapture()
         self.recorder = recorder
-        self.server = ThreadingHTTPServer(
+        self.server = _ReplicaHTTPServer(
             (host, port), make_handler(service, self.trace,
                                        recorder=recorder))
         self._thread = None
