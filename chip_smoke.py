@@ -80,7 +80,7 @@ fails the run when it fails:
    backward a ``torch.zeros`` of its dV bytes, the write floor;
 13. the default training step: ``train()`` with ``RaftStereoConfig()``
    fp32 and ``TrainConfig()`` (batch 8, 320x720, 22 iterations) on a
-   seeded synthetic loader, one warm-up step and 2 timed steps (timed at
+   seeded synthetic loader, one warm-up step and 1 timed step (timed at
    each step's end, ``on_step``, as the loop's prefetcher pulls batches
    ahead of the step); checks
    22 lookups, 22 lookup backwards and 132 gate calls per step (66
@@ -246,7 +246,7 @@ fails the run when it fails:
    ``max_cached_shapes=2`` (the reserved memory bounded, a replay and a
    recapture bitwise equal); (c) the HTTP front end: 16 client threads,
    each over a kept-alive connection (``closed_loop``), posting the pair
-   as npz for about 10 s on the quality tier (requests
+   as npz for about 5 s on the quality tier (requests
    per second, p50/p99 latency, the mean batch size, which must exceed
    1), a side-by-side PNG round trip (the 16-bit PNG of the batch-1
    answer, byte for byte), a burst past ``max_queue=4`` on the default
@@ -320,9 +320,9 @@ fails the run when it fails:
    finite losses.  The kernels line carries the last run's counts as
    ``launches_loader``.
 34. the early-exit sweep as ``python -m
-   raft_stereo_tpu_torch.tools.early_exit_report --steps 50`` runs it
+   raft_stereo_tpu_torch.tools.early_exit_report --steps 30`` runs it
    (``run``; the tool's default trains 200 steps): its brief training of
-   the hermetic architecture (50 steps at 64x96 on warped textured
+   the hermetic architecture (30 steps at 64x96 on warped textured
    scenes, the scenes' disparity range), then
    on those weights the four 60x90 benchmark trees, the fixed baseline at
    16 iterations, the nine thresholds, the chosen point and the tier
@@ -413,6 +413,43 @@ fails the run when it fails:
    scale-down drains it by handoff: zero typed losses, the sessions on it
    warm on the survivor.  Every process started is stopped.  The kernels
    line carries the reference engine's counts as ``launches_fleet``.
+37. the banded encoder (``models/banded.py``) on the default config in
+   fp32 at full width, seeded weights.  (a) The 1988x2880 pair of phase 35
+   (padded to 2016x2880), banded (``default_band_rows``) against
+   unbanded: the encoders' outputs (fmap1, fmap2, every context level)
+   within 1e-4 of the unbanded ones' largest magnitude, the flows at 3
+   iterations within 5e-3 px or 3x the card's own spread (the unbanded
+   model with every weight moved by one ulp), whichever is larger; at 32
+   iterations, with the allocator's peak
+   reset before each, the seconds per pair and ``max_memory_allocated``
+   of each (banded below unbanded) and the banded flows' max |d| (no
+   bound); 32 #1 and 96 #5 fp32 launches over the banded pair; #1 and #5
+   against their plain versions at this path's shapes.  (b) The band
+   sweep (128, 256, 512 rows) of fnet's trunk alone on one image: seconds
+   and the peak above the input, each band's own working set (the
+   segment's last sweep on one band), the slope in bytes per band row and
+   image column that ``default_band_rows`` uses, the fastest band.  (c)
+   One default training step at ``TrainConfig()``, banded against
+   unbanded from the same weights and batch: the losses within 1e-4
+   (relative) or 3x the card's spread, whichever is larger, the peak of
+   each; 22 #1, 22 #4 and 132 #5 launches.  The
+   kernels line carries the counts as ``launches_banded``.
+38. data-parallel training (``parallel/distributed.py``, DDP) of the
+   default config in fp32 at ``TrainConfig()``'s crop, global batch 2,
+   two steps through ``train()``, cuDNN deterministic.  (a) A world of
+   one over NCCL in this process: bit for bit the same steps without a
+   process group (losses and every parameter); seconds per step; 44 #1,
+   44 #4 and 264 #5 launches.  (b) Two ranks of a gloo group on the one
+   card, each ``chip_smoke.py --dp-rank`` in a process of its own with
+   its slice of every global batch: the ranks bit for bit equal, against
+   (a)'s steps without DDP, step by step, losses within 1e-5 (relative)
+   and parameters within 5e-4, or 3x the card's own spread where larger
+   (the same steps in one process from weights moved by one ulp); seconds
+   per step.  (c) The same ranks stopped by a
+   SIGTERM to rank 1 after step 1 (both stop at step 1; process 0 writes
+   the one checkpoint) and resumed by both: bit for bit the run that
+   never stopped.  The kernels line carries (a)'s counts as
+   ``launches_data_parallel``.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (times
 by graph replay; a redesigned row names its design under ``design``; an
@@ -511,7 +548,7 @@ JITTER_ATOL = 1e-4 * 255
 # Training (phases 11-15): TrainConfig()'s batch and crop; feature maps at
 # 1/4 (default) and 1/8 (realtime).
 TRAIN_B, TRAIN_HW, TRAIN_ITERS = 8, (320, 720), 22
-TIMED_STEPS = 2
+TIMED_STEPS = 1
 LOOKUP_BWD_ATOL = 1e-6   # the same taps and products, at most 2 per bin
 ALT_BWD_RTOL = 1e-5      # fp32: of each gradient's scale (sum order)
 ALT_BWD_BF16_RTOL = 1e-5  # bf16: one ulp + this share of the scale
@@ -579,7 +616,7 @@ SERVE_SIZES = (1, 2, 4, 8)
 SERVE_EXIT_SIZES = (1, 2, 4)
 SERVE_CONTRASTS = (1.0, 0.25, 0.5, 0.1)
 SERVE_CLIENTS = 16
-SERVE_LOAD_S = 10.0
+SERVE_LOAD_S = 5.0
 SERVE_BURST_QUEUE = 4
 SESSION_FRAMES = 8       # phase 31: frames of a realtime chain
 SESSION_CLIENTS = 4      # concurrent realtime sessions
@@ -596,7 +633,7 @@ REMAT_TIMED_STEPS = 1
 # phase 28's quant gate trains this many steps, not --full's 300: the
 # script's budget (its 300 took 217 s of a 1134 s run on a slow host)
 DRIFT_GATE_STEPS = 10
-SWEEP_TRAIN_STEPS = 50   # phase 34's training (the tool's default: 200)
+SWEEP_TRAIN_STEPS = 30   # phase 34's training (the tool's default: 200)
 # Phase 33: decoded files compared per kind, realtime steps per loader run
 # and the turns (native and Python readers alternating in one process).
 DECODE_SAMPLE = 8
@@ -617,6 +654,33 @@ FLEET_KILL_SESSIONS = 6  # (d): sessions open when a replica is killed
 FLEET_CLIENTS = 16       # (h): closed-loop clients
 FLEET_LOAD_S = 3.0       # (h): seconds of each closed loop
 FLEET_LATENCY_REPS = 12  # (h): sequential requests, routed and direct
+# Phase 37, the banded encoder: flows compared at this depth (an untrained
+# GRU amplifies reassociation from one iteration to the next), the
+# encoders' bound (max |d| over max |ref|), the flows' bound (the JAX
+# package's own banded-model bound at 64x96, tests/test_banded.py), the
+# training step's loss bound, and the bands of the sweep.
+BANDED_CHECK_ITERS = 3
+BANDED_ENC_RTOL = 1e-4
+BANDED_FLOW_ATOL = 5e-3
+BANDED_LOSS_RTOL = 1e-4
+BAND_SWEEP = (128, 256, 512)
+# Random weights amplify reassociation from one iteration to the next: the
+# flows at 3 iterations and the training step's loss may also lie within
+# this factor of the card's own spread (every weight moved by one ulp).
+BANDED_SPREAD_FACTOR = 3.0
+# Phase 38, data parallelism at TrainConfig()'s crop: the global batch,
+# the steps, the bounds of two ranks against one process (the gradient
+# all-reduce sums in another order; AdamW turns that into parameter steps
+# of order lr, tests/test_torch_distributed.py), and the ranks' time limit.
+DP_BATCH = 2
+DP_STEPS = 2
+DP_LOSS_RTOL = 1e-5
+DP_PARAM_ATOL = 5e-4
+# ... or, where larger, this factor of the card's own spread over the same
+# steps (one process from weights moved by one ulp): 22 iterations of
+# random weights amplify the reassociation of a batch split in two.
+DP_SPREAD_FACTOR = 3.0
+DP_WORKER_TIMEOUT = 300
 SERVE_FAMILIES = ("serve_requests_admitted_total",
                   "serve_requests_completed_total", "serve_batches_total",
                   "serve_dispatches_total", "serve_queue_wait_seconds",
@@ -4409,6 +4473,502 @@ def phase_fleet(rt_cfg, rt_state, left, right, exit_thr, card,
     return counts, out
 
 
+def padded_pair(hw, seed):
+    """A seeded noise pair (right = left shifted 4 px) of ``hw``, padded
+    to a multiple of 32 by edge replication as ``InputPadder`` pads: two
+    (1, H, W, 3) fp32 tensors on the card."""
+    from raft_stereo_tpu_torch.ops.padding import InputPadder
+    rs = np.random.default_rng(seed)
+    left = rs.integers(0, 256, hw + (3,), dtype=np.uint8)
+    right = np.roll(left, -4, axis=1)
+    l_, r_, t_, b_ = InputPadder((1, 3) + hw, divis_by=32).pads
+    return [torch.from_numpy(np.pad(a, ((t_, b_), (l_, r_), (0, 0)),
+                                    mode="edge")[None]).float().cuda()
+            for a in (left, right)]
+
+
+def peak_run(fn):
+    """``fn()`` with the allocator's peak reset before it: (result,
+    seconds, peak GiB, peak GiB above what was allocated before)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    return out, secs, peak / 2 ** 30, (peak - base) / 2 ** 30
+
+
+def ulp_moved(state, seed):
+    """A copy of ``state`` with every floating tensor moved by one fp32
+    ulp up or down at random (the card's own spread, phases 15 and 20)."""
+    gen = torch.Generator().manual_seed(seed)
+    return {n: (t * (1 + 2.0 ** -23 * (2 * torch.randint(
+        0, 2, t.shape, generator=gen) - 1)) if t.is_floating_point() else t)
+        for n, t in state.items()}
+
+
+def phase_banded(cfg, state, card):
+    """Phase 37 (module docstring).  Returns the wrappers' counts over
+    the banded pair at 32 iterations and over the banded training step,
+    and the measurements."""
+    from raft_stereo_tpu_torch.config import TrainConfig
+    from raft_stereo_tpu_torch.data.synthetic import SyntheticStereoLoader
+    from raft_stereo_tpu_torch.kernels.corr_lookup import (
+        lookup_pyramid_fused, lookup_pyramid_xla)
+    from raft_stereo_tpu_torch.kernels.gru_fused import (_gates_reference,
+                                                         gru_gates_fused)
+    from raft_stereo_tpu_torch.models import banded as banded_mod
+    from raft_stereo_tpu_torch.models.corr import build_corr_pyramid
+    from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
+    from raft_stereo_tpu_torch.training.loss import sequence_loss
+    from raft_stereo_tpu_torch.training.state import create_train_state
+    from raft_stereo_tpu_torch.training.step import make_train_step
+
+    t_phase = time.perf_counter()
+    release()
+    out = {}
+    img1, img2 = padded_pair(TILE_HW, SEED + 37)
+    hp, wp = img1.shape[1:3]
+    models = {}
+    for what, on in (("unbanded", False), ("banded", True)):
+        m = RAFTStereo(dataclasses.replace(cfg, banded_encoder=on))
+        m.load_state_dict(state)
+        models[what] = m.cuda().eval()
+    band = banded_mod.default_band_rows(1, wp, "cuda")
+    # the card's own spread: the unbanded model with every weight moved by
+    # one fp32 ulp (phases 15 and 20), for the flows and the loss, which
+    # random weights amplify iteration by iteration
+    moved = ulp_moved(state, SEED + 37)
+    models["ulp"] = RAFTStereo(cfg)
+    models["ulp"].load_state_dict(moved)
+    models["ulp"] = models["ulp"].cuda().eval()
+    # (a) parity at two levels: the encoders, then 3 iterations
+    with torch.inference_mode():
+        enc = {k: models[k].encode(models[k].normalize(img1),
+                                   models[k].normalize(img2))
+               for k in ("banded", "unbanded")}
+        pairs = [(enc["banded"][1], enc["unbanded"][1]),
+                 (enc["banded"][2], enc["unbanded"][2])]
+        pairs += [(g, w) for gl, wl in zip(enc["banded"][0],
+                                           enc["unbanded"][0])
+                  for g, w in zip(gl, wl)]
+        enc_rel = max(float((g - w).abs().max()) / float(w.abs().max())
+                      for g, w in pairs)
+        del enc, pairs
+        flows3 = {k: m(img1, img2, iters=BANDED_CHECK_ITERS)[1]
+                  for k, m in models.items()}
+        d3 = float((flows3["banded"] - flows3["unbanded"]).abs().max())
+        spread3 = float((flows3["ulp"] - flows3["unbanded"]).abs().max())
+        flow3_max = float(flows3["unbanded"].abs().max())
+        del flows3
+    del models["ulp"]
+    release()
+    flow_bound = max(BANDED_FLOW_ATOL, BANDED_SPREAD_FACTOR * spread3)
+    runs = {}
+    for what, m in models.items():
+        zero_inference_counts()
+        with torch.inference_mode():
+            flow, secs, peak, above = peak_run(
+                lambda: m(img1, img2, iters=MAIN_ITERS)[1])
+        runs[what] = {"flow": flow, "seconds": secs, "peak_gib": peak,
+                      "peak_above_inputs_gib": above,
+                      "launches": {"lookup": lookup_pyramid_fused.launches,
+                                   "gates": gru_gates_fused.launches}}
+        release()
+    d32 = float((runs["banded"]["flow"] - runs["unbanded"]["flow"]
+                 ).abs().max())
+    finite = all(bool(torch.isfinite(r["flow"]).all()) for r in runs.values())
+    pair_counts = runs["banded"]["launches"]
+    for r in runs.values():
+        del r["flow"]
+    out["pair"] = runs
+    out["encoder_max_rel"] = enc_rel
+    out["flow_max_abs_3"], out["flow_max_abs_32"] = d3, d32
+    # the kernels at this path's shapes against their plain versions (not
+    # counted: the counts above are the path's)
+    gen = torch.Generator().manual_seed(SEED + 37)
+    rows, w1 = hp // 4, wp // 4
+    vol = torch.randn((1, rows, w1, w1), generator=gen).cuda()
+    pyramid = build_corr_pyramid(vol, LEVELS)
+    coords = (torch.rand((1, rows, w1), generator=gen) * (w1 + 20)
+              - 10).cuda()
+    lookup_err = float((lookup_pyramid_fused(pyramid, coords, RADIUS)
+                        - lookup_pyramid_xla(pyramid, coords, RADIUS)
+                        ).abs().max())
+    del vol, pyramid, coords
+    gate_err = 0.0
+    for shape in ((1, rows, w1, CH, 256), (1, rows // 2, w1 // 2, CH, 256),
+                  (1, rows // 4, w1 // 4, CH, 128)):
+        args = gate_args(gen, torch.device("cuda"), shape, torch.float32)
+        got = gru_gates_fused(*args)
+        gate_err = max(gate_err, max(
+            float((g - w).abs().max())
+            for g, w in zip(got, _gates_reference(*args))))
+    out["lookup_err"], out["gates_err"] = lookup_err, gate_err
+    release()
+    # (b) the band sweep: fnet's trunk alone on one image, and the working
+    # set of one band (the segment's last sweep) at each band height
+    trunk = models["banded"].fnet.trunk
+    x = models["banded"].normalize(img1)
+    halo = banded_mod._HALO
+    unit = [(torch.zeros((1, 64, 1, 1), device="cuda"),
+             torch.ones((1, 64, 1, 1), device="cuda"))] * 5
+    sweep = {}
+    with torch.inference_mode():
+        trunk(x)        # warm-up
+        _, secs, _, above = peak_run(lambda: trunk(x))
+        sweep["unbanded"] = {"seconds": secs, "gib": above}
+        for b in BAND_SWEEP:
+            banded_mod.banded_trunk_apply(trunk, x, "instance", band=b)
+            _, secs, _, above = peak_run(
+                lambda: banded_mod.banded_trunk_apply(trunk, x, "instance",
+                                                      band=b))
+            mask = torch.ones(b + 2 * halo, dtype=torch.bool, device="cuda")
+            _, _, _, seg = peak_run(lambda: banded_mod._segment(
+                trunk, x[:, :, :b + 2 * halo], unit, 6, mask))
+            sweep[b] = {"seconds": secs, "gib": above, "band_gib": seg}
+    lo, hi = BAND_SWEEP[0], BAND_SWEEP[-1]
+    slope = ((sweep[hi]["band_gib"] - sweep[lo]["band_gib"]) * 2 ** 30
+             / ((hi - lo) * wp))
+    fastest = min(BAND_SWEEP, key=lambda b: sweep[b]["seconds"])
+    total = torch.cuda.get_device_properties(0).total_memory
+    out["sweep"] = {str(k): v for k, v in sweep.items()}
+    out["bytes_per_row_pixel"] = slope
+    out["fastest_band"] = fastest
+    out["fraction_for_fastest"] = fastest * wp * slope / total
+    out["default_band"] = band
+    del x, img1, img2, models
+    release()
+    # (c) one default training step at TrainConfig(), banded and not, and
+    # unbanded from the moved weights (the card's spread)
+    tc = TrainConfig()
+    batch = SyntheticStereoLoader(tc.batch_size, tc.image_size,
+                                  seed=SEED).batch(0)
+    steps = {}
+    for what, on in (("unbanded", False), ("banded", True)):
+        st = create_train_state(dataclasses.replace(cfg, banded_encoder=on),
+                                tc, "cuda", state_dict=state)
+        zero_training_counts()
+        (st, m), secs, peak, _ = peak_run(
+            lambda: make_train_step(tc)(st, batch))
+        steps[what] = {"loss": float(m["loss"]), "seconds": secs,
+                       "peak_gib": peak, "launches": training_counts()}
+        del st, m
+        release()
+    # the step's loss is its forward's: the moved weights' needs no backward
+    st = create_train_state(cfg, tc, "cuda", state_dict=moved)
+    dev_batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    with torch.no_grad():
+        preds = st.model(dev_batch["image1"], dev_batch["image2"],
+                         iters=tc.train_iters, test_mode=False)
+        steps["ulp"] = {"loss": float(sequence_loss(
+            preds, dev_batch["flow"].float(), dev_batch["valid"].float(),
+            loss_gamma=tc.loss_gamma, max_flow=tc.max_flow)[0])}
+    del st, preds, dev_batch
+    release()
+    out["step"] = steps
+    step_counts = steps["banded"]["launches"]
+    base_loss = abs(steps["unbanded"]["loss"])
+    loss_rel = abs(steps["banded"]["loss"] - steps["unbanded"]["loss"]
+                   ) / base_loss
+    loss_spread = abs(steps["ulp"]["loss"] - steps["unbanded"]["loss"]
+                      ) / base_loss
+    loss_bound = max(BANDED_LOSS_RTOL, BANDED_SPREAD_FACTOR * loss_spread)
+    out.update(flow_spread_3=spread3, flow_bound_3=flow_bound,
+               loss_rel=loss_rel, loss_spread=loss_spread)
+    want_pair = {"lookup": MAIN_ITERS, "gates": 3 * MAIN_ITERS}
+    ok = (finite and enc_rel <= BANDED_ENC_RTOL
+          and d3 <= flow_bound
+          and runs["banded"]["peak_gib"] < runs["unbanded"]["peak_gib"]
+          and runs["banded"]["launches"] == want_pair
+          and lookup_err <= LOOKUP_ATOL and gate_err <= GATES_ATOL
+          and loss_rel <= loss_bound
+          and step_counts["lookup"] == tc.train_iters
+          and step_counts["lookup_bwd"] == tc.train_iters
+          and step_counts["gates"] == 6 * tc.train_iters)
+    log(f"banded encoder, default config fp32, {TILE_HW[0]}x{TILE_HW[1]} "
+        f"padded to {hp}x{wp}, band {band} rows (default_band_rows): "
+        f"encoders (fmap1, fmap2, context levels) max |banded - unbanded| "
+        f"/ max |unbanded| {enc_rel:.3e} (<= {BANDED_ENC_RTOL:g}); flows at "
+        f"{BANDED_CHECK_ITERS} iterations (max |flow| {flow3_max:.2f} px) "
+        f"max |d| {d3:.3e} px (<= {flow_bound:.3e}: the larger of "
+        f"{BANDED_FLOW_ATOL:g} and {BANDED_SPREAD_FACTOR:g}x the card's spread "
+        f"with every weight moved by one ulp, {spread3:.3e}), at "
+        f"{MAIN_ITERS} {d32:.3e} px (no bound); "
+        f"seconds per pair at {MAIN_ITERS} iterations unbanded "
+        f"{runs['unbanded']['seconds']:.4f}, banded "
+        f"{runs['banded']['seconds']:.4f}; max_memory_allocated unbanded "
+        f"{runs['unbanded']['peak_gib']:.3f} GiB, banded "
+        f"{runs['banded']['peak_gib']:.3f} GiB (above the weights and "
+        f"inputs {runs['unbanded']['peak_above_inputs_gib']:.3f} / "
+        f"{runs['banded']['peak_above_inputs_gib']:.3f}); launches over the "
+        f"banded pair {pair_counts} (want {want_pair}); at this path's "
+        f"shapes lookup max |kernel - plain| {lookup_err:.3e}, gates "
+        f"{gate_err:.3e}")
+    log(f"band sweep, fnet's trunk alone on one {hp}x{wp} image: "
+        + "; ".join(f"{k}: {v['seconds']:.4f} s, peak above input "
+                    f"{v['gib']:.4f} GiB"
+                    + (f" (one band's working set {v['band_gib']:.4f} GiB)"
+                       if "band_gib" in v else "")
+                    for k, v in sweep.items())
+        + f"; slope {slope:.1f} B per band row and image column; fastest "
+        f"band {fastest}, the share of the card's {total / 2 ** 30:.1f} GiB "
+        f"that gives it at width {wp}: {out['fraction_for_fastest']:.6f}")
+    log(f"training step, TrainConfig() (batch {tc.batch_size}, "
+        f"{tc.image_size[0]}x{tc.image_size[1]}, {tc.train_iters} "
+        f"iterations): loss unbanded {steps['unbanded']['loss']:.6f}, "
+        f"banded {steps['banded']['loss']:.6f} (rel {loss_rel:.2e} <= "
+        f"{loss_bound:.2e}: the larger of {BANDED_LOSS_RTOL:g} and "
+        f"{BANDED_SPREAD_FACTOR:g}x the card's spread, one ulp: "
+        f"{steps['ulp']['loss']:.6f}, rel {loss_spread:.2e}); seconds "
+        f"{steps['unbanded']['seconds']:.3f} "
+        f"/ {steps['banded']['seconds']:.3f}; peak "
+        f"{steps['unbanded']['peak_gib']:.3f} / "
+        f"{steps['banded']['peak_gib']:.3f} GiB; banded launches "
+        f"{step_counts}; phase 37 took {time.perf_counter() - t_phase:.1f} "
+        f"s on {card}: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("phase 37 (banded encoder) failed its checks")
+    return pair_counts, step_counts, out
+
+
+def dp_batches(n):
+    """The data-parallel phase's global batches at ``TrainConfig()``'s
+    crop."""
+    from raft_stereo_tpu_torch.config import TrainConfig
+    from raft_stereo_tpu_torch.data.synthetic import SyntheticStereoLoader
+    src = SyntheticStereoLoader(DP_BATCH, TrainConfig().image_size,
+                                seed=SEED + 38)
+    return [src.batch(i) for i in range(n)]
+
+
+def dp_train(batches, ckpt=None, restore=None, stop_after=None,
+             process_index=0, process_count=1):
+    """``train()`` on the card at ``TrainConfig()``'s crop, global batch
+    ``DP_BATCH``, over this process's slice of ``batches``: (state, per-step
+    losses, per-step seconds).  ``stop_after``: process 1 sends itself
+    SIGTERM after that step."""
+    import signal
+
+    from raft_stereo_tpu_torch.config import RaftStereoConfig, TrainConfig
+    from raft_stereo_tpu_torch.training.train_loop import train
+    tc = dataclasses.replace(TrainConfig(), batch_size=DP_BATCH,
+                             num_steps=DP_STEPS, validation_frequency=1000)
+    local = DP_BATCH // process_count
+    lo = process_index * local
+    mine = [{k: v[lo:lo + local] for k, v in b.items()} for b in batches]
+    losses, marks = {}, [time.perf_counter()]
+
+    def on_step(step, m):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        losses[step] = float(m["loss"])
+        if step == stop_after and process_index == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    start = 0 if restore is None else 1
+    state = train(RaftStereoConfig(), tc, name="dp", checkpoint_dir=ckpt,
+                  restore=restore, log_dir=None, loader=mine[start:],
+                  device="cuda", on_step=on_step)
+    return (state, [losses[k] for k in sorted(losses)],
+            [b - a for a, b in zip(marks, marks[1:])])
+
+
+def dp_moved_steps(batches):
+    """The same steps as ``dp_train`` in one process, from ``train()``'s
+    initial weights moved by one ulp: (losses, flat parameters)."""
+    from raft_stereo_tpu_torch.config import RaftStereoConfig, TrainConfig
+    from raft_stereo_tpu_torch.training.state import create_train_state
+    from raft_stereo_tpu_torch.training.step import make_train_step
+    tc = dataclasses.replace(TrainConfig(), batch_size=DP_BATCH,
+                             num_steps=DP_STEPS, validation_frequency=1000)
+    weights = create_train_state(RaftStereoConfig(), tc, "cpu",
+                                 seed=tc.seed).model.state_dict()
+    st = create_train_state(RaftStereoConfig(), tc, "cuda",
+                            state_dict=ulp_moved(weights, SEED + 38))
+    step = make_train_step(tc)
+    losses = []
+    for b in batches:
+        st, m = step(st, b)
+        losses.append(float(m["loss"]))
+    return losses, flat_params(st.model).cpu().numpy()
+
+
+def flat_params(model):
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def dp_worker(rank, world, port, out, ckpt):
+    """One rank of phase 38 (b) and (c) (``chip_smoke.py --dp-rank``): a
+    gloo group on the one card; two steps, then the same run stopped by a
+    SIGTERM to rank 1 after step 1 and resumed from process 0's
+    checkpoint.  Writes losses, seconds, parameters and launch counts."""
+    sys.path.insert(0, HERE)
+    from raft_stereo_tpu_torch.parallel import distributed
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    distributed.initialize(f"tcp://localhost:{port}", world_size=world,
+                           rank=rank, backend="gloo", device="cuda")
+    try:
+        batches = dp_batches(DP_STEPS)
+        kw = dict(process_index=rank, process_count=world)
+        zero_training_counts()
+        full, losses, secs = dp_train(batches, **kw)
+        counts = training_counts()
+        stopped, _, _ = dp_train(batches, ckpt=ckpt, stop_after=1, **kw)
+        after_stop = sorted(os.listdir(ckpt))
+        resumed, r_losses, _ = dp_train(batches, ckpt=ckpt,
+                                        restore="latest", **kw)
+        np.savez(out, losses=np.asarray(losses), seconds=np.asarray(secs),
+                 params=flat_params(full.model).cpu().numpy(),
+                 resumed=flat_params(resumed.model).cpu().numpy(),
+                 resumed_losses=np.asarray(r_losses),
+                 stopped_step=np.asarray(stopped.step),
+                 resumed_step=np.asarray(resumed.step),
+                 counts=np.asarray([counts[k] for k in sorted(counts)]),
+                 count_keys=np.asarray(sorted(counts)),
+                 after_stop=np.asarray(after_stop))
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def phase_data_parallel(card):
+    """Phase 38 (module docstring).  Returns the wrappers' counts over the
+    world-of-one DDP steps and the measurements."""
+    from raft_stereo_tpu_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    release()
+    out = {}
+    batches = dp_batches(DP_STEPS)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        # (a) a world of one over NCCL against the same steps without DDP
+        plain, plain_losses, plain_secs = dp_train(batches)
+        plain_params = flat_params(plain.model)
+        del plain
+        release()
+        # the card's own spread over the same two steps: train()'s initial
+        # weights moved by one ulp (22 iterations of random weights
+        # amplify any reassociation, the second step's loss also AdamW's
+        # sign of noise-sized gradients)
+        moved_losses, moved_params = dp_moved_steps(batches)
+        release()
+        distributed.initialize(f"tcp://localhost:{free_port()}",
+                               world_size=1, rank=0, backend="nccl",
+                               device="cuda")
+        try:
+            zero_training_counts()
+            one, one_losses, one_secs = dp_train(batches)
+            counts = training_counts()
+            wrapped = type(one.ddp).__name__
+            bitwise = (torch.equal(flat_params(one.model), plain_params)
+                       and one_losses == plain_losses)
+            del one
+        finally:
+            distributed.shutdown()
+        release()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    # (b), (c): two gloo ranks on the one card, in processes of their own
+    work = os.path.join(HERE, "_smoke_data", "dp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    port = free_port()
+    outs = [os.path.join(work, f"rank{r}.npz") for r in range(2)]
+    t_spawn = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+         "2", str(port), outs[r], os.path.join(work, "ck")],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_WORKER_TIMEOUT)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    spawn_s = time.perf_counter() - t_spawn
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            log(text[-4000:])
+            raise AssertionError(f"phase 38 rank exited {p.returncode}")
+    r0, r1 = (np.load(o) for o in outs)
+    ck_entries = [str(e) for e in r0["after_stop"]]
+    shutil.rmtree(work, ignore_errors=True)
+    plain_np = plain_params.cpu().numpy()
+    ranks_equal = all(np.array_equal(r0[k], r1[k]) for k in (
+        "params", "losses", "resumed", "resumed_losses"))
+    base = np.abs(np.asarray(plain_losses))
+    loss_rels = np.abs(r0["losses"] - np.asarray(plain_losses)) / base
+    loss_spread = np.abs(np.asarray(moved_losses)
+                         - np.asarray(plain_losses)) / base
+    loss_bounds = np.maximum(DP_LOSS_RTOL, DP_SPREAD_FACTOR * loss_spread)
+    param_abs = float(np.abs(r0["params"] - plain_np).max())
+    param_spread = float(np.abs(moved_params - plain_np).max())
+    param_bound = max(DP_PARAM_ATOL, DP_SPREAD_FACTOR * param_spread)
+    resume_bitwise = (np.array_equal(r0["resumed"], r0["params"])
+                      and float(r0["resumed_losses"][-1])
+                      == float(r0["losses"][-1]))
+    rank_counts = dict(zip((str(k) for k in r0["count_keys"]),
+                           (int(c) for c in r0["counts"])))
+    want = {"lookup": DP_STEPS * 22, "lookup_bwd": DP_STEPS * 22,
+            "gates": DP_STEPS * 132}
+    ok = (bitwise and wrapped == "DistributedDataParallel" and ranks_equal
+          and bool((loss_rels <= loss_bounds).all())
+          and param_abs <= param_bound
+          and resume_bitwise and int(r0["stopped_step"]) == 1
+          and int(r1["stopped_step"]) == 1
+          and int(r0["resumed_step"]) == DP_STEPS
+          and ck_entries == ["dp"]
+          and all(counts[k] == v for k, v in want.items())
+          and all(rank_counts[k] > 0 for k in want))
+    out.update(one_step_s=one_secs, plain_step_s=plain_secs,
+               two_rank_step_s=[float(s) for s in r0["seconds"]],
+               two_rank_loss_rel=loss_rels.tolist(),
+               loss_spread=loss_spread.tolist(),
+               two_rank_param_abs=param_abs, param_spread=param_spread,
+               spawn_s=spawn_s)
+    log(f"data parallel, default config fp32, TrainConfig() crop, global "
+        f"batch {DP_BATCH}, {DP_STEPS} steps, cuDNN deterministic: (a) a "
+        f"world of one over NCCL ({wrapped}) bit for bit equal to the steps "
+        f"without DDP: {bitwise} (losses {one_losses}); seconds per step "
+        f"DDP {[round(s, 4) for s in one_secs]}, without "
+        f"{[round(s, 4) for s in plain_secs]}; launches {counts} (want "
+        f"{want}); (b) two gloo ranks on the one card: ranks bit for bit "
+        f"equal {ranks_equal}; against one process at the global batch, "
+        f"per step, losses rel {[f'{v:.2e}' for v in loss_rels]} (<= "
+        f"{[f'{v:.2e}' for v in loss_bounds]}: the larger of "
+        f"{DP_LOSS_RTOL:g} and {DP_SPREAD_FACTOR:g}x the card's spread, "
+        f"one process from weights moved by one ulp: "
+        f"{[f'{v:.2e}' for v in loss_spread]}), parameters max |d| "
+        f"{param_abs:.3e} (<= {param_bound:.3e}: the larger of "
+        f"{DP_PARAM_ATOL:g} and {DP_SPREAD_FACTOR:g}x the spread "
+        f"{param_spread:.3e}); seconds per step "
+        f"{[round(float(s), 4) for s in r0['seconds']]}; rank 0's launches "
+        f"{rank_counts}; (c) SIGTERM to rank 1 after step 1: both stopped "
+        f"at {int(r0['stopped_step'])}/{int(r1['stopped_step'])}, "
+        f"checkpoints {ck_entries}, resumed by both ranks to "
+        f"{int(r0['resumed_step'])} bit for bit equal to the run that never "
+        f"stopped: {resume_bitwise}; the ranks' processes took "
+        f"{spawn_s:.1f} s; phase 38 took {time.perf_counter() - t_phase:.1f} "
+        f"s on {card}: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("phase 38 (data parallel) failed its checks")
+    return counts, out
+
+
 def mark(what: str) -> None:
     """Log the script's elapsed seconds where ``what`` starts."""
     log(f"{what} starts at {time.perf_counter() - T_START:.1f} s")
@@ -6202,6 +6762,14 @@ def main() -> int:
         rt_cfg, rt_state, left, right, exit_runs["realtime"]["threshold"],
         card)
 
+    # ----------------------------------------------------------- phase 37
+    mark("phase 37")
+    banded_pair, banded_step, banded_out = phase_banded(cfg, state, card)
+
+    # ----------------------------------------------------------- phase 38
+    mark("phase 38")
+    dp_counts, dp_out = phase_data_parallel(card)
+
     def row(name_, source, replaces, launched, err, t, design=None):
         """One entry of the kernels line; ``t`` holds graph-replay times."""
         out = {"name": name_, "route": "cuda",
@@ -6225,6 +6793,8 @@ def main() -> int:
         out["launches_sweep"] = sweep.get(name_, 0)
         out["launches_serving_b"] = serving_b.get(name_, 0)
         out["launches_fleet"] = fleet.get(name_, 0)
+        out["launches_banded"] = banded.get(name_, {})
+        out["launches_data_parallel"] = data_parallel.get(name_, 0)
         return out
 
     # the wrappers' counts over phase 30's engines (set to 0 before each)
@@ -6283,6 +6853,18 @@ def main() -> int:
     if idle:
         raise AssertionError(f"phase 36 kernels never launched: {idle}")
 
+    # phase 37: the banded default pair at 32 iterations and the banded
+    # default training step; phase 38: the world-of-one DDP steps (every
+    # count checked in its phase)
+    banded = {"corr_lookup": {"pair": banded_pair["lookup"],
+                              "step": banded_step["lookup"]},
+              "gru_gates": {"pair": banded_pair["gates"],
+                            "step": banded_step["gates"]},
+              "corr_lookup_bwd": {"step": banded_step["lookup_bwd"]}}
+    data_parallel = {"corr_lookup": dp_counts["lookup"],
+                     "corr_lookup_bwd": dp_counts["lookup_bwd"],
+                     "gru_gates": dp_counts["gates"]}
+
     lookup_t.update(bound=lookup_bound_ms, by="bytes")
     lbwd_t.update(bound=lbwd_bound, by="bytes")
     kernels = [
@@ -6337,6 +6919,8 @@ def main() -> int:
     log(f"sessions launches per frame: {sess_per_frame}")
     log(f"phase 35 measurements: {json.dumps(serve_b_out)}")
     log(f"phase 36 measurements: {json.dumps(fleet_out)}")
+    log(f"phase 37 measurements: {json.dumps(banded_out)}")
+    log(f"phase 38 measurements: {json.dumps(dp_out)}")
     log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
@@ -6347,4 +6931,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:    # one rank of phase 38 (b), (c)
+        sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]),
+                           int(sys.argv[4]), sys.argv[5], sys.argv[6]))
     sys.exit(main())

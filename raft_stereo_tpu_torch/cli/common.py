@@ -3,9 +3,11 @@
 Checkpoints describe themselves: a port checkpoint directory carries
 ``config.json``, and a reference ``.pth`` file has its architecture
 inferred from the weights.  CLI architecture flags exist only as
-overrides of the few runtime switches the weights do not record.  The
-flags of the parallel executors are accepted, as in the JAX package, and
-raise: that machinery is not ported (ROADMAP.md §D7).
+overrides of the few runtime switches the weights do not record.
+``--banded_encoder`` streams the encoders' full-resolution segment in
+bands (models/banded.py).  The flags of the context-parallel executors
+are accepted, as in the JAX package, and raise: that machinery is not
+ported (ROADMAP.md §D7).
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ def add_arch_overrides(parser: argparse.ArgumentParser):
     parser.add_argument("--mixed_precision", action="store_true",
                         help="bf16 compute")
     parser.add_argument("--banded_encoder", action="store_true",
-                        help=f"not ported (ROADMAP.md {_D7}); raises")
+                        help="stream the encoders' full-resolution stages "
+                             "in bands (lower peak card memory for large "
+                             "frames, at the cost of recomputing the stem)")
     parser.add_argument("--rows_shards", type=int, default=None,
                         help=f"not ported (ROADMAP.md {_D7}); raises")
     parser.add_argument("--rows_gru", action="store_true",
@@ -51,8 +55,7 @@ def add_arch_overrides(parser: argparse.ArgumentParser):
 
 
 def arch_overrides(args) -> Dict[str, Any]:
-    for flag, on in (("--banded_encoder", args.banded_encoder),
-                     ("--rows_shards", args.rows_shards),
+    for flag, on in (("--rows_shards", args.rows_shards),
                      ("--rows_gru", args.rows_gru),
                      ("--rows_gru_halo", args.rows_gru_halo is not None),
                      ("--corr_w2_shards", args.corr_w2_shards)):
@@ -67,6 +70,8 @@ def arch_overrides(args) -> Dict[str, Any]:
         out["slow_fast_gru"] = True
     if args.mixed_precision:
         out["mixed_precision"] = True
+    if args.banded_encoder:
+        out["banded_encoder"] = True
     return out
 
 

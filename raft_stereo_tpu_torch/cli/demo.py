@@ -4,7 +4,10 @@
         -l 'datasets/ETH3D/two_view_training/*/im0.png' \\
         -r 'datasets/ETH3D/two_view_training/*/im1.png'
 
-``CKPT_DIR`` is a port checkpoint (io/jax_weights.save_checkpoint).
+``CKPT_DIR`` is a port checkpoint (io/jax_weights.save_checkpoint) or a
+reference ``.pth``; the architecture-override flags are the JAX demo's
+(``--banded_encoder`` streams the encoders' full-resolution segment in
+bands, cli/common.py).
 Writes ``<name>-disparity.png`` (jet colormap) and, with
 ``--save_numpy``, ``<name>.npy`` into ``--output_directory``.  Runs on
 the CUDA card by default; ``--device cpu`` runs the plain versions.
@@ -23,6 +26,8 @@ import time
 
 import numpy as np
 
+from raft_stereo_tpu_torch.cli import common
+
 log = logging.getLogger(__name__)
 
 
@@ -40,9 +45,9 @@ def run_demo(args) -> int:
 
     from raft_stereo_tpu_torch.data.frame_utils import read_image
     from raft_stereo_tpu_torch.eval.runner import InferenceRunner
-    from raft_stereo_tpu_torch.io.jax_weights import load_checkpoint
 
-    cfg, state = load_checkpoint(args.restore_ckpt)
+    cfg, state = common.load_any_checkpoint(
+        args.restore_ckpt, **common.arch_overrides(args))
     runner = InferenceRunner(cfg, state, iters=args.valid_iters,
                              fetch_dtype=args.fetch_dtype,
                              exit_threshold_px=args.exit_threshold_px,
@@ -138,6 +143,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "device->host copy (results stay fp32)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions")
+    common.add_arch_overrides(p)
     return p
 
 

@@ -11,8 +11,17 @@ telemetry flags (``--metrics_port``, ``--metrics_host``, ``--event_log``,
 ``--trace_sample_rate``, ``--cost_telemetry``, ``--device_peak_tflops``,
 ``--stall_watchdog``, ``--flight_recorder_dir``) build the JAX CLI's
 instruments (``build_telemetry``); the endpoint answers before training
-starts and shuts down when it ends.  ``--data_parallel`` above 1 waits
-for ROADMAP.md §D7.
+starts and shuts down when it ends.
+
+Data-parallel training runs one process per card under torchrun:
+
+    torchrun --nproc_per_node=8 -m raft_stereo_tpu_torch.cli.train \
+        --data_parallel 8 --batch_size 16 ...
+
+``--batch_size`` is the global batch; each process trains its slice of
+it (training/train_loop.py).  ``--data_parallel`` 0 means the world size,
+and another value must equal it.  Process 0 alone serves the telemetry
+endpoint and writes the event log.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import os
 
 from raft_stereo_tpu_torch.cli import common
 from raft_stereo_tpu_torch.config import RaftStereoConfig, TrainConfig
+from raft_stereo_tpu_torch.parallel import distributed
 
 log = logging.getLogger(__name__)
 
@@ -130,8 +140,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--validate_max_images", type=_positive_int,
                    default=None)
     p.add_argument("--data_parallel", type=_nonneg_int, default=0,
-                   help="devices along the data axis (0 = all); above 1 "
-                        "not ported (ROADMAP.md §D7), raises")
+                   help="data-parallel processes, one per card under "
+                        "torchrun (0 = the world size)")
     # observability (telemetry/): off by default; with no --metrics_port
     # and no --event_log the loop runs without any instrument
     p.add_argument("--metrics_port", type=int, default=None,
@@ -252,11 +262,10 @@ def build_telemetry(args, model_cfg, train_cfg):
 def main(argv=None):
     common.setup_logging()
     args = build_parser().parse_args(argv)
-    if args.data_parallel > 1:
-        raise NotImplementedError(
-            "--data_parallel > 1 is not ported to the PyTorch package yet "
-            "(ROADMAP.md §D7 parallel executors)")
     model_cfg, train_cfg = configs_from_args(args)
+    # the process group before any card is touched (a no-op outside a
+    # launcher): with torchrun it picks this process's card
+    distributed.initialize(device=args.device)
     log.info("model config: %s", model_cfg.to_dict())
     log.info("train config: %s", train_cfg.to_dict())
 
@@ -269,8 +278,9 @@ def main(argv=None):
             max_images=args.validate_max_images, device=args.device)
 
     from raft_stereo_tpu_torch.training.train_loop import train
-    telemetry, server, events = build_telemetry(args, model_cfg,
-                                                train_cfg)
+    telemetry, server, events = (
+        build_telemetry(args, model_cfg, train_cfg)
+        if distributed.process_index() == 0 else (None, None, None))
     try:
         return train(model_cfg, train_cfg, name=args.name,
                      data_root=args.data_root,
@@ -283,6 +293,7 @@ def main(argv=None):
             server.shutdown()
         if events is not None:
             events.close()
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

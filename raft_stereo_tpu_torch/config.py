@@ -10,7 +10,8 @@ the slow-fast GRU schedule, fp32 or bf16 (``mixed_precision``) with
 ``corr_fp32``, ``remat_gru`` with any ``remat_save`` the JAX package
 accepts (models/remat.py), and the
 quantized inference tier (``quant`` "int8" or "int8_mxu", the 1-byte
-correlation of ``quant_corr``, calibrated ``quant_corr_scales``).
+correlation of ``quant_corr``, calibrated ``quant_corr_scales``), and the
+banded encoder (``banded_encoder``, ``band_rows``: models/banded.py).
 ``quant_corr_fp8`` stores the correlation as float8_e4m3fn on every
 device: torch has the type on the CPU and Hopper reads it natively, so
 the port has no capability fallback to int8 (the JAX package falls back
@@ -109,6 +110,15 @@ class RaftStereoConfig:
             raise ValueError(
                 "n_gru_layers must be in [1, min(len(hidden_dims), 3)] — the "
                 "update block implements at most 3 GRU levels")
+        if self.band_rows is not None and (self.band_rows < 2
+                                           or self.band_rows % 2):
+            raise ValueError(
+                f"band_rows={self.band_rows} must be an even integer >= 2 "
+                f"(stride-2 alignment of the banded encoder)")
+        if self.rows_shards > 1 and self.banded_encoder:
+            raise ValueError(
+                "rows_shards and banded_encoder both replace the "
+                "full-resolution segment's executor — enable at most one")
         if self.fused_gru not in ("auto", "on", "off"):
             raise ValueError(
                 f"fused_gru={self.fused_gru!r} not in ('auto', 'on', 'off')")
@@ -207,7 +217,6 @@ class RaftStereoConfig:
 def _unsupported(cfg: RaftStereoConfig):
     """(field, ROADMAP item) for every set option this slice does not run."""
     checks = (
-        ("banded_encoder", "§D7 parallel executors", cfg.banded_encoder),
         ("rows_shards > 1", "§D7 parallel executors", cfg.rows_shards > 1),
         ("rows_gru", "§D7 parallel executors", cfg.rows_gru),
         ("corr_w2_shards > 1", "§D7 parallel executors",
@@ -298,10 +307,10 @@ class TrainConfig:
 
     The port's training loop (training/train_loop.py) reads every field;
     the augmentation and dataset fields build the loader's mixture
-    (data/datasets.py ``build_training_mixture``).  One option's
-    machinery is not ported: ``data_parallel > 1`` (the parallel
-    executors) raises ``NotImplementedError`` at construction.  Span
-    tracing (``trace_sample_rate``) runs."""
+    (data/datasets.py ``build_training_mixture``).  ``data_parallel`` is
+    the number of data-parallel processes, one per card
+    (parallel/distributed.py): 0 means the world size of the process
+    group, and any other value must equal it."""
 
     batch_size: int = 8
     train_iters: int = 22
@@ -336,12 +345,6 @@ class TrainConfig:
     anomaly_max_rewinds: int = 2
     checkpoint_keep: int = 0
 
-    def __post_init__(self):
-        for field, roadmap_item in _unsupported_training(self):
-            raise NotImplementedError(
-                f"{field} is not ported to the PyTorch package yet "
-                f"(ROADMAP.md {roadmap_item})")
-
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
@@ -354,12 +357,3 @@ class TrainConfig:
             if k in d and isinstance(d[k], list):
                 d[k] = tuple(d[k])
         return cls(**{k: v for k, v in d.items() if k in known})
-
-
-def _unsupported_training(cfg: TrainConfig):
-    """(field, ROADMAP item) for every set training option not ported."""
-    checks = (
-        ("data_parallel > 1", "§D7 parallel executors",
-         cfg.data_parallel > 1),
-    )
-    return [(field, item) for field, item, on in checks if on]

@@ -165,6 +165,17 @@ def draw_factors(seed: int, step: torch.Tensor, batch: int,
     return out
 
 
+def local_rows(factors: Dict[str, torch.Tensor], process_index: int,
+               process_count: int) -> Dict[str, torch.Tensor]:
+    """One data-parallel process's rows of the global batch's factors
+    (``draw_factors`` at the global batch): its contiguous slice, as the
+    loader gives it its slice of the images."""
+    if process_count == 1:
+        return factors
+    return {k: v.chunk(process_count)[process_index]
+            for k, v in factors.items()}
+
+
 # ------------------------------------------------------------- fixed-factor ops
 # Each mirrors its uint8 host twin in data/augment.py; images are float32
 # 0..255, channels last; factors broadcast against them.

@@ -204,9 +204,10 @@ class StereoLoader:
 
     Args:
       dataset: a ``StereoDataset`` (samples must share one crop size).
-      batch_size: batch size; ``drop_last`` semantics always on (one
-        process: the JAX package's multi-process slicing waits for
-        ROADMAP.md §D7).
+      batch_size: the GLOBAL batch size; ``drop_last`` semantics always
+        on.  With ``process_count`` > 1 each process yields only its
+        contiguous slice of every global batch
+        (``parallel/distributed.loader_shard_kwargs``).
       shuffle: re-permute every epoch with ``seed + epoch``.
       num_workers: decode threads; 0 = synchronous in-caller decode.
       prefetch: max ready batches buffered ahead.
@@ -223,12 +224,19 @@ class StereoLoader:
                  shuffle: bool = True, num_workers: int = 4,
                  prefetch: int = 2, seed: int = 1234,
                  epochs: Optional[int] = None,
+                 process_index: int = 0, process_count: int = 1,
                  worker_type: str = "thread",
                  quarantine_path: Optional[str] = None,
                  fault_isolation: bool = True):
         if len(dataset) < batch_size:
             raise ValueError(
                 f"dataset has {len(dataset)} samples < batch_size={batch_size}")
+        if batch_size % process_count:
+            raise ValueError(f"batch_size={batch_size} not divisible by "
+                             f"process_count={process_count}")
+        if not (0 <= process_index < process_count):
+            raise ValueError(f"process_index={process_index} out of range "
+                             f"for process_count={process_count}")
         if worker_type not in ("thread", "process"):
             raise ValueError(f"worker_type={worker_type!r} not in "
                              f"('thread', 'process')")
@@ -239,6 +247,8 @@ class StereoLoader:
         self.prefetch = prefetch
         self.seed = seed
         self.epochs = epochs
+        self.process_index = process_index
+        self.process_count = process_count
         # "process": decode+augment in spawned worker PROCESSES — sidesteps
         # the GIL entirely where thread workers only overlap the
         # GIL-releasing segments (native decode, cv2).  Costs one extra
@@ -444,12 +454,15 @@ class StereoLoader:
             yield from self._iter_threaded()
 
     def _batch_indices(self):
+        local = self.batch_size // self.process_count
+        lo = self.process_index * local
         epoch, start_batch = divmod(self.start_offset, max(1, len(self)))
         while self.epochs is None or epoch < self.epochs:
             order = self._epoch_order(epoch)
             for i in range(start_batch, len(self)):
-                yield epoch, order[i * self.batch_size:
-                                   (i + 1) * self.batch_size]
+                global_slice = order[i * self.batch_size:
+                                     (i + 1) * self.batch_size]
+                yield epoch, global_slice[lo:lo + local]
             start_batch = 0
             epoch += 1
 

@@ -10,7 +10,7 @@ compute in their input's dtype (bf16 under mixed precision), as Flax's
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -140,8 +140,13 @@ class BasicEncoder(nn.Module):
         self.trunk = Trunk(norm_fn, downsample)
         self.conv2 = conv(128, output_dim, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(self.trunk(x))
+    def forward(self, x: torch.Tensor,
+                trunk_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        # ``trunk_out``: the trunk's output computed by another executor
+        # on the same parameters (models/banded.py)
+        if trunk_out is None:
+            trunk_out = self.trunk(x)
+        return self.conv2(trunk_out)
 
 
 class MultiBasicEncoder(nn.Module):
@@ -188,9 +193,11 @@ class MultiBasicEncoder(nn.Module):
             outs.append(getattr(self, f"outputs{tag}_{h}_conv")(y))
         return outs
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor,
+                trunk_out: Optional[torch.Tensor] = None
                 ) -> Tuple[List[List[torch.Tensor]], torch.Tensor]:
-        x = v = self.trunk(x)
+        # ``trunk_out``: as in ``BasicEncoder.forward``
+        x = v = self.trunk(x) if trunk_out is None else trunk_out
         if self.dual_inp:
             x = x[:x.shape[0] // 2]
         levels = [self._heads("08", x, True)]

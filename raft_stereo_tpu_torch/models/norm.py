@@ -3,7 +3,7 @@
 * ``batch``    — ``FrozenBatchNorm``: always normalized with the stored
   statistics; ``scale``/``bias`` are parameters, ``mean``/``var`` buffers.
 * ``instance`` — per-sample, per-channel over (H, W), biased variance,
-  eps 1e-5, no affine; statistics in fp32.
+  eps 1e-5, no affine; statistics in fp32 (fp64 for fp64 activations).
 * ``group``    — ``GroupNorm(planes // 8)``, eps 1e-5, affine.
 * ``none``     — identity.
 
@@ -18,6 +18,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+def stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype the norms take their statistics and coefficients in:
+    fp32, or fp64 for fp64 activations."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 class FrozenBatchNorm(nn.Module):
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -28,11 +34,13 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # inv and shift in fp32, then cast to the activation dtype.
-        scale = self.scale.float()
-        std = torch.sqrt(self.var.float() + self.eps)
+        # inv and shift in fp32 (fp64 for fp64 activations), then cast to
+        # the activation dtype.
+        dt = stats_dtype(x)
+        scale = self.scale.to(dt)
+        std = torch.sqrt(self.var.to(dt) + self.eps)
         inv = (scale / std).to(x.dtype)
-        shift = (self.bias.float() - self.mean.float() * scale / std
+        shift = (self.bias.to(dt) - self.mean.to(dt) * scale / std
                  ).to(x.dtype)
         return x * inv.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)
 
@@ -43,7 +51,7 @@ class InstanceNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(stats_dtype(x))
         mean = xf.mean(dim=(2, 3), keepdim=True)
         var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
         return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)

@@ -11,6 +11,8 @@ slow-fast coarse-only GRU steps when set -> motion encoder -> ConvGRUs ->
 flow and mask heads -> x-only disparity update); convex-upsample once.
 ``begin`` is everything before the loop and hands out one iteration as
 ``step``, so the inference runner can capture the loop's parts apart.
+With ``banded_encoder`` each encoder's trunk streams its full-resolution
+segment in bands (models/banded.py) and fnet runs one image at a time.
 
 Test mode runs ``iters`` iterations, or, with ``exit_threshold_px > 0``,
 the JAX model's convergence-gated loop (``ExitLoop``); it can also
@@ -101,10 +103,16 @@ def sequential_fnet_threshold(cfg: RaftStereoConfig,
     JAX model's route."""
     if cfg.sequential_fnet_pixels is not None:
         return cfg.sequential_fnet_pixels
-    memory = (torch.cuda.get_device_properties(device).total_memory
-              if device.type == "cuda" else _CPU_MEMORY_BYTES)
-    return int(_SEQ_FNET_MEMORY_FRACTION * memory
+    return int(_SEQ_FNET_MEMORY_FRACTION * device_memory_bytes(device)
                / _STEM_EXTRA_BYTES_PER_PIXEL)
+
+
+def device_memory_bytes(device: torch.device) -> int:
+    """The card's total memory on a CUDA device; the JAX package's 16 GiB
+    assumption elsewhere."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return _CPU_MEMORY_BYTES
 
 
 class RAFTStereo(nn.Module):
@@ -256,31 +264,9 @@ class RAFTStereo(nn.Module):
                 "computed from the cnet trunk there, so the context "
                 "encoder cannot be skipped")
         dtype = self.compute_dtype
-        img1 = (2 * (image1.float() / 255.0) - 1.0).to(dtype).permute(
-            0, 3, 1, 2)
-        img2 = (2 * (image2.float() / 255.0) - 1.0).to(dtype).permute(
-            0, 3, 1, 2)
-
-        # the JAX model's phase names (profiling.annotate): profiler
-        # traces and NVTX timelines break out the same phases
-        levels = None
-        if cfg.shared_backbone:
-            with annotate("cnet"):
-                levels, v = self.cnet(torch.cat([img1, img2]))
-            with annotate("fnet"):
-                fmap1, fmap2 = torch.chunk(
-                    self.conv2_out(self.conv2_res(v)), 2)
-        else:
-            if ctx_init is None:
-                with annotate("cnet"):
-                    levels, _ = self.cnet(img1)
-            with annotate("fnet"):
-                if (image1.shape[1] * image1.shape[2]
-                        >= sequential_fnet_threshold(cfg, img1.device)):
-                    fmap1, fmap2 = self.fnet(img1), self.fnet(img2)
-                else:
-                    fmap1, fmap2 = torch.chunk(
-                        self.fnet(torch.cat([img1, img2])), 2)
+        img1, img2 = self.normalize(image1), self.normalize(image2)
+        levels, fmap1, fmap2 = self.encode(img1, img2,
+                                           context=ctx_init is None)
 
         if ctx_init is not None:
             net = [n.to(dtype) for n in ctx_init[0]]
@@ -350,6 +336,67 @@ class RAFTStereo(nn.Module):
         step.lookup = lookup
         step.motion = motion_features
         return step, net, disp, ctx_out
+
+    def normalize(self, image: torch.Tensor) -> torch.Tensor:
+        """A (B, H, W, 3) 0..255 image as the encoders take it: -1..1,
+        NCHW, in the compute dtype."""
+        return (2 * (image.float() / 255.0) - 1.0).to(
+            self.compute_dtype).permute(0, 3, 1, 2)
+
+    def encode(self, img1: torch.Tensor, img2: torch.Tensor,
+               context: bool = True):
+        """The encoders on a normalized pair: ``(levels, fmap1, fmap2)``,
+        cnet's per-level heads (None without ``context``; the shared
+        backbone always runs cnet) and the two feature maps."""
+        cfg = self.config
+        # ``banded_encoder``: each encoder's trunk streams its
+        # full-resolution segment in bands (models/banded.py), through the
+        # encoders' ``trunk_out`` hook on the same parameters
+        trunk = self._banded_trunk() if cfg.banded_encoder else None
+
+        def run(encoder, x, norm_fn):
+            return encoder(x, trunk_out=None if trunk is None
+                           else trunk(encoder.trunk, x, norm_fn))
+
+        # the JAX model's phase names (profiling.annotate): profiler
+        # traces and NVTX timelines break out the same phases
+        levels = None
+        if cfg.shared_backbone:
+            with annotate("cnet"):
+                levels, v = run(self.cnet, torch.cat([img1, img2]),
+                                cfg.context_norm)
+            with annotate("fnet"):
+                fmap1, fmap2 = torch.chunk(
+                    self.conv2_out(self.conv2_res(v)), 2)
+            return levels, fmap1, fmap2
+        if context:
+            with annotate("cnet"):
+                levels, _ = run(self.cnet, img1, cfg.context_norm)
+        with annotate("fnet"):
+            # banded: one image at a time, as the JAX model scans fnet
+            if trunk is not None or (
+                    img1.shape[2] * img1.shape[3]
+                    >= sequential_fnet_threshold(cfg, img1.device)):
+                return (levels, run(self.fnet, img1, cfg.fnet_norm),
+                        run(self.fnet, img2, cfg.fnet_norm))
+            fmap1, fmap2 = torch.chunk(self.fnet(torch.cat([img1, img2])), 2)
+        return levels, fmap1, fmap2
+
+    def _banded_trunk(self):
+        """The banded trunk executor ``(trunk, x, norm_fn) -> trunk
+        output`` at ``config.band_rows``, after the JAX model's check that
+        every encoder it runs has a supported norm."""
+        from raft_stereo_tpu_torch.models.banded import (banded_supported,
+                                                         banded_trunk_apply)
+        cfg = self.config
+        for norm in (cfg.context_norm,
+                     *((cfg.fnet_norm,) if not cfg.shared_backbone else ())):
+            if not banded_supported(norm, cfg.n_downsample):
+                raise ValueError(
+                    f"banded_encoder/rows_shards: norm {norm!r} with "
+                    f"n_downsample={cfg.n_downsample} is unsupported")
+        return lambda trunk, x, norm_fn: banded_trunk_apply(
+            trunk, x, norm_fn, band=cfg.band_rows)
 
     def exit_bounds(self, iters: int):
         """``(limit, min_iters, threshold)`` of the early-exit loop at the

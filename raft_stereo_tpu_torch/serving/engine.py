@@ -123,6 +123,7 @@ from raft_stereo_tpu_torch.eval.runner import (FETCH_DTYPES, ProgramCache,
                                                resolve_device)
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 from raft_stereo_tpu_torch.ops.padding import InputPadder
+from raft_stereo_tpu_torch.parallel.mesh import parse_mesh_spec
 from raft_stereo_tpu_torch.quant.core import is_quantized, quantize_state_dict
 from raft_stereo_tpu_torch.serving.batcher import (BucketQueue, Overloaded,
                                                    Request, RequestPoisoned,
@@ -195,36 +196,6 @@ _CTX_REUSE_FAMILIES = (FAMILY_WARM_CTX, FAMILY_WARM_CTX_H)
 # the sessions used least recently are dropped; each re-saves at its
 # session's next cold frame.
 CTX_CARD_SHARE = 0.25
-
-def parse_mesh_spec(spec: str) -> Dict[str, int]:
-    """``"rows=4"`` / ``"rows=2,corr=2"`` -> ``{"rows": 4, "corr": 2}``,
-    with the JAX package's errors.  ``ServeConfig`` validates ``xl_mesh``
-    with it before refusing the field."""
-    out = {"rows": 1, "corr": 1}
-    seen = set()
-    parts = [p.strip() for p in str(spec).split(",") if p.strip()]
-    if not parts:
-        raise ValueError(f"mesh spec {spec!r} is empty: use e.g. 'rows=4' "
-                         f"or 'rows=2,corr=2'")
-    for part in parts:
-        k, sep, v = part.partition("=")
-        k = k.strip()
-        if k not in out or not sep:
-            raise ValueError(
-                f"mesh spec {spec!r}: expected comma-separated "
-                f"'rows=N'/'corr=N' entries, got {part!r}")
-        if k in seen:
-            raise ValueError(f"mesh spec {spec!r}: axis {k!r} named twice")
-        seen.add(k)
-        try:
-            out[k] = int(v.strip())
-        except ValueError as e:
-            raise ValueError(f"mesh spec {spec!r}: size {v!r} for axis "
-                             f"{k!r} is not an integer") from e
-        if out[k] < 1:
-            raise ValueError(f"mesh spec {spec!r}: axis {k!r} size "
-                             f"{out[k]} must be >= 1")
-    return out
 
 
 # ------------------------------------------------------------- ServeConfig

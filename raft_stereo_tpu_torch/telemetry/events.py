@@ -35,6 +35,8 @@ from typing import Callable, Dict, Iterator, Optional, Union
 
 import torch
 
+from raft_stereo_tpu_torch.parallel import distributed
+
 log = logging.getLogger(__name__)
 
 SCHEMA_VERSION = 1
@@ -46,19 +48,21 @@ _PRE_PORT = re.compile(r"(BENCH_.*|[A-Z0-9_]+_(r\d+|ci))\.json")
 def device_topology(device: Union[None, str, torch.device] = None
                     ) -> Dict[str, object]:
     """Device summary for run headers: ``platform`` "gpu" or "cpu",
-    ``device_kind`` (the card's name), ``n_devices``, and one process.
-    ``device`` names the device a record was measured on; by default the
-    card where there is one."""
+    ``device_kind`` (the card's name), ``n_devices``, and this process's
+    rank and the world size of its process group (0 and 1 outside one,
+    parallel/distributed.py).  ``device`` names the device a record was
+    measured on; by default the card where there is one."""
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
     device = torch.device(device)
+    ranks = {"process_index": distributed.process_index(),
+             "process_count": distributed.process_count()}
     if device.type == "cuda":
         return {"platform": "gpu",
                 "device_kind": torch.cuda.get_device_name(device),
-                "n_devices": torch.cuda.device_count(),
-                "process_index": 0, "process_count": 1}
+                "n_devices": torch.cuda.device_count(), **ranks}
     return {"platform": "cpu", "device_kind": "cpu", "n_devices": 1,
-            "process_index": 0, "process_count": 1}
+            **ranks}
 
 
 def run_metadata(device: Union[None, str, torch.device] = None

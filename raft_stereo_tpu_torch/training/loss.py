@@ -7,14 +7,15 @@ by the epipolar projection, so L1 and EPE are absolute errors.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 
 def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor,
                   valid: torch.Tensor, loss_gamma: float = 0.9,
-                  max_flow: float = 700.0
+                  max_flow: float = 700.0,
+                  denom: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Exponentially weighted L1 over all iteration outputs.
 
@@ -25,13 +26,18 @@ def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor,
       loss_gamma: base decay, renormalized so the schedule does not
         depend on the iteration count (reference: train_stereo.py:52-54).
       max_flow: pixels with |flow| >= max_flow are excluded.
+      denom: the count of counted pixels to divide by (at least 1), by
+        default this batch's.  A data-parallel process passes the global
+        batch's (training/step.py), so the sums of every process's
+        loss and metrics are the global batch's.
 
     Returns the scalar loss and the metrics ``epe``, ``1px``, ``3px``,
     ``5px`` of the final prediction, all 0-d fp32 tensors on the device."""
     n = flow_preds.shape[0]
     gamma_adj = loss_gamma ** (15.0 / max(n - 1, 1))
-    maskf = ((valid >= 0.5) & (flow_gt.abs() < max_flow)).float()
-    denom = maskf.sum().clamp_min(1.0)
+    maskf = loss_mask(flow_gt, valid, max_flow)
+    if denom is None:
+        denom = maskf.sum().clamp_min(1.0)
     abs_err = (flow_preds - flow_gt[None]).abs()
     per_iter = (abs_err * maskf[None]).sum(dim=(1, 2, 3)) / denom
     weights = torch.tensor(gamma_adj, dtype=torch.float32,
@@ -46,3 +52,9 @@ def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor,
         "5px": ((epe < 5).float() * maskf).sum() / denom,
     }
     return loss, metrics
+
+
+def loss_mask(flow_gt: torch.Tensor, valid: torch.Tensor,
+              max_flow: float) -> torch.Tensor:
+    """The fp32 mask of the pixels the loss and the metrics count."""
+    return ((valid >= 0.5) & (flow_gt.abs() < max_flow)).float()

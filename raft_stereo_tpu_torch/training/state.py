@@ -32,6 +32,10 @@ class TrainState:
     # anomaly policy: the applied-update count, an int64 scalar on the
     # device (the schedule's and AdamW's count); None with the policy off
     count: Optional[torch.Tensor] = None
+    # data parallelism: the DistributedDataParallel wrapper over ``model``
+    # the step runs its forward through (training/train_loop.py); the
+    # checkpoints read ``model`` itself
+    ddp: Optional[torch.nn.Module] = None
 
     def update_count(self) -> int:
         """Updates applied so far (a host sync under the policy)."""

@@ -20,6 +20,17 @@ branch cannot leak, as a 0/1 multiply or ``lerp`` would let it.  The
 update is torch's AdamW, ``capturable`` on the card, with the learning
 rate a device tensor set from the device count, so nothing reaches the
 host before the buffered drain.
+
+Under data parallelism (``TrainState.ddp``, a ``DistributedDataParallel``
+over the model; training/train_loop.py) each process steps on its slice
+of the global batch and the step computes what one process would on the
+whole batch: the loss divides by the global batch's count of counted
+pixels (one all-reduce before the forward), each process backpropagates
+its share times the world size, so DDP's gradient mean is the global
+loss's gradient, and the loss and metrics are summed over the processes
+(one all-reduce after the backward).  The photometric jitter draws the
+global batch's factors and takes this process's rows.  Every process thus
+clips, gates and updates on the same numbers.
 """
 
 from __future__ import annotations
@@ -35,12 +46,13 @@ from raft_stereo_tpu_torch.config import TrainConfig
 from raft_stereo_tpu_torch.data.device_jitter import (JitterParams,
                                                       apply_photometric,
                                                       draw_factors,
+                                                      local_rows,
                                                       params_for_datasets)
 from raft_stereo_tpu_torch.training.anomaly import (SKIP_KEY,
                                                     SKIP_NONFINITE_KEY,
                                                     SKIP_SPIKE_KEY,
                                                     AnomalyPolicy)
-from raft_stereo_tpu_torch.training.loss import sequence_loss
+from raft_stereo_tpu_torch.training.loss import loss_mask, sequence_loss
 from raft_stereo_tpu_torch.training.optimizer import (clip_by_global_norm_,
                                                       one_cycle_lr_tensor)
 from raft_stereo_tpu_torch.training.state import TrainState
@@ -58,33 +70,68 @@ def _forward_backward(state: TrainState, batch: Mapping[str, object],
                       jitter: Optional[JitterParams], jitter_seed: int,
                       jitter_step) -> Tuple[torch.Tensor,
                                             Dict[str, torch.Tensor]]:
-    """Forward, loss and backward; the gradients are left in ``.grad``."""
+    """Forward, loss and backward; the gradients are left in ``.grad``.
+    Under ``state.ddp`` the returned loss and metrics are the global
+    batch's (module docstring)."""
     model = state.model
     device = next(model.parameters()).device
+    world, rank = ((state.ddp.process_group.size(),
+                    state.ddp.process_group.rank())
+                   if state.ddp is not None else (1, 0))
     img1 = _to_device(batch["image1"], device)
     img2 = _to_device(batch["image2"], device)
     if jitter is not None:
         if not isinstance(jitter_step, torch.Tensor):
             jitter_step = torch.full((), jitter_step, dtype=torch.int64,
                                      device=device)
-        img1, img2 = apply_photometric(
-            img1, img2, draw_factors(jitter_seed, jitter_step, img1.shape[0],
-                                     jitter))
+        factors = draw_factors(jitter_seed, jitter_step,
+                               img1.shape[0] * world, jitter)
+        img1, img2 = apply_photometric(img1, img2,
+                                       local_rows(factors, rank, world))
     flow_gt = _to_device(batch["flow"], device).float()
     valid = _to_device(batch["valid"], device).float()
+    denom = None
+    if world > 1:
+        denom = loss_mask(flow_gt, valid, max_flow).sum()
+        torch.distributed.all_reduce(denom, group=state.ddp.process_group)
+        denom = denom.clamp_min(1.0)
     state.optimizer.zero_grad(set_to_none=True)
     with record_function("raft::train_forward"):
-        preds = model(img1, img2, iters=iters, test_mode=False)
+        net = model if state.ddp is None else state.ddp
+        preds = net(img1, img2, iters=iters, test_mode=False)
         loss, metrics = sequence_loss(preds, flow_gt, valid,
                                       loss_gamma=loss_gamma,
-                                      max_flow=max_flow)
+                                      max_flow=max_flow, denom=denom)
     metrics = {k: v.detach() for k, v in metrics.items()}
     if gru_telemetry and iters > 1:
         p = preds.detach()
         metrics["gru_delta_px"] = (p[1:] - p[:-1]).abs().mean(dim=(1, 2, 3))
     with record_function("raft::train_backward"):
-        loss.backward()
-    return loss.detach(), metrics
+        (loss * world if world > 1 else loss).backward()
+    loss = loss.detach()
+    if world > 1:
+        loss, metrics = _global_sums(loss, metrics, world,
+                                     state.ddp.process_group)
+    return loss, metrics
+
+
+def _global_sums(loss: torch.Tensor, metrics: Dict[str, torch.Tensor],
+                 world: int, group) -> Tuple[torch.Tensor,
+                                             Dict[str, torch.Tensor]]:
+    """The loss and metrics of the global batch, in one all-reduce: the
+    processes' loss and metric sums (each over the global count), and the
+    mean of their per-iteration ``gru_delta_px`` (each a mean over an
+    equal share of the batch)."""
+    keys = [k for k in metrics if k != "gru_delta_px"]
+    parts = [loss.reshape(1)] + [metrics[k].reshape(1) for k in keys]
+    if "gru_delta_px" in metrics:
+        parts.append(metrics["gru_delta_px"] / world)
+    flat = torch.cat([p.float() for p in parts])
+    torch.distributed.all_reduce(flat, group=group)
+    out = dict(zip(keys, flat[1:1 + len(keys)].unbind()))
+    if "gru_delta_px" in metrics:
+        out["gru_delta_px"] = flat[1 + len(keys):]
+    return flat[0], out
 
 
 def train_step(state: TrainState, batch: Mapping[str, object], *,

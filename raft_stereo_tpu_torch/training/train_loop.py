@@ -29,6 +29,21 @@ and dispatch time, the drained metrics, skips, rewinds, checkpoints and
 validations; with its cost registry the step's first dispatch is recorded
 with the step's FLOPs (telemetry/flops.py).  Without it the loop reads no
 clock and fetches nothing more.
+
+Data parallelism: one process per card, launched by ``torchrun
+--nproc_per_node=N`` (or any caller that forms the group with
+``parallel.distributed.initialize``).  The loop forms the group first
+(a no-op in a plain run), checks ``data_parallel`` against its world size
+(0 means the world size), wraps the model in ``DistributedDataParallel``
+and reads its slice of every global batch of ``batch_size``; the step
+makes the loss, metrics and update those of the global batch
+(training/step.py), so every process holds the same state.  Once per
+turn every process joins one collective stop decision
+(``distributed.any_process``): a signal on one process, or one loader
+running dry, stops them all at the same step.  Process 0 writes the
+checkpoints (every process then meets at a barrier), the TensorBoard log
+and runs the validation; every process restores the same checkpoint.
+The checkpoint directory must be one every process reads.
 """
 
 from __future__ import annotations
@@ -49,6 +64,8 @@ import torch
 
 from raft_stereo_tpu_torch.config import RaftStereoConfig, TrainConfig
 from raft_stereo_tpu_torch.eval.runner import full_fp32
+from raft_stereo_tpu_torch.parallel import distributed
+from raft_stereo_tpu_torch.parallel.mesh import make_mesh
 from raft_stereo_tpu_torch.training import checkpoint as ckpt
 from raft_stereo_tpu_torch.training.anomaly import (AnomalyPolicy,
                                                     AnomalyTracker,
@@ -303,6 +320,17 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
         raise RuntimeError("no CUDA device: training runs on the GPU; pass "
                            "device='cpu' to run the plain versions on the "
                            "CPU")
+    # the process group first (a no-op in a plain run): with torchrun it
+    # also picks this process's card
+    distributed.initialize(device=device)
+    parallel = torch.distributed.is_initialized()
+    n_data = make_mesh(n_data=train_cfg.data_parallel).n_data
+    if train_cfg.batch_size % n_data:
+        raise ValueError(f"batch_size={train_cfg.batch_size} not divisible "
+                         f"by {n_data} data-parallel processes")
+    if parallel and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    lead = distributed.process_index() == 0
     policy = AnomalyPolicy.from_train_config(train_cfg)
     if policy is not None and checkpoint_dir is None:
         raise ValueError("anomaly_policy rewinds to checkpoints: give a "
@@ -355,13 +383,21 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
         else:   # a checkpoint without the sidecar: the loop step's batch
             loader_state = {"offset": state.step, "salts": []}
         # the post-restore probe: finite weights and moments stamp GOOD
-        if ckpt.finite_state(weights, saved):
+        if lead and ckpt.finite_state(weights, saved):
             ckpt.mark_good(restore)
         log.info("exact resume from %s at step %d", restore, state.step)
     else:
         state = create_train_state(model_cfg, train_cfg, device,
                                    seed=train_cfg.seed, anomaly=anomaly)
     start_step = state.step
+    if parallel:
+        from torch.nn.parallel import DistributedDataParallel
+        # the frozen batch norms' statistics are buffers no step changes,
+        # and every process loads the same ones: nothing to broadcast
+        state.ddp = DistributedDataParallel(
+            state.model,
+            device_ids=[device.index] if device.type == "cuda" else None,
+            broadcast_buffers=False)
 
     if loader is None:
         from raft_stereo_tpu_torch.data.datasets import (
@@ -372,7 +408,8 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
             mixture, batch_size=train_cfg.batch_size, seed=train_cfg.seed,
             quarantine_path=(os.path.join(checkpoint_dir,
                                           f"{name}.quarantine.json")
-                             if checkpoint_dir else None))
+                             if checkpoint_dir else None),
+            **distributed.loader_shard_kwargs())
     if loader_state is not None and hasattr(loader, "set_state"):
         loader.set_state(loader_state)
         log.info("loader resumed at %s", loader_state)
@@ -392,7 +429,7 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
         step_fn = telemetry.costs.instrument(
             step_fn, key=TRAIN_STEP_COST_KEY, site="train",
             flops=train_step_flops(model_cfg, train_cfg.image_size,
-                                   train_cfg.batch_size,
+                                   train_cfg.batch_size // n_data,
                                    train_cfg.train_iters),
             device=device)
     schedule = one_cycle_lr(train_cfg.lr, train_cfg.num_steps + 100)
@@ -409,6 +446,7 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
     # SIGTERM/SIGINT: checkpoint at the next step boundary, then stop; a
     # second signal force-quits (the first keeps the save itself safe).
     stop_requested = False
+    peer_stop = False    # the collective stop, asked for by another process
     prev_handlers = {}
 
     def _restore_handlers():
@@ -438,7 +476,7 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
     run_status = "failed"  # overwritten on every clean exit path
 
     with Logger(log_dir=log_dir or "runs", total_steps=start_step,
-                enable_tensorboard=log_dir is not None) as logger:
+                enable_tensorboard=lead and log_dir is not None) as logger:
         def drain_metrics():
             if not pending_metrics:
                 return
@@ -489,11 +527,18 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
                 blob["loss_ewma"] = float(ewma_dev)
             return blob
 
-        def save(path):
+        def save(path, prune=False):
+            """Process 0 writes (and prunes); every process then meets,
+            so none reads a checkpoint before it is sealed."""
             t_save = time.perf_counter() if telemetry is not None else 0.0
-            ckpt.save_train_checkpoint(path, state,
-                                       runtime_state=runtime_blob())
-            log.info("saved checkpoint %s", path)
+            if lead:
+                ckpt.save_train_checkpoint(path, state,
+                                           runtime_state=runtime_blob())
+                log.info("saved checkpoint %s", path)
+                if prune and train_cfg.checkpoint_keep > 0:
+                    ckpt.prune_checkpoints(checkpoint_dir, name=name,
+                                           keep=train_cfg.checkpoint_keep)
+            distributed.barrier()
             if telemetry is not None:
                 telemetry.observe_checkpoint(time.perf_counter() - t_save,
                                              path, state.step)
@@ -521,7 +566,8 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
                     log.warning("rewind: %s fails the finite-state probe; "
                                 "trying older", path)
                     continue
-                ckpt.mark_good(path)
+                if lead:
+                    ckpt.mark_good(path)
                 rt = ckpt.load_runtime_state(path) or {}
                 from_step = state.step
                 ckpt.restore_train_state(state, weights, saved)
@@ -561,7 +607,16 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
                 item = next(batches, None)
                 if telemetry is not None:
                     t_batch = time.perf_counter()
-                if state.step >= total or stop_requested or item is None:
+                # one collective per turn on every process (the step is
+                # the same on all of them, so all take the same branch):
+                # a stop or a dry loader anywhere stops every process here
+                if state.step >= total:
+                    break
+                if distributed.any_process(stop_requested or item is None):
+                    if not stop_requested and item is not None:
+                        peer_stop = True
+                        log.warning("another process stopped: "
+                                    "checkpointing at this step boundary")
                     break
                 batch = upload.take(item)
                 if telemetry is not None:
@@ -597,12 +652,9 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
                         do_rewind()
                         continue
                     if checkpoint_dir:
-                        save(os.path.join(checkpoint_dir, f"{step}_{name}"))
-                        if train_cfg.checkpoint_keep > 0:
-                            ckpt.prune_checkpoints(
-                                checkpoint_dir, name=name,
-                                keep=train_cfg.checkpoint_keep)
-                    if run_validation is not None:
+                        save(os.path.join(checkpoint_dir, f"{step}_{name}"),
+                             prune=True)
+                    if run_validation is not None and lead:
                         results = run_validation(state.model.state_dict())
                         logger.write_dict(results)
                         if telemetry is not None:
@@ -611,7 +663,8 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
             # is still installed
             if checkpoint_dir:
                 save(os.path.join(checkpoint_dir, name))
-            run_status = "stopped" if stop_requested else "complete"
+            run_status = ("stopped" if stop_requested or peer_stop
+                          else "complete")
         finally:
             try:
                 drain_metrics()
@@ -622,7 +675,7 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
             if telemetry is not None:
                 telemetry.run_end(run_status, state.step)
 
-    if stop_requested:
+    if stop_requested or peer_stop:
         log.warning("stopped by signal at step %d; resume with restore=%s",
                     state.step, os.path.join(checkpoint_dir or ".", name))
     log.info("training done: %d steps in %.1fs", state.step - start_step,

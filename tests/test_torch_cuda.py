@@ -2026,3 +2026,72 @@ def test_handoff_frame_bit_equal_to_run_stream(rng, cuda_device, tmp_path):
                               handoff_key=manifest["artifact"], timeout=300)
         assert not res.warm
         assert c.metrics.handoff_skips("config_mismatch") == 1
+
+
+# ------------------------------------------------------ the banded trunk
+# In fp64: two fp32 computations that round differently flip a ReLU where
+# a value lies within rounding of zero, and a flip moves the gradient of
+# the pixels behind it by a whole upstream gradient (measured on these
+# weights in fp32: one flip moves the input gradient by 2.76 against
+# atol 0.17, the forward by 1.08e-5 on one element against 1e-5, while in
+# fp64 banded and unbanded agree to 1e-13).  fp64 holds the banded
+# executor's own arithmetic, its bands, halos, masks, statistics sweeps
+# and checkpoints, to the CPU tests' bounds without that noise.
+def _banded_trunks(norm_fn, device):
+    """A seeded fp64 ``Trunk`` (downsample 2) on ``device`` with
+    non-trivial frozen-BN statistics and affine terms."""
+    from raft_stereo_tpu_torch.models.extractor import Trunk
+    torch.manual_seed(0)
+    trunk = Trunk(norm_fn, 2)
+    gen = torch.Generator().manual_seed(7)
+    for m in trunk.modules():
+        if hasattr(m, "var") and isinstance(m.var, torch.Tensor):
+            m.mean.normal_(0, 0.1, generator=gen)
+            m.var.uniform_(0.5, 1.5, generator=gen)
+            m.scale.data.normal_(1, 0.1, generator=gen)
+            m.bias.data.normal_(0, 0.1, generator=gen)
+    return trunk.to(device, torch.float64)
+
+
+@pytest.mark.parametrize("norm_fn", ["instance", "batch", "none"])
+@pytest.mark.parametrize("h,w,band", [(64, 96, 32), (70, 96, 32)])
+def test_banded_trunk_matches_trunk_on_card(rng, cuda_device, norm_fn, h, w,
+                                            band):
+    """The banded trunk against the unbanded one on the card (the CPU
+    tests' bound, 1e-5)."""
+    from raft_stereo_tpu_torch.models.banded import banded_trunk_apply
+    trunk = _banded_trunks(norm_fn, cuda_device)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 3, h, w))).to(cuda_device)
+    with torch.no_grad():
+        want = trunk(x)
+        got = banded_trunk_apply(trunk, x, norm_fn, band=band)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("norm_fn", ["instance", "batch"])
+def test_banded_trunk_gradients_on_card(rng, cuda_device, norm_fn):
+    """Gradients of the input and of every parameter through the banded
+    trunk (checkpointed bands, statistics sweeps) against the unbanded
+    trunk's on the card, at 70x64 with band 32 and a random cotangent:
+    rtol 1e-3, atol 1e-4 x the largest gradient (the CPU tests' bound)."""
+    from raft_stereo_tpu_torch.models.banded import banded_trunk_apply
+    trunk = _banded_trunks(norm_fn, cuda_device)
+    x0 = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 70, 64))).to(cuda_device)
+    probe = torch.from_numpy(rng.standard_normal((2, 128, 18, 16))).to(
+        cuda_device)
+
+    def grads(fn):
+        trunk.zero_grad(set_to_none=True)
+        x = x0.clone().requires_grad_()
+        (fn(x) * probe).sum().backward()
+        return x.grad, {n: p.grad.clone() for n, p in
+                        trunk.named_parameters()}
+
+    gx_p, gp_p = grads(trunk)
+    gx_b, gp_b = grads(lambda x: banded_trunk_apply(trunk, x, norm_fn, 32))
+    atol = 1e-4 * max(float(g.abs().max()) for g in gp_p.values())
+    torch.testing.assert_close(gx_b, gx_p, rtol=1e-3, atol=atol)
+    for name, g in gp_p.items():
+        torch.testing.assert_close(gp_b[name], g, rtol=1e-3, atol=atol,
+                                   msg=name)

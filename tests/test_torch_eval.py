@@ -501,7 +501,8 @@ def test_arch_overrides_same_flags_as_jax():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--banded_encoder"], "§D7"), (["--rows_shards", "2"], "§D7"),
+    (["--banded_encoder", "--corr_w2_shards", "2"], "§D7"),
+    (["--rows_shards", "2"], "§D7"),
     (["--rows_gru"], "§D7"), (["--rows_gru_halo", "4"], "§D7"),
     (["--corr_w2_shards", "2"], "§D7")])
 def test_unported_flags_raise(argv, item):

@@ -153,10 +153,10 @@ def test_config_fields_match_jax():
     ("corr_w2_shards", 2), ("remat_save", ("gru_gates",))])
 def test_unported_options_raise(field, value):
     """The options still refused raise, naming their ROADMAP item;
-    ``remat_save=("gru_gates",)``, refused before, is ported
-    (models/remat.py): it constructs and round-trips with the JAX
-    package's ``to_dict()``."""
-    if field == "remat_save":
+    ``remat_save=("gru_gates",)`` and ``banded_encoder``, refused before,
+    are ported (models/remat.py, models/banded.py): each constructs and
+    round-trips with the JAX package's ``to_dict()``."""
+    if field in ("remat_save", "banded_encoder"):
         cfg = RaftStereoConfig(**{field: value})
         assert cfg.to_dict() == JaxConfig(**{field: value}).to_dict()
         assert RaftStereoConfig.from_json(cfg.to_json()) == cfg

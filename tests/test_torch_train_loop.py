@@ -324,10 +324,15 @@ def test_configs_from_args_match_jax(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--data_parallel", "2"], "§D7")])
+    (["--rows_shards", "2"], "§D7")])
 def test_unported_flags_raise(argv, item):
+    """The context-parallel flags still raise; ``--data_parallel 2``,
+    refused before, is ported: outside a group of two processes it raises
+    the world-size check (tests/test_torch_distributed.py runs two)."""
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(argv + ["--device", "cpu"])
+    with pytest.raises(ValueError, match="world size 1"):
+        tcli.main(["--data_parallel", "2", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("argv", [

@@ -182,8 +182,12 @@ def test_train_config_fields_match_jax():
 
 @pytest.mark.parametrize("field,value", [("data_parallel", 2)])
 def test_unported_training_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TrainConfig(**{field: value})
+    """``data_parallel > 1``, refused before, is ported
+    (parallel/distributed.py): it constructs and round-trips with the JAX
+    package's ``to_dict()``; the loop checks it against the world size."""
+    tc = TrainConfig(**{field: value})
+    assert tc.to_dict() == JaxTrainConfig(**{field: value}).to_dict()
+    assert TrainConfig.from_dict(tc.to_dict()) == tc
 
 
 @pytest.mark.parametrize("field,value", [
