@@ -450,6 +450,33 @@ fails the run when it fails:
    the one checkpoint) and resumed by both: bit for bit the run that
    never stopped.  The kernels line carries (a)'s counts as
    ``launches_data_parallel``.
+39. Context parallelism over groups of two made of the one card named
+   twice (``parallel/mesh.make_mesh(devices=["cuda:0"] * 2)``), default
+   config, fp32.  (a) ``rows_shards=2, rows_gru=True`` on phase 37's
+   1988x2880 pair and (b) ``corr_w2_shards=2`` (``reg_fused``) at the
+   KITTI bucket, each at ``CP_ITERS`` iterations against the unsharded
+   model, within 5e-3 px or 3x the card's own spread (the unsharded
+   model on weights moved by one ulp) where larger; seconds and
+   ``max_memory_allocated`` of each; 2 #1 launches an iteration (one per
+   shard) and 3 #5 an iteration per shard of the loop.  The kernels at
+   this slice's shapes against their plain versions: #1 on a rows
+   shard's window, #1 at shard-shifted centres (windows wholly outside a
+   shard included) against the plain sharded and the unsharded lookup,
+   #5 on the windows.  (c) One default step's loss and gradients at
+   ``TrainConfig()`` under each axis against the unsharded step (loss
+   within 1e-4 relative, the worst per-leaf 99th percentile of the
+   gradients' gap within 5e-3 of the leaf's scale, or 3x the one-ulp
+   weights' where larger); 44 #1, 44 #4, and 264 (rows) or 132 (corr)
+   #5 launches.  22 iterations of random weights are chaotic (the
+   one-ulp gap alone is ~0.15 of a leaf's scale), so the same step at
+   ``CP_GRAD_ITERS`` iterations holds the gradients where the spread is
+   small: a lost halo row's gradient or a mis-reduced moment exchange
+   shows there.  (d) An engine with ``xl_mesh="rows=2"`` over that group
+   (``xl_devices``) answering a KITTI pair above ``xl_threshold_pixels``
+   on the xl tier, and again with ``?tier=xl``, against ``make_forward``
+   solo on the same padded pair, and a small pair solo; launch counts
+   zeroed before the engine is built.  The kernels line carries each
+   count as ``launches_context_parallel``.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` (times
 by graph replay; a redesigned row names its design under ``design``; an
@@ -681,6 +708,15 @@ DP_PARAM_ATOL = 5e-4
 # random weights amplify the reassociation of a batch split in two.
 DP_SPREAD_FACTOR = 3.0
 DP_WORKER_TIMEOUT = 300
+# phase 39: context parallelism over a group of two, the one card named
+# twice (parallel/mesh.py)
+CP_ITERS = 4              # (a), (b): iterations of the sharded pairs
+CP_FLOW_ATOL = 5e-3       # px, or 3x the card's one-ulp spread if larger
+CP_LOSS_RTOL = 1e-4       # (c): the step's loss, likewise
+CP_GRAD_Q99 = 5e-3        # (c): per-leaf q99 of |d| / the leaf's scale
+CP_SPREAD_FACTOR = 3.0
+CP_GRAD_ITERS = 3         # (c): the step whose gradients are held tight
+CP_XL_THRESHOLD = 400_000  # (d): the KITTI bucket, 384x1248, routes xl
 SERVE_FAMILIES = ("serve_requests_admitted_total",
                   "serve_requests_completed_total", "serve_batches_total",
                   "serve_dispatches_total", "serve_queue_wait_seconds",
@@ -1781,6 +1817,7 @@ def phase_drift(card):
     from raft_stereo_tpu_torch.eval.runner import launch_counts
     from raft_stereo_tpu_torch.tools import bf16_drift, quant_drift
 
+    release()    # phases 26-27's runners
     zero_inference_counts()
     t0 = time.perf_counter()
     q = quant_drift.run(quant_drift.build_parser().parse_args(
@@ -4476,7 +4513,7 @@ def phase_fleet(rt_cfg, rt_state, left, right, exit_thr, card,
 def padded_pair(hw, seed):
     """A seeded noise pair (right = left shifted 4 px) of ``hw``, padded
     to a multiple of 32 by edge replication as ``InputPadder`` pads: two
-    (1, H, W, 3) fp32 tensors on the card."""
+    (1, H, W, 3) fp32 tensors on the current card."""
     from raft_stereo_tpu_torch.ops.padding import InputPadder
     rs = np.random.default_rng(seed)
     left = rs.integers(0, 256, hw + (3,), dtype=np.uint8)
@@ -4969,9 +5006,333 @@ def phase_data_parallel(card):
     return counts, out
 
 
+def cp_grads(model, batch, tc, ctx=None):
+    """One default training step's forward and backward (the step's
+    loss, ``training/loss.sequence_loss``) under the mesh contexts
+    ``ctx``: (loss, {name: grad}, seconds, peak GiB)."""
+    import contextlib
+
+    from raft_stereo_tpu_torch.training.loss import sequence_loss
+
+    model.zero_grad(set_to_none=True)
+
+    def run():
+        with ctx or contextlib.nullcontext():
+            preds = model(batch["image1"], batch["image2"],
+                          iters=tc.train_iters, test_mode=False)
+            loss = sequence_loss(preds, batch["flow"].float(),
+                                 batch["valid"].float(),
+                                 loss_gamma=tc.loss_gamma,
+                                 max_flow=tc.max_flow)[0]
+            loss.backward()
+        return float(loss.detach())
+
+    loss, secs, peak, _ = peak_run(run)
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss, grads, secs, peak
+
+
+def grad_gap(got, want) -> float:
+    """The largest per-leaf 99th percentile of |got - want| over the
+    leaf's own scale, over the leaves whose scale is at least 1e-3 of the
+    largest (the others are the biases before instance norms, whose true
+    gradient is zero)."""
+    top = max(float(g.abs().max()) for g in want.values())
+    worst = 0.0
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        if scale < 1e-3 * top:
+            continue
+        rel = ((got[k].to(w.device) - w).abs() / scale).flatten().float()
+        if rel.numel() > 1_000_000:
+            rel = rel[torch.randperm(rel.numel(), device=rel.device)[
+                :1_000_000]]
+        worst = max(worst, float(torch.quantile(rel, 0.99)))
+    return worst
+
+
+def phase_context_parallel(cfg, state, card):
+    """Phase 39 (module docstring).  Returns the wrappers' counts over each
+    sharded run, and the measurements."""
+    import contextlib
+
+    from raft_stereo_tpu_torch.config import TrainConfig
+    from raft_stereo_tpu_torch.data.synthetic import SyntheticStereoLoader
+    from raft_stereo_tpu_torch.eval.runner import make_forward
+    from raft_stereo_tpu_torch.kernels.corr_lookup import (
+        lookup_pyramid_fused, lookup_pyramid_xla)
+    from raft_stereo_tpu_torch.kernels.gru_fused import (_gates_reference,
+                                                         gru_gates_fused)
+    from raft_stereo_tpu_torch.models.corr import (build_corr_pyramid,
+                                                   make_corr_fn)
+    from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
+    from raft_stereo_tpu_torch.parallel.corr_sharded import (
+        make_corr_fn_w2_sharded)
+    from raft_stereo_tpu_torch.parallel.mesh import (make_mesh,
+                                                     mesh_contexts)
+    from raft_stereo_tpu_torch.parallel.rows_gru import validate_rows_gru
+    from raft_stereo_tpu_torch.serving import ServeConfig, ServingEngine
+
+    t_phase = time.perf_counter()
+    release()
+    out, counts = {}, {}
+    group = [torch.device("cuda", 0)] * 2
+    meshes = {"rows": make_mesh(n_rows=2, devices=group),
+              "corr": make_mesh(n_corr=2, devices=group)}
+    cfgs = {"solo": cfg,
+            "rows": dataclasses.replace(cfg, rows_shards=2, rows_gru=True),
+            "corr": dataclasses.replace(cfg, corr_w2_shards=2)}
+
+    def contexts(axis):
+        return mesh_contexts(meshes[axis])
+
+    def model_of(what, sd=state):
+        m = RAFTStereo(cfgs[what])
+        m.load_state_dict(sd)
+        return m.cuda().eval()
+
+    moved = ulp_moved(state, SEED + 39)
+    checks = {}
+
+    # (a) rows_shards=2 with rows_gru on phase 37's pair, and (b)
+    # corr_w2_shards=2 at KITTI's bucket: each pair at CP_ITERS against
+    # the unsharded model and against the unsharded model on weights moved
+    # by one ulp (the card's own spread)
+    for axis, hw in (("rows", TILE_HW), ("corr", MAIN_HW)):
+        img1, img2 = padded_pair(hw, SEED + 39)
+        runs = {}
+        for what, sd in (("solo", state), (axis, state), ("ulp", moved)):
+            m = model_of("solo" if what == "ulp" else what, sd)
+            with torch.inference_mode(), (
+                    contexts(axis) if what == axis
+                    else contextlib.nullcontext()):
+                m(img1, img2, iters=1)            # warm-up
+                zero_inference_counts()
+                flows, secs, peak, above = peak_run(
+                    lambda: m(img1, img2, iters=CP_ITERS))
+            runs[what] = {"flows": flows, "seconds": secs, "peak_gib": peak,
+                          "peak_above_inputs_gib": above,
+                          "launches": {
+                              "lookup": lookup_pyramid_fused.launches,
+                              "gates": gru_gates_fused.launches}}
+            del m
+            release()
+        d = max(float((a - b).abs().max()) for a, b in zip(
+            runs[axis]["flows"], runs["solo"]["flows"]))
+        spread = max(float((a - b).abs().max()) for a, b in zip(
+            runs["ulp"]["flows"], runs["solo"]["flows"]))
+        bound = max(CP_FLOW_ATOL, CP_SPREAD_FACTOR * spread)
+        finite = all(bool(torch.isfinite(f).all())
+                     for r in runs.values() for f in r["flows"])
+        shapes_ok = all(a.shape == b.shape for a, b in zip(
+            runs[axis]["flows"], runs["solo"]["flows"]))
+        counts[f"{axis}_pair"] = runs[axis]["launches"]
+        # a lookup per shard and iteration; the corr axis runs the loop
+        # unsharded (3 gate calls an iteration), the rows axis per shard
+        want = {"lookup": 2 * CP_ITERS,
+                "gates": (2 if axis == "rows" else 1) * 3 * CP_ITERS}
+        checks[f"{axis} pair"] = (finite and shapes_ok and d <= bound
+                                  and runs[axis]["launches"] == want)
+        for r in runs.values():
+            del r["flows"]
+        out[f"{axis}_pair"] = dict(
+            hw=list(img1.shape[1:3]), flow_max_abs=d, spread=spread,
+            bound=bound, **{k: {kk: vv for kk, vv in v.items()}
+                            for k, v in runs.items()})
+        log(f"phase 39 ({'a' if axis == 'rows' else 'b'}) {axis} x2, "
+            f"default config fp32, {img1.shape[1]}x{img1.shape[2]}, "
+            f"{CP_ITERS} iterations: max |sharded - unsharded| {d:.3e} px "
+            f"(<= {bound:.3e}: the larger of {CP_FLOW_ATOL:g} and "
+            f"{CP_SPREAD_FACTOR:g}x the one-ulp spread {spread:.3e}); "
+            f"seconds unsharded {runs['solo']['seconds']:.4f}, sharded "
+            f"{runs[axis]['seconds']:.4f}; max_memory_allocated "
+            f"{runs['solo']['peak_gib']:.3f} / {runs[axis]['peak_gib']:.3f} "
+            f"GiB (above the inputs {runs['solo']['peak_above_inputs_gib']:.3f}"
+            f" / {runs[axis]['peak_above_inputs_gib']:.3f}); launches "
+            f"{runs[axis]['launches']} (want {want}): "
+            f"{'ok' if checks[f'{axis} pair'] else 'FAILED'}")
+        del img1, img2
+        release()
+
+    # the kernels at this slice's shapes against their plain versions (not
+    # counted): #1 on a rows shard's windowed pyramid (2016/4/2 rows +
+    # 2 halos), #1 with shard-shifted centres (the corr shards of the
+    # KITTI bucket: windows wholly outside a shard included), against the
+    # unsharded lookup and the plain sharded one, and #5 on the windows
+    gen = torch.Generator().manual_seed(SEED + 39)
+    h_f = TILE_HW[0] + (-TILE_HW[0]) % 32
+    halo = validate_rows_gru(cfgs["rows"], h_f // 4, 2)
+    rows_w, w1 = h_f // 8 + 2 * halo, (TILE_HW[1] + (-TILE_HW[1]) % 32) // 4
+    vol = torch.randn((1, rows_w, w1, w1), generator=gen).cuda()
+    pyramid = build_corr_pyramid(vol, LEVELS)
+    coords = (torch.rand((1, rows_w, w1), generator=gen) * (w1 + 20)
+              - 10).cuda()
+    win_err = float((lookup_pyramid_fused(pyramid, coords, RADIUS)
+                     - lookup_pyramid_xla(pyramid, coords, RADIUS)
+                     ).abs().max())
+    del vol, pyramid, coords
+    hk, wk = PADDED_HW[0] // 4, PADDED_HW[1] // 4
+    f1 = torch.randn((1, 256, hk, wk), generator=gen).cuda()
+    f2 = torch.randn((1, 256, hk, wk), generator=gen).cuda()
+    coords = (torch.rand((1, hk, wk), generator=gen) * (wk + 80)
+              - 40).cuda()
+    with torch.inference_mode():
+        unsharded = make_corr_fn(cfg, f1, f2)(coords)
+        sharded = make_corr_fn_w2_sharded(cfgs["corr"], f1, f2,
+                                          meshes["corr"])(coords)
+        plain = make_corr_fn_w2_sharded(
+            dataclasses.replace(cfgs["corr"], corr_backend="reg"), f1, f2,
+            meshes["corr"])(coords)
+    shard_err = float((sharded - plain).abs().max())
+    shard_vs_solo = float((sharded - unsharded).abs().max())
+    del f1, f2, coords, unsharded, sharded, plain
+    gate_err = 0.0
+    for shape in ((1, rows_w, w1, CH, 256),
+                  (1, rows_w // 2, w1 // 2, CH, 256),
+                  (1, rows_w // 4, w1 // 4, CH, 128)):
+        args = gate_args(gen, torch.device("cuda"), shape, torch.float32)
+        got = gru_gates_fused(*args)
+        gate_err = max(gate_err, max(
+            float((g - w).abs().max())
+            for g, w in zip(got, _gates_reference(*args))))
+    checks["kernels"] = (win_err <= LOOKUP_ATOL and shard_err <= LOOKUP_ATOL
+                         and shard_vs_solo <= LOOKUP_ATOL
+                         and gate_err <= GATES_ATOL)
+    out.update(lookup_window_err=win_err, lookup_shard_err=shard_err,
+               lookup_shard_vs_unsharded=shard_vs_solo, gates_err=gate_err)
+    log(f"phase 39 kernels at this slice's shapes: #1 on a rows window "
+        f"(1, {rows_w}, {w1}, {w1}) max |kernel - plain| {win_err:.3e}; #1 "
+        f"with shard-shifted centres over corr x2 at {hk}x{wk}: against "
+        f"the plain sharded lookup {shard_err:.3e}, against the unsharded "
+        f"lookup {shard_vs_solo:.3e} (<= {LOOKUP_ATOL:g}); #5 on the windows "
+        f"{gate_err:.3e} (<= {GATES_ATOL:g})")
+    release()
+
+    # (c) one default training step's loss and gradients at TrainConfig()
+    # under each axis against the unsharded step (and its one-ulp spread),
+    # at the default 22 iterations and at CP_GRAD_ITERS
+    tc = TrainConfig()
+    host = SyntheticStereoLoader(tc.batch_size, tc.image_size,
+                                 seed=SEED).batch(0)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in host.items()}
+    out["step"] = {}
+    for n in (tc.train_iters, CP_GRAD_ITERS):
+        tc_n = dataclasses.replace(tc, train_iters=n)
+        steps = {}
+        ref = None
+        for what, sd in (("solo", state), ("ulp", moved), ("rows", state),
+                         ("corr", state)):
+            m = model_of("solo" if what == "ulp" else what, sd).train()
+            zero_training_counts()
+            loss, grads, secs, peak = cp_grads(
+                m, batch, tc_n, contexts(what) if what in meshes else None)
+            steps[what] = {"loss": loss, "seconds": secs, "peak_gib": peak,
+                           "launches": training_counts()}
+            if what == "solo":
+                ref = grads
+            else:
+                steps[what]["grad_q99"] = grad_gap(grads, ref)
+            del m, grads
+            release()
+        del ref
+        base = abs(steps["solo"]["loss"])
+        loss_spread = abs(steps["ulp"]["loss"] - steps["solo"]["loss"]) / base
+        loss_bound = max(CP_LOSS_RTOL, CP_SPREAD_FACTOR * loss_spread)
+        grad_bound = max(CP_GRAD_Q99,
+                         CP_SPREAD_FACTOR * steps["ulp"]["grad_q99"])
+        for axis in meshes:
+            st = steps[axis]
+            st["loss_rel"] = abs(st["loss"] - steps["solo"]["loss"]) / base
+            want = {"lookup": 2 * n, "lookup_bwd": 2 * n,
+                    "gates": 2 * 6 * n if axis == "rows" else 6 * n,
+                    "alt": 0, "alt_bwd": 0}
+            if n == tc.train_iters:
+                counts[f"{axis}_step"] = st["launches"]
+            checks[f"{axis} step {n}"] = (st["loss_rel"] <= loss_bound
+                                          and st["grad_q99"] <= grad_bound
+                                          and st["launches"] == want)
+            log(f"phase 39 (c) {axis} x2, one default step at TrainConfig()"
+                f" (batch {tc.batch_size}, {tc.image_size[0]}x"
+                f"{tc.image_size[1]}, {n} iterations): loss "
+                f"{st['loss']:.6f} against {steps['solo']['loss']:.6f} (rel "
+                f"{st['loss_rel']:.2e} <= {loss_bound:.2e}); gradients' "
+                f"worst per-leaf q99 of |d| / scale {st['grad_q99']:.2e} "
+                f"(<= {grad_bound:.2e}: the larger of {CP_GRAD_Q99:g} and "
+                f"{CP_SPREAD_FACTOR:g}x the one-ulp weights' "
+                f"{steps['ulp']['grad_q99']:.2e}); seconds "
+                f"{steps['solo']['seconds']:.3f} / {st['seconds']:.3f}; peak "
+                f"{steps['solo']['peak_gib']:.3f} / {st['peak_gib']:.3f} GiB;"
+                f" launches {st['launches']} (want {want}): "
+                f"{'ok' if checks[f'{axis} step {n}'] else 'FAILED'}")
+        out["step"][n] = steps
+    del batch
+
+    # (d) an engine with xl_mesh rows=2 over the card named twice: a KITTI
+    # pair above the threshold rides the xl tier, against make_forward
+    # solo (and its one-ulp spread) on the same padded images
+    left, right = (np.ascontiguousarray(x[0].cpu().numpy().astype(np.uint8))
+                   for x in padded_pair(MAIN_HW, SEED + 39))
+    solo_out = {}
+    for what, sd in (("solo", state), ("ulp", moved)):
+        m = model_of("solo", sd)
+        with torch.inference_mode():
+            solo_out[what] = make_forward(m, CP_ITERS)(
+                *(torch.from_numpy(a[None]).cuda() for a in (left, right))
+            )[0].cpu().numpy()
+        del m
+        release()
+    zero_inference_counts()
+    with ServingEngine(cfg, state, ServeConfig(
+            iters=CP_ITERS, tiers=(), batch_sizes=(1,), max_batch=1,
+            xl_mesh="rows=2", xl_threshold_pixels=CP_XL_THRESHOLD),
+            device="cuda", xl_devices=group) as eng:
+        status = eng.xl_status()
+        res = eng.infer(left, right, timeout=600)
+        forced = eng.infer(left, right, tier="xl", timeout=600)
+        small = eng.infer(left[:96, :320], right[:96, :320], timeout=600)
+    xl_counts = {"lookup": lookup_pyramid_fused.launches,
+                 "gates": gru_gates_fused.launches}
+    release()
+    d_xl = float(np.abs(res.flow - solo_out["solo"]).max())
+    spread_xl = float(np.abs(solo_out["ulp"] - solo_out["solo"]).max())
+    xl_bound = max(CP_FLOW_ATOL, CP_SPREAD_FACTOR * spread_xl)
+    counts["xl"] = xl_counts
+    # two xl dispatches of CP_ITERS iterations on two shards each, and the
+    # small pair's solo capture (a warm-up and a capture)
+    want_xl = {"lookup": 2 * 2 * CP_ITERS + 2 * CP_ITERS,
+               "gates": 2 * 2 * 3 * CP_ITERS + 2 * 3 * CP_ITERS}
+    checks["xl"] = (status is not None and res.tier == "xl"
+                    and res.mesh == "rows2" and forced.tier == "xl"
+                    and np.array_equal(res.flow, forced.flow)
+                    and small.tier is None and small.mesh is None
+                    and d_xl <= xl_bound and xl_counts == want_xl)
+    out["xl"] = dict(status=status, flow_max_abs=d_xl, spread=spread_xl,
+                     bound=xl_bound, device_s=res.device_s,
+                     total_s=res.total_s)
+    log(f"phase 39 (d) engine xl_mesh=rows=2 over {group}: {status}; a "
+        f"{MAIN_HW[0]}x{MAIN_HW[1]} request above {CP_XL_THRESHOLD} px on "
+        f"tier {res.tier!r} mesh {res.mesh!r} ({res.device_s:.4f} s on the "
+        f"group), max |xl - make_forward solo| {d_xl:.3e} px (<= "
+        f"{xl_bound:.3e}, spread {spread_xl:.3e}); ?tier=xl the same "
+        f"answer; a 96x320 request solo (tier {small.tier!r}); launches "
+        f"{xl_counts} (want {want_xl}): {'ok' if checks['xl'] else 'FAILED'}")
+    ok = all(checks.values())
+    log(f"phase 39 took {time.perf_counter() - t_phase:.1f} s on {card}: "
+        f"{'ok' if ok else 'FAILED ' + str([k for k, v in checks.items() if not v])}")
+    if not ok:
+        raise AssertionError("phase 39 (context parallelism) failed its "
+                             "checks")
+    return counts, out
+
+
 def mark(what: str) -> None:
-    """Log the script's elapsed seconds where ``what`` starts."""
-    log(f"{what} starts at {time.perf_counter() - T_START:.1f} s")
+    """Log the script's elapsed seconds where ``what`` starts, and the
+    card's memory held by tensors and by the allocator's cache there."""
+    log(f"{what} starts at {time.perf_counter() - T_START:.1f} s (card "
+        f"memory allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+        f"GiB, reserved {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB)")
 
 
 def main() -> int:
@@ -6770,6 +7131,10 @@ def main() -> int:
     mark("phase 38")
     dp_counts, dp_out = phase_data_parallel(card)
 
+    # ----------------------------------------------------------- phase 39
+    mark("phase 39")
+    cp_counts, cp_out = phase_context_parallel(cfg, state, card)
+
     def row(name_, source, replaces, launched, err, t, design=None):
         """One entry of the kernels line; ``t`` holds graph-replay times."""
         out = {"name": name_, "route": "cuda",
@@ -6795,6 +7160,7 @@ def main() -> int:
         out["launches_fleet"] = fleet.get(name_, 0)
         out["launches_banded"] = banded.get(name_, {})
         out["launches_data_parallel"] = data_parallel.get(name_, 0)
+        out["launches_context_parallel"] = context_parallel.get(name_, {})
         return out
 
     # the wrappers' counts over phase 30's engines (set to 0 before each)
@@ -6864,6 +7230,13 @@ def main() -> int:
     data_parallel = {"corr_lookup": dp_counts["lookup"],
                      "corr_lookup_bwd": dp_counts["lookup_bwd"],
                      "gru_gates": dp_counts["gates"]}
+    # phase 39: each sharded pair, each sharded step and the xl engine's
+    # three requests (every count checked in its phase)
+    context_parallel = {
+        "corr_lookup": {k: c["lookup"] for k, c in cp_counts.items()},
+        "corr_lookup_bwd": {k: c["lookup_bwd"] for k, c in cp_counts.items()
+                            if "lookup_bwd" in c},
+        "gru_gates": {k: c["gates"] for k, c in cp_counts.items()}}
 
     lookup_t.update(bound=lookup_bound_ms, by="bytes")
     lbwd_t.update(bound=lbwd_bound, by="bytes")
@@ -6921,6 +7294,7 @@ def main() -> int:
     log(f"phase 36 measurements: {json.dumps(fleet_out)}")
     log(f"phase 37 measurements: {json.dumps(banded_out)}")
     log(f"phase 38 measurements: {json.dumps(dp_out)}")
+    log(f"phase 39 measurements: {json.dumps(cp_out)}")
     log(f"chip_smoke.py total {time.perf_counter() - T_START:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -5,9 +5,10 @@ Checkpoints describe themselves: a port checkpoint directory carries
 inferred from the weights.  CLI architecture flags exist only as
 overrides of the few runtime switches the weights do not record.
 ``--banded_encoder`` streams the encoders' full-resolution segment in
-bands (models/banded.py).  The flags of the context-parallel executors
-are accepted, as in the JAX package, and raise: that machinery is not
-ported (ROADMAP.md §D7).
+bands (models/banded.py).  ``--rows_shards``, ``--rows_gru``,
+``--rows_gru_halo`` and ``--corr_w2_shards`` run the context-parallel
+executors over a group of this process's devices (parallel/); a group the
+devices cannot supply is refused.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ import torch
 
 from raft_stereo_tpu_torch.config import RaftStereoConfig
 
-_D7 = "§D7 parallel executors"
 
 
 def setup_logging():
@@ -44,25 +44,25 @@ def add_arch_overrides(parser: argparse.ArgumentParser):
                         help="stream the encoders' full-resolution stages "
                              "in bands (lower peak card memory for large "
                              "frames, at the cost of recomputing the stem)")
+    # context parallelism over a device group of this process
+    # (parallel/rows_sharded.py, rows_gru.py, corr_sharded.py)
     parser.add_argument("--rows_shards", type=int, default=None,
-                        help=f"not ported (ROADMAP.md {_D7}); raises")
+                        help="shard image rows over this many devices "
+                             "(context parallelism for the encoder trunk)")
     parser.add_argument("--rows_gru", action="store_true",
-                        help=f"not ported (ROADMAP.md {_D7}); raises")
+                        help="extend rows sharding through the corr volume, "
+                             "GRU iterations, and upsample (full-loop "
+                             "context parallelism; requires --rows_shards)")
     parser.add_argument("--rows_gru_halo", type=int, default=None,
-                        help=f"not ported (ROADMAP.md {_D7}); raises")
+                        help="fine-level halo rows for --rows_gru window "
+                             "exchange (default: derived from the GRU "
+                             "receptive field)")
     parser.add_argument("--corr_w2_shards", type=int, default=None,
-                        help=f"not ported (ROADMAP.md {_D7}); raises")
+                        help="shard the correlation volume's W2 axis over "
+                             "this many devices")
 
 
 def arch_overrides(args) -> Dict[str, Any]:
-    for flag, on in (("--rows_shards", args.rows_shards),
-                     ("--rows_gru", args.rows_gru),
-                     ("--rows_gru_halo", args.rows_gru_halo is not None),
-                     ("--corr_w2_shards", args.corr_w2_shards)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported to the PyTorch package yet "
-                f"(ROADMAP.md {_D7})")
     out: Dict[str, Any] = {}
     if args.corr_implementation:
         out["corr_backend"] = args.corr_implementation
@@ -72,6 +72,14 @@ def arch_overrides(args) -> Dict[str, Any]:
         out["mixed_precision"] = True
     if args.banded_encoder:
         out["banded_encoder"] = True
+    if args.rows_shards:
+        out["rows_shards"] = args.rows_shards
+    if args.rows_gru:
+        out["rows_gru"] = True
+    if args.rows_gru_halo is not None:
+        out["rows_gru_halo"] = args.rows_gru_halo
+    if args.corr_w2_shards:
+        out["corr_w2_shards"] = args.corr_w2_shards
     return out
 
 

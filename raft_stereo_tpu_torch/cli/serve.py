@@ -16,8 +16,8 @@ the batch-N serving engine on the card (serving/engine.py).
     curl -s -X DELETE http://127.0.0.1:8551/v1/stream/cam0
 
 The JAX package's ``raft-serve``: every flag of its parser under the same
-name and default.  The xl mesh's flags (ROADMAP §D7) raise
-``NotImplementedError`` when set.  ``--sessions`` turns on streaming
+name and default.  ``--xl_mesh`` serves the xl tier over groups of this
+process's devices.  ``--sessions`` turns on streaming
 sessions (warm start from the previous frame; ``--session_hidden``,
 ``--session_ctx_cache`` and the other session flags as in JAX).  The
 engine is built from a port checkpoint directory or a reference ``.pth``
@@ -215,7 +215,8 @@ def run_serve(args) -> int:
             signal.signal(sig, _graceful)
 
     log.info("serving on %s (batch sizes %s, queue<=%d, %d device "
-             "worker(s), %s buckets, tiers %s, sessions %s)", server.url,
+             "worker(s), %s buckets, tiers %s, sessions %s, xl %s)",
+             server.url,
              service.queue.sizes, service.serve_cfg.max_queue,
              len(service.devices),
              "adaptive" if service.policy.adaptive else "static",
@@ -223,7 +224,10 @@ def run_serve(args) -> int:
               if service.tiers else "off"),
              (f"on (ttl {service.serve_cfg.session_ttl_s:.0f}s, "
               f"capacity {service.serve_cfg.session_capacity})"
-              if service.sessions is not None else "off"))
+              if service.sessions is not None else "off"),
+             (f"{service.serve_cfg.xl_mesh} "
+              f"(>{service.serve_cfg.xl_threshold_pixels}px)"
+              if service.xl_enabled else "off"))
     try:
         while not stop.is_set() and server._thread.is_alive():
             server._thread.join(timeout=0.5)
@@ -550,15 +554,34 @@ def build_parser() -> argparse.ArgumentParser:
                         "latency is always the harder bound)")
     # XL tier + tiling fallback (docs/architecture.md §Serving, "XL tier").
     p.add_argument("--xl_mesh", default=None,
-                   help="not ported (ROADMAP.md §D7); raises")
+                   help="serve an XL tier whose bucket programs run "
+                        "context-parallel over a device group, e.g. "
+                        "'rows=4' (image-row context parallelism through "
+                        "the whole forward) or 'rows=2,corr=2' "
+                        "(rows-sharded encoders x disparity-sharded "
+                        "correlation volume).  One xl worker owns "
+                        "rows*corr devices (allocated after the "
+                        "--data_parallel solo workers); requests whose "
+                        "padded bucket exceeds --xl_threshold_pixels (or "
+                        "that pass ?tier=xl) run ONE sharded dispatch "
+                        "instead of one device.  A replica with too few "
+                        "devices for the mesh logs a typed skip and "
+                        "serves without the tier")
     p.add_argument("--xl_workers", type=int, default=1,
-                   help="not ported (ROADMAP.md §D7); raises")
+                   help="independent xl device groups (each of "
+                        "rows*corr devices)")
     p.add_argument("--xl_threshold_pixels", type=int, default=2_000_000,
-                   help="not ported (ROADMAP.md §D7); raises")
+                   help="padded-bucket pixel count above which requests "
+                        "route to the xl family automatically")
     p.add_argument("--xl_max_pixels", type=int, default=None,
-                   help="not ported (ROADMAP.md §D7); raises")
+                   help="the mesh's own ceiling: buckets past this fall "
+                        "through to halo-overlap tiling (size it from "
+                        "the mesh's measured per-device memory); unset = "
+                        "the mesh takes everything above the threshold")
     p.add_argument("--xl_batch_sizes", default="1",
-                   help="not ported (ROADMAP.md §D7); raises")
+                   help="comma list of batch sizes built per xl bucket "
+                        "(default 1: megapixel pairs are latency-bound "
+                        "and the mesh already uses the devices)")
     p.add_argument("--tile_threshold_pixels", type=int, default=None,
                    help="padded-bucket pixel count above which requests "
                         "that did not take the xl route are answered by "

@@ -10,15 +10,17 @@ the slow-fast GRU schedule, fp32 or bf16 (``mixed_precision``) with
 ``corr_fp32``, ``remat_gru`` with any ``remat_save`` the JAX package
 accepts (models/remat.py), and the
 quantized inference tier (``quant`` "int8" or "int8_mxu", the 1-byte
-correlation of ``quant_corr``, calibrated ``quant_corr_scales``), and the
-banded encoder (``banded_encoder``, ``band_rows``: models/banded.py).
+correlation of ``quant_corr``, calibrated ``quant_corr_scales``), the
+banded encoder (``banded_encoder``, ``band_rows``: models/banded.py) and
+context parallelism over a device group (``rows_shards``, ``rows_gru``,
+``rows_gru_halo``, ``corr_w2_shards``: parallel/rows_sharded.py,
+rows_gru.py, corr_sharded.py, under their ``rows_sharding``/
+``corr_sharding`` mesh contexts).
 ``quant_corr_fp8`` stores the correlation as float8_e4m3fn on every
 device: torch has the type on the CPU and Hopper reads it natively, so
 the port has no capability fallback to int8 (the JAX package falls back
 where its backend lacks fp8).
-``TrainConfig`` is likewise a copy of the JAX package's.  Every option
-outside that raises ``NotImplementedError`` at construction, naming the
-ROADMAP item that will bring it, so no setting is silently ignored.
+``TrainConfig`` is likewise a copy of the JAX package's.
 
 Convention: ``hidden_dims[0]`` is the FINEST GRU level (1/2^n_downsample
 resolution) and ``hidden_dims[-1]`` the coarsest, as in the JAX package.
@@ -45,8 +47,8 @@ _REFERENCE_CORR_ALIASES = {
 class RaftStereoConfig:
     """Architecture of one RAFT-Stereo model.
 
-    Field meanings are those of the JAX package's config; the port
-    implements the subset ``_unsupported`` does not reject."""
+    Field meanings are those of the JAX package's config, and the port
+    implements every one of them, with the JAX package's validations."""
 
     hidden_dims: Tuple[int, ...] = (128, 128, 128)
     context_dims: Optional[Tuple[int, ...]] = None
@@ -127,6 +129,22 @@ class RaftStereoConfig:
         if unknown:
             raise ValueError(f"remat_save names {sorted(unknown)} unknown; "
                              f"choose from {sorted(known_saves)}")
+        if self.rows_gru:
+            if self.rows_shards <= 1:
+                raise ValueError(
+                    "rows_gru extends rows_shards' context parallelism "
+                    "through the GRU loop — set rows_shards > 1")
+            if self.corr_w2_shards > 1:
+                raise ValueError(
+                    "rows_gru and corr_w2_shards>1 both reshard the "
+                    "correlation volume; the combination is unsupported — "
+                    "pick row sharding OR disparity-axis sharding")
+        if self.rows_gru_halo is not None and (self.rows_gru_halo < 8
+                                               or self.rows_gru_halo % 4):
+            raise ValueError(
+                f"rows_gru_halo={self.rows_gru_halo} must be a multiple of "
+                f"4, >= 8 (GRU pyramid alignment; see "
+                f"parallel/rows_gru.default_gru_halo)")
         if self.quant not in ("off", "int8", "int8_mxu"):
             raise ValueError(
                 f"quant={self.quant!r} not in ('off', 'int8', 'int8_mxu')")
@@ -160,15 +178,16 @@ class RaftStereoConfig:
             raise ValueError(
                 f"exit_max_iters={self.exit_max_iters} must be >= "
                 f"exit_min_iters={self.exit_min_iters}")
+        if self.exit_threshold_px > 0 and self.rows_gru:
+            raise ValueError(
+                "exit_threshold_px > 0 (adaptive early exit) is "
+                "unsupported with rows_gru: the row-sharded loop executor "
+                "runs a fixed-depth program (parallel/rows_gru.py)")
         if self.corr_w2_shards > 1 and self.corr_backend == "alt":
             raise ValueError(
                 f"corr_w2_shards={self.corr_w2_shards} shards the 'reg' "
                 f"volume and is incompatible with corr_backend='alt' (which "
                 f"builds no volume) — use 'reg' or 'reg_fused'")
-        for field, roadmap_item in _unsupported(self):
-            raise NotImplementedError(
-                f"{field} is not ported to the PyTorch package yet "
-                f"(ROADMAP.md {roadmap_item})")
 
     # ------------------------------------------------------------------ sizes
     @property
@@ -212,17 +231,6 @@ class RaftStereoConfig:
         return cls(shared_backbone=True, n_downsample=3, n_gru_layers=2,
                    slow_fast_gru=True, corr_backend="alt",
                    mixed_precision=True)
-
-
-def _unsupported(cfg: RaftStereoConfig):
-    """(field, ROADMAP item) for every set option this slice does not run."""
-    checks = (
-        ("rows_shards > 1", "§D7 parallel executors", cfg.rows_shards > 1),
-        ("rows_gru", "§D7 parallel executors", cfg.rows_gru),
-        ("corr_w2_shards > 1", "§D7 parallel executors",
-         cfg.corr_w2_shards > 1),
-    )
-    return [(field, item) for field, item, on in checks if on]
 
 
 # ------------------------------------------------------------ request tiers

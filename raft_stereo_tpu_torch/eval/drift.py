@@ -23,6 +23,7 @@ the designated low-precision variant against the reference.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
@@ -111,7 +112,12 @@ def evaluate_variants(metric: str, weights_tag: str,
                                preds, ref, drift_of)
             print(json.dumps(rec), flush=True)
             rows.append(rec)
+        # a runner holds itself through its program cache's eviction
+        # callback, so ``del`` alone leaves its CUDA graphs and their
+        # memory pools to the cyclic collector: collect now, before the
+        # next depth's runners capture theirs
         del runners
+        gc.collect()
     return rows
 
 

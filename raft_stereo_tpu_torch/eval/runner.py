@@ -204,6 +204,58 @@ def make_forward(model: RAFTStereo, iters: int,
     return forward
 
 
+class MeshForward:
+    """A context-parallel inference program with ``make_forward``'s
+    calling convention: the forward of a model whose config shards rows
+    (``rows_shards``, ``rows_gru``) or the correlation's disparity axis
+    (``corr_w2_shards``) over the device group of ``mesh``, run under the
+    mesh contexts the model's executors read (``rows_sharding``,
+    ``corr_sharding``, as the JAX package's ``MeshForward`` re-enters
+    them around every trace).  The images come in on the group's first
+    device, where the model's parameters live, and the flow comes out
+    gathered there.  It runs eagerly: a CUDA graph captured on one card
+    does not span a group of cards."""
+
+    def __init__(self, forward, mesh):
+        self._forward = forward
+        self.mesh = mesh
+
+    def __call__(self, *args):
+        from raft_stereo_tpu_torch.parallel.mesh import mesh_contexts
+
+        first = self.mesh.devices[0]
+        with mesh_contexts(self.mesh):
+            out = self._forward(*(a.to(first) for a in args))
+        return out.to(first)
+
+
+def make_forward_mesh(model: RAFTStereo, iters: int, mesh,
+                      fetch_dtype: Optional[torch.dtype] = None):
+    """The context-parallel variant of ``make_forward`` (the JAX
+    package's): one program whose forward runs over ``mesh``'s device
+    group as the model's config shards it, the images in and the
+    full-resolution flow out on the group's first device.  Same calling
+    convention and numerics contract as the base program: ``fn(images1,
+    images2) -> (N, Hp, Wp) flow``, equal to the solo program up to float
+    reassociation.  With nothing sharded (every axis 1) this IS
+    ``make_forward``, so an unsharded xl tier runs the solo program.
+
+    Early exit is refused here (the row-sharded loop runs a fixed-depth
+    program, and every mesh program has one output arity), as are the
+    streaming families (sessions stay on one device)."""
+    cfg = model.config
+    rows, corr = cfg.rows_shards, cfg.corr_w2_shards
+    if early_exit_enabled(cfg):
+        raise ValueError(
+            "make_forward_mesh: early exit (exit_threshold_px > 0) is "
+            "unsupported on mesh-sharded programs — xl tiers run the "
+            "fixed-depth program")
+    forward = make_forward(model, iters, fetch_dtype)
+    if rows <= 1 and corr <= 1:
+        return forward
+    return MeshForward(forward, mesh)
+
+
 def _outputs(out, fetch_dtype, stream: bool):
     """The model's test-mode tuple -> the program's outputs."""
     flow_up = out[1] if fetch_dtype is None else out[1].to(fetch_dtype)
@@ -281,16 +333,19 @@ class PlainForward:
     program's inputs as flat numpy arrays (``spec`` their structure, as
     ``tree_flatten`` gives it) and returns its outputs likewise."""
 
-    def __init__(self, forward, spec):
+    def __init__(self, forward, spec, device: Optional[torch.device] = None):
         self.forward = forward
         self.spec = spec
+        self.device = device
 
     def __call__(self, *arrays: np.ndarray) -> List[np.ndarray]:
         with torch.inference_mode():
-            args = tree_unflatten([torch.from_numpy(a) for a in arrays],
-                                  self.spec)
+            args = tree_unflatten([torch.from_numpy(a).to(self.device)
+                                   if self.device is not None
+                                   else torch.from_numpy(a)
+                                   for a in arrays], self.spec)
             flat, _ = tree_flatten(self.forward(*args))
-        return [_to_numpy(t) for t in flat]
+        return [_to_numpy(t.cpu()) for t in flat]
 
 
 def _dtype(a) -> torch.dtype:
@@ -483,7 +538,8 @@ class ProgramCache:
     side stream and one memory pool.  ``add`` evicts the cache's oldest
     entries past the limit (``on_evict(cache, key)`` after each), then
     wraps ``forward``: a ``WhileForward`` (early exit) or ``GraphForward``
-    on the card, a ``PlainForward`` on the CPU.  A pool whose graphs are
+    on the card, a ``PlainForward`` on the CPU and for a ``MeshForward``
+    (eager on the group, uploading to its first device).  A pool whose graphs are
     all gone cannot be shared again, so a build into empty caches takes a
     new one."""
 
@@ -517,7 +573,11 @@ class ProgramCache:
                      "%s; its next use captures again", self.limit, evicted)
             if self.on_evict is not None:
                 self.on_evict(cache, evicted)
-        if self.device.type == "cuda":
+        if isinstance(forward, MeshForward):
+            # eager on the card too: a captured graph does not span the
+            # group's devices
+            entry = PlainForward(forward, spec, self.device)
+        elif self.device.type == "cuda":
             if self.pool is None or not any(self.caches):
                 self.stream = self.stream or torch.cuda.Stream(self.device)
                 self.pool = torch.cuda.graph_pool_handle()
@@ -598,7 +658,7 @@ class InferenceRunner:
                  exit_min_iters: Optional[int] = None,
                  quant: Optional[str] = None,
                  quant_act_scales: Optional[Mapping[str, float]] = None,
-                 cost_registry=None):
+                 cost_registry=None, mesh=None):
         if shape_bucket is not None and shape_bucket % divis_by:
             raise ValueError(f"shape_bucket={shape_bucket} must be a "
                              f"multiple of the model's /{divis_by} "
@@ -646,6 +706,23 @@ class InferenceRunner:
         self.captures = 0
         self.replays = 0
         self.cost_registry = cost_registry
+        # a context-parallel config runs over a device group: ``mesh``
+        # (parallel/mesh.make_mesh), by default the group of this
+        # process's own devices, refused where they cannot supply it; the
+        # model lives on the group's first device
+        self.mesh = None
+        cfg = self.effective_config
+        if cfg.rows_shards > 1 or cfg.corr_w2_shards > 1:
+            from raft_stereo_tpu_torch.parallel.mesh import make_mesh
+            self.mesh = mesh or make_mesh(n_corr=cfg.corr_w2_shards,
+                                          n_rows=cfg.rows_shards)
+            if self.mesh.devices[0].type != self.device.type:
+                raise ValueError(
+                    f"the mesh's first device {self.mesh.devices[0]} must "
+                    f"be the runner's device {self.device}")
+            self.device = self.mesh.devices[0]
+            self.model = self.model.to(self.device)
+            self._programs.device = self.device
         self.last_iters_used: Optional[int] = None
         self._iters_used_sum = 0
         self._iters_used_calls = 0
@@ -685,8 +762,17 @@ class InferenceRunner:
         entry = self._programs.get(cache, key)
         if entry is not None:
             return entry, arrays
-        forward = make_forward(self.model, self.iters, self.fetch_dtype,
-                               **flags)
+        if self.mesh is not None:
+            if any(flags.values()):
+                raise ValueError(
+                    "the streaming programs (warm start, hidden state, "
+                    "context cache) are unsupported with rows_shards/"
+                    "corr_w2_shards: sessions stay on one device")
+            forward = make_forward_mesh(self.model, self.iters, self.mesh,
+                                        self.fetch_dtype)
+        else:
+            forward = make_forward(self.model, self.iters,
+                                   self.fetch_dtype, **flags)
         entry = self._programs.add(cache, key, forward, arrays, spec,
                                    self.early_exit)
         if cache is self._compiled and self.cost_registry is not None:

@@ -85,22 +85,39 @@ def _norm(module: torch.nn.Module, x: torch.Tensor,
     return module(x)
 
 
-def _segment(trunk, xb: torch.Tensor,
-             stats: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]],
-             upto: int, row_mask: torch.Tensor):
+def _segment(trunk, xb: torch.Tensor, stats, upto: int,
+             row_mask: torch.Tensor):
     """The full-resolution segment of ``trunk`` on one haloed band
     ``xb`` (N, 3, rows, W).
 
     ``upto`` 1..5 returns the input of instance norm ``upto`` (a
     statistics sweep); 6 returns layer2_0's two stride-2 conv outputs.
     ``stats``: the instance norms' (mean, var) so far, or None (batch or
-    no norm).  ``row_mask`` (rows,) is True on the band's rows inside the
-    image; every activation is masked with it."""
+    no norm); or a callable ``stats(k, t) -> (mean, var)`` giving norm
+    ``k``'s global statistics from its input ``t`` as the segment reaches
+    it (one pass pausing at each norm, the row-sharded executor's use:
+    ``parallel/rows_sharded.py`` drives ``_segment_steps`` itself to run
+    its shards in step).  ``row_mask`` (rows,) is True on the band's rows
+    inside the image; every activation is masked with it."""
+    steps = _segment_steps(trunk, xb, upto, row_mask)
+    reply = None
+    while True:
+        try:
+            k, t = steps.send(reply)
+        except StopIteration as done:
+            return done.value
+        if callable(stats):
+            reply = stats(k, t)
+        else:
+            reply = stats[k] if stats else None
+
+
+def _segment_steps(trunk, xb: torch.Tensor, upto: int,
+                   row_mask: torch.Tensor):
+    """``_segment`` as a generator: yields ``(k, t)`` at each norm ``k``
+    (t its input) and takes that norm's (mean, var) or None back."""
     m = row_mask[None, None, :, None]
     l10, l11, l20 = trunk.layer1_0, trunk.layer1_1, trunk.layer2_0
-
-    def norm(i, module, t):
-        return _norm(module, t, stats[i] if stats else None)
 
     def mask(t):
         return torch.where(m, t, torch.zeros((), dtype=t.dtype,
@@ -109,23 +126,23 @@ def _segment(trunk, xb: torch.Tensor,
     t1 = trunk.conv1(xb)
     if upto == 1:
         return t1
-    a1 = mask(F.relu(norm(0, trunk.norm1, t1)))
+    a1 = mask(F.relu(_norm(trunk.norm1, t1, (yield 0, t1))))
     t2 = l10.conv1(a1)
     if upto == 2:
         return t2
-    a2 = mask(F.relu(norm(1, l10.norm1, t2)))
+    a2 = mask(F.relu(_norm(l10.norm1, t2, (yield 1, t2))))
     t3 = l10.conv2(a2)
     if upto == 3:
         return t3
-    b1 = mask(F.relu(a1 + F.relu(norm(2, l10.norm2, t3))))
+    b1 = mask(F.relu(a1 + F.relu(_norm(l10.norm2, t3, (yield 2, t3)))))
     t4 = l11.conv1(b1)
     if upto == 4:
         return t4
-    a4 = mask(F.relu(norm(3, l11.norm1, t4)))
+    a4 = mask(F.relu(_norm(l11.norm1, t4, (yield 3, t4))))
     t5 = l11.conv2(a4)
     if upto == 5:
         return t5
-    b2 = mask(F.relu(b1 + F.relu(norm(4, l11.norm2, t5))))
+    b2 = mask(F.relu(b1 + F.relu(_norm(l11.norm2, t5, (yield 4, t5)))))
     return l20.conv1(b2), l20.downsample_conv(b2)
 
 

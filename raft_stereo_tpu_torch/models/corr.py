@@ -16,6 +16,9 @@ Backends:
                   (the CUDA kernel on a CUDA tensor).
 ``corr_fp32`` upcasts both feature maps to fp32 before any backend, as the
 JAX package does, so even the dtype-keeping backends run fp32.
+``corr_w2_shards > 1`` builds the ``reg``/``reg_fused`` volume sharded over
+the disparity axis of the active mesh's corr devices
+(parallel/corr_sharded.py, under ``corr_sharding(mesh)``).
 
 The quantized tier (``quant`` "int8" or "int8_mxu" with ``quant_corr``)
 stores the correlation in one byte, int8 or, with ``quant_corr_fp8``,
@@ -233,6 +236,18 @@ def make_corr_fn(cfg: RaftStereoConfig, fmap1: torch.Tensor,
     (the features or the pyramid levels)."""
     if cfg.corr_fp32:
         fmap1, fmap2 = fmap1.float(), fmap2.float()
+    if cfg.corr_w2_shards > 1:
+        # the disparity-axis-sharded volume over the active mesh's corr
+        # devices (parallel/corr_sharded.py); ``alt`` builds no volume
+        # and is refused by the config
+        from raft_stereo_tpu_torch.parallel.corr_sharded import (
+            active_corr_mesh, make_corr_fn_w2_sharded)
+        mesh = active_corr_mesh()
+        if mesh is None:
+            raise RuntimeError(
+                f"corr_w2_shards={cfg.corr_w2_shards} needs an active mesh: "
+                "run the model under parallel.corr_sharded.corr_sharding(mesh)")
+        return make_corr_fn_w2_sharded(cfg, fmap1, fmap2, mesh)
     if cfg.corr_backend == "alt":
         return _make_corr_fn_alt(cfg, fmap1, fmap2)
     if corr_quant_enabled(cfg):

@@ -218,6 +218,21 @@ class RAFTStereo(nn.Module):
         if cfg.quant != "off" and not test_mode:
             raise ValueError(f"quant={cfg.quant!r} is an inference tier: "
                              f"the model runs in test mode only")
+        if cfg.rows_gru:
+            if hidden_init is not None or return_hidden:
+                raise ValueError("hidden_init/return_hidden are unsupported "
+                                 "with rows_gru (the sharded loop executor "
+                                 "owns its own state layout)")
+            if return_confidence:
+                raise ValueError("return_confidence is unsupported with "
+                                 "rows_gru (the sharded loop executor owns "
+                                 "its own state layout)")
+            if ctx_init is not None or return_ctx:
+                raise ValueError("ctx_init/return_ctx are unsupported with "
+                                 "rows_gru (the sharded loop executor owns "
+                                 "its own context layout)")
+            return self._rows_gru_forward(image1, image2, iters, flow_init,
+                                          test_mode)
         step, net, disp, ctx_out = self.begin(
             image1, image2, flow_init, hidden_init, ctx_init, return_ctx)
 
@@ -258,45 +273,13 @@ class RAFTStereo(nn.Module):
         and correlation, ``net`` and ``disp`` the loop's initial state and
         ``ctx_out`` the ``return_ctx`` bundle (None unless asked)."""
         cfg = self.config
-        if ctx_init is not None and cfg.shared_backbone:
-            raise ValueError(
-                "ctx_init is unsupported with shared_backbone: fnet is "
-                "computed from the cnet trunk there, so the context "
-                "encoder cannot be skipped")
         dtype = self.compute_dtype
-        img1, img2 = self.normalize(image1), self.normalize(image2)
-        levels, fmap1, fmap2 = self.encode(img1, img2,
-                                           context=ctx_init is None)
-
-        if ctx_init is not None:
-            net = [n.to(dtype) for n in ctx_init[0]]
-            context = [tuple(c.to(dtype) for c in cs) for cs in ctx_init[1]]
-        else:
-            # levels[l] = [hidden_head, context_head], fine -> coarse
-            net = [torch.tanh(lv[0]) for lv in levels]
-            context = [
-                tuple(torch.chunk(
-                    getattr(self, f"context_zqr_conv{l}")(F.relu(lv[1])), 3,
-                    dim=1))
-                for l, lv in enumerate(levels)]
-        # taken before the loop: a frame that reuses it starts where a
-        # cold frame would
-        ctx_out = ((tuple(net), tuple(tuple(c) for c in context))
-                   if return_ctx else None)
-        if hidden_init is not None:
-            if len(hidden_init) != len(net):
-                raise ValueError(
-                    f"hidden_init carries {len(hidden_init)} levels, model "
-                    f"has {len(net)} GRU levels")
-            net = [h.to(dtype) for h in hidden_init]
-
+        net, context, disp, ctx_out, fmap1, fmap2 = self._start(
+            image1, image2, flow_init, hidden_init, ctx_init, return_ctx)
         b, _, h8, w8 = net[0].shape
-        disp = torch.zeros((b, h8, w8), device=img1.device)
-        if flow_init is not None:
-            disp = disp + flow_init
         with annotate("corr_pyramid"):
             corr_fn = make_corr_fn(cfg, fmap1, fmap2)
-        grid_x = coords_grid_x(b, h8, w8, device=img1.device)
+        grid_x = coords_grid_x(b, h8, w8, device=disp.device)
 
         def lookup(disp):
             return corr_fn(grid_x + disp).to(dtype).permute(0, 3, 1, 2)
@@ -337,6 +320,85 @@ class RAFTStereo(nn.Module):
         step.motion = motion_features
         return step, net, disp, ctx_out
 
+
+    def _start(self, image1: torch.Tensor, image2: torch.Tensor,
+               flow_init=None, hidden_init=None, ctx_init=None,
+               return_ctx: bool = False):
+        """The encoders and the loop's initial state: ``(net, context,
+        disp, ctx_out, fmap1, fmap2)``."""
+        cfg = self.config
+        if ctx_init is not None and cfg.shared_backbone:
+            raise ValueError(
+                "ctx_init is unsupported with shared_backbone: fnet is "
+                "computed from the cnet trunk there, so the context "
+                "encoder cannot be skipped")
+        dtype = self.compute_dtype
+        img1, img2 = self.normalize(image1), self.normalize(image2)
+        levels, fmap1, fmap2 = self.encode(img1, img2,
+                                           context=ctx_init is None)
+
+        if ctx_init is not None:
+            net = [n.to(dtype) for n in ctx_init[0]]
+            context = [tuple(c.to(dtype) for c in cs) for cs in ctx_init[1]]
+        else:
+            # levels[l] = [hidden_head, context_head], fine -> coarse
+            net = [torch.tanh(lv[0]) for lv in levels]
+            context = [
+                tuple(torch.chunk(
+                    getattr(self, f"context_zqr_conv{l}")(F.relu(lv[1])), 3,
+                    dim=1))
+                for l, lv in enumerate(levels)]
+        # taken before the loop: a frame that reuses it starts where a
+        # cold frame would
+        ctx_out = ((tuple(net), tuple(tuple(c) for c in context))
+                   if return_ctx else None)
+        if hidden_init is not None:
+            if len(hidden_init) != len(net):
+                raise ValueError(
+                    f"hidden_init carries {len(hidden_init)} levels, model "
+                    f"has {len(net)} GRU levels")
+            net = [h.to(dtype) for h in hidden_init]
+
+        b, _, h8, w8 = net[0].shape
+        disp = torch.zeros((b, h8, w8), device=img1.device)
+        if flow_init is not None:
+            disp = disp + flow_init
+        return net, context, disp, ctx_out, fmap1, fmap2
+
+    def _rows_gru_forward(self, image1, image2, iters, flow_init,
+                          test_mode):
+        """The forward with the whole refinement loop row-sharded over
+        the active mesh's rows devices (parallel/rows_gru.py); the
+        encoders' trunks already ran row-sharded on the same devices
+        (``encode``)."""
+        from raft_stereo_tpu_torch.parallel.rows_gru import \
+            rows_sharded_gru_loop
+        mesh, axis = self._rows_mesh()
+        net, context, disp, _, fmap1, fmap2 = self._start(
+            image1, image2, flow_init)
+        out = rows_sharded_gru_loop(
+            self.config, self.compute_dtype, self.update_block, fmap1,
+            fmap2, net, context, disp, iters, test_mode, mesh, axis)
+        return out if not test_mode else tuple(out)
+
+    def _rows_mesh(self):
+        """The active ``(mesh, axis)`` of ``rows_shards``, checked."""
+        from raft_stereo_tpu_torch.parallel.rows_sharded import \
+            active_rows_mesh
+        cfg = self.config
+        active = active_rows_mesh()
+        if active is None:
+            raise RuntimeError(
+                f"rows_shards={cfg.rows_shards} needs an active mesh: run "
+                "the model under parallel.rows_sharded.rows_sharding(mesh)")
+        mesh, axis = active
+        n = len(mesh.axis_devices(axis))
+        if n != cfg.rows_shards:
+            raise ValueError(
+                f"rows_shards={cfg.rows_shards} != mesh axis {axis!r} size "
+                f"{n}")
+        return mesh, axis
+
     def normalize(self, image: torch.Tensor) -> torch.Tensor:
         """A (B, H, W, 3) 0..255 image as the encoders take it: -1..1,
         NCHW, in the compute dtype."""
@@ -352,7 +414,11 @@ class RAFTStereo(nn.Module):
         # ``banded_encoder``: each encoder's trunk streams its
         # full-resolution segment in bands (models/banded.py), through the
         # encoders' ``trunk_out`` hook on the same parameters
-        trunk = self._banded_trunk() if cfg.banded_encoder else None
+        # ``rows_shards`` > 1: the trunks' full-resolution segment runs
+        # with its rows split over the active mesh's rows devices
+        # (parallel/rows_sharded.py), on the same parameters
+        trunk = (self._banded_trunk() if cfg.banded_encoder
+                 else self._rows_trunk() if cfg.rows_shards > 1 else None)
 
         def run(encoder, x, norm_fn):
             return encoder(x, trunk_out=None if trunk is None
@@ -386,8 +452,26 @@ class RAFTStereo(nn.Module):
         """The banded trunk executor ``(trunk, x, norm_fn) -> trunk
         output`` at ``config.band_rows``, after the JAX model's check that
         every encoder it runs has a supported norm."""
-        from raft_stereo_tpu_torch.models.banded import (banded_supported,
-                                                         banded_trunk_apply)
+        cfg = self.config
+        from raft_stereo_tpu_torch.models.banded import banded_trunk_apply
+        self._check_trunk_norms()
+        return lambda trunk, x, norm_fn: banded_trunk_apply(
+            trunk, x, norm_fn, band=cfg.band_rows)
+
+    def _rows_trunk(self):
+        """The row-sharded trunk executor over the active mesh's rows
+        devices, after the same norm check as the banded one."""
+        from raft_stereo_tpu_torch.parallel.rows_sharded import \
+            rows_sharded_trunk_apply
+        self._check_trunk_norms()
+        mesh, axis = self._rows_mesh()
+        return lambda trunk, x, norm_fn: rows_sharded_trunk_apply(
+            trunk, x, norm_fn, mesh, axis)
+
+    def _check_trunk_norms(self) -> None:
+        """The JAX model's check that every encoder a trunk executor
+        runs has a supported norm."""
+        from raft_stereo_tpu_torch.models.banded import banded_supported
         cfg = self.config
         for norm in (cfg.context_norm,
                      *((cfg.fnet_norm,) if not cfg.shared_backbone else ())):
@@ -395,8 +479,6 @@ class RAFTStereo(nn.Module):
                 raise ValueError(
                     f"banded_encoder/rows_shards: norm {norm!r} with "
                     f"n_downsample={cfg.n_downsample} is unsupported")
-        return lambda trunk, x, norm_fn: banded_trunk_apply(
-            trunk, x, norm_fn, band=cfg.band_rows)
 
     def exit_bounds(self, iters: int):
         """``(limit, min_iters, threshold)`` of the early-exit loop at the

@@ -8,7 +8,7 @@ op runs in the activations' dtype (bf16 under mixed precision).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -127,24 +127,32 @@ class BasicMultiUpdateBlock(nn.Module):
                 flow: Optional[torch.Tensor] = None,
                 iter_fine: bool = True, iter_mid: bool = True,
                 iter_coarse: bool = True, update: bool = True,
-                motion: Optional[torch.Tensor] = None):
+                motion: Optional[torch.Tensor] = None,
+                interp_fn: Optional[Callable[[torch.Tensor, torch.Tensor],
+                                             torch.Tensor]] = None):
         """One update, coarse to fine (gru32 -> gru16 -> gru08), of the
         levels whose flag is set; ``iter_fine`` needs ``corr`` and
         ``flow``, or the motion encoder's output ``motion`` computed
         before (``remat_save`` "motion_features").  Returns (net, mask,
         delta_flow), or only net when ``update`` is False (the slow-fast
-        schedule's coarse-only steps)."""
+        schedule's coarse-only steps).
+
+        ``interp_fn(x, dest)`` replaces the cross-resolution upsampling
+        ``interp_like``: the align-corners grid depends on the GLOBAL
+        heights, so the row-sharded GRU loop (parallel/rows_gru.py)
+        passes its window-restricted matrices; None is ``interp_like``."""
         n = self.n
         net = list(net)
+        interp = interp_fn or interp_like
         if iter_coarse and n == 3:
             net[2] = self.gru32(net[2], context[2], pool2x(net[1]))
         if iter_mid and n >= 2:
-            extra = [interp_like(net[2], net[1])] if n > 2 else []
+            extra = [interp(net[2], net[1])] if n > 2 else []
             net[1] = self.gru16(net[1], context[1], pool2x(net[0]), *extra)
         if iter_fine:
             if motion is None:
                 motion = self.encoder(flow, corr)
-            extra = [interp_like(net[1], net[0])] if n > 1 else []
+            extra = [interp(net[1], net[0])] if n > 1 else []
             net[0] = self.gru08(net[0], context[0], motion, *extra)
         if not update:
             return net

@@ -14,14 +14,10 @@ import numpy as np
 import torch
 
 
-@functools.lru_cache(maxsize=64)
-def _interp_matrix(src: int, dst: int, device: torch.device,
-                   dtype: torch.dtype) -> torch.Tensor:
-    """(dst, src) align-corners bilinear interpolation matrix, its weights
-    rounded to ``dtype``, as fp32 on ``device``: built once per shape, so
-    the GRU loop never copies it from the host.  Built outside inference
-    mode, so a matrix first made by an inference call can also serve a
-    training forward."""
+def interp_matrix_np(src: int, dst: int) -> np.ndarray:
+    """(dst, src) align-corners bilinear interpolation matrix, fp32
+    numpy: the global matrix that the row-sharded GRU loop restricts to
+    each shard's window (parallel/rows_gru.py)."""
     m = np.zeros((dst, src), dtype=np.float32)
     if dst == 1:
         m[0, 0] = 1.0
@@ -32,6 +28,18 @@ def _interp_matrix(src: int, dst: int, device: torch.device,
         frac = (pos - lo).astype(np.float32)
         m[np.arange(dst), lo] += 1.0 - frac
         m[np.arange(dst), hi] += frac
+    return m
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_matrix(src: int, dst: int, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """(dst, src) align-corners bilinear interpolation matrix, its weights
+    rounded to ``dtype``, as fp32 on ``device``: built once per shape, so
+    the GRU loop never copies it from the host.  Built outside inference
+    mode, so a matrix first made by an inference call can also serve a
+    training forward."""
+    m = interp_matrix_np(src, dst)
     with torch.inference_mode(False):
         return torch.from_numpy(m).to(dtype).float().to(device)
 

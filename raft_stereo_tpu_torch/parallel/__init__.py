@@ -1,6 +1,8 @@
-"""Data-parallel training over ``torch.distributed``: the process group
-(``distributed``) and the data axis (``mesh``).  The context-parallel
-executors of the JAX package (rows and corr sharding) are ROADMAP.md §D7."""
+"""Data-parallel training over ``torch.distributed`` (``distributed``,
+the data axis of ``mesh``) and context parallelism over a device group
+inside each process: the W2-sharded correlation (``corr_sharded``), the
+row-sharded encoder (``rows_sharded``) and the row-sharded GRU loop
+(``rows_gru``)."""
 
 from raft_stereo_tpu_torch.parallel import distributed
 from raft_stereo_tpu_torch.parallel.mesh import (CORR_AXIS, DATA_AXIS,

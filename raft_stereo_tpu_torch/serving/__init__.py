@@ -13,8 +13,8 @@ degradation, chaos testing), span traces, metrics, and the HTTP front end
 The JAX package's ``serving/`` names, for the modules the port runs.  The
 fleet above N replicas — router, replica clients, the HA ledger, rollout,
 metrics federation and the autoscaler — is ``serving/fleet/``
-(``raft-route-torch``).  The xl mesh (ROADMAP §D7) is not ported yet; the
-xl fields of ``ServeConfig`` raise ``NotImplementedError``."""
+(``raft-route-torch``).  The xl tier (``ServeConfig.xl_mesh``) serves big
+pairs context-parallel over groups of this process's devices."""
 
 from raft_stereo_tpu_torch.serving.batcher import (BucketQueue,
                                                    DeadlineExceeded,
@@ -29,6 +29,7 @@ from raft_stereo_tpu_torch.serving.chaos import (ChaosConfig, ChaosInjector,
                                                  InjectedWorkerCrash,
                                                  parse_chaos_spec)
 from raft_stereo_tpu_torch.serving.engine import (FAMILY_BASE,
+                                                  FAMILY_XL,
                                                   FAMILY_STATE,
                                                   FAMILY_STATE_CTX,
                                                   FAMILY_STATE_CTX_H,
@@ -77,7 +78,7 @@ __all__ = ["BucketQueue", "DeadlineExceeded", "Overloaded", "Request",
            "SessionHandoffStore",
            "CIRCUIT_CLOSED", "CIRCUIT_HALF_OPEN", "CIRCUIT_OPEN",
            "BrownoutController", "CircuitBreaker", "circuit_state_name",
-           "cost_ladder", "FAMILY_BASE", "FAMILY_STATE",
+           "cost_ladder", "FAMILY_BASE", "FAMILY_XL", "FAMILY_STATE",
            "FAMILY_STATE_CTX", "FAMILY_STATE_CTX_H", "FAMILY_STATE_H",
            "FAMILY_WARM", "FAMILY_WARM_CTX", "FAMILY_WARM_CTX_H",
            "FAMILY_WARM_H", "SessionExpired", "SessionsDisabled",

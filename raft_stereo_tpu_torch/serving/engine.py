@@ -90,8 +90,17 @@ one.
   with a ``handoff_key`` adopts its session from such a blob (either
   package's), or counts the typed reason it cannot.
 
-The xl mesh (§D7) is refused at ``ServeConfig`` construction, naming its
-ROADMAP tag.
+* **The xl tier** (``xl_mesh``): requests whose padded bucket exceeds
+  ``xl_threshold_pixels`` (or that name ``tier="xl"``) run one
+  context-parallel program (eval/runner.make_forward_mesh) on a device
+  group of their own: ``xl_workers`` groups of rows x corr devices, carved
+  from the engine's ``xl_devices`` when the caller names them, else from
+  this process's local devices after the solo workers' (sharing them with
+  a warning where there are too few), and skipped with the JAX engine's
+  typed line where the devices cannot supply them.  Each group holds its
+  own copy of the weights on its first device (the JAX engine's one
+  ``device_put`` per group) and has its own worker, which pops only the
+  xl family from the one shared queue; its program runs eagerly.
 """
 
 from __future__ import annotations
@@ -115,7 +124,8 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from raft_stereo_tpu_torch import profiling
 from raft_stereo_tpu_torch.config import (RaftStereoConfig, RequestTier,
                                           parse_tier)
-from raft_stereo_tpu_torch.eval.runner import (FETCH_DTYPES, ProgramCache,
+from raft_stereo_tpu_torch.eval.runner import (FETCH_DTYPES, PlainForward,
+                                               ProgramCache,
                                                _Graphed, ctx_bundle,
                                                early_exit_enabled,
                                                effective_inference_config,
@@ -159,7 +169,6 @@ MODEL_DIVIS = 32
 # handed to it (prewarm).
 _TASK_POLL_S = 0.02
 
-_D7 = "§D7 parallel executors"
 
 # The program families (eval/runner.make_forward's streaming flags), the
 # JAX engine's names: the base sessionless program, the state-returning
@@ -178,6 +187,11 @@ FAMILY_STATE_H = "state_h"
 FAMILY_WARM_H = "warm_h"
 FAMILY_STATE_CTX_H = "state_ctx_h"
 FAMILY_WARM_CTX_H = "warm_ctx_h"
+# The xl family: a fixed-depth base-arity program run context-parallel
+# over a rows/corr device group (eval/runner.make_forward_mesh): one
+# full-resolution pair answered by several devices.  Only the xl groups'
+# workers pop these groups (``BucketQueue.pop``'s ``want``).
+FAMILY_XL = "xl"
 
 # Families that take a flow_init input.
 _WARM_FAMILIES = (FAMILY_WARM, FAMILY_WARM_CTX, FAMILY_WARM_H,
@@ -204,9 +218,7 @@ class ServeConfig:
     """Serving knobs (model architecture stays in RaftStereoConfig), the
     JAX package's ``ServeConfig`` field for field.
 
-    The xl mesh's fields (§D7) keep their names and defaults and raise
-    ``NotImplementedError`` when set away from them
-    (``_unsupported_serving``).  ``donate_buffers`` is accepted and does
+    ``donate_buffers`` is accepted and does
     nothing: a graph's static inputs already take each upload in place.
     ``max_wait_ms`` is retired in both packages (continuous batching has
     no timed flush)."""
@@ -471,33 +483,16 @@ class ServeConfig:
                 or self.cascade_escalate is not None:
             raise ValueError("cascade_draft/cascade_escalate need "
                              "cascade=True")
-        for field, item in _unsupported_serving(self):
-            raise NotImplementedError(
-                f"ServeConfig.{field} is not ported to the PyTorch package "
-                f"yet (ROADMAP.md {item})")
 
     def parsed_tiers(self) -> Tuple[RequestTier, ...]:
         return tuple(parse_tier(s) for s in self.tiers)
 
 
-# Fields of the deferred feature, each with its ROADMAP tag.
-DEFERRED_FIELDS: Tuple[Tuple[str, str], ...] = tuple((name, _D7) for name in (
-    "xl_mesh", "xl_workers", "xl_threshold_pixels", "xl_max_pixels",
-    "xl_batch_sizes"))
-
-
-def _unsupported_serving(cfg: ServeConfig) -> List[Tuple[str, str]]:
-    """(field, ROADMAP tag) for every deferred field set away from its
-    default."""
-    defaults = {f.name: f.default for f in dataclasses.fields(ServeConfig)}
-    return [(name, tag) for name, tag in DEFERRED_FIELDS
-            if getattr(cfg, name) != defaults[name]]
-
-
 @dataclasses.dataclass
 class ServeResult:
     """One answered request: the flow plus its latency decomposition.
-    The JAX package's fields (``mesh`` stays None: no xl tier, §D7).
+    The JAX package's fields (``mesh``: the mesh label of an xl
+    dispatch, else None).
     A tiled answer carries ``tiles`` and ``seam_epe``, a named model's
     ``model`` and ``model_version``, a cascade answer ``escalated``,
     ``draft_tier`` and ``draft_confidence``.
@@ -821,6 +816,35 @@ class _Members:
         return tree_unflatten(leaves, flat[0][1])
 
 
+@dataclasses.dataclass
+class _XlGroup:
+    """One xl worker's device group, the mesh over it, and the group's
+    copy of the xl-config model on its first device."""
+
+    devices: Tuple[torch.device, ...]
+    mesh: object                  # parallel.mesh.Mesh
+    model: RAFTStereo
+
+    @property
+    def label(self) -> str:
+        return "+".join(str(d) for d in self.devices)
+
+
+@dataclasses.dataclass
+class _XlTier:
+    """The xl tier (``ServeConfig.xl_mesh``): the parsed topology, the
+    config that carries the sharding knobs (rows_shards / corr_w2_shards /
+    rows_gru; the base model's architecture), its groups and one program
+    cache per group."""
+
+    spec: Dict[str, int]          # {"rows": r, "corr": c}
+    label: str                    # compact tag, e.g. "rows4"
+    size: int                     # devices per group (rows * corr)
+    config: RaftStereoConfig
+    groups: List[_XlGroup]
+    programs: List[Dict[Tuple, object]]
+
+
 class ServingEngine:
     """The serving engine: one object owning the program cache, the
     continuous-batching scheduler, the worker pool and the cost/waste
@@ -839,7 +863,8 @@ class ServingEngine:
                  devices: Optional[Sequence] = None,
                  registry: Optional[MetricsRegistry] = None,
                  tracer=None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 xl_devices: Optional[Sequence] = None):
         from raft_stereo_tpu_torch.telemetry.spans import SpanTracer
 
         self.serve_cfg = serve_cfg
@@ -950,6 +975,14 @@ class ServingEngine:
             edf=serve_cfg.edf_scheduler,
             edf_max_slack_s=serve_cfg.edf_max_slack_ms / 1e3,
             latency_fn=self._dispatch_latency_estimate)
+        # The xl tier: extra workers at the END of the worker table
+        # (indices len(devices) ..), each over its own device group,
+        # popping only FAMILY_XL groups; None without xl_mesh or where
+        # the devices cannot supply the mesh (the typed skip).
+        self.xl: Optional[_XlTier] = None
+        self._xl_sizes: Tuple[int, ...] = ()
+        if serve_cfg.xl_mesh is not None:
+            self._init_xl(state, xl_devices)
         # The streaming-session store behind submit_session; None keeps
         # the engine stateless (one program family, today's surface).
         self.sessions: Optional[SessionStore] = None
@@ -1015,8 +1048,8 @@ class ServingEngine:
                 failure_threshold=serve_cfg.breaker_failures,
                 cooldown_s=serve_cfg.breaker_cooldown_s,
                 on_state=self._make_circuit_callback(i))
-            for i in range(len(self.devices))]
-        for i in range(len(self.devices)):
+            for i in range(self._worker_count())]
+        for i in range(self._worker_count()):
             self.metrics.circuit_gauge(i).set(CIRCUIT_CLOSED)
         self.brownout: Optional[BrownoutController] = None
         if serve_cfg.brownout:
@@ -1096,12 +1129,13 @@ class ServingEngine:
                 serve_cfg.max_cached_shapes)
         self._closed = False
         self._shutting_down = False
-        self._tasks = [collections.deque() for _ in self.devices]
+        self._tasks = [collections.deque()
+                       for _ in range(self._worker_count())]
         self._workers_lock = threading.Lock()
         self._workers = [
             threading.Thread(target=self._worker_loop, args=(i,),
                              daemon=True, name=f"stereo-worker-{i}")
-            for i in range(len(self.devices))]
+            for i in range(self._worker_count())]
         for t in self._workers:
             t.start()
         if serve_cfg.prewarm_on_init:
@@ -1213,9 +1247,216 @@ class ServingEngine:
         self.sink = sink
 
     # ------------------------------------------------------------- xl tier
+    def _xl_model_config(self, spec: Dict[str, int]) -> RaftStereoConfig:
+        """The config of the xl programs: the engine's effective config
+        with the mesh's sharding knobs.  Raises ``ValueError`` at
+        construction for architecture and mesh combinations the sharded
+        executors do not run, with the JAX engine's messages."""
+        base = self.effective_config
+        rows, corr = spec["rows"], spec["corr"]
+        if corr > 1 and base.corr_backend == "alt":
+            raise ValueError(
+                "xl_mesh corr sharding shards the 'reg' correlation "
+                "volume and is incompatible with corr_backend='alt' "
+                "(which builds no volume) — use 'reg'/'reg_fused' or a "
+                "rows-only mesh")
+        if rows > 1:
+            from raft_stereo_tpu_torch.models.banded import banded_supported
+            norms = (base.context_norm,) + (
+                () if base.shared_backbone else (base.fnet_norm,))
+            for norm in norms:
+                if not banded_supported(norm, base.n_downsample):
+                    raise ValueError(
+                        f"xl_mesh rows sharding is unsupported for this "
+                        f"architecture: norm {norm!r} with n_downsample="
+                        f"{base.n_downsample} (parallel/rows_sharded.py "
+                        f"supports the published n_downsample=2 trunks)")
+        # fixed depth, full precision, unbanded; rows_gru needs the
+        # volume unsharded, so a rows x corr mesh shards the encoders and
+        # the volume and leaves the loop on the group's first device
+        return dataclasses.replace(
+            base, rows_shards=rows, corr_w2_shards=corr,
+            rows_gru=(rows > 1 and corr == 1), banded_encoder=False,
+            exit_threshold_px=0.0, exit_max_iters=None,
+            quant="off", quant_corr_scales=None)
+
+    def _init_xl(self, state: Mapping[str, torch.Tensor],
+                 xl_devices: Optional[Sequence]) -> None:
+        """Carve the xl device groups from ``xl_devices`` where the caller
+        names them; else from this process's local devices
+        (``distributed.local_devices_stable``) after the solo workers'
+        devices, sharing them with a warning where there are too few.
+        Where the devices cannot supply the groups, log the typed skip
+        line and serve without the tier."""
+        from raft_stereo_tpu_torch.parallel.distributed import (
+            device_groups, local_devices_stable)
+        from raft_stereo_tpu_torch.parallel.mesh import (make_mesh,
+                                                         mesh_spec_label)
+
+        serve_cfg = self.serve_cfg
+        spec = parse_mesh_spec(serve_cfg.xl_mesh)
+        size = spec["rows"] * spec["corr"]
+        xl_cfg = self._xl_model_config(spec)      # typed on bad combos
+        pool = [torch.device(d) for d in (
+            xl_devices if xl_devices is not None
+            else local_devices_stable())]
+        groups_devs = device_groups(
+            size, serve_cfg.xl_workers, devices=pool,
+            skip=0 if xl_devices is not None else len(self.devices))
+        if not groups_devs and xl_devices is None:
+            groups_devs = device_groups(size, serve_cfg.xl_workers,
+                                        devices=pool)
+            if groups_devs:
+                log.warning(
+                    "xl_mesh=%s: not enough devices after the %d solo "
+                    "worker(s) — xl group(s) share their devices "
+                    "(dispatches contend; size data_parallel + "
+                    "xl_workers*%d <= %d local devices to avoid this)",
+                    serve_cfg.xl_mesh, len(self.devices), size, len(pool))
+        if not groups_devs:
+            log.warning(
+                "xl_mesh=%s skipped: this replica has %d local "
+                "device(s) but the mesh needs %d x %d worker group(s) "
+                "— serving WITHOUT the xl tier (big requests fall back "
+                "to tiling / solo dispatch)", serve_cfg.xl_mesh,
+                len(pool), size, serve_cfg.xl_workers)
+            return
+        groups = []
+        for devs in groups_devs:
+            model = RAFTStereo(xl_cfg)
+            model.load_state_dict(state, strict=True)
+            groups.append(_XlGroup(
+                devices=tuple(devs),
+                mesh=make_mesh(n_corr=spec["corr"], n_rows=spec["rows"],
+                               devices=devs),
+                model=model.to(devs[0]).eval().cast_weights_()))
+        self.xl = _XlTier(spec=spec, label=mesh_spec_label(spec), size=size,
+                          config=xl_cfg, groups=groups,
+                          programs=[{} for _ in groups])
+        self._xl_sizes = tuple(sorted(set(
+            int(s) for s in serve_cfg.xl_batch_sizes)))
+        log.info("xl tier up: mesh %s (%s), %d group(s) of %d device(s), "
+                 "routing buckets > %d px (and ?tier=xl)",
+                 serve_cfg.xl_mesh, self.xl.label, len(groups), size,
+                 serve_cfg.xl_threshold_pixels)
+
+    @property
+    def xl_enabled(self) -> bool:
+        return self.xl is not None
+
+    def _worker_count(self) -> int:
+        return len(self.devices) + (len(self.xl.groups)
+                                    if self.xl is not None else 0)
+
+    def _is_xl_worker(self, widx: int) -> bool:
+        return widx >= len(self.devices)
+
+    def _xl_group(self, widx: int) -> _XlGroup:
+        return self.xl.groups[widx - len(self.devices)]
+
+    def _xl_worker_indices(self) -> List[int]:
+        if self.xl is None:
+            return []
+        return list(range(len(self.devices),
+                          len(self.devices) + len(self.xl.groups)))
+
+    def _worker_device(self, widx: int) -> torch.device:
+        """The device a worker runs on: its own, or its group's first."""
+        if self._is_xl_worker(widx):
+            return self._xl_group(widx).devices[0]
+        return self.devices[widx]
+
+    def _xl_compatible(self, bucket: Tuple[int, int]) -> Tuple[bool, str]:
+        """Whether a padded bucket fits the xl mesh's geometry (trunk row
+        divisibility, the rows_gru window constraints), with the reason
+        where it does not."""
+        if self.xl is None:
+            return False, "no xl mesh on this engine"
+        cfg = self.xl.config
+        rows = cfg.rows_shards
+        h = int(bucket[0])
+        if rows > 1:
+            if h % (4 * rows):
+                return False, (f"padded H={h} not divisible by 4*rows="
+                               f"{4 * rows} (stride-2 trunk stages)")
+            from raft_stereo_tpu_torch.parallel.rows_sharded import \
+                DEFAULT_HALO
+            if h // rows < DEFAULT_HALO:
+                return False, (f"per-shard rows H/rows={h // rows} < "
+                               f"trunk halo {DEFAULT_HALO}")
+            if cfg.rows_gru:
+                from raft_stereo_tpu_torch.parallel.rows_gru import \
+                    validate_rows_gru
+                try:
+                    validate_rows_gru(cfg, h // cfg.downsample_factor,
+                                      rows)
+                except ValueError as e:
+                    return False, str(e)
+        return True, ""
+
+    def _xl_routes(self, bucket: Tuple[int, int]) -> bool:
+        """Whether a stateless request at this bucket routes to the xl
+        family by itself (prewarm and readiness use the same test)."""
+        px = bucket[0] * bucket[1]
+        return (self.xl is not None
+                and px > self.serve_cfg.xl_threshold_pixels
+                and (self.serve_cfg.xl_max_pixels is None
+                     or px <= self.serve_cfg.xl_max_pixels)
+                and self._xl_compatible(bucket)[0])
+
     def xl_status(self) -> Optional[Dict[str, object]]:
-        """None: the port serves without an xl tier (§D7)."""
-        return None
+        """The /healthz line of the xl tier, or None without one."""
+        if self.xl is None:
+            return None
+        return {"mesh": self.serve_cfg.xl_mesh, "label": self.xl.label,
+                "groups": len(self.xl.groups),
+                "devices_per_group": self.xl.size,
+                "threshold_pixels": self.serve_cfg.xl_threshold_pixels,
+                "batch_sizes": list(self._xl_sizes)}
+
+    def _xl_dispatch(self, widx: int, key: Tuple, p1: np.ndarray,
+                     p2: np.ndarray) -> Tuple[List[np.ndarray], float]:
+        """One dispatch of the xl program of ``key`` on xl worker
+        ``widx``'s group: built at its first use (eager, uploading to the
+        group's first device), run under the shared gate on the card (a
+        solo worker's capture holds it exclusively)."""
+        from raft_stereo_tpu_torch.eval.runner import make_forward_mesh
+
+        group = self._xl_group(widx)
+        cache = self.xl.programs[widx - len(self.devices)]
+        arrays, spec = tree_flatten((p1, p2))
+        with self._cache_lock:
+            entry = cache.get(key)
+        if entry is None:
+            forward = make_forward_mesh(
+                group.model, self.serve_cfg.iters, group.mesh,
+                FETCH_DTYPES[self.serve_cfg.fetch_dtype])
+            entry = PlainForward(forward, spec, group.devices[0])
+            with self._cache_lock:
+                cache[key] = entry
+            self.metrics.compiles_cold.inc()
+            if self.costs is not None:
+                cfg = self.xl.config
+                out = self.costs.measure(
+                    entry, *arrays,
+                    key=self._xl_cost_key(key[1], key[2]), site="serving",
+                    flops=forward_flops(cfg, key[1], key[2],
+                                        self.serve_cfg.iters),
+                    device=group.devices[0])
+                rec = self.costs.get(self._xl_cost_key(key[1], key[2]))
+                if rec is not None and rec.hbm_bytes:
+                    self.metrics.xl_hbm_gauge(
+                        self.xl.label,
+                        f"{key[1][0]}x{key[1][1]}").set(rec.hbm_bytes)
+                return out, time.monotonic()
+        gate = (self._gate.shared() if group.devices[0].type == "cuda"
+                else contextlib.nullcontext())
+        with gate:
+            out = entry(*arrays)
+        return out, time.monotonic()
+
+    def _xl_cost_key(self, bucket: Tuple[int, int], batch: int) -> str:
+        return self._cost_key(bucket, batch, family=FAMILY_XL)
 
     # -------------------------------------------------------- model registry
     def _registered_names(self, include_implicit: bool = True
@@ -1258,10 +1499,20 @@ class ServingEngine:
 
     def _extend_warm_target(self, name: Optional[str]) -> None:
         """Grow the /readyz warm surface by one model's ladder: ``ready``
-        turns False until the new model's prewarm completes."""
+        turns False until the new model's prewarm completes.  A bucket
+        that routes to the xl tier warms the xl groups' ladder alone
+        (named models never route xl)."""
         with self._warm_lock:
             for hw in self.serve_cfg.warmup_shapes:
                 hp, wp, _ = self.policy.bucket_for(int(hw[0]), int(hw[1]))
+                if self._xl_routes((hp, wp)):
+                    if name is None:
+                        for widx in self._xl_worker_indices():
+                            for n in self._xl_sizes:
+                                self._warm_target.add(
+                                    (widx, (hp, wp), n, None, FAMILY_XL,
+                                     None))
+                    continue
                 for widx in range(len(self.devices)):
                     for tier in self._distinct_cache_tiers(name):
                         for n in self.queue.sizes:
@@ -1489,11 +1740,34 @@ class ServingEngine:
             return self._submit_cascade(left, right, deadline_ms,
                                         degradable, t_admit, model,
                                         trace_context=trace_context)
-        if tier == "xl":
+        want_xl = tier == "xl"
+        if want_xl and self.xl is None:
             raise ValueError(
                 "tier 'xl' requested but this engine has no xl tier "
                 "(configure ServeConfig.xl_mesh / --xl_mesh, and enough "
                 "devices for the mesh)")
+        if want_xl and model is not None:
+            raise ValueError(
+                f"tier 'xl' serves only the implicit constructor model "
+                f"(the mesh groups replicate its weights); model "
+                f"{model!r} cannot ride it")
+        if (model is None and self.xl is not None
+                and (want_xl or self._xl_routes(bucket))):
+            ok, reason = self._xl_compatible(bucket)
+            if ok:
+                # the fixed-depth full-precision program: no tier ladder,
+                # no brownout rung below it
+                return self._enqueue(left, right, deadline_ms, None, None,
+                                     t_admit, family=FAMILY_XL,
+                                     trace_context=trace_context).future
+            if want_xl:
+                raise ValueError(
+                    f"tier 'xl': bucket {bucket[0]}x{bucket[1]} does "
+                    f"not fit mesh {self.serve_cfg.xl_mesh}: {reason}")
+            log.info("bucket %sx%s exceeds xl_threshold_pixels but does "
+                     "not fit mesh %s (%s) — falling through to "
+                     "tiling/solo dispatch", bucket[0], bucket[1],
+                     self.serve_cfg.xl_mesh, reason)
         tier, requested_tier = self._admit_tier(tier, degradable)
         tt = self.serve_cfg.tile_threshold_pixels
         if tt is not None and bucket[0] * bucket[1] > tt:
@@ -2297,7 +2571,12 @@ class ServingEngine:
                   family: Optional[str] = FAMILY_BASE,
                   model: Optional[str] = None) -> str:
         """The JAX engine's label of one program in the cost registry; a
-        registered model's coordinate joins last."""
+        registered model's coordinate joins last.  An xl program's label
+        carries its mesh (``,mesh=rows2``) in place of tier and family."""
+        if family == FAMILY_XL:
+            label = self.xl.label if self.xl is not None else "none"
+            return (f"serving.forward({bucket[0]}x{bucket[1]},b{batch}"
+                    f",mesh={label})")
         bundle = self._models[model]
         cache_tier = self._cache_tier(tier, model)
         tail = "" if cache_tier is None else f",tier={tier}"
@@ -2480,6 +2759,13 @@ class ServingEngine:
         ``models`` (None: every served model, the implicit one first)."""
         h, w = int(raw_hw[0]), int(raw_hw[1])
         hp, wp, _ = self.policy.bucket_for(h, w)
+        if self._xl_routes((hp, wp)):
+            # this bucket's traffic runs on the xl groups: warm that
+            # ladder alone (the implicit model's; named models never
+            # route xl)
+            if models is None or None in models:
+                self._prewarm_xl((hp, wp), batch_sizes)
+            return
         sizes = tuple(batch_sizes) if batch_sizes else self.queue.sizes
         names = (self._registered_names() if models is None
                  else list(models))
@@ -2523,16 +2809,44 @@ class ServingEngine:
                  hp, wp, sizes, len(ladders), len(families),
                  len(self.devices))
 
+    def _prewarm_xl(self, bucket: Tuple[int, int],
+                    batch_sizes: Optional[Sequence[int]] = None) -> None:
+        """Build and run the xl ladder of one bucket on every xl group's
+        own worker thread: each batch size once, on zero images."""
+        sizes = tuple(batch_sizes) if batch_sizes else self._xl_sizes
+
+        def warm(widx):
+            for n in sizes:
+                zeros = np.zeros((n, bucket[0], bucket[1], 3), np.uint8)
+                self._xl_dispatch(
+                    widx, (widx, tuple(bucket), n, None, FAMILY_XL, None),
+                    zeros, zeros.copy())
+                self._note_warm(widx, bucket, n, None, FAMILY_XL)
+
+        futures = [self._run_on_worker(widx, lambda i=widx: warm(i))
+                   for widx in self._xl_worker_indices()]
+        for f in futures:
+            f.result()
+        log.info("prewarmed XL bucket %dx%d batch sizes %s (mesh %s) on "
+                 "%d device group(s)", bucket[0], bucket[1], sizes,
+                 self.xl.label, len(self.xl.groups))
+
     # --------------------------------------------------------------- workers
     def _worker_loop(self, widx: int) -> None:
         """One device worker under supervision.  The circuit breaker gates
         the pop; a dispatch crash hands the batch to the recovery path and
         then restarts the worker thread.  Between pops the worker runs the
         tasks handed to it (prewarm)."""
-        dev = self.devices[widx]
+        dev = self._worker_device(widx)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         breaker = self.breakers[widx]
+        # xl groups take the xl family alone, solo workers everything else
+        xl = self._is_xl_worker(widx)
+        want = ((lambda key: key[2] == FAMILY_XL) if xl
+                else (lambda key: key[2] != FAMILY_XL)
+                if self.xl is not None else None)
+        sizes = self._xl_sizes if xl else None
         while True:
             self._run_tasks(widx)
             delay = breaker.until_allowed()
@@ -2541,7 +2855,8 @@ class ServingEngine:
                     return
                 time.sleep(min(delay, 0.05))
                 continue
-            batch = self.queue.pop(timeout=_TASK_POLL_S)
+            batch = self.queue.pop(timeout=_TASK_POLL_S, want=want,
+                                   sizes=sizes)
             if batch is None:
                 if self._closed:        # queue closed: worker shutdown
                     return
@@ -2676,7 +2991,9 @@ class ServingEngine:
         """One popped batch, decomposed so every dispatch runs a batch
         size of the ladder (deadline triage can shrink a batch)."""
         i = 0
-        for k in decompose_batch(len(batch), self.queue.sizes):
+        sizes = (self._xl_sizes if self._is_xl_worker(widx)
+                 else self.queue.sizes)
+        for k in decompose_batch(len(batch), sizes):
             self._run_chunk(widx, batch[i:i + k])
             i += k
 
@@ -2722,9 +3039,11 @@ class ServingEngine:
         family = batch[0].family
         mname = batch[0].model
         bundle = self._models[mname]
-        cache_tier = self._cache_tier(tier, mname)
+        xl = family == FAMILY_XL
+        cache_tier = None if xl else self._cache_tier(tier, mname)
         n = len(batch)
-        device_label = str(self.devices[widx])
+        device_label = (self._xl_group(widx).label if xl
+                        else str(self.devices[widx]))
         sampled = [r for r in batch if r.trace is not None]
         p_pickup = time.perf_counter() if sampled else 0.0
         for r in sampled:
@@ -2734,7 +3053,8 @@ class ServingEngine:
         if self.chaos is not None:
             self.chaos.on_compile(widx)
             self.chaos.on_dispatch(widx)
-        cfg = bundle.tier_configs[cache_tier]
+        cfg = (self.xl.config if xl
+               else bundle.tier_configs[cache_tier])
         adaptive = early_exit_enabled(cfg)
         with profiling.annotate("serve.device"):
             # ONE batch-n dispatch of the (bucket, n, tier, family)
@@ -2752,9 +3072,12 @@ class ServingEngine:
                     [r.payload.hidden_init for r in batch]))
             if family in _CTX_REUSE_FAMILIES:
                 extra.append(_Members([r.payload.ctx_init for r in batch]))
-            out, t_ready = self._dispatch(
-                widx, (widx, tuple(bucket), n, cache_tier, family, mname),
-                p1, p2, *extra)
+            key = (widx, tuple(bucket), n, cache_tier, family, mname)
+            if xl:
+                out, t_ready = self._xl_dispatch(widx, key, p1, p2)
+                self.metrics.xl_dispatches.inc()
+            else:
+                out, t_ready = self._dispatch(widx, key, p1, p2, *extra)
         p_ready = time.perf_counter() if sampled else 0.0
         # The flat outputs: flow_up[, flow_low][, iters_used][, conf_low,
         # conf_up][, hidden per level][, ctx: nets, then (cz, cr, cq) per
@@ -2762,7 +3085,7 @@ class ServingEngine:
         flows_padded = out[0]                      # (n, Hp, Wp)
         pos = 1
         flow_low_padded = None
-        if family is not FAMILY_BASE:
+        if family is not FAMILY_BASE and not xl:
             flow_low_padded = out[1]               # (n, Hp/f, Wp/f)
             pos = 2
         iters_used = self.serve_cfg.iters
@@ -2770,7 +3093,7 @@ class ServingEngine:
             iters_used = int(out[pos])
             pos += 1
         conf_padded = None
-        if self.serve_cfg.confidence:
+        if self.serve_cfg.confidence and not xl:
             conf_padded = out[pos + 1]
             pos += 2
         levels = cfg.n_gru_layers
@@ -2806,8 +3129,9 @@ class ServingEngine:
         self.metrics.observe_padding(bucket, real_px, dispatched_px)
         self.policy.note(bucket, real_px, dispatched_px)
         if self._mfu is not None:
-            rec = self.compiled_cost(bucket, batch=n, tier=tier,
-                                     family=family, model=mname)
+            rec = (self.costs.get(self._xl_cost_key(bucket, n)) if xl
+                   else self.compiled_cost(bucket, batch=n, tier=tier,
+                                           family=family, model=mname))
             if rec is not None and rec.flops:
                 self.metrics.dispatched_flops.inc(rec.flops)
                 self._mfu.note(rec.flops)
@@ -2843,7 +3167,9 @@ class ServingEngine:
             r.future.set_result(ServeResult(
                 flow=np.ascontiguousarray(flow), queue_wait_s=wait,
                 device_s=device_s, fetch_s=fetch_s, total_s=total,
-                batch_size=n, iters_used=iters_used, tier=tier,
+                batch_size=n, iters_used=iters_used,
+                tier=FAMILY_XL if xl else tier,
+                mesh=self.xl.label if xl else None,
                 requested_tier=r.requested_tier, attempts=r.attempts + 1,
                 session_id=r.session_id,
                 frame_index=r.payload.frame_index,
@@ -2874,9 +3200,12 @@ class ServingEngine:
     def begin_shutdown(self) -> None:
         """Phase one of graceful SIGTERM: ``ready`` turns False and new
         submits shed with the typed draining ``Overloaded``, while queued,
-        in-flight and backoff work keeps flowing."""
-        self._shutting_down = True
+        in-flight and backoff work keeps flowing.  The queue turns
+        draining first, so that whoever reads ``ready`` False for the
+        shutdown reads the queue's draining flag too (the fleet router's
+        probe tells a planned drain from a lost replica by it)."""
         self.queue.stop_admitting()
+        self._shutting_down = True
 
     # -------------------------------------------------------------- shutdown
     def drain(self, timeout: Optional[float] = None) -> bool:

@@ -202,6 +202,20 @@ class Replica:
             r = json.loads(body_r)
         except ValueError:
             r = {}
+        if not (status_r == 200 and r.get("ready")) and \
+                h.get("status") != "draining":
+            # a graceful drain that began between the two requests turns
+            # /readyz not-ready after /healthz said "ok": read the status
+            # again, or the planned drain would count as a replica that
+            # stopped being ready and lose its sessions (the engine flips
+            # its queue to draining before its readiness)
+            status_h2, _, body_h2 = self._request("GET", "/healthz", None,
+                                                  {}, timeout)
+            if status_h2 == 200:
+                try:
+                    h = json.loads(body_h2)
+                except ValueError:
+                    pass
         return ReplicaHealth(
             ready=(status_r == 200 and bool(r.get("ready", False))
                    and h.get("status") != "draining"),

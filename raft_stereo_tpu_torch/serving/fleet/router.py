@@ -65,9 +65,9 @@ OPERATED" (docs/architecture.md §Fleet):
   replicas whose /healthz advertises the mesh tier; a fleet with none
   in rotation answers the typed 503 ``xl_unavailable`` with the
   capable-replica count instead of bouncing the request off a replica
-  that will 400 it.  The port's replicas serve no xl tier (ROADMAP §D7):
-  their /healthz ``xl`` is null, so over a fleet of them every xl
-  request answers ``xl_unavailable``.
+  that will 400 it.  A port replica advertises the tier where it runs
+  one (``--xl_mesh`` and devices enough for the mesh); its /healthz
+  ``xl`` is null otherwise.
 
 Pass-through contract: with every replica healthy the router adds no
 behavior — request and response bytes are forwarded verbatim (hop-by-hop

@@ -120,8 +120,8 @@ concurrency limit is the service's bounded queue, which is the point —
 admission control lives in ONE place and the transport just reports it.
 
 The JAX package's ``serving/http.py`` over the port's engine.  ``?tier=xl``
-answers 400 as the JAX server does without an xl tier (the port has
-none, §D7).  The handler threads never touch a device tensor: the
+routes to the engine's xl tier, or answers 400 as the JAX server does
+without one.  The handler threads never touch a device tensor: the
 engine's workers upload, replay and fetch.
 """
 
@@ -484,10 +484,21 @@ def make_handler(service: StereoService,
                 tier = query.get("tier", [None])[0] or \
                     self.headers.get("X-Tier")
                 if tier == "xl":
-                    # No xl mesh tier in the port yet (ROADMAP §D7).
-                    raise ValueError(
-                        "tier 'xl': this server has no xl mesh "
-                        "tier (start raft-serve with --xl_mesh)")
+                    # The xl pseudo-tier routes to the context-parallel
+                    # family (serving/engine.py submit); valid only on
+                    # an engine with an xl tier and a mesh-compatible
+                    # bucket (the engine raises ValueError -> 400
+                    # otherwise).
+                    if getattr(service, "xl", None) is None:
+                        raise ValueError(
+                            "tier 'xl': this server has no xl mesh "
+                            "tier (start raft-serve with --xl_mesh)")
+                    if session_id is not None:
+                        raise ValueError(
+                            "tier 'xl': streaming sessions are "
+                            "single-device — the warm/ctx state "
+                            "machinery does not compose with the "
+                            "mesh-sharded program")
                 elif tier == "auto":
                     # The confidence-gated cascade pseudo-tier: valid only
                     # on an engine with a cascade configured; the engine

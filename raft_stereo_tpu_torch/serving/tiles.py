@@ -2,8 +2,8 @@
 JAX package's ``serving/tiles.py`` copied whole (the port imports nothing
 of that package; ``tests/test_torch_tiles.py`` holds the two equal).
 
-The port has no xl mesh tier (ROADMAP §D7), so tiling is how its engine
-answers a pair larger than one bucket: split the
+Past the xl tier's ceiling (``xl_max_pixels``), or without an xl tier,
+tiling is how the engine answers a pair larger than one bucket: split the
 image into horizontal bands, run each band as an ordinary bucket dispatch
 (all tiles of one image share one padded bucket, so the continuous
 batcher groups them into batch-N dispatches — no new scheduler), and

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import atexit
 import dataclasses
+import functools
 import inspect
 import logging
 import os
@@ -57,7 +58,7 @@ import queue
 import signal
 import threading
 import time
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -88,6 +89,19 @@ _EXEC_CONFIG_FIELDS = (
     "rows_gru", "rows_gru_halo", "remat_gru", "remat_save",
     "sequential_fnet_pixels", "band_rows",
     "quant", "quant_corr", "quant_corr_scales")
+
+
+def _in_mesh(step_fn, mesh):
+    """``step_fn`` with the mesh contexts of the context-parallel
+    executors held around each call."""
+    from raft_stereo_tpu_torch.parallel.mesh import mesh_contexts
+
+    @functools.wraps(step_fn)
+    def step(*args, **kwargs):
+        with mesh_contexts(mesh):
+            return step_fn(*args, **kwargs)
+
+    return step
 
 
 def merge_warm_start_config(caller_cfg: RaftStereoConfig,
@@ -304,7 +318,10 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
           telemetry=None,
           device: Union[str, torch.device] = "cuda",
           on_step: Optional[Callable[[int, Dict[str, torch.Tensor]],
-                                     None]] = None) -> TrainState:
+                                     None]] = None,
+          use_mesh: bool = True,
+          mesh_devices: Optional[Sequence[Union[str, torch.device]]] = None
+          ) -> TrainState:
     """Train and return the final state (module docstring).
 
     ``device`` defaults to the card and raises without one; pass
@@ -314,7 +331,13 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
     dict`` (eval/validate.make_validation_fn) runs at every checkpoint
     boundary.  ``on_step(step, metrics)``, when given, sees every step's
     metrics: 0-d tensors on the device, and ``loader_wait_s``, the host
-    seconds the loop blocked for that step's batch (also logged)."""
+    seconds the loop blocked for that step's batch (also logged).
+
+    ``rows_shards``/``corr_w2_shards`` > 1 run every step over a device
+    group of this process (``mesh_devices``, by default its local
+    devices; the group's first device is ``device``), inside the data
+    axis: each data-parallel process drives its own group, and DDP
+    reduces over the processes alone."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: training runs on the GPU; pass "
@@ -324,12 +347,36 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
     # also picks this process's card
     distributed.initialize(device=device)
     parallel = torch.distributed.is_initialized()
-    n_data = make_mesh(n_data=train_cfg.data_parallel).n_data
+    if parallel and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    # the rows and corr axes: a device group inside this process (the
+    # data rank), its first device the training device
+    n_corr, n_rows = model_cfg.corr_w2_shards, model_cfg.rows_shards
+    if (n_corr > 1 or n_rows > 1) and not use_mesh:
+        raise ValueError(
+            "corr_w2_shards/rows_shards > 1 requires use_mesh=True")
+    group = ([torch.device(d) for d in mesh_devices] if mesh_devices
+             else [device] if n_corr * n_rows == 1
+             else distributed.local_devices_stable())
+    if len(group) < n_corr * n_rows:
+        raise ValueError(
+            f"corr_w2_shards={n_corr} x rows_shards={n_rows} exceeds the "
+            f"{len(group)} available devices — no device is left for the "
+            f"data axis")
+    if n_rows > 1 and train_cfg.image_size[0] % (4 * n_rows):
+        raise ValueError(
+            f"rows_shards={n_rows} needs image height "
+            f"{train_cfg.image_size[0]} divisible by {4 * n_rows} "
+            f"(two stride-2 stages x row shards)")
+    mesh = make_mesh(n_data=train_cfg.data_parallel, n_corr=n_corr,
+                     n_rows=n_rows, devices=group)
+    n_data = mesh.n_data
     if train_cfg.batch_size % n_data:
         raise ValueError(f"batch_size={train_cfg.batch_size} not divisible "
                          f"by {n_data} data-parallel processes")
-    if parallel and device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    if n_corr * n_rows > 1 and mesh.devices[0].type != device.type:
+        raise ValueError(f"the mesh's first device {mesh.devices[0]} must "
+                         f"be the training device {device}")
     lead = distributed.process_index() == 0
     policy = AnomalyPolicy.from_train_config(train_cfg)
     if policy is not None and checkpoint_dir is None:
@@ -420,6 +467,8 @@ def train(model_cfg: RaftStereoConfig, train_cfg: TrainConfig,
         tracker.load_history(runtime.get("anomaly"))
     loss_ewma = float(runtime.get("loss_ewma", 0.0)) if runtime else 0.0
     step_fn = make_train_step(train_cfg, anomaly=policy)
+    if n_corr * n_rows > 1:
+        step_fn = _in_mesh(step_fn, mesh)
     if telemetry is not None and getattr(telemetry, "costs", None) is not None:
         # the first dispatch is the step's build (kernel builds, first
         # allocations): recorded with its wall time, memory and FLOPs

@@ -6,9 +6,9 @@ perturbed, so the batch statistics are not their init values) beside an
 optimizer-like leaf and a step goes through the converter; the port's
 ``cli/common.load_any_checkpoint`` reads the result, its config equals
 JAX's ``to_dict()``, and its forward at 2 iterations is within the port's
-whole-forward tolerance of JAX's, FLOW_ATOL = 2e-3 px.  Refusals write
-nothing: a configuration the port does not run (ROADMAP.md §D7), a
-checkpoint whose manifest fails, an existing destination.
+whole-forward tolerance of JAX's, FLOW_ATOL = 2e-3 px; a context-parallel
+configuration converts likewise.  Refusals write nothing: a checkpoint
+whose manifest fails, an existing destination.
 """
 
 import json
@@ -81,16 +81,27 @@ def test_converted_checkpoint_loads_and_matches_jax(jax_side, tmp_path):
 
 def test_refused_config_raises_with_the_roadmap_and_writes_nothing(
         tmp_path, jax_side):
+    """A context-parallel configuration (``rows_shards=2``), which the
+    port refused until it ran the sharded executors, converts: the config
+    is JAX's, the weights the unsharded checkpoint's.  A second
+    conversion into the written destination is refused and writes
+    nothing."""
     src = str(tmp_path / "sharded")
     jcfg = JaxConfig(**TINY, rows_shards=2)
     _, tree = jckpt.load_checkpoint(jax_side["src"])
     jckpt.save_checkpoint(src, jcfg, {"params": tree["params"],
                                       "batch_stats": tree["batch_stats"]})
     dst = str(tmp_path / "out")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        converter.convert(src, dst)
+    assert converter.main([src, dst]) == 0
+    cfg, state = load_any_checkpoint(dst)
+    assert cfg.to_dict() == jcfg.to_dict()
+    assert converter.main([jax_side["src"], str(tmp_path / "plain")]) == 0
+    _, want = load_any_checkpoint(str(tmp_path / "plain"))
+    assert state.keys() == want.keys()
+    for k in want:
+        assert np.array_equal(state[k].numpy(), want[k].numpy()), k
     assert converter.main([src, dst]) == 2
-    assert sorted(os.listdir(tmp_path)) == ["sharded"]
+    assert sorted(os.listdir(tmp_path)) == ["out", "plain", "sharded"]
 
 
 def test_a_failed_manifest_is_refused(tmp_path, jax_side):

@@ -171,8 +171,12 @@ def test_make_mesh_is_the_data_axis():
     with pytest.raises(ValueError, match="world size 1"):
         mesh.make_mesh(n_data=2)
     for kw in (dict(n_corr=2), dict(n_rows=2)):
-        with pytest.raises(NotImplementedError, match="§D7"):
+        # one CPU device: a group of two is refused, never run solo
+        with pytest.raises(ValueError, match="only 1 are available"):
             mesh.make_mesh(**kw)
+        m = mesh.make_mesh(devices=["cpu", "cpu"], **kw)
+        assert m.devices == (torch.device("cpu"),) * 2
+        assert m.shape["corr"] * m.shape["rows"] == 2
 
 
 def test_data_parallel_must_equal_the_world_size():
@@ -339,3 +343,22 @@ def test_sigterm_on_one_rank_stops_both_and_resume_is_exact(tmp_path):
     np.testing.assert_array_equal(b0["params"], c0["params"])
     np.testing.assert_array_equal(
         np.concatenate([a0["losses"], b0["losses"]]), c0["losses"])
+
+
+def test_two_ranks_each_over_a_device_group(tmp_path):
+    """Context parallelism inside data parallelism: two gloo ranks, each
+    sharding its slice of every global batch over a rows x corr group of
+    four CPU devices of its own, end bit for bit equal to each other (DDP
+    reduces over the data axis alone) and within the one-process bounds
+    above of the same two ranks unsharded: the shards' copies and
+    moments reassociate the loss, not what DDP sums."""
+    s0, s1 = _spawn(tmp_path, "cp", "loop", f"ckpt_dir={tmp_path / 'cs'}",
+                    "num_steps=2", "cp=1")
+    u0, _ = _spawn(tmp_path, "up", "loop", f"ckpt_dir={tmp_path / 'cu'}",
+                   "num_steps=2")
+    np.testing.assert_array_equal(s0["params"], s1["params"])
+    np.testing.assert_array_equal(s0["losses"], s1["losses"])
+    assert int(s0["step"]) == int(u0["step"]) == 2
+    np.testing.assert_allclose(s0["losses"], u0["losses"], rtol=1e-4)
+    np.testing.assert_allclose(s0["params"], u0["params"], rtol=0,
+                               atol=5e-4)

@@ -19,10 +19,15 @@ did not run as it should fails:
 * ``bf16``: a bf16 value flips where the two frameworks round an fp32
   value on either side of a boundary.  Held, as in
   tests/test_torch_realtime.py, to SPREAD_FACTOR = 3x the JAX package's
-  own spread between its two routes on the same weights (the Pallas
-  kernels in interpret mode against its XLA fallback, measured in the
-  test) plus EPE_ATOL.  Readings: JAX's routes -0.0002 / +0.0077 px at
-  d<=24 and 0.0747 / 0.0768 at d<=48; the port -0.0052 and 0.0775.
+  own spread, measured in the test as the larger of two moves of its
+  dEPE: its two routes on the same weights (the Pallas kernels in
+  interpret mode against its XLA fallback) and every fp32 weight moved
+  by one ulp, plus EPE_ATOL.  The bf16 dEPE of random weights is chaotic
+  in the last bits: the routes alone are no measure of it, and the
+  port's own reading moves with the host CPU's fp32 summation order.
+  Readings: JAX's routes -0.0002 / +0.0077 px at d<=24 and 0.0747 /
+  0.0768 at d<=48, its one-ulp move -0.0105 and 0.0931; the port -0.0052
+  and 0.0775 on one host, -0.0130 and 0.0637 on an AMD EPYC host.
 * ``int8`` (1-byte pyramid) and ``int8_mxu`` (int8 activations): JAX's
   two routes agree on these to the last digit, so they give no spread to
   scale from.  The port's dEPE must be nonzero where JAX's is, and
@@ -193,6 +198,8 @@ def _variants(cfg, state, record, mxu_state):
 def test_evaluate_variants_matches_jax(hermetic):
     import dataclasses
 
+    import jax
+
     from raft_stereo_tpu import quant as jquant
     from raft_stereo_tpu.kernels import corr_lookup as jcorr_lookup
 
@@ -226,12 +233,21 @@ def test_evaluate_variants_matches_jax(hermetic):
             "fp32", "bf16", {"corr_fp32_auto": False})
     finally:
         jcorr_lookup._interpret_override = None
-    for g, w, k in zip(got, want, kernel_route):
+    ulp = jax.tree_util.tree_map(
+        lambda x: (x * np.float32(1 + 2.0 ** -23)).astype(x.dtype)
+        if x.dtype == np.float32 else x, variables)
+    ulp_route = drift_common.evaluate_variants(
+        "bf16_epe_drift", "seeded_init",
+        {"fp32": (jcfg, ulp),
+         "bf16": (dataclasses.replace(jcfg, mixed_precision=True), ulp)},
+        band_scenes, [2], "fp32", "bf16", {"corr_fp32_auto": False})
+    for g, w, k, u in zip(got, want, kernel_route, ulp_route):
         assert list(g) == list(w)
         for name in ("fp32", "int8_w"):
             assert abs(g[f"epe_{name}"] - w[f"epe_{name}"]) <= EPE_ATOL, (
                 name, g, w)
-        spread = abs(k["depe_bf16"] - w["depe_bf16"])
+        spread = max(abs(k["depe_bf16"] - w["depe_bf16"]),
+                     abs(u["depe_bf16"] - w["depe_bf16"]))
         assert abs(g["depe_bf16"] - w["depe_bf16"]) <= (
             SPREAD_FACTOR * spread + EPE_ATOL), (spread, g, w)
         for name in ("int8", "int8_mxu"):

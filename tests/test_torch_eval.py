@@ -55,6 +55,7 @@ from raft_stereo_tpu_torch.eval.runner import InferenceRunner
 from raft_stereo_tpu_torch.io.jax_weights import (save_checkpoint,
                                                   state_dict_from_jax)
 from raft_stereo_tpu_torch.io.torch_import import import_torch_checkpoint
+from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 from raft_stereo_tpu_torch.ops.padding import InputPadder
 from raft_stereo_tpu_torch.ops.resize import upsample_flow_bilinear
 from raft_stereo_tpu_torch.profiling import FpsProtocol
@@ -506,10 +507,28 @@ def test_arch_overrides_same_flags_as_jax():
     (["--rows_gru"], "§D7"), (["--rows_gru_halo", "4"], "§D7"),
     (["--corr_w2_shards", "2"], "§D7")])
 def test_unported_flags_raise(argv, item):
+    """The context-parallel flags (§D7), refused before, override the
+    config as the JAX package's do; the configuration JAX refuses the
+    port refuses with JAX's message, and a group this process's devices
+    cannot supply (one CPU) is refused, never run solo."""
     args = evaluate.build_parser().parse_args(
         ["--restore_ckpt", "unused", "--dataset", "kitti"] + argv)
-    with pytest.raises(NotImplementedError, match=item):
-        evaluate.run_eval(args)
+    jargs = jevaluate.build_parser().parse_args(
+        ["--restore_ckpt", "unused", "--dataset", "kitti"] + argv)
+    over = common.arch_overrides(args)
+    assert over == jcommon.arch_overrides(jargs)
+    try:
+        want = dataclasses.asdict(JaxConfig(**over))
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            RaftStereoConfig(**over)
+        assert str(got.value) == str(e)
+        return
+    cfg = RaftStereoConfig(**over)
+    assert cfg.to_dict() == want
+    with pytest.raises(ValueError, match="only 1 are available"):
+        InferenceRunner(cfg, RAFTStereo(cfg).state_dict(), iters=1,
+                        device="cpu")
 
 
 # -------------------------------------------------------------- the rest

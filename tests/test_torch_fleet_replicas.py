@@ -249,3 +249,43 @@ def test_replica_listener_holds_a_burst_of_connections():
         for s in socks:
             s.close()
         server.server.server_close()
+
+
+def test_probe_reads_a_drain_that_began_between_its_requests():
+    """A SIGTERM landing between the probe's /healthz ("ok") and /readyz
+    (not ready) is a planned drain: the probe reads /healthz again and
+    reports draining, so the router hands the sessions off instead of
+    typing them lost."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    seen = []
+
+    class Draining(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def do_GET(self):
+            seen.append(self.path)
+            if self.path == "/healthz":
+                body = {"status": "ok" if seen.count("/healthz") == 1
+                        else "draining", "ready": False}
+                code = 200
+            else:
+                body, code = {"ready": False, "status": "warming"}, 503
+            raw = json.dumps(body).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(raw)))
+            self.end_headers()
+            self.wfile.write(raw)
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Draining)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        health = _health(pfleet, f"http://127.0.0.1:{srv.server_port}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert seen == ["/healthz", "/readyz", "/healthz"]
+    assert health["draining"] and not health["ready"]

@@ -145,6 +145,22 @@ def test_packing_cache_follows_the_version_counter(dtype):
     assert gru_fused.gru_gates_fused.packs == before + 3
 
 
+def test_group_weight_copies_are_ordinary_tensors():
+    """The context-parallel groups' weight copies made under inference
+    mode are ordinary tensors, which the packing cache can version
+    (parallel/group.moved_state); trained, they are differentiable."""
+    from raft_stereo_tpu_torch.parallel.group import moved_state
+
+    conv = torch.nn.Conv2d(48, 32, 3)
+    with torch.inference_mode():
+        moved = moved_state(conv, torch.device("meta"))
+    assert not any(t.is_inference() for t in moved.values())
+    assert not any(t.requires_grad for t in moved.values())
+    assert moved_state(conv, torch.device("cpu")) is None
+    trained = moved_state(conv, torch.device("meta"))
+    assert trained["weight"].requires_grad      # differentiable copies
+
+
 # (B, H, W, Cout, tile, blocks) of each gate launch on the driven paths.
 LAUNCHES = [((1, 96, 312), 256, (128, 2, 1), 480),   # default gru08 zr
             ((1, 96, 312), 128, (128, 2, 1), 240),   # default gru08 q

@@ -152,17 +152,22 @@ def test_config_fields_match_jax():
     ("rows_gru", True), ("banded_encoder", True), ("rows_shards", 2),
     ("corr_w2_shards", 2), ("remat_save", ("gru_gates",))])
 def test_unported_options_raise(field, value):
-    """The options still refused raise, naming their ROADMAP item;
-    ``remat_save=("gru_gates",)`` and ``banded_encoder``, refused before,
-    are ported (models/remat.py, models/banded.py): each constructs and
-    round-trips with the JAX package's ``to_dict()``."""
-    if field in ("remat_save", "banded_encoder"):
-        cfg = RaftStereoConfig(**{field: value})
-        assert cfg.to_dict() == JaxConfig(**{field: value}).to_dict()
-        assert RaftStereoConfig.from_json(cfg.to_json()) == cfg
+    """Every option once refused is ported now: ``remat_save``
+    (models/remat.py), ``banded_encoder`` (models/banded.py) and the
+    context-parallel ``rows_shards``, ``rows_gru`` and ``corr_w2_shards``
+    (parallel/).  Each constructs and round-trips with the JAX package's
+    ``to_dict()``, or, where JAX refuses the setting alone (``rows_gru``
+    without ``rows_shards``), raises JAX's ValueError."""
+    try:
+        want = JaxConfig(**{field: value}).to_dict()
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            RaftStereoConfig(**{field: value})
+        assert str(got.value) == str(e)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        RaftStereoConfig(**{field: value})
+    cfg = RaftStereoConfig(**{field: value})
+    assert cfg.to_dict() == want
+    assert RaftStereoConfig.from_json(cfg.to_json()) == cfg
 
 
 @pytest.mark.parametrize("pixels", [None, 1])

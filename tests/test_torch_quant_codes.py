@@ -11,17 +11,23 @@ both sides (the calibrated scale, or the dynamic per-tensor one of the
 
 What it shows (readings in PERF.md section 6):
 
-* against JAX's forward applied without ``jit``, every conv's input
-  agrees within a few fp32 ulps, no code differs, and the flows agree to
-  2e-4 px;
 * JAX's ``jit`` (its ``InferenceRunner``'s route) parts from its own
   eager forward: XLA's fused frozen-BN and residual arithmetic moves an
   activation by an ulp, the first code flips within a few ulps of a
-  half-code boundary, and each int8 conv after it turns that flip into a
-  whole code step, so the flips multiply through the cnet's deeper
-  layers (~48k codes at 64x160).  The port stands exactly where JAX's
-  eager forward stands: its per-conv flip counts against the jitted
-  forward are JAX's own.
+  half-code boundary (a rounding tie), and each int8 conv after it turns
+  that flip into a whole code step, so the flips multiply through the
+  cnet's deeper layers (~40-48k codes at 64x160).
+* The port follows one of JAX's two routes up to such a tie: every
+  conv's input agrees with JAX's eager forward within a few fp32 ulps
+  until the first code that differs, and that code sits on a tie.  Which
+  route the port follows past the tie depends on the CPU's fp32
+  summation order: on one host the port's codes equal JAX eager's
+  everywhere, on another (an AMD EPYC) they equal JAX jit's everywhere
+  and part from eager's at cnet.trunk.layer2_1.conv1, one code at one
+  ulp from its boundary, the very tie where JAX's own routes part.  So
+  the flows are held to JAX's own route spread (eager vs jit) plus
+  EPE_ATOL, and the per-conv flip counts against jit to JAX's own, up to
+  the port's flips against eager.
 
 So the ``int8_mxu`` dEPE gap between the port and JAX's jitted runner
 (tests/test_torch_drift.py, DEPE_FRACTION) is JAX's jit-vs-eager spread,
@@ -185,36 +191,52 @@ def test_every_quantized_conv_is_caught_on_both_sides(captured):
         f"context_zqr_conv{i}" for i in range(3)]
 
 
+def _first_tie(cap, rows, a):
+    """Every conv's input within BOUNDARY_ULPS fp32 ulps until the first
+    conv with a differing code, whose every flip sits within
+    BOUNDARY_ULPS of a half-code boundary.  Returns that conv's index
+    (None: no code differs)."""
+    first = next((i for i, r in enumerate(rows) if r[1]), None)
+    for name, n, dx, ulps in rows[:len(rows) if first is None
+                                  else first + 1]:
+        x = cap["inputs"][a][name]
+        assert dx <= BOUNDARY_ULPS * np.spacing(np.abs(x).max()), (name, dx)
+    if first is not None:
+        assert rows[first][3] <= BOUNDARY_ULPS, rows[first]
+    return first
+
+
 def test_port_codes_equal_jax_eager_at_every_conv(captured):
     """Against JAX's eager forward every input agrees within a few ulps
-    and no code differs anywhere; the flows agree within the whole-model
-    bound."""
-    for name, n, dx, _ in flips(captured, "port", "eager"):
-        x = captured["inputs"]["port"][name]
-        assert n == 0, (name, n, dx)
-        assert dx <= BOUNDARY_ULPS * np.spacing(np.abs(x).max()), (name, dx)
+    and every code is equal up to the first rounding tie, where the codes
+    may part as JAX's own two routes part; the flows and EPE agree within
+    EPE_ATOL plus JAX's own eager-vs-jit spread."""
+    _first_tie(captured, flips(captured, "port", "eager"), "port")
     flows = captured["flows"]
-    assert np.abs(flows["port"] - flows["eager"]).max() <= EPE_ATOL
+    jax_spread = np.abs(flows["eager"] - flows["jit"]).max()
+    assert (np.abs(flows["port"] - flows["eager"]).max()
+            <= EPE_ATOL + jax_spread)
     epe = {k: float(np.mean(np.abs(f - captured["disp"])))
            for k, f in flows.items()}
-    assert abs(epe["port"] - epe["eager"]) <= EPE_ATOL, epe
+    assert abs(epe["port"] - epe["eager"]) <= (
+        EPE_ATOL + abs(epe["eager"] - epe["jit"])), epe
 
 
 def test_jit_flips_start_on_a_boundary_and_match_jax_own(captured):
-    """Against JAX's jitted forward the codes part: the first flip lies
-    within BOUNDARY_ULPS of a half-code boundary, every input before it
-    within a few ulps, and every conv's flip count is the one between
-    JAX's own two routes (the port sits where JAX's eager forward sits)."""
+    """Against JAX's jitted forward the codes part: JAX's own first flip
+    (eager vs jit) lies within BOUNDARY_ULPS of a half-code boundary, and
+    so does the port's where it has one; every conv's flip count against
+    jit is JAX's own eager-vs-jit count up to the port's flips against
+    eager (a code differing from jit differs from eager or eager differs
+    from jit there, and the other way round)."""
     port_jit = flips(captured, "port", "jit")
     eager_jit = flips(captured, "eager", "jit")
-    assert [r[:2] for r in port_jit] == [r[:2] for r in eager_jit]
-    first = next(i for i, r in enumerate(port_jit) if r[1])
-    name, n, dx, ulps = port_jit[first]
-    assert ulps <= BOUNDARY_ULPS, port_jit[first]
-    for name, _, dx, _ in port_jit[:first + 1]:
-        x = captured["inputs"]["port"][name]
-        assert dx <= BOUNDARY_ULPS * np.spacing(np.abs(x).max()), (name, dx)
-    assert sum(r[1] for r in port_jit) > 0
+    port_eager = flips(captured, "port", "eager")
+    assert [r[0] for r in port_jit] == [r[0] for r in eager_jit]
+    for pj, ej, pe in zip(port_jit, eager_jit, port_eager):
+        assert abs(pj[1] - ej[1]) <= pe[1], (pj, ej, pe)
+    assert _first_tie(captured, eager_jit, "eager") is not None
+    _first_tie(captured, port_jit, "port")
 
 
 if __name__ == "__main__":

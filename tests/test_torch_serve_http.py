@@ -350,12 +350,30 @@ REFUSED_FLAGS = [
 @pytest.mark.parametrize("flags,tag", REFUSED_FLAGS,
                          ids=lambda x: " ".join(x) if isinstance(x, list)
                          else x)
-def test_cli_refuses_deferred_flags(flags, tag, tmp_path):
-    args = serve_cli.build_parser().parse_args(
-        ["--restore_ckpt", str(tmp_path / "absent"), "--device", "cpu"]
-        + flags)
-    with pytest.raises(NotImplementedError, match=tag):
-        serve_cli.build_service(args)
+def test_cli_refuses_deferred_flags(flags, tag, tmp_path, monkeypatch):
+    """The xl flags and ``--rows_gru`` (§D7), refused before, are ported:
+    each flag gives the ``ServeConfig`` JAX's ``build_service`` builds
+    (its engine, checkpoint loader and compilation-cache switch stubbed)
+    and the architecture overrides JAX's CLI gives."""
+    from raft_stereo_tpu.cli import common as jcommon
+    from raft_stereo_tpu_torch.cli import common
+
+    argv = ["--restore_ckpt", str(tmp_path / "absent")] + flags
+    args = serve_cli.build_parser().parse_args(argv + ["--device", "cpu"])
+    jargs = jserve_cli.build_parser().parse_args(argv)
+    assert common.arch_overrides(args) == jcommon.arch_overrides(jargs)
+    got = serve_cli.build_serve_config(args)
+    built = {}
+    monkeypatch.setattr(jserve_cli.common, "load_any_checkpoint",
+                        lambda *a, **k: (None, None))
+    monkeypatch.setattr(
+        "raft_stereo_tpu.serving.enable_persistent_compilation_cache",
+        lambda cache_dir: True)
+    monkeypatch.setattr(
+        "raft_stereo_tpu.serving.StereoService",
+        lambda cfg, variables, serve_cfg: built.setdefault("cfg", serve_cfg))
+    jserve_cli.build_service(jargs)
+    assert _config_fields(got) == _config_fields(built["cfg"])
 
 
 # The settings the port refused until it ran streaming sessions, and the

@@ -41,8 +41,12 @@ from raft_stereo_tpu_torch.eval.runner import InferenceRunner
 from raft_stereo_tpu_torch.io.jax_weights import state_dict_from_jax
 from raft_stereo_tpu_torch.serving import (Overloaded, ServeConfig,
                                            ServingEngine, StereoService)
-from raft_stereo_tpu_torch.serving.engine import DEFERRED_FIELDS
 from torch_port_support import perturb, settle_jax
+
+# The xl fields, the last the port refused (§D7 parallel executors).
+DEFERRED_FIELDS = tuple((name, "§D7 parallel executors") for name in (
+    "xl_mesh", "xl_workers", "xl_threshold_pixels", "xl_max_pixels",
+    "xl_batch_sizes"))
 
 TINY = dict(hidden_dims=(32, 32, 32), fnet_dim=64, corr_backend="reg")
 ITERS = 1
@@ -494,10 +498,19 @@ D6B_FIELDS = ("cascade", "cascade_draft", "cascade_escalate",
 
 
 def test_deferred_fields_are_the_xl_fields_alone():
+    """The xl fields were the last the port refused (§D7): no
+    ``ServeConfig`` field is refused now, and their defaults are JAX's."""
+    from raft_stereo_tpu_torch.serving import engine
+
+    assert not hasattr(engine, "DEFERRED_FIELDS")
     assert [f for f, _ in DEFERRED_FIELDS] == [
         "xl_mesh", "xl_workers", "xl_threshold_pixels", "xl_max_pixels",
         "xl_batch_sizes"]
-    assert {t for _, t in DEFERRED_FIELDS} == {"§D7 parallel executors"}
+    jf = {f.name: f.default for f in dataclasses.fields(JaxServeConfig)}
+    for name, _ in DEFERRED_FIELDS:
+        assert dataclasses.fields(ServeConfig)[
+            [f.name for f in dataclasses.fields(ServeConfig)].index(name)
+        ].default == jf[name]
 
 
 @pytest.mark.parametrize("field", D6B_FIELDS)
@@ -514,12 +527,13 @@ def test_d6b_field_accepted_as_jax(field):
 @pytest.mark.parametrize("field,tag", DEFERRED_FIELDS,
                          ids=[f for f, _ in DEFERRED_FIELDS])
 def test_deferred_field_refuses_naming_its_tag(field, tag):
+    """Each xl field (§D7), refused before, is accepted as JAX accepts it
+    and builds the ``ServeConfig`` the JAX package builds."""
     kw = DEFERRED_SETTINGS[field]
-    JaxServeConfig(**kw)                       # a setting JAX accepts
-    with pytest.raises(NotImplementedError,
-                       match=tag.split()[0]) as e:
-        ServeConfig(**kw)
-    assert "is not ported to the PyTorch package yet" in str(e.value)
+    got, want = ServeConfig(**kw), JaxServeConfig(**kw)
+    assert {f.name: getattr(got, f.name)
+            for f in dataclasses.fields(got)} == {
+        f.name: getattr(want, f.name) for f in dataclasses.fields(want)}
     assert tag.split()[0] == "§D7"
 
 

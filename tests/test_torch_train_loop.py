@@ -326,11 +326,17 @@ def test_configs_from_args_match_jax(argv):
 @pytest.mark.parametrize("argv,item", [
     (["--rows_shards", "2"], "§D7")])
 def test_unported_flags_raise(argv, item):
-    """The context-parallel flags still raise; ``--data_parallel 2``,
-    refused before, is ported: outside a group of two processes it raises
-    the world-size check (tests/test_torch_distributed.py runs two)."""
-    with pytest.raises(NotImplementedError, match=item):
+    """The context-parallel flags (§D7) and ``--data_parallel 2``, refused
+    before, are ported: ``--rows_shards 2`` needs a group of two devices
+    in this process, which one CPU cannot supply (the JAX package's
+    message; tests/test_torch_rows_gru.py drives the group), and
+    ``--data_parallel 2`` outside a group of two processes raises the
+    world-size check (tests/test_torch_distributed.py runs two)."""
+    with pytest.raises(ValueError) as e:
         tcli.main(argv + ["--device", "cpu"])
+    assert str(e.value) == (
+        "corr_w2_shards=1 x rows_shards=2 exceeds the 1 available devices "
+        "— no device is left for the data axis")
     with pytest.raises(ValueError, match="world size 1"):
         tcli.main(["--data_parallel", "2", "--device", "cpu"])
 

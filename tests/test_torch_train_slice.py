@@ -37,8 +37,12 @@ def test_slice_matches_jax(tree, tmp_path, monkeypatch):
     two packages draw their initial weights differently; the CLI's fnet
     is 256 wide): the loaders feed bit-equal batches; each step's loss
     within 4x the JAX package's own spread, taken here as the larger of
-    its kernel-vs-plain gap on this run (JAX's CLI run twice) and
-    tests/test_torch_training.py's relative spread.
+    its kernel-vs-plain gap on this run (JAX's CLI run twice), its move
+    when every weight is moved by one fp32 ulp (the third JAX run below)
+    and tests/test_torch_training.py's relative spread.  The kernel-vs-
+    plain gap alone is machine-dependent: 0 on an AMD EPYC host, where
+    the port's first-step loss sat 3.05e-5 from JAX's (27.850746) and
+    JAX's own one-ulp move was 7.06e-5.
 
     Each step's gradient norm within 4x the larger of that kernel-vs-plain
     gap, tests/test_torch_training.py's relative spread, and JAX's move
@@ -104,8 +108,9 @@ def test_slice_matches_jax(tree, tmp_path, monkeypatch):
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     jl = [m["loss"] for m in pushed["jax True"]]
-    spread = [abs(a["loss"] - b["loss"]) for a, b in
-              zip(pushed["jax True"], pushed["jax None"])]
+    spread = [max(abs(a["loss"] - b["loss"]), abs(a["loss"] - u["loss"]))
+              for a, b, u in zip(pushed["jax True"], pushed["jax None"],
+                                 pushed["jax ulp"])]
     pl = [m["loss"] for m in pushed["port"]]
     assert len(jl) == len(pl) == len(spread) == 2
     for got, want, s in zip(pl, jl, spread):

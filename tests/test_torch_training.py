@@ -25,9 +25,15 @@ XLA path on the same step, measured on these inputs:
   1.59e-5 (port) and 1.22e-5 (JAX's two paths), held to 2.02 lr(0).
 
 The realtime preset in bf16 (the JAX kernel path, interpret mode, as the
-port's plain versions mirror the kernels' rounding) on loss and grad_norm:
-the JAX spread is 0.382 (loss 34.68) and 18.48 (grad_norm 1071.8); the
-port measured 0.053 and 49.66, against SPREAD_FACTOR times the spread.
+port's plain versions mirror the kernels' rounding) on loss and grad_norm,
+against SPREAD_FACTOR times the JAX package's own spread measured in the
+test: the larger of its kernel-vs-plain gap and its move when every fp32
+weight moves up by one ulp.  The bf16 step is chaotic in its last bits:
+on one host JAX's routes were 0.382 apart (loss 34.68) and 18.48
+(grad_norm 1071.8), the port 0.053 and 49.66 from JAX; on an AMD EPYC
+host the same routes, JAX's one-ulp move 0.18 and 115.0 (six random
++-1-ulp moves of its weights: 58.7 to 187.7 on grad_norm) and the port
+0.0052 and 143.9 from JAX.
 """
 
 import dataclasses
@@ -61,7 +67,7 @@ from raft_stereo_tpu_torch.training.optimizer import (clip_by_global_norm_,
 from raft_stereo_tpu_torch.training.state import create_train_state
 from raft_stereo_tpu_torch.training.step import train_step
 from raft_stereo_tpu_torch.training.train_loop import train
-from torch_port_support import perturb
+from torch_port_support import perturb, ulp_up
 
 TINY = dict(hidden_dims=(32, 32, 32), fnet_dim=64)
 HW = (64, 96)
@@ -70,7 +76,6 @@ FLOW_ATOL = 2e-3          # the whole-forward tolerance of the port
 SPREAD_FACTOR = 4.0
 JAX_SPREAD = {"loss": 2.86e-6, "epe": 2.86e-6, "grad_norm": 1.31e-3,
               "grad_leaf": 7.67e-3}
-RT_JAX_SPREAD = {"loss": 0.382, "grad_norm": 18.48}
 TRAIN = dict(batch_size=2, train_iters=ITERS, image_size=HW,
              num_steps=1000)
 
@@ -387,12 +392,15 @@ def test_realtime_bf16_step_matches_jax(variables):
     jcfg = _jax_cfg("realtime")
     assert jcfg.mixed_precision and jcfg.corr_backend == "alt"
     want, _, _ = _jax_step(jcfg, variables("realtime"), kernels=True)
+    plain = _jax_step(jcfg, variables("realtime"), kernels=False)[0]
+    moved = _jax_step(jcfg, ulp_up(variables("realtime")), kernels=True)[0]
     state = _port_state(jcfg, variables("realtime"))
     state, got = train_step(state, _batch(), iters=ITERS, loss_gamma=0.9,
                             max_flow=700.0)
     for k in ("loss", "grad_norm"):
-        assert abs(float(got[k]) - want[k]) <= (SPREAD_FACTOR
-                                                * RT_JAX_SPREAD[k]), k
+        spread = max(abs(want[k] - plain[k]), abs(want[k] - moved[k]))
+        assert abs(float(got[k]) - want[k]) <= SPREAD_FACTOR * spread, (
+            k, spread)
     params = dict(state.model.named_parameters())
     assert all(p.dtype == torch.float32 for p in params.values())
     # the alt lookup carries a gradient to the feature head

@@ -12,6 +12,9 @@ Each process forms a gloo group of ``world`` ranks over
   slice into ``<ckpt_dir>``; with ``sigterm=K`` rank 1 signals itself
   after step K; with ``resume`` the run restores the newest checkpoint.
   Writes the final step, every step's loss and the final parameters.
+  With ``cp=1`` every rank shards its images over a rows x corr group of
+  four CPU devices of its own (``rows_shards=2, corr_w2_shards=2``,
+  ``mesh_devices``): context parallelism inside each data rank.
 
 Usage: python torch_distributed_worker.py <rank> <world> <port> <out.npz>
        <mode> [key=value ...]
@@ -72,7 +75,8 @@ def run_steps(weights, jitter, rank, world):
             "params": flat_params(state.model)}
 
 
-def run_loop(ckpt_dir, sigterm, resume, num_steps, rank, world):
+def run_loop(ckpt_dir, sigterm, resume, num_steps, rank, world,
+             cp=False):
     from raft_stereo_tpu_torch.config import RaftStereoConfig, TrainConfig
     from raft_stereo_tpu_torch.data.synthetic import SyntheticStereoLoader
     from raft_stereo_tpu_torch.training.train_loop import train
@@ -89,10 +93,12 @@ def run_loop(ckpt_dir, sigterm, resume, num_steps, rank, world):
         if rank == 1 and step == sigterm:
             os.kill(os.getpid(), signal.SIGTERM)
 
-    state = train(RaftStereoConfig(**MODEL), tcfg, name="dp",
+    kw = (dict(rows_shards=2, corr_w2_shards=2) if cp else {})
+    state = train(RaftStereoConfig(**MODEL, **kw), tcfg, name="dp",
                   checkpoint_dir=ckpt_dir,
                   restore="latest" if resume else None, log_dir=None,
-                  loader=loader, device="cpu", on_step=on_step)
+                  loader=loader, device="cpu", on_step=on_step,
+                  mesh_devices=["cpu"] * 4 if cp else None)
     return {"step": np.asarray(state.step),
             "loss_steps": np.asarray(sorted(losses)),
             "losses": np.asarray([losses[k] for k in sorted(losses)]),
@@ -115,7 +121,8 @@ def main():
         else:
             result = run_loop(opts["ckpt_dir"], int(opts.get("sigterm", -1)),
                               opts.get("resume") == "1",
-                              int(opts.get("num_steps", 5)), rank, world)
+                              int(opts.get("num_steps", 5)), rank, world,
+                              opts.get("cp") == "1")
     finally:
         distributed.shutdown()
     np.savez(out, **result)

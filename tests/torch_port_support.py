@@ -114,3 +114,16 @@ def settle_jax(variables):
             conv["kernel"][..., 2 * n:] = 0
             conv["bias"][2 * n:] = 0
     return v
+
+
+def ulp_up(variables):
+    """A JAX variables tree with every fp32 leaf moved up by one ulp: the
+    parity tests' probe of a step's own sensitivity on the host."""
+    import jax
+
+    def up(x):
+        a = np.asarray(x)
+        if a.dtype != np.float32:
+            return x
+        return (a * np.float32(1 + 2.0 ** -23)).astype(np.float32)
+    return jax.tree_util.tree_map(up, variables)
